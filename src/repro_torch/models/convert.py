@@ -1,0 +1,63 @@
+"""Carry ``repro`` weights into the port.
+
+``from_jax_params(tree, cfg)`` takes ``repro``'s raw parameter tree with
+numpy leaves (the caller converts, e.g. ``jax.tree.map(np.asarray,
+params)``; this package never imports JAX) and returns the port's
+``Transformer``.  Each segment's scan axis is unstacked into per-layer
+modules.  Leaves are copied (``np.array``): ``np.asarray`` of a JAX array
+is read-only.  Baked serving planes in the tree are ignored; the port
+bakes its own with ``serve/params.py:precompute_serving_params``.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from ..configs.base import ArchConfig
+from ..device import resolve_device
+from .transformer import Transformer, segments_for
+
+_SKIP = ("wc_cache", "qkv_cache", "upgate_cache")
+
+
+def _copy_into(module: torch.nn.Module, tree: Mapping[str, Any], index,
+               where: str) -> None:
+    """Copy ``tree`` (a dict of numpy leaves or sub-dicts, indexed by
+    ``index`` on the stacked axis) into ``module``'s parameters of the same
+    names."""
+    for name, node in tree.items():
+        if name in _SKIP:
+            continue
+        path = f"{where}.{name}" if where else name
+        if isinstance(node, Mapping):
+            _copy_into(getattr(module, name), node, index, path)
+            continue
+        target = getattr(module, name)
+        arr = np.array(node if index is None else node[index],
+                       dtype=np.float32)
+        if tuple(arr.shape) != tuple(target.shape):
+            raise ValueError(f"{path}: repro shape {arr.shape} vs port "
+                             f"{tuple(target.shape)}")
+        with torch.no_grad():
+            target.copy_(torch.from_numpy(arr))
+
+
+def from_jax_params(tree: Mapping[str, Any], cfg: ArchConfig,
+                    device=None) -> Transformer:
+    device = resolve_device(device)
+    model = Transformer(cfg, device=device)
+    _copy_into(model, {"embed": tree["embed"],
+                       "final_norm": tree["final_norm"]}, None, "")
+    layer = 0
+    for seg, (pattern, n) in zip(tree["segments"], segments_for(cfg)):
+        for g in range(n):
+            for bi, _ in enumerate(pattern):
+                _copy_into(model.blocks[layer], seg[bi], g,
+                           f"blocks.{layer}")
+                layer += 1
+    if layer != len(model.blocks):
+        raise ValueError(f"tree holds {layer} layers, {cfg.name} has "
+                         f"{len(model.blocks)}")
+    return model
