@@ -7,19 +7,31 @@ It imports neither ``jax`` nor ``repro``; it puts ``src/`` on ``sys.path``
 itself.  Each phase prints one JSON line:
 
   env           torch / CUDA versions and the card (nvidia-smi)
-  build         nvcc time and library paths of the three CUDA kernels
-  kernels       each kernel against its plain PyTorch version on the card, at
-                the full-width tinyllama-1.1b shapes of the serving path:
-                error and tolerance, kernel / plain / library times (median
-                of CUDA-event timings), the roofline bound
+  build         nvcc time and library paths of the four CUDA libraries
+  kernels       each kernel lane against its plain PyTorch version on the
+                card, at the full-width tinyllama-1.1b shapes of the serving
+                paths: error and tolerance, kernel / plain / library times
+                (median of CUDA-event timings; the kernel also replayed
+                from a CUDA graph, its device time), the roofline bound
   serve         full-width tinyllama-1.1b (random weights from a seed)
                 through ``ContinuousEngine``: 16 requests, exact kernel
-                launch counts per prefill and per decode step
+                launch counts per lane, per prefill and per decode step
   serve_parity  the same model in float32, one request on the card and on
                 the CPU's plain path: prefill logits and greedy tokens agree
+  serve_quant   the serve phase's requests under
+                ``QuantPolicy("int8", quant_weights=True)``, once with int8
+                and once with int4 planes: exact launch counts on the
+                quantized lanes, none on the float lanes, the pool's bytes
+  serve_gather  ``paged_attn="gather"`` on an f32 pool, 8 requests: 2 x 22
+                ``paged_gather`` launches per decode step, no
+                ``paged_attention``
+  serve_quant_parity  float32, int8 pool and int8 planes, one request: the
+                card against the CPU's plain path (prefill logits, then
+                greedy tokens and step logits up to the first near-tie),
+                and the card's gather path against its stream path
 
 Then the card's name and power limit, the kernel summary
-``{"kernels": [...]}``, and last the line
+``{"kernels": [...]}`` (one entry per lane), and last the line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises (exit code not 0, no last line); so does a machine
 without a CUDA device.
@@ -45,9 +57,12 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import circulant as cc  # noqa: E402
 from repro_torch.kernels import bc_fused, build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import paged as pg  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
+from repro_torch.quant import codec  # noqa: E402
+from repro_torch.serve import kvcache as kvc  # noqa: E402
 from repro_torch.serve.engine import ContinuousEngine, Request  # noqa: E402
 from repro_torch.serve.params import precompute_serving_params  # noqa: E402
 
@@ -58,10 +73,28 @@ DEVICE = "cuda"
 # device memory rate, float32 on the CUDA cores, bf16 on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-KERNELS = {
-    "bc_fused": (bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48"),
-    "flash_attention": (fa.KERNEL, "src/repro/kernels/flash_attention.py:75"),
-    "paged_attention": (pa.KERNEL, "src/repro/kernels/paged_attention.py:181"),
+LIBRARIES = (bc_fused.KERNEL, fa.KERNEL, pa.KERNEL, pg.KERNEL)
+# Every lane, one exported C function each: (library, the TPU kernel it
+# replaces, the kernel-check group and case its times come from, the phase
+# whose run gives its launch count).
+LANES = {
+    "bc_fused": (bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48",
+                 "bc_fused", "up_gate_b8", "serve"),
+    "bc_fused_i8": (bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48",
+                    "bc_fused_i8", "up_gate_b8", "serve_quant_int8"),
+    "bc_fused_i4": (bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48",
+                    "bc_fused_i4", "up_gate_b8", "serve_quant_int4"),
+    "flash_attention": (fa.KERNEL, "src/repro/kernels/flash_attention.py:75",
+                        "flash_attention", "prefill_bfloat16_s256", "serve"),
+    "paged_attention": (pa.KERNEL,
+                        "src/repro/kernels/paged_attention.py:181",
+                        "paged_attention", "decode_bfloat16_b8", "serve"),
+    "paged_attention_i8": (pa.KERNEL,
+                           "src/repro/kernels/paged_attention.py:181",
+                           "paged_attention_i8", "decode_int8_float32_b8",
+                           "serve_quant_int8"),
+    "paged_gather": (pg.KERNEL, "src/repro/kernels/paged.py:37",
+                     "paged_gather", "gather_float32_b8", "serve_gather"),
 }
 
 
@@ -88,6 +121,36 @@ def time_ms(fn, reps: int = 15, inner: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, inner: int = 10) -> float:
+    """Device time of one call: ``inner`` calls captured in a CUDA graph,
+    replayed and timed as ``time_ms`` times a call, so the host's work in
+    the wrapper (checks, allocation, the ctypes call) is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # warm: caches, attributes
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    return time_ms(graph.replay) / inner
+
+
+def kernel_times(fn):
+    """``kernel_ms``: a wrapper call back to back (host enqueue included,
+    the time a caller sees); ``device_ms``: the same call replayed from a
+    CUDA graph (the kernel alone).  A capture that fails leaves
+    ``device_ms`` None with the reason."""
+    out = {"kernel_ms": time_ms(fn)}
+    try:
+        out["device_ms"] = graph_ms(fn)
+    except RuntimeError as e:               # measurement only
+        torch.cuda.synchronize()
+        out["device_ms"], out["device_ms_error"] = None, str(e)[:300]
+    return out
+
+
 def bound(nbytes: float, flops: float, dtype: torch.dtype):
     """Least time for the work: the larger of bytes over the memory rate
     and operations over the peak rate of the operands' type."""
@@ -112,46 +175,64 @@ def smi() -> str:
 # kernels: each CUDA kernel against its plain version at the path's shapes
 # ---------------------------------------------------------------------------
 def check_bc_fused(cfg, gen):
+    """The float32 lane and the int8 / int4 lanes, on the same weights and
+    inputs at every projection, at B = 8 (decode slots) and 256 (prefill
+    rows).  The quantized lanes get the same codes and scales as their plain
+    version, so both sides contract identical values in float32."""
     a = cfg.attention
     d, dff, k = cfg.d_model, cfg.d_ff, cfg.compression.block_attn
     projections = {"q_o": (d, a.num_heads * a.head_dim),
                    "k_v": (d, a.num_kv_heads * a.head_dim),
                    "up_gate": (d, dff), "down": (dff, d)}
     kf = k // 2 + 1
-    cases = []
+    lanes = {"bc_fused": [], "bc_fused_i8": [], "bc_fused_i4": []}
     for name, (n_in, n_out) in projections.items():
         w = cc.init_block_circulant(n_in, n_out, k, generator=gen,
                                     device="cuda")
         planes = cc.spectral_cache(w)
-        wr, ws1, ws2 = planes["wr"], planes["ws1"], planes["ws2"]
-        p, q, _ = wr.shape
+        variants = {"bc_fused": ((planes["wr"], planes["ws1"],
+                                  planes["ws2"]), None, 4 * kf)}
+        for bits, lane in ((8, "bc_fused_i8"), (4, "bc_fused_i4")):
+            qp = codec.quantize_plane_cache(planes, bits)
+            variants[lane] = ((qp["wr"], qp["ws1"], qp["ws2"]),
+                              [qp[n + "_s"] for n in ("wr", "ws1", "ws2")],
+                              qp["wr"].shape[-1] * qp["wr"].element_size())
+        p, q, _ = planes["wr"].shape
         w_t = cc.materialize_dense(w, n_out, n_in).T.contiguous()
         for B in (8, 256):                   # decode slots, prefill rows
             xb = torch.randn((B, q, k), generator=gen, device="cuda")
-            got = bc_fused.bc_fused_matmul(xb, wr, ws1, ws2, k)
-            ref = bc_fused.bc_fused_matmul_plain(xb, wr, ws1, ws2, k)
-            torch.cuda.synchronize()
-            err = max_err(got, ref)
-            # float32 sums of a few hundred terms taken in another order:
-            # expected ~1e-6 of the output's scale, held at 1e-4
-            tol = 1e-4 * max(1.0, float(ref.abs().max()))
             x2 = xb.reshape(B, q * k)[:, :n_in]
-            nbytes = 4 * (B * q * k + 3 * p * q * kf + 4 * k * kf + B * p * k)
-            flops = (4 * B * q * k * kf + 6 * B * p * q * kf + B * q * kf
-                     + 2 * B * p * kf + 4 * B * p * kf * k)
-            bound_ms, bound_by = bound(nbytes, flops, torch.float32)
-            cases.append({
-                "case": f"{name}_b{B}", "shape": [B, p, q, k],
-                "max_abs_err": err, "tol": tol,
-                "kernel_ms": time_ms(lambda: bc_fused.bc_fused_matmul(
-                    xb, wr, ws1, ws2, k)),
-                "plain_ms": time_ms(lambda: bc_fused.bc_fused_matmul_plain(
-                    xb, wr, ws1, ws2, k)),
-                "library_ms": time_ms(lambda: x2 @ w_t),
-                "library": "torch.matmul against the dense W",
-                "bytes": nbytes, "flops": flops,
-                "bound_ms": bound_ms, "bound_by": bound_by})
-    return cases, "up_gate_b8"
+            library_ms = time_ms(lambda: x2 @ w_t)
+            for lane, (pl, scales, row_bytes) in variants.items():
+                got = bc_fused.bc_fused_matmul(xb, *pl, k, scales)
+                ref = bc_fused.bc_fused_matmul_plain(xb, *pl, k, scales)
+                torch.cuda.synchronize()
+                err = max_err(got, ref)
+                # float32 sums of a few hundred terms taken in another
+                # order, over identical plane values: expected ~1e-6 of the
+                # output's scale, held at 1e-4
+                tol = 1e-4 * max(1.0, float(ref.abs().max()))
+                nbytes = (4 * (B * q * k + 4 * k * kf + B * p * k)
+                          + 3 * p * q * row_bytes
+                          + (0 if scales is None else 3 * 4 * p))
+                flops = (4 * B * q * k * kf + 6 * B * p * q * kf
+                         + B * q * kf + 2 * B * p * kf + 4 * B * p * kf * k
+                         + (0 if scales is None else 3 * B * p * kf))
+                bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+                lanes[lane].append({
+                    "case": f"{name}_b{B}", "shape": [B, p, q, k],
+                    "planes": str(pl[0].dtype).split(".")[-1],
+                    "max_abs_err": err, "tol": tol,
+                    **kernel_times(lambda: bc_fused.bc_fused_matmul(
+                        xb, *pl, k, scales)),
+                    "plain_ms": time_ms(
+                        lambda: bc_fused.bc_fused_matmul_plain(
+                            xb, *pl, k, scales)),
+                    "library_ms": library_ms,
+                    "library": "torch.matmul against the dense W (float32)",
+                    "bytes": nbytes, "flops": flops,
+                    "bound_ms": bound_ms, "bound_by": bound_by})
+    return {lane: (cases, "up_gate_b8") for lane, cases in lanes.items()}
 
 
 def check_flash(cfg, gen):
@@ -193,16 +274,19 @@ def check_flash(cfg, gen):
         cases.append({
             "case": f"prefill_{str(dtype).split('.')[-1]}_s{S}",
             "shape": [1, Hq, Hkv, S, D], "max_abs_err": err, "tol": tol,
-            "kernel_ms": time_ms(lambda: fa.flash_attention(q, k, v)),
+            **kernel_times(lambda: fa.flash_attention(q, k, v)),
             "plain_ms": time_ms(lambda: fa.attention_ref(q, k, v)),
             "library_ms": time_ms(lib),
             "library": "F.scaled_dot_product_attention(is_causal, enable_gqa)",
             "bytes": nbytes, "flops": flops,
             "bound_ms": bound_ms, "bound_by": bound_by})
-    return cases, "prefill_bfloat16_s256"
+    return {"flash_attention": (cases, "prefill_bfloat16_s256")}
 
 
 def check_paged(cfg, gen):
+    """The float lanes (bf16 and f32 queries on an f32 pool) and the int8
+    lane (the same pool quantized per (page, head); f32 and bf16 queries),
+    at the serve phase's 8 slots and mixed positions."""
     a = cfg.attention
     Hq, Hkv, D = a.num_heads, a.num_kv_heads, a.head_dim
     page, maxp, B = 16, 16, 8
@@ -216,55 +300,107 @@ def check_paged(cfg, gen):
     table[3] = 0                              # idle slot owns no page
     pool_k = torch.randn((P, page, Hkv, D), generator=gen, device="cuda")
     pool_v = torch.randn((P, page, Hkv, D), generator=gen, device="cuda")
-    cases = []
-    for dtype in (torch.bfloat16, torch.float32):
+    k8, ks = codec.quantize_page_block(pool_k)
+    v8, vs = codec.quantize_page_block(pool_v)
+    live = int((positions.clamp(min=-1) + 1).sum())
+    live_pages = int(((positions + page) // page).clamp(min=0).sum())
+    lanes = {"paged_attention": [], "paged_attention_i8": []}
+    for lane, dtype, pk, pv, scales in (
+            ("paged_attention", torch.bfloat16, pool_k, pool_v, {}),
+            ("paged_attention", torch.float32, pool_k, pool_v, {}),
+            ("paged_attention_i8", torch.float32, k8, v8,
+             {"k_scale": ks, "v_scale": vs}),
+            ("paged_attention_i8", torch.bfloat16, k8, v8,
+             {"k_scale": ks, "v_scale": vs})):
         q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(dtype)
-        got = pa.paged_attention(q, pool_k, pool_v, table, positions)
-        ref = pa.paged_attention_stream(q, pool_k, pool_v, table, positions)
+        got = pa.paged_attention(q, pk, pv, table, positions, **scales)
+        ref = pa.paged_attention_stream(q, pk, pv, table, positions,
+                                        **scales)
         torch.cuda.synchronize()
         if not bool((got[3] == 0).all()):
-            raise AssertionError("paged_attention: the idle slot is not "
-                                 "exactly 0")
+            raise AssertionError(f"{lane}: the idle slot is not exactly 0")
         err = max_err(got, ref)
         if dtype == torch.bfloat16:
             # float32 in both, one rounding to bf16 each (see check_flash)
             tol = 2.0 ** -7 * max(1.0, float(ref.float().abs().max()))
         else:
+            # identical codes and scales on both sides: float32 sums in
+            # another order, held at 1e-4 of the output's scale
             tol = 1e-4 * max(1.0, float(ref.abs().max()))
-        live = int((positions.clamp(min=-1) + 1).sum())
         nbytes = (2 * q.numel() * q.element_size()
-                  + 2 * live * Hkv * D * pool_k.element_size()
+                  + 2 * live * Hkv * D * pk.element_size()
+                  + (2 * live_pages * Hkv * 4 if scales else 0)
                   + table.numel() * 4 + B * 4)
-        flops = 4 * Hq * D * live
+        flops = 4 * Hq * D * live + (2 * live * Hkv * D if scales else 0)
         bound_ms, bound_by = bound(nbytes, flops, torch.float32)
-        cases.append({
-            "case": f"decode_{str(dtype).split('.')[-1]}_b{B}",
-            "shape": [B, Hq, Hkv, D, page, maxp],
+        pool_name = "int8" if scales else "float32"
+        lanes[lane].append({
+            "case": (f"decode_int8_{str(dtype).split('.')[-1]}_b{B}"
+                     if scales else f"decode_{str(dtype).split('.')[-1]}_b{B}"),
+            "shape": [B, Hq, Hkv, D, page, maxp], "pool": pool_name,
             "positions": positions.tolist(), "max_abs_err": err, "tol": tol,
             "idle_slot_exact_zero": True,
-            "kernel_ms": time_ms(lambda: pa.paged_attention(
-                q, pool_k, pool_v, table, positions)),
+            **kernel_times(lambda: pa.paged_attention(
+                q, pk, pv, table, positions, **scales)),
             "plain_ms": time_ms(lambda: pa.paged_attention_stream(
-                q, pool_k, pool_v, table, positions)),
+                q, pk, pv, table, positions, **scales)),
             "library_ms": None, "library": None,
             "bytes": nbytes, "flops": flops,
             "bound_ms": bound_ms, "bound_by": bound_by})
-    return cases, "decode_bfloat16_b8"
+    return {"paged_attention": (lanes["paged_attention"],
+                                "decode_bfloat16_b8"),
+            "paged_attention_i8": (lanes["paged_attention_i8"],
+                                   "decode_int8_float32_b8")}
+
+
+def check_gather(cfg, gen):
+    """The gather at the serve_gather phase's pool (8 slots x 16 pages of
+    16): f32, bf16 and int8 pools, held exactly against ``pool[table]``."""
+    a = cfg.attention
+    Hkv, D = a.num_kv_heads, a.head_dim
+    page, maxp, B = 16, 16, 8
+    P = B * maxp + 1
+    perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
+    table = perm[:B * maxp].reshape(B, maxp).to(torch.int32).contiguous()
+    table[3, 4:] = 0                          # a slot with a short history
+    table_long = table.long()
+    base = (torch.randn((P, page, Hkv, D), generator=gen, device="cuda")
+            * 40).clamp(-127, 127)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        pool = base.to(dtype)
+        got = pg.paged_gather(pool, table)
+        ref = pg.paged_gather_plain(pool, table)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        nbytes = 2 * B * maxp * page * Hkv * D * pool.element_size() \
+            + table.numel() * 4
+        bound_ms, bound_by = bound(nbytes, 0, torch.float32)
+        cases.append({
+            "case": f"gather_{str(dtype).split('.')[-1]}_b{B}",
+            "shape": [P, page, Hkv, D, B, maxp], "max_abs_err": err,
+            "tol": 0.0,                       # a copy: exact
+            **kernel_times(lambda: pg.paged_gather(pool, table)),
+            "plain_ms": time_ms(lambda: pg.paged_gather_plain(pool, table)),
+            "library_ms": time_ms(lambda: pool[table_long]),
+            "library": "pool[table] (advanced indexing)",
+            "bytes": nbytes, "flops": 0,
+            "bound_ms": bound_ms, "bound_by": bound_by})
+    return {"paged_gather": (cases, "gather_float32_b8")}
 
 
 def phase_kernels(cfg):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     out = {}
-    for name, check in (("bc_fused", check_bc_fused),
-                        ("flash_attention", check_flash),
-                        ("paged_attention", check_paged)):
-        cases, main_case = check(cfg, gen)
-        out[name] = (cases, main_case)
-        emit({"phase": "kernels", "kernel": name, "cases": cases})
-        bad = [c["case"] for c in cases if not c["max_abs_err"] <= c["tol"]]
-        if bad:
-            raise AssertionError(f"{name}: over tolerance in {bad}")
+    for check in (check_bc_fused, check_flash, check_paged, check_gather):
+        for lane, (cases, main_case) in check(cfg, gen).items():
+            out[lane] = (cases, main_case)
+            emit({"phase": "kernels", "kernel": lane, "cases": cases})
+            bad = [c["case"] for c in cases
+                   if not c["max_abs_err"] <= c["tol"]]
+            if bad:
+                raise AssertionError(f"{lane}: over tolerance in {bad}")
     return out
 
 
@@ -279,24 +415,33 @@ def make_requests(cfg, n, lo, hi, new_tokens, rng):
             for i, s in enumerate(lens)]
 
 
-def phase_serve(cfg):
+def lane_counts():
+    return {fn: n for lib in LIBRARIES for fn, n in lib.fn_launches.items()}
+
+
+def serve_run(cfg, n_requests, **engine_kw):
+    """Fresh random weights from the seed, a warm-up engine (loads the
+    libraries), then ``n_requests`` of the serve phase's requests through a
+    second engine with every launch count set to 0 just before.  Returns
+    (results, requests, stats, launches per lane, wall seconds, peak
+    device memory)."""
     params = init_params(cfg, seed=SEED, device=DEVICE)
     kw = dict(max_slots=8, max_seq=256, page_size=16, decode_chunk=8,
-              device=DEVICE)
+              device=DEVICE, **engine_kw)
     rng = np.random.RandomState(SEED)
-    warm = ContinuousEngine(cfg, params, **kw)          # loads the libraries
+    warm = ContinuousEngine(cfg, params, **kw)
     warm.generate(make_requests(cfg, 2, 17, 40, 4, rng))
     engine = ContinuousEngine(cfg, params, **kw)
-    reqs = make_requests(cfg, 16, 17, 200, 32, rng)
+    reqs = make_requests(cfg, 16, 17, 200, 32, rng)[:n_requests]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for kernel, _ in KERNELS.values():
-        kernel.launches = 0
+    for lib in LIBRARIES:
+        lib.reset_counts()
     t0 = time.perf_counter()
     results = engine.generate(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: kernel.launches for name, (kernel, _) in KERNELS.items()}
+    launches = lane_counts()
     st = engine.stats()
     for r, req in zip(results, reqs):
         if (r["status"] != "FINISHED_BUDGET"
@@ -307,25 +452,92 @@ def phase_serve(cfg):
                                  f"{r['decode_len']} tokens")
     if st["anomalies"]:
         raise AssertionError(f"{st['anomalies']} anomalies flagged")
-    per_pass = 7 * cfg.num_layers              # q k v o up gate down
-    want = {"bc_fused": per_pass * (st["prefills"] + st["decode_steps"]),
-            "flash_attention": cfg.num_layers * st["prefills"],
-            "paged_attention": cfg.num_layers * st["decode_steps"]}
+    return results, reqs, st, launches, wall, torch.cuda.max_memory_allocated()
+
+
+def check_launches(launches, want):
+    """Every lane's count is exactly what the run's prefills and decode
+    steps call for (0 for the lanes the run must not touch)."""
+    want = {fn: want.get(fn, 0) for fn in launches}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
+
+
+def serve_summary(phase, cfg, results, reqs, st, launches, wall, peak):
     tokens = sum(r["decode_len"] for r in results)
-    out = {"phase": "serve", "arch": ARCH, "layers": cfg.num_layers,
-           "d_model": cfg.d_model, "requests": len(results),
-           "prompt_lens": [len(r.prompt) for r in reqs],
-           "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
-           "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
-           "prefills": st["prefills"], "decode_steps": st["decode_steps"],
-           "decode_dispatches": st["dispatches"], "launches": launches,
-           "launches_per_pass": {"bc_fused": per_pass,
-                                 "flash_attention": cfg.num_layers,
-                                 "paged_attention": cfg.num_layers},
-           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-           "pool_bytes": st["pool_bytes"], "preempted": st["preempted"]}
+    return {"phase": phase, "arch": ARCH, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "requests": len(results),
+            "prompt_lens": [len(r.prompt) for r in reqs],
+            "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+            "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+            "prefills": st["prefills"], "decode_steps": st["decode_steps"],
+            "decode_dispatches": st["dispatches"], "launches": launches,
+            "peak_memory_bytes": peak, "pool_bytes": st["pool_bytes"],
+            "preempted": st["preempted"], "quant_policy": st["quant_policy"],
+            "attention_impl": st["attention_impl"],
+            "attention_bytes_per_token": st["attention_bytes_per_token"],
+            "decode_peak_bytes_est": st["decode_peak_bytes_est"]}
+
+
+def phase_serve(cfg):
+    results, reqs, st, launches, wall, peak = serve_run(cfg, 16)
+    per_pass = 7 * cfg.num_layers              # q k v o up gate down
+    check_launches(launches, {
+        "bc_fused": per_pass * (st["prefills"] + st["decode_steps"]),
+        "flash_attention": cfg.num_layers * st["prefills"],
+        "paged_attention": cfg.num_layers * st["decode_steps"]})
+    out = serve_summary("serve", cfg, results, reqs, st, launches, wall, peak)
+    out["launches_per_pass"] = {"bc_fused": per_pass,
+                                "flash_attention": cfg.num_layers,
+                                "paged_attention": cfg.num_layers}
+    emit(out)
+    return out
+
+
+def phase_serve_quant(cfg, bits):
+    """The serve phase's 16 requests and engine settings, with an int8
+    pool and int8 / int4 planes: every projection on the quantized lane,
+    every decode attention on the int8 lane."""
+    policy = codec.QuantPolicy("int8", quant_weights=True, weight_bits=bits)
+    results, reqs, st, launches, wall, peak = serve_run(cfg, 16,
+                                                        quant=policy)
+    per_pass = 7 * cfg.num_layers
+    lane = "bc_fused_i8" if bits == 8 else "bc_fused_i4"
+    check_launches(launches, {
+        lane: per_pass * (st["prefills"] + st["decode_steps"]),
+        "flash_attention": cfg.num_layers * st["prefills"],
+        "paged_attention_i8": cfg.num_layers * st["decode_steps"]})
+    a = cfg.attention
+    pages = 8 * kvc.pages_for(256, 16) + 1
+    want_bytes = (2 * cfg.num_layers * pages * 16 * a.num_kv_heads
+                  * a.head_dim + 2 * 4 * cfg.num_layers * pages
+                  * a.num_kv_heads)
+    if st["pool_bytes"] != want_bytes:
+        raise AssertionError(f"int8 pool holds {st['pool_bytes']} bytes, "
+                             f"expected {want_bytes}")
+    out = serve_summary(f"serve_quant_int{bits}", cfg, results, reqs, st,
+                        launches, wall, peak)
+    out["phase"] = "serve_quant"
+    out["weight_bits"] = bits
+    out["kv_clip_rate"] = st["kv_clip_rate"]
+    emit(out)
+    return out
+
+
+def phase_serve_gather(cfg):
+    """The gather oracle on an f32 pool: each decode step gathers K and V
+    of every layer and attends with a masked softmax in PyTorch."""
+    results, reqs, st, launches, wall, peak = serve_run(cfg, 8,
+                                                        paged_attn="gather")
+    per_pass = 7 * cfg.num_layers
+    check_launches(launches, {
+        "bc_fused": per_pass * (st["prefills"] + st["decode_steps"]),
+        "flash_attention": cfg.num_layers * st["prefills"],
+        "paged_gather": 2 * cfg.num_layers * st["decode_steps"]})
+    out = serve_summary("serve_gather", cfg, results, reqs, st, launches,
+                        wall, peak)
+    out["launches_per_decode_step"] = {"paged_gather": 2 * cfg.num_layers,
+                                       "paged_attention": 0}
     emit(out)
     return out
 
@@ -396,6 +608,117 @@ def phase_parity(cfg):
     return out
 
 
+# ---------------------------------------------------------------------------
+# serve_quant_parity: float32, int8 pool and int8 planes, card against CPU
+# ---------------------------------------------------------------------------
+def greedy_trace(cfg, params, prompt, new, policy, paged_impl):
+    """One request through the serving path by hand (right-padded B=1
+    prefill, int8 page packing with ``true_len``, paged decode steps):
+    (greedy tokens, the logits of every step as a (new, V) CPU tensor)."""
+    dev = next(params.parameters()).device
+    model = build_model(cfg)
+    page, S = 16, len(prompt)
+    n_pages = kvc.pages_for(S + new, page)
+    pool = kvc.build_pool(cfg, n_pages + 1, page, policy, device=dev)
+    pages = torch.arange(1, n_pages + 1, device=dev)
+    pp = kvc.pages_for(S, page)
+    toks = np.zeros(pp * page, np.int64)
+    toks[:S] = prompt
+    with torch.no_grad():
+        cache = model.init_cache(1, pp * page, dtype=torch.float32,
+                                 device=dev)
+        logits, dense = model.prefill(params, {"tokens": torch.as_tensor(
+            toks[None], device=dev)}, cache)
+        kvc.pack_prefill_cache(pool, dense, pages[:pp], page, true_len=S)
+        steps = [logits[0, S - 1].float().cpu()]
+        table = pages[None].to(torch.int32)
+        for i in range(new - 1):
+            cur = torch.tensor([[int(steps[-1].argmax())]], device=dev)
+            pos = torch.tensor([S + i], dtype=torch.int32, device=dev)
+            logits, pool = model.decode_step(params, cur, pool, pos,
+                                             block_table=table,
+                                             paged_impl=paged_impl)
+            steps.append(logits[0, -1].float().cpu())
+    lg = torch.stack(steps)
+    return lg.argmax(-1).tolist(), lg
+
+
+def compare_traces(a, b, tol):
+    """Greedy tokens of two traces, step by step, with the step logits
+    held to ``tol``.  While the tokens agree both traces have read the
+    same inputs; where they first differ, the gap between the top two
+    logits of trace ``b`` must be within twice that step's measured logit
+    error (a near-tie), and the comparison stops there."""
+    (ta, la), (tb, lb) = a, b
+    errs = []
+    for i in range(len(ta)):
+        err = max_err(la[i], lb[i])
+        errs.append(err)
+        if not err <= tol:
+            raise AssertionError(f"step {i}: logits differ by {err} > {tol}")
+        if ta[i] != tb[i]:
+            top2 = torch.topk(lb[i], 2).values
+            margin = float(top2[0] - top2[1])
+            if margin > 2 * err:
+                raise AssertionError(f"step {i}: greedy tokens {ta[i]} vs "
+                                     f"{tb[i]} with a margin of {margin} "
+                                     f"> 2 x {err}")
+            return {"tokens_compared": i, "diverged_at": i,
+                    "margin_at_divergence": margin, "max_step_err": max(errs)}
+    return {"tokens_compared": len(ta), "diverged_at": None,
+            "max_step_err": max(errs)}
+
+
+def phase_quant_parity(cfg):
+    cfg = cfg.replace(dtype="float32")
+    policy = codec.QuantPolicy("int8", quant_weights=True)
+    rng = np.random.RandomState(SEED + 2)
+    prompt = rng.randint(0, cfg.vocab_size, size=48).astype(np.int32)
+    new = 16
+    # planes baked and quantized once, on the CPU: both devices serve the
+    # same int8 codes and scales
+    cpu = precompute_serving_params(
+        init_params(cfg, seed=SEED + 2, device="cpu"), cfg, policy)
+    card = copy.deepcopy(cpu).to(DEVICE)
+    model = build_model(cfg)
+    last = {}
+    for key, p in (("cpu", cpu), ("card", card)):
+        dev = next(p.parameters()).device
+        cache = model.init_cache(1, len(prompt), dtype=torch.float32,
+                                 device=dev)
+        with torch.no_grad():
+            logits, _ = model.prefill(p, {"tokens": torch.as_tensor(
+                prompt[None], dtype=torch.int64, device=dev)}, cache)
+        last[key] = logits[0, -1].float().cpu()
+    scale = max(1.0, float(last["cpu"].abs().max()))
+    # the prefill reads no pool: identical int8 planes, float32 sums in
+    # another order, as serve_parity (measured ~1e-5 of the scale there)
+    logit_tol = 1e-4 * scale
+    logit_err = max_err(last["card"], last["cpu"])
+    if not logit_err <= logit_tol:
+        raise AssertionError(f"prefill logits differ by {logit_err} > "
+                             f"{logit_tol}")
+    # decode reads the int8 pool, quantized on each device from K/V that
+    # differ by float32 rounding: a value on a rounding boundary may take
+    # the neighbouring code, so step logits are held at 1e-2 of the scale
+    step_tol = 1e-2 * scale
+    traces = {"cpu": greedy_trace(cfg, cpu, prompt, new, policy, "stream"),
+              "card": greedy_trace(cfg, card, prompt, new, policy, "stream"),
+              "card_gather": greedy_trace(cfg, card, prompt, new, policy,
+                                          "gather")}
+    card_vs_cpu = compare_traces(traces["card"], traces["cpu"], step_tol)
+    gather_vs_stream = compare_traces(traces["card_gather"], traces["card"],
+                                      step_tol)
+    out = {"phase": "serve_quant_parity", "dtype": "float32",
+           "quant_policy": policy.describe(), "prompt_len": len(prompt),
+           "new_tokens": new, "prefill_logit_max_abs_err": logit_err,
+           "prefill_logit_tol": logit_tol, "step_logit_tol": step_tol,
+           "card_vs_cpu": card_vs_cpu, "gather_vs_stream": gather_vs_stream,
+           "tokens": {k: t for k, (t, _) in traces.items()}}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -418,20 +741,26 @@ def main() -> int:
                     for n in build.KERNEL_NAMES}})
     cfg = get_config(ARCH)
     kernels = phase_kernels(cfg)
-    serve = phase_serve(cfg)
+    runs = {"serve": phase_serve(cfg)}
     phase_parity(cfg)
+    for bits in (8, 4):
+        runs[f"serve_quant_int{bits}"] = phase_serve_quant(cfg, bits)
+    runs["serve_gather"] = phase_serve_gather(cfg)
+    phase_quant_parity(cfg)
     summary = []
-    for name, (kernel, replaces) in KERNELS.items():
-        cases, main_case = kernels[name]
+    for name, (lib, replaces, group, main_case, run) in LANES.items():
+        cases, _ = kernels[group]
         c = next(c for c in cases if c["case"] == main_case)
+        launches = runs[run]["launches"][name]
+        if not launches:
+            raise AssertionError(f"{name}: no launch in the {run} run")
         summary.append({
             "name": name, "route": "cuda",
-            "source": str(kernel.source.relative_to(ROOT)),
-            "replaces": replaces, "launches": serve["launches"][name],
-            "case": main_case,
-            "max_abs_err": c["max_abs_err"],
+            "source": str(lib.source.relative_to(ROOT)),
+            "replaces": replaces, "launches": launches, "launches_in": run,
+            "case": main_case, "max_abs_err": c["max_abs_err"],
             "tol": c["tol"], "ms": c["kernel_ms"], "kernel_ms": c["kernel_ms"],
-            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "device_ms": c["device_ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_us": c["bound_ms"] * 1e3, "bound_by": c["bound_by"],
             "library_ms": c["library_ms"]})
     print(card, flush=True)

@@ -17,9 +17,14 @@ Pallas kernel unwired and runs ``bc_matmul_spectral`` through XLA;
 ``bc_matmul_spectral`` here is the same plain math and the reference the
 kernel is held against.
 
+Quantized planes (``repro_torch.quant``: int8, or packed-int4 ``uint8``,
+with ``<name>_s`` per-block-row scales beside them) contract in float32
+and fold each plane's scale into its term after the contraction, as
+``repro`` does.
+
 Not ported yet (they raise ``NotImplementedError``): the training path
-(``bc_matmul_fft`` and its hand-derived backward), ``bc_matmul_fused``
-(projection fusion) and quantized spectral planes.
+(``bc_matmul_fft`` and its hand-derived backward) and ``bc_matmul_fused``
+(projection fusion).
 """
 from __future__ import annotations
 
@@ -32,8 +37,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..quant.codec import plane_from_cache
+
 _DFT_MATMUL_MAX = 512     # above this block size the DFT runs as torch.fft
 PLANES = ("wr", "wi", "ws1", "ws2")
+# buffer keys of a baked cache: the planes, then their quantization scales
+CACHE_KEYS = PLANES + tuple(f"{n}_s" for n in PLANES)
 
 
 # ---------------------------------------------------------------------------
@@ -131,29 +140,36 @@ def spectral_cache(w: torch.Tensor, gauss: bool = True) -> Dict[str, torch.Tenso
     return out
 
 
-def _plain_planes(cache: Dict[str, torch.Tensor]) -> None:
-    if "wr_s" in cache:
-        raise NotImplementedError("quantized spectral planes are not ported "
-                                  "yet (repro.quant)")
+def _fold(t, scale):
+    """Fold a quantized plane's (p, 1) row scale into its (..., p, kf)
+    term once, after the contraction (``repro``'s ``_fold``)."""
+    return t if scale is None else t * scale
 
 
 def _gauss_contract(xr, xi, cache, contract: str):
     """Complex contraction ``Y = X · W`` with Gauss's 3 real products:
     re = t1 - t3, im = t1 + t2 with t1 = (xr+xi)·wr, t2 = xr·ws1,
-    t3 = xi·ws2."""
-    _plain_planes(cache)
-    t1 = torch.einsum(contract, xr + xi, cache["wr"])
-    t2 = torch.einsum(contract, xr, cache["ws1"])
-    t3 = torch.einsum(contract, xi, cache["ws2"])
+    t3 = xi·ws2.  Quantized caches fold each plane's scale into its term
+    (the identity is linear in each plane)."""
+    kf = xr.shape[-1]
+    wr, s1 = plane_from_cache(cache, "wr", kf)
+    ws1, s2 = plane_from_cache(cache, "ws1", kf)
+    ws2, s3 = plane_from_cache(cache, "ws2", kf)
+    t1 = _fold(torch.einsum(contract, xr + xi, wr), s1)
+    t2 = _fold(torch.einsum(contract, xr, ws1), s2)
+    t3 = _fold(torch.einsum(contract, xi, ws2), s3)
     return t1 - t3, t1 + t2
 
 
 def _naive_complex_contract(xr, xi, cache, contract: str):
     """4-product complex contraction (used when the Gauss planes are absent)."""
-    _plain_planes(cache)
-    wr, wi = cache["wr"], cache["wi"]
-    yr = torch.einsum(contract, xr, wr) - torch.einsum(contract, xi, wi)
-    yi = torch.einsum(contract, xr, wi) + torch.einsum(contract, xi, wr)
+    kf = xr.shape[-1]
+    wr, sr = plane_from_cache(cache, "wr", kf)
+    wi, si = plane_from_cache(cache, "wi", kf)
+    yr = (_fold(torch.einsum(contract, xr, wr), sr)
+          - _fold(torch.einsum(contract, xi, wi), si))
+    yi = (_fold(torch.einsum(contract, xr, wi), si)
+          + _fold(torch.einsum(contract, xi, wr), sr))
     return yr, yi
 
 
@@ -270,6 +286,8 @@ class Linear(nn.Module):
     generators ``wc (p, q, k)``, an optional bias ``b``, and, once
     ``bake_spectral`` has run, the spectral planes as buffers
     (``wc_cache_wr`` ...), so that ``.to()`` moves them with the weights.
+    Quantized planes (``quant/codec.py:quantize_serving_params``) keep
+    their per-block-row scales in ``wc_cache_wr_s`` ... beside them.
 
     With a ``generator`` the weights are drawn like ``repro``'s
     ``init_linear`` (same shapes and scales, not the same bits); without
@@ -298,12 +316,12 @@ class Linear(nn.Module):
         if spec.bias:
             self.b = nn.Parameter(torch.zeros((n_out,), device=device),
                                   requires_grad=False)
-        for name in PLANES:
+        for name in CACHE_KEYS:
             self.register_buffer(f"wc_cache_{name}", None)
 
     @property
     def wc_cache(self) -> Optional[Dict[str, torch.Tensor]]:
-        planes = {n: getattr(self, f"wc_cache_{n}") for n in PLANES}
+        planes = {n: getattr(self, f"wc_cache_{n}") for n in CACHE_KEYS}
         planes = {n: t for n, t in planes.items() if t is not None}
         return planes or None
 

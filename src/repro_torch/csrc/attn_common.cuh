@@ -14,6 +14,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include <cstdint>
+
 namespace attn {
 
 constexpr int kTile = 32;            // keys per tile: one per lane
@@ -25,6 +27,9 @@ template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+template <> __device__ __forceinline__ float to_f32<int8_t>(int8_t v) {
+  return static_cast<float>(v);   // an int8 code; the caller applies its scale
 }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);

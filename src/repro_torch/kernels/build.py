@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_NAMES = ("bc_fused", "flash_attention", "paged_attention")
+KERNEL_NAMES = ("bc_fused", "flash_attention", "paged_attention",
+                "paged_gather")
 
 
 def nvcc_path() -> str:
@@ -95,13 +96,19 @@ class Kernel:
     ``signatures`` maps each exported C function to its ``ctypes`` argument
     types; every function returns a ``cudaError_t`` as an int.  ``launch``
     calls one on the current CUDA stream (passed last), raises if it
-    returned an error, and otherwise adds one to ``launches``."""
+    returned an error, and otherwise adds one to ``launches`` and to
+    ``fn_launches[fn]`` (one count per exported function, i.e. per lane)."""
 
     def __init__(self, name: str, signatures: Dict[str, Sequence]):
         self.name = name
         self.signatures = dict(signatures)
         self.launches = 0
+        self.fn_launches = {fn: 0 for fn in self.signatures}
         self._lib: Optional[ctypes.CDLL] = None
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.fn_launches = {fn: 0 for fn in self.signatures}
 
     @property
     def source(self) -> Path:
@@ -127,6 +134,7 @@ class Kernel:
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {err} "
                                f"({lib.error_string(err).decode()})")
         self.launches += 1
+        self.fn_launches[fn] += 1
 
 
 def check_cuda(name: str, tensors: Dict[str, torch.Tensor],

@@ -14,9 +14,10 @@ import torch
 from ..core import circulant as cc
 from .bc_fused import bc_fused_matmul
 from .flash_attention import flash_attention
+from .paged import paged_gather
 from .paged_attention import paged_attention
 
-__all__ = ["bc_linear", "flash_attention", "paged_attention"]
+__all__ = ["bc_linear", "flash_attention", "paged_attention", "paged_gather"]
 
 
 def bc_linear(x: torch.Tensor, cache: Dict[str, torch.Tensor], k: int,
@@ -24,17 +25,20 @@ def bc_linear(x: torch.Tensor, cache: Dict[str, torch.Tensor], k: int,
     """Block-circulant linear against baked spectral planes:
     (..., n_in) -> (..., n_out), through the fused kernel.  Casts to
     float32 before blockifying and back to ``x.dtype`` after, as
-    ``repro``'s ``bc_matmul_spectral`` does."""
+    ``repro``'s ``bc_matmul_spectral`` does.  A quantized cache (int8 or
+    packed-int4 planes with ``<name>_s`` scales) runs the kernel's
+    quantized lane on its integer planes."""
     if "ws1" not in cache or not gauss:
         if x.device.type != "cpu":
             raise NotImplementedError("the fused kernel runs the Gauss "
                                       "planes (gauss_trick=True) only")
         return cc.bc_matmul_spectral(x, cache, k, n_out, gauss)
+    scales = None
     if "wr_s" in cache:
-        raise NotImplementedError("quantized spectral planes are not ported "
-                                  "yet (repro.quant)")
+        scales = (cache["wr_s"], cache["ws1_s"], cache["ws2_s"])
     p, q, _ = cache["wr"].shape
     lead = x.shape[:-1]
     xb = cc._blockify(x, q, k).reshape(-1, q, k).float().contiguous()
-    y = bc_fused_matmul(xb, cache["wr"], cache["ws1"], cache["ws2"], k)
+    y = bc_fused_matmul(xb, cache["wr"], cache["ws1"], cache["ws2"], k,
+                        scales)
     return y.reshape(*lead, p * k)[..., :n_out].to(x.dtype)

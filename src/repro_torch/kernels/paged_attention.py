@@ -9,8 +9,9 @@ version.  A key position ``i`` of slot ``b`` is valid iff
 partly filled last page, and idle slots (``positions == -1``, whose output
 row is exactly zero).
 
-The int8 pool lane (``k_scale``/``v_scale``) runs in the plain version
-only; on CUDA it raises until the quantization slice ports it.
+An int8 pool (``k_scale``/``v_scale``, one float32 scale per (page, KV
+head)) takes the kernel's int8 lane, ``paged_attention_i8``, which
+dequantizes each code as it fills its shared-memory tile.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ from .build import Kernel, check_cuda, ptr
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = Kernel("paged_attention", {
-    "paged_attention": [_VP] * 6 + [_I] * 7 + [_F, _F, _I, _I]})
+    "paged_attention": [_VP] * 6 + [_I] * 7 + [_F, _F, _I, _I],
+    "paged_attention_i8": [_VP] * 8 + [_I] * 7 + [_F, _F, _I]})
 
 _NEG = -1e30
 BLOCK_PAGES = 4           # pages per step of the plain streamed loop
@@ -92,21 +94,28 @@ def paged_attention(q, pool_k, pool_v, table, positions, *, scale=None,
         return paged_attention_stream(q, pool_k, pool_v, table, positions,
                                       scale=scale, softcap=softcap,
                                       k_scale=k_scale, v_scale=v_scale)
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("paged_attention: the int8 pool lane is "
-                                  "not ported to CUDA yet")
+    quant = k_scale is not None or v_scale is not None
     dts = tuple(DTYPE_CODES)
-    i32 = (torch.int32,)
-    device = check_cuda("paged_attention",
-                        {"q": q, "pool_k": pool_k, "pool_v": pool_v,
-                         "table": table, "positions": positions},
-                        {"q": dts, "pool_k": dts, "pool_v": dts,
-                         "table": i32, "positions": i32})
+    i32, f32 = (torch.int32,), (torch.float32,)
+    tensors = {"q": q, "pool_k": pool_k, "pool_v": pool_v, "table": table,
+               "positions": positions}
+    dtypes = {"q": dts, "pool_k": dts, "pool_v": dts, "table": i32,
+              "positions": i32}
+    if quant:
+        if k_scale is None or v_scale is None:
+            raise ValueError("paged_attention: an int8 pool needs both "
+                             "k_scale and v_scale")
+        tensors.update(k_scale=k_scale, v_scale=v_scale)
+        dtypes.update(pool_k=(torch.int8,), pool_v=(torch.int8,),
+                      k_scale=f32, v_scale=f32)
+    device = check_cuda("paged_attention", tensors, dtypes)
     P, page, Hkv, D = pool_k.shape
     B, Hq, Dq = q.shape
     if (pool_v.shape != pool_k.shape or pool_v.dtype != pool_k.dtype
             or Dq != D or Hq % Hkv or table.shape[0] != B
-            or positions.shape != (B,)):
+            or positions.shape != (B,)
+            or quant and (k_scale.shape != (P, Hkv)
+                          or v_scale.shape != (P, Hkv))):
         raise ValueError(f"paged_attention: q {tuple(q.shape)}, pool "
                          f"{tuple(pool_k.shape)}, table {tuple(table.shape)}, "
                          f"positions {tuple(positions.shape)} do not fit")
@@ -116,9 +125,14 @@ def paged_attention(q, pool_k, pool_v, table, positions, *, scale=None,
                          f"{MAX_GROUP}) too large")
     scale = scale if scale is not None else D ** -0.5
     out = torch.empty_like(q)
-    KERNEL.launch("paged_attention", device, ptr(q), ptr(pool_k),
-                  ptr(pool_v), ptr(table), ptr(positions), ptr(out),
-                  B, Hq, Hkv, D, page, table.shape[1], P, float(scale),
-                  float(softcap), DTYPE_CODES[q.dtype],
-                  DTYPE_CODES[pool_k.dtype])
+    dims = (B, Hq, Hkv, D, page, table.shape[1], P, float(scale),
+            float(softcap), DTYPE_CODES[q.dtype])
+    if quant:
+        KERNEL.launch("paged_attention_i8", device, ptr(q), ptr(pool_k),
+                      ptr(pool_v), ptr(k_scale), ptr(v_scale), ptr(table),
+                      ptr(positions), ptr(out), *dims)
+    else:
+        KERNEL.launch("paged_attention", device, ptr(q), ptr(pool_k),
+                      ptr(pool_v), ptr(table), ptr(positions), ptr(out),
+                      *dims, DTYPE_CODES[pool_k.dtype])
     return out

@@ -11,16 +11,19 @@ the paged serving engine runs (port of ``repro/layers/attention.py``).
   ``i`` of slot ``b`` lives at page ``block_table[b, i // page]``, offset
   ``i % page``.  A slot with ``cache_pos == -1`` is idle: its write goes to
   the reserved trash page 0 and its attention output is exactly zero.
-  Attention streams the pool through the paged flash-decode kernel
-  (``kernels/paged_attention.py``).
+  With ``paged_impl="stream"`` (the default) attention streams the pool
+  through the paged flash-decode kernel (``kernels/paged_attention.py``);
+  with ``"gather"`` (the parity oracle) the slot's pages are gathered into
+  a contiguous view (``kernels/paged.py``) and attended with a masked
+  softmax.  An int8 pool (``k_scale`` / ``v_scale`` in the cache) is
+  written through ``quant/codec.py:page_scatter`` (requantize on grow).
 
 Unlike ``repro``, whose arrays are immutable, the port writes the new K/V
 into the cache and the pool IN PLACE (``index_put_`` / slice assignment):
 the returned cache is the same storage that was passed in.
 
 Not ported yet: sliding-window ring buffers, decode against a dense cache
-(the batch engine), cross-attention, qk-norm and QKV bias (the qwen slice),
-the ``gather`` paged oracle, and the int8 pool's page scatter.
+(the batch engine), cross-attention, qk-norm and QKV bias (the qwen slice).
 """
 from __future__ import annotations
 
@@ -31,7 +34,10 @@ from torch import nn
 
 from ..core.circulant import Linear, LinearSpec
 from ..kernels import ops as kops
+from ..quant import codec
 from .embeddings import apply_rope
+
+_NEG = -1e30
 
 
 class Attention(nn.Module):
@@ -65,14 +71,49 @@ def attend(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None,
     return o.transpose(1, 2)
 
 
+def masked_attention(q, k, v, rows, kv_positions, *, softcap=0.0,
+                     scale=None):
+    """Decode attention over a gathered KV view, in plain PyTorch.
+
+    q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) in any float dtype; rows:
+    (B, Sq) absolute query positions; kv_positions: (B, Skv), -1 for a key
+    that is not there.  Key ``c`` is visible to query row ``r`` iff
+    ``0 <= kv_positions[c] <= r``; a row that sees no key comes out exactly
+    zero.  Returns (B, Sq, Hq, D) in q.dtype.
+
+    This is ``repro``'s ``chunked_attention`` as the gather path calls it.
+    That is XLA in ``repro``, not a Pallas kernel, so the port computes it
+    with plain PyTorch operations here, on the CPU and on the card alike;
+    the kernel of the gather path is the gather itself."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qh = q.reshape(B, Sq, Hkv, G, D).float() * scale
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qh, k.float())
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    c = kv_positions[:, None, None, None, :]
+    msk = (c <= rows[:, None, None, :, None]) & (c >= 0)
+    s = torch.where(msk, s, torch.full_like(s, _NEG))
+    m = torch.clamp(s.amax(-1), min=_NEG)
+    p = torch.where(msk, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(-1)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
+    o = o / torch.clamp(l, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+
+
 def attention_block(attn: Attention, x: torch.Tensor, *, cfg, causal=True,
                     window=0, cache: Optional[Dict] = None, cache_pos=None,
-                    mode: str = "serve", block_table=None
+                    mode: str = "serve", block_table=None,
+                    paged_impl: str = "stream"
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (out, cache).  ``cache`` is a dense cache
     ``{"k": (B, Smax, Hkv, D), "v": ..., "pos": (Smax,)}`` with ``cache_pos``
     the int position of the first new token, or, with ``block_table``
-    (B, maxp), a page pool with ``cache_pos`` a (B,) position vector."""
+    (B, maxp), a page pool with ``cache_pos`` a (B,) position vector.
+    ``paged_impl`` picks the paged lowering: "stream" or "gather"."""
     a = cfg.attention
     B, S, _ = x.shape
     H, Hkv, D = a.num_heads, a.num_kv_heads, a.head_dim
@@ -98,10 +139,11 @@ def attention_block(attn: Attention, x: torch.Tensor, *, cfg, causal=True,
     k = apply_rope(k, positions, a.rope_theta)
 
     if paged:
+        if paged_impl not in ("stream", "gather"):
+            raise ValueError(f"paged_impl {paged_impl!r}: expected 'stream' "
+                             f"or 'gather'")
         pool_k, pool_v = cache["k"], cache["v"]
-        if "k_scale" in cache:
-            raise NotImplementedError("the int8 pool (page_scatter) is not "
-                                      "ported yet")
+        k_sc, v_sc = cache.get("k_scale"), cache.get("v_scale")
         page = pool_k.shape[1]
         maxp = block_table.shape[1]
         pos = q_pos0.long()
@@ -111,11 +153,31 @@ def attention_block(attn: Attention, x: torch.Tensor, *, cfg, causal=True,
                           torch.zeros_like(col))       # 0 = trash page
         off = pos % page
         # duplicate writes to the trash page are unordered; nothing reads it
-        pool_k.index_put_((pid, off), k[:, 0].to(pool_k.dtype))
-        pool_v.index_put_((pid, off), v[:, 0].to(pool_v.dtype))
-        o = kops.paged_attention(q[:, 0].contiguous(), pool_k, pool_v,
-                                 block_table, cache_pos,
-                                 softcap=a.logit_softcap)[:, None]
+        if k_sc is not None:                  # int8 pool: requantize on grow
+            codec.page_scatter(pool_k, k_sc, pid, off, k[:, 0])
+            codec.page_scatter(pool_v, v_sc, pid, off, v[:, 0])
+        else:
+            pool_k.index_put_((pid, off), k[:, 0].to(pool_k.dtype))
+            pool_v.index_put_((pid, off), v[:, 0].to(pool_v.dtype))
+        if paged_impl == "stream":
+            o = kops.paged_attention(q[:, 0].contiguous(), pool_k, pool_v,
+                                     block_table, cache_pos,
+                                     softcap=a.logit_softcap, k_scale=k_sc,
+                                     v_scale=v_sc)[:, None]
+        else:
+            kg = kops.paged_gather(pool_k, block_table)
+            vg = kops.paged_gather(pool_v, block_table)
+            if k_sc is not None:              # page scales, one per offset
+                tl = block_table.long()
+                rep = lambda sc: sc[tl].repeat_interleave(  # noqa: E731
+                    page, dim=1)[..., None]
+                kg = kg.float() * rep(k_sc)
+                vg = vg.float() * rep(v_sc)
+            idx = torch.arange(kg.shape[1], device=x.device)[None, :]
+            kv_positions = torch.where(idx <= cache_pos[:, None], idx,
+                                       torch.full_like(idx, -1))
+            o = masked_attention(q, kg, vg, positions, kv_positions,
+                                 softcap=a.logit_softcap)
     else:
         if cache is not None:
             if window and cache["k"].shape[1] <= window:

@@ -5,8 +5,14 @@ numpy leaves (the caller converts, e.g. ``jax.tree.map(np.asarray,
 params)``; this package never imports JAX) and returns the port's
 ``Transformer``.  Each segment's scan axis is unstacked into per-layer
 modules.  Leaves are copied (``np.array``): ``np.asarray`` of a JAX array
-is read-only.  Baked serving planes in the tree are ignored; the port
-bakes its own with ``serve/params.py:precompute_serving_params``.
+is read-only.
+
+Baked per-projection planes (``wc_cache``, float32 or quantized: int8 /
+packed-int4 ``uint8`` planes with ``<name>_s`` scales) are carried into the
+``Linear``'s ``wc_cache_*`` buffers in their own dtype, so both packages
+can serve bit-identical planes; ``precompute_serving_params`` then leaves
+them as they are.  The fused ``qkv_cache`` / ``upgate_cache`` planes are
+not ported and are skipped (the port bakes its own per-projection planes).
 """
 from __future__ import annotations
 
@@ -16,10 +22,11 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..core.circulant import CACHE_KEYS
 from ..device import resolve_device
 from .transformer import Transformer, segments_for
 
-_SKIP = ("wc_cache", "qkv_cache", "upgate_cache")
+_SKIP = ("qkv_cache", "upgate_cache")
 
 
 def _copy_into(module: torch.nn.Module, tree: Mapping[str, Any], index,
@@ -31,6 +38,9 @@ def _copy_into(module: torch.nn.Module, tree: Mapping[str, Any], index,
         if name in _SKIP:
             continue
         path = f"{where}.{name}" if where else name
+        if name == "wc_cache":
+            _copy_planes(module, node, index, path)
+            continue
         if isinstance(node, Mapping):
             _copy_into(getattr(module, name), node, index, path)
             continue
@@ -42,6 +52,20 @@ def _copy_into(module: torch.nn.Module, tree: Mapping[str, Any], index,
                              f"{tuple(target.shape)}")
         with torch.no_grad():
             target.copy_(torch.from_numpy(arr))
+
+
+def _copy_planes(module: torch.nn.Module, cache: Mapping[str, Any], index,
+                 where: str) -> None:
+    """Copy a baked ``wc_cache`` dict into ``module``'s plane buffers,
+    keeping each leaf's dtype."""
+    unknown = set(cache) - set(CACHE_KEYS)
+    if unknown:
+        raise ValueError(f"{where}: unknown plane keys {sorted(unknown)}")
+    device = module.wc.device
+    for key, node in cache.items():
+        arr = np.array(node if index is None else node[index])
+        setattr(module, f"wc_cache_{key}",
+                torch.from_numpy(arr).to(device))
 
 
 def from_jax_params(tree: Mapping[str, Any], cfg: ArchConfig,

@@ -2,7 +2,8 @@
 
     init(seed, device)                                -> params (nn.Module)
     prefill(params, batch, cache)                     -> (logits, cache)
-    decode_step(params, tokens, cache, pos, table)    -> (logits, cache)
+    decode_step(params, tokens, cache, pos, table, paged_impl)
+                                                      -> (logits, cache)
     init_cache(batch, max_seq, dtype, device)         -> cache
 
 Caches are updated in place and returned.  Not ported yet: the
@@ -36,11 +37,12 @@ class Model:
                                    mode="serve", cache=cache, cache_pos=0)
 
     def decode_step(self, params, tokens: torch.Tensor, cache, cache_pos,
-                    block_table: Optional[torch.Tensor] = None
-                    ) -> Tuple[torch.Tensor, Any]:
+                    block_table: Optional[torch.Tensor] = None,
+                    paged_impl: str = "stream") -> Tuple[torch.Tensor, Any]:
         return transformer.forward(params, tokens, self.cfg, mode="serve",
                                    cache=cache, cache_pos=cache_pos,
-                                   block_table=block_table)
+                                   block_table=block_table,
+                                   paged_impl=paged_impl)
 
     def init_cache(self, batch: int, max_seq: int, dtype=None, device=None):
         if dtype is None:

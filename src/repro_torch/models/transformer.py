@@ -7,8 +7,9 @@ card and are dropped.
 
 Caches are stacked over layers: a dense cache is
 ``{"k": (L, B, S, Hkv, D), "v": ..., "pos": (L, S)}`` and a paged pool
-``{"k": (L, P, page, Hkv, D), "v": ...}`` (``serve/kvcache.py``); layer
-``i`` reads and writes the views ``cache["k"][i]`` ... in place.
+``{"k": (L, P, page, Hkv, D), "v": ...}`` (plus ``k_scale`` / ``v_scale``
+(L, P, Hkv) for an int8 pool, ``serve/kvcache.py``); layer ``i`` reads and
+writes the views ``cache["k"][i]`` ... in place.
 
 Not ported yet: the other block kinds (sliding-window, MoE, recurrent,
 xLSTM), learned positions and frontend embeddings.
@@ -84,12 +85,13 @@ class Block(nn.Module):
 
 
 def apply_block(block: Block, x, cfg: ArchConfig, *, mode: str, cache=None,
-                cache_pos=None, block_table=None):
+                cache_pos=None, block_table=None, paged_impl: str = "stream"):
     """Returns (x, cache)."""
     h = block.ln1(x)
     a, cache = attn_lib.attention_block(
         block.attn, h, cfg=cfg, causal=True, window=0, cache=cache,
-        cache_pos=cache_pos, mode=mode, block_table=block_table)
+        cache_pos=cache_pos, mode=mode, block_table=block_table,
+        paged_impl=paged_impl)
     x = x + a
     h = block.ln2(x)
     x = x + ffn_lib.mlp(block.mlp, h, activation=cfg.ffn_activation,
@@ -149,9 +151,10 @@ def layer_cache(cache: Optional[Dict], i: int) -> Optional[Dict]:
 
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, *,
             mode: str = "serve", cache: Optional[Dict] = None, cache_pos=None,
-            block_table=None):
+            block_table=None, paged_impl: str = "stream"):
     """tokens: (B, S) int.  Returns (logits (B, S, V), cache); ``cache`` is
-    updated in place."""
+    updated in place.  ``paged_impl`` picks the paged attention lowering
+    ("stream" or the "gather" oracle, ``layers/attention.py``)."""
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     x = emb_lib.embed(params.embed.table, tokens,
                       scale_by_dim=cfg.name.startswith(("gemma", "recurrent")))
@@ -159,7 +162,7 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, *,
     for i, block in enumerate(params.blocks):
         x, _ = apply_block(block, x, cfg, mode=mode,
                            cache=layer_cache(cache, i), cache_pos=cache_pos,
-                           block_table=block_table)
+                           block_table=block_table, paged_impl=paged_impl)
     x = params.final_norm(x)
     logits = emb_lib.logits(params.embed.table, x, softcap=cfg.logit_softcap)
     return logits, cache

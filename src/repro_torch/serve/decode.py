@@ -32,9 +32,14 @@ def make_prefill_pack_step(cfg: ArchConfig, n_pages: int,
     until decode overwrites it.  The dense prefill cache is float32 and is
     scattered into the pool's dtype.
 
+    An int8 pool is packed with ``true_len`` (the pad tail zeroed before
+    the page scales are derived) and with its saturation census.
+
     Returns ``prefill_pack(params, batch, pool, pages, true_len)`` ->
-    ``(first_token, ok, pool)``: the greedy token at the prompt's last true
-    position and whether those logits are all finite (device scalars).
+    ``(first_token, ok, pool, kv_clip)``: the greedy token at the prompt's
+    last true position and whether those logits are all finite (device
+    scalars), and, for an int8 pool, ``(clipped, total)`` of the values it
+    wrote (device scalars; None for other pools).
     """
     model = build_model(cfg)
     spad = n_pages * page_size
@@ -46,15 +51,28 @@ def make_prefill_pack_step(cfg: ArchConfig, n_pages: int,
         last = logits[0, true_len - 1]
         ok = torch.isfinite(last).all()
         nxt = torch.argmax(last, dim=-1).to(torch.int32)
-        pool = kvc.pack_prefill_cache(pool, dense, pages, page_size)
-        return nxt, ok, pool
+        kv_clip = None
+        if "k_scale" in pool:
+            pool, clipped, total = kvc.pack_prefill_cache(
+                pool, dense, pages, page_size, true_len=true_len,
+                with_stats=True)
+            kv_clip = (clipped, total)
+        else:
+            pool = kvc.pack_prefill_cache(pool, dense, pages, page_size,
+                                          true_len=true_len)
+        return nxt, ok, pool, kv_clip
     return prefill_pack
 
 
 def make_paged_decode_loop(cfg: ArchConfig, chunk: int, *,
                            sample: bool = False, eos_id: Optional[int] = None,
-                           nan_guard: bool = True) -> Callable:
+                           nan_guard: bool = True,
+                           paged_impl: str = "stream") -> Callable:
     """Decode over paged slots, up to ``chunk`` steps per call.
+
+    ``paged_impl`` picks the attention lowering of each step: "stream"
+    (the paged flash-decode kernel) or "gather" (the parity oracle: gather
+    each slot's pages, then a masked softmax).
 
     Every slot advances at its own position.  A slot freezes when its budget
     reaches zero or it emits ``eos_id``; a frozen slot's writes go to the
@@ -84,7 +102,8 @@ def make_paged_decode_loop(cfg: ArchConfig, chunk: int, *,
                 break
             masked = torch.where(done, torch.full_like(pos, -1), pos)
             logits, pool = model.decode_step(params, cur[:, None], pool,
-                                             masked, block_table=table)
+                                             masked, block_table=table,
+                                             paged_impl=paged_impl)
             last = logits[:, -1]
             finite = (torch.isfinite(last).all(dim=-1) if nan_guard
                       else torch.ones_like(done))

@@ -14,10 +14,14 @@
 
 The engine bakes the spectral planes into ``params`` (in place) and runs on
 the device the weights are on: the card by default, with its CUDA kernels.
+``quant`` (a ``QuantPolicy``) picks the pool's dtype (f32, bf16 or int8
+with per-(page, head) scales) and whether the planes are int8 / int4;
+``paged_attn`` picks the decode attention: "stream" (the paged flash-decode
+kernel) or "gather" (the parity oracle).
 
 Not ported yet: the batch ``Engine``, sampling, request traces, the
-numerics health plane and shadow oracle, fault injection, quantization and
-meshes.
+numerics health plane and shadow oracle (with the quantization histograms
+that ride it), fault injection and meshes.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import resolve_device, synchronize
 from ..obs.metrics import Registry
+from ..quant.codec import QuantPolicy
 from . import decode as dec
 from . import kvcache as kvc
 from .params import precompute_serving_params
@@ -70,11 +75,15 @@ class ContinuousEngine:
                  max_tokens_in_flight: Optional[int] = None,
                  decode_chunk: int = 8, sample: bool = False,
                  eos_id: Optional[int] = None,
-                 precompute: bool = True, kv_dtype: str = "f32",
+                 precompute: bool = True, paged_attn: str = "stream",
+                 quant: Optional[QuantPolicy] = None,
                  admission: str = "optimistic",
                  max_queue: Optional[int] = None,
                  max_preemptions: int = 4, nan_guard: bool = True,
                  registry: Optional[Registry] = None, device=None):
+        if paged_attn not in ("stream", "gather"):
+            raise ValueError(f"paged_attn {paged_attn!r}: "
+                             f"expected 'stream' or 'gather'")
         reasons = kvc.servable_reasons(cfg)
         if reasons:
             raise ValueError(f"{cfg.name} is not continuous-servable: "
@@ -88,7 +97,9 @@ class ContinuousEngine:
                              f"engine runs on {want}")
         self.device = on.pop()
         self.cfg = cfg
-        self.params = (precompute_serving_params(params, cfg)
+        self.quant = quant or QuantPolicy()
+        self.paged_attn = paged_attn
+        self.params = (precompute_serving_params(params, cfg, self.quant)
                        if precompute else params)
         self.max_slots = max_slots
         self.max_seq = max_seq
@@ -103,14 +114,18 @@ class ContinuousEngine:
             raise ValueError(f"num_pages {num_pages} cannot hold one "
                              f"max_seq request (+trash page)")
         if max_tokens_in_flight is None:
-            max_tokens_in_flight = max_slots * (max_seq + 1)
+            # the gather oracle pays an O(max_seq) gathered view per slot
+            # and layer each step, so its default budget is halved, as in
+            # repro
+            ceiling = max_slots * (max_seq + 1)
+            max_tokens_in_flight = (ceiling if paged_attn == "stream"
+                                    else max(max_seq + 1, ceiling // 2))
         if max_tokens_in_flight < max_seq + 1:
             raise ValueError(f"max_tokens_in_flight {max_tokens_in_flight} "
                              f"cannot admit one max_seq request")
         self.num_pages = num_pages
-        self.pool = kvc.build_pool(cfg, num_pages, page_size, kv_dtype,
+        self.pool = kvc.build_pool(cfg, num_pages, page_size, self.quant,
                                    device=self.device)
-        self.kv_dtype = kv_dtype
         self.registry = registry if registry is not None else Registry()
         reg = self.registry
         self.block_table = kvc.BlockTable(
@@ -123,7 +138,7 @@ class ContinuousEngine:
                                    max_preemptions=max_preemptions)
         self._loop = dec.make_paged_decode_loop(
             cfg, decode_chunk, sample=sample, eos_id=eos_id,
-            nan_guard=nan_guard)
+            nan_guard=nan_guard, paged_impl=paged_attn)
         self._prefills: Dict[int, object] = {}
         self._cur = np.zeros(max_slots, np.int32)
         self._pos = np.zeros(max_slots, np.int32)
@@ -134,6 +149,9 @@ class ContinuousEngine:
         self._c_anom = reg.counter("engine.anomalies")
         self._c_steps = reg.counter("engine.decode_steps")
         self._c_prefills = reg.counter("engine.prefills")
+        # saturation census of the int8 pool's prefill page writes
+        self._c_kv_clip = reg.counter("quant.clip.kv_clipped")
+        self._c_kv_total = reg.counter("quant.clip.kv_total")
         self._t0_perf = None                # serve-clock origin (perf)
         self._results: Dict[int, Dict] = {}      # order -> terminal result
         self._cancels: set = set()          # request ids pending cancel
@@ -308,9 +326,13 @@ class ContinuousEngine:
         pages = torch.as_tensor(self.block_table.pages(slot.index)[:n_pages],
                                 dtype=torch.int64, device=self.device)
         with torch.no_grad():
-            nxt, ok, self.pool = self._prefill_fn(n_pages)(
+            nxt, ok, self.pool, kv_clip = self._prefill_fn(n_pages)(
                 self.params, batch, self.pool, pages, S)
             first, ok = int(nxt), bool(ok)
+            if kv_clip is not None:            # one transfer for both
+                clipped, total = torch.stack(kv_clip).tolist()
+                self._c_kv_clip.inc(clipped)
+                self._c_kv_total.inc(total)
         synchronize(self.device)
         dt = time.perf_counter() - t0
         self._ctr["prefill_s"].inc(dt)
@@ -445,9 +467,18 @@ class ContinuousEngine:
                                 else st["free_pages"])
         st["pages_alloc"] = int(v("pool.pages_alloc"))
         st["pages_freed"] = int(v("pool.pages_freed"))
+        kv_total = v("quant.clip.kv_total")
+        st["kv_clip_rate"] = (v("quant.clip.kv_clipped") / kv_total
+                              if kv_total else None)
         st["pool_bytes"] = kvc.pool_bytes(self.pool)
-        st["kv_dtype"] = self.kv_dtype
+        st["kv_pool_bytes"] = st["pool_bytes"]
+        st["quant_policy"] = self.quant.describe()
         st["prefill_buckets"] = sorted(self._prefills)
-        st["attention_impl"] = "stream"
+        st["attention_impl"] = self.paged_attn
+        st.update(kvc.attention_memory_est(
+            self.pool, self.max_slots, self.max_pages_per_slot,
+            self.page_size, self.paged_attn))
+        st["decode_peak_bytes_est"] = (st["pool_bytes"]
+                                       + st["peak_attention_bytes"])
         st["device"] = str(self.device)
         return st

@@ -14,7 +14,9 @@ written in place: ``pack_prefill_cache`` scatters a prefill's dense cache
 into its pages, the paged attention branch writes one position per slot
 per decode step.
 
-Not ported yet: the int8 pool (per-(page, head) scales).
+The pool's storage dtype comes from a ``QuantPolicy`` (``kv_dtype`` "f32",
+"bf16" or "int8").  An int8 pool carries one float32 absmax scale per
+(layer, page, KV head) beside K and V (``k_scale`` / ``v_scale``).
 """
 from __future__ import annotations
 
@@ -25,9 +27,9 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..quant.codec import QuantPolicy, quantize_page_block
 
 TRASH_PAGE = 0
-POOL_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
 def pages_for(n_positions: int, page_size: int) -> int:
@@ -173,40 +175,134 @@ def servable_reasons(cfg: ArchConfig) -> List[str]:
 
 
 def build_pool(cfg: ArchConfig, num_pages: int, page_size: int,
-               kv_dtype: str = "f32", device=None) -> Dict[str, torch.Tensor]:
+               policy: Optional[QuantPolicy] = None, device=None
+               ) -> Dict[str, torch.Tensor]:
     """Zeroed pool ``{"k": (L, num_pages, page_size, Hkv, D), "v": ...}``
-    in ``kv_dtype`` ("f32", the default, or "bf16")."""
+    in ``policy.kv_dtype`` (default float32).  An int8 pool adds
+    ``k_scale`` / ``v_scale`` of shape (L, num_pages, Hkv), float32, written
+    by the prefill pack and the decode page scatter."""
     from ..models import transformer as tfm
+    policy = policy or QuantPolicy()
     if servable_reasons(cfg):
         raise ValueError(f"{cfg.name}: not paged-servable: "
                          f"{'; '.join(servable_reasons(cfg))}")
-    if kv_dtype not in POOL_DTYPES:
-        raise NotImplementedError(f"kv_dtype {kv_dtype!r}: the port has "
-                                  f"{sorted(POOL_DTYPES)} (int8 comes with "
-                                  f"the quantization slice)")
     device = resolve_device(device)
     a = cfg.attention
-    shape = (len(tfm.layer_kinds(cfg)), num_pages, page_size,
-             a.num_kv_heads, a.head_dim)
-    dtype = POOL_DTYPES[kv_dtype]
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+    L = len(tfm.layer_kinds(cfg))
+    shape = (L, num_pages, page_size, a.num_kv_heads, a.head_dim)
+    dtype = policy.pool_dtype
+    pool = {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if policy.kv_quantized:
+        sshape = (L, num_pages, a.num_kv_heads)
+        pool["k_scale"] = torch.zeros(sshape, dtype=torch.float32,
+                                      device=device)
+        pool["v_scale"] = torch.zeros(sshape, dtype=torch.float32,
+                                      device=device)
+    return pool
 
 
 def pack_prefill_cache(pool: Dict[str, torch.Tensor],
                        dense_cache: Dict[str, torch.Tensor],
-                       pages: torch.Tensor, page_size: int
-                       ) -> Dict[str, torch.Tensor]:
+                       pages: torch.Tensor, page_size: int,
+                       true_len: Optional[int] = None,
+                       with_stats: bool = False):
     """Scatter a B=1 dense prefill cache (k/v ``(L, 1, Spad, Hkv, D)``,
     Spad a multiple of ``page_size``) into a slot's pages
-    (``(Spad // page_size,)`` ids), in place; returns the pool."""
+    (``(Spad // page_size,)`` ids), in place; returns the pool.
+
+    An int8 pool quantizes each page whole, one absmax scale per
+    (page, head).  With ``true_len`` (the unpadded prompt length) the
+    right-pad tail is zeroed first, so pad activations do not inflate the
+    last page's scale (the tail stays masked on read either way); other
+    pools ignore it.  With ``with_stats`` the return is
+    ``(pool, clipped, total)``: float32 tensor scalars counting the written
+    int8 values at the ±127 rail, and the values written, over valid
+    (non-pad) positions only; zeros for other pools."""
+    device = pool["k"].device
+    clipped = torch.zeros((), dtype=torch.float32, device=device)
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    idx = pages.long()
     for key in ("k", "v"):
         leaf = dense_cache[key]
         n, _, spad, hkv, d = leaf.shape
-        vals = leaf.reshape(n, spad // page_size, page_size, hkv, d)
-        pool[key][:, pages.long()] = vals.to(pool[key].dtype)
+        npg = spad // page_size
+        vals = leaf.reshape(n, npg, page_size, hkv, d)
+        if key + "_scale" not in pool:
+            pool[key][:, idx] = vals.to(pool[key].dtype)
+            continue
+        valid = None
+        if true_len is not None:
+            valid = (torch.arange(spad, device=leaf.device)
+                     < true_len).reshape(npg, page_size)
+            vals = torch.where(valid[None, :, :, None, None], vals,
+                               torch.zeros((), dtype=vals.dtype,
+                                           device=vals.device))
+        qvals, scales = quantize_page_block(vals)
+        if with_stats:
+            sat = qvals.to(torch.int32).abs() >= 127
+            if valid is not None:
+                sat = sat & valid[None, :, :, None, None]
+                total += valid.sum().float() * n * hkv * d
+            else:
+                total += float(qvals.numel())
+            clipped += sat.sum().float()
+        pool[key][:, idx] = qvals
+        pool[key + "_scale"][:, idx] = scales
+    if with_stats:
+        return pool, clipped, total
     return pool
 
 
 def pool_bytes(pool: Dict[str, torch.Tensor]) -> int:
+    """Bytes of the pool, scales included."""
     return sum(t.numel() * t.element_size() for t in pool.values())
+
+
+def page_bytes(cfg: ArchConfig, page_size: int,
+               policy: Optional[QuantPolicy] = None) -> int:
+    """Bytes one page costs across the whole stack (scales included); built
+    on the ``meta`` device, so nothing is allocated."""
+    return pool_bytes(build_pool(cfg, 1, page_size, policy, device="meta"))
+
+
+def attention_bytes_per_position(pool: Dict[str, torch.Tensor]
+                                 ) -> Dict[str, int]:
+    """``per_pos``: bytes one live cache position costs a decode step's
+    attention read (K + V over every layer, in the pool's dtype);
+    ``widest``: K + V bytes of one position in one layer."""
+    n, _, _, hkv, d = pool["k"].shape
+    one = 2 * hkv * d * pool["k"].element_size()
+    return {"per_pos": n * one, "widest": one}
+
+
+def pool_scale_map(pool: Dict[str, torch.Tensor]
+                   ) -> Optional[Dict[str, np.ndarray]]:
+    """Flat host copies ``{"k_scale": ..., "v_scale": ...}`` of an int8
+    pool's scales, or None for an unquantized pool."""
+    out = {key: pool[key].detach().cpu().numpy().ravel()
+           for key in ("k_scale", "v_scale") if key in pool}
+    return out or None
+
+
+def attention_memory_est(pool: Dict[str, torch.Tensor], max_slots: int,
+                         max_pages_per_slot: int, page_size: int,
+                         impl: str = "stream") -> Dict:
+    """Worst-case decode-attention memory (every slot at
+    ``max_pages_per_slot * page_size`` positions), as ``repro`` counts it:
+    ``attention_bytes_per_token`` (bytes attention touches to emit one
+    token for one slot, over every layer; the gather path also writes and
+    re-reads the gathered view, 3x) and ``peak_attention_bytes`` (the
+    largest transient buffer of one step: the gathered k + v views of one
+    layer, or one ``BLOCK_PAGES``-page chunk per slot when streaming).
+    Scale reads are left out, as in ``repro``."""
+    from ..kernels.paged_attention import BLOCK_PAGES
+    terms = attention_bytes_per_position(pool)
+    per_pos, widest = terms["per_pos"], terms["widest"]
+    max_len = max_pages_per_slot * page_size
+    if impl == "gather":
+        return {"attention_bytes_per_token": 3 * per_pos * max_len,
+                "peak_attention_bytes": max_slots * max_len * widest}
+    chunk = min(BLOCK_PAGES, max_pages_per_slot) * page_size
+    return {"attention_bytes_per_token": per_pos * max_len,
+            "peak_attention_bytes": max_slots * chunk * widest}

@@ -6,8 +6,12 @@ the ``cuda`` fixture, never at import).  Run on the card with
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: float32 sums in another order, 1e-4 of the output's scale;
-bf16 outputs, one bf16 step (2^-7 of the scale).
+bf16 outputs, one bf16 step (2^-7 of the scale).  The quantized lanes get
+the same int8 / int4 codes and scales as their plain versions, so they are
+held at 1e-4 too; the gather is a copy and is held exactly.
 """
+import copy
+
 import numpy as np
 import pytest
 
@@ -17,9 +21,12 @@ from repro_torch.configs.registry import get_smoke_config  # noqa: E402
 from repro_torch.core import circulant as cc  # noqa: E402
 from repro_torch.kernels import bc_fused as bcf  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import paged as pg  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
+from repro_torch.quant import codec  # noqa: E402
 from repro_torch.serve.engine import ContinuousEngine, Request  # noqa: E402
+from repro_torch.serve.params import precompute_serving_params  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -53,6 +60,24 @@ def test_bc_fused_kernel(cuda, B, p, q, k):
     assert bcf.KERNEL.launches == before + 1
     _close(got, bcf.bc_fused_matmul_plain(xb, planes["wr"], planes["ws1"],
                                           planes["ws2"], k))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("B,p,q,k", [(3, 5, 13, 16), (8, 44, 16, 128),
+                                     (70, 16, 44, 128)])
+def test_bc_fused_quantized_lanes(cuda, bits, B, p, q, k):
+    w = torch.randn((p, q, k), generator=cuda, device="cuda") / (q * k) ** .5
+    qp = codec.quantize_plane_cache(cc.spectral_cache(w), bits)
+    scales = [qp[n + "_s"] for n in ("wr", "ws1", "ws2")]
+    xb = torch.randn((B, q, k), generator=cuda, device="cuda")
+    lane = "bc_fused_i8" if bits == 8 else "bc_fused_i4"
+    before = dict(bcf.KERNEL.fn_launches)
+    got = bcf.bc_fused_matmul(xb, qp["wr"], qp["ws1"], qp["ws2"], k, scales)
+    after = bcf.KERNEL.fn_launches
+    assert {f: after[f] - before[f] for f in after} == {
+        f: int(f == lane) for f in after}
+    _close(got, bcf.bc_fused_matmul_plain(xb, qp["wr"], qp["ws1"],
+                                          qp["ws2"], k, scales))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -92,22 +117,54 @@ def test_paged_kernel(cuda, G, q_dtype, kv_dtype):
     _close(got, pa.paged_attention_stream(q, pool_k, pool_v, table,
                                           positions, softcap=3.0),
            q_dtype == torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        pa.paged_attention(q, pool_k, pool_v, table, positions,
-                           k_scale=torch.ones((P, Hkv), device="cuda"),
-                           v_scale=torch.ones((P, Hkv), device="cuda"))
+    # the int8 lane on the same values, quantized per (page, head)
+    k8, ks = codec.quantize_page_block(pool_k.float())
+    v8, vs = codec.quantize_page_block(pool_v.float())
+    before = pa.KERNEL.fn_launches["paged_attention_i8"]
+    got = pa.paged_attention(q, k8, v8, table, positions, softcap=3.0,
+                             k_scale=ks, v_scale=vs)
+    assert pa.KERNEL.fn_launches["paged_attention_i8"] == before + 1
+    assert (got[1] == 0).all()
+    _close(got, pa.paged_attention_stream(q, k8, v8, table, positions,
+                                          softcap=3.0, k_scale=ks,
+                                          v_scale=vs),
+           q_dtype == torch.bfloat16)
 
 
-def test_engine_on_card_matches_cpu(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+@pytest.mark.parametrize("H,D", [(4, 64), (3, 5)])   # 16-byte and ragged pages
+def test_paged_gather_kernel(cuda, dtype, H, D):
+    P, page, B, maxp = 13, 4, 3, 4
+    pool = (torch.randn((P, page, H, D), generator=cuda, device="cuda")
+            * 40).to(dtype)
+    perm = torch.randperm(P - 1, generator=cuda, device="cuda") + 1
+    table = perm[:B * maxp].reshape(B, maxp).to(torch.int32).contiguous()
+    table[2, 3] = 0
+    before = pg.KERNEL.launches
+    got = pg.paged_gather(pool, table)
+    assert pg.KERNEL.launches == before + 1
+    assert torch.equal(got, pg.paged_gather_plain(pool, table))
+
+
+@pytest.mark.parametrize("quant,paged_attn", [
+    (None, "stream"), (codec.QuantPolicy("int8", True, 8), "stream"),
+    (codec.QuantPolicy("int8", True, 4), "gather")])
+def test_engine_on_card_matches_cpu(cuda, quant, paged_attn):
     cfg = get_smoke_config("tinyllama-1.1b").replace(dtype="float32")
     rng = np.random.RandomState(0)
     reqs = [Request(prompt=rng.randint(1, 500, size=s).astype(np.int32),
                     max_new_tokens=n, id=i)
             for i, (s, n) in enumerate([(20, 9), (12, 14), (9, 6)])]
+    # planes baked (and quantized) once on the CPU, so both devices serve
+    # the same codes
+    base = precompute_serving_params(init_params(cfg, seed=0, device="cpu"),
+                                     cfg, quant)
     out = {}
     for dev in ("cpu", "cuda"):
-        model = init_params(cfg, seed=0, device="cpu").to(dev)
+        model = copy.deepcopy(base).to(dev)
         eng = ContinuousEngine(cfg, model, max_slots=2, max_seq=32,
-                               page_size=4, decode_chunk=4, device=dev)
+                               page_size=4, decode_chunk=4, device=dev,
+                               quant=quant, paged_attn=paged_attn)
         out[dev] = [r["tokens"] for r in eng.generate(reqs)]
     assert out["cuda"] == out["cpu"]

@@ -20,9 +20,11 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs.registry import get_smoke_config  # noqa: E402
 from repro_torch.core import circulant as cc  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
-from repro_torch.kernels import bc_fused, flash_attention, paged_attention  # noqa: E402
+from repro_torch.kernels import (bc_fused, flash_attention, paged,  # noqa: E402
+                                 paged_attention)
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
+from repro_torch.quant import codec  # noqa: E402
 from repro_torch.serve.engine import ContinuousEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -37,6 +39,9 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+for name in ("repro_torch.quant", "repro_torch.quant.codec",
+             "repro_torch.quant.calibrate", "repro_torch.kernels.paged"):
+    assert name in names, name
 leaked = sorted(n for n in sys.modules if n == "repro" or n.startswith("repro."))
 assert not leaked, leaked
 print(len(names))
@@ -89,13 +94,46 @@ def test_wrappers_refuse_non_cpu_tensors():
     with pytest.raises(ValueError, match="expected CUDA"):
         paged_attention.paged_attention(torch.zeros((2, 4, 16), **meta),
                                         pool, pool, table, pos)
+    # the quantized lanes and the gather
+    qplanes = codec.quantize_plane_cache(planes)
+    scales = [qplanes[n + "_s"] for n in ("wr", "ws1", "ws2")]
+    with pytest.raises(ValueError, match="expected CUDA"):
+        bc_fused.bc_fused_matmul(torch.zeros((4, 3, k), **meta),
+                                 qplanes["wr"], qplanes["ws1"],
+                                 qplanes["ws2"], k, scales)
+    pool8 = torch.zeros((3, 4, 2, 16), dtype=torch.int8, **meta)
+    sc = torch.zeros((3, 2), **meta)
+    with pytest.raises(ValueError, match="expected CUDA"):
+        paged_attention.paged_attention(torch.zeros((2, 4, 16), **meta),
+                                        pool8, pool8, table, pos,
+                                        k_scale=sc, v_scale=sc)
+    for p in (pool, pool8):
+        with pytest.raises(ValueError, match="expected CUDA"):
+            paged.paged_gather(p, table)
 
 
 def test_kernel_counters_start_at_zero_and_cpu_path_does_not_count():
-    x = torch.from_numpy(np.random.RandomState(0).randn(4, 3, 16)
-                         .astype(np.float32))
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(4, 3, 16).astype(np.float32))
     planes = cc.spectral_cache(torch.ones((2, 3, 16)))
-    before = bc_fused.KERNEL.launches
+    kernels = (bc_fused.KERNEL, paged_attention.KERNEL, paged.KERNEL)
+    before = [(kn.launches, dict(kn.fn_launches)) for kn in kernels]
     bc_fused.bc_fused_matmul(x, planes["wr"], planes["ws1"], planes["ws2"],
                              16)
-    assert bc_fused.KERNEL.launches == before    # the plain version ran
+    for bits in (8, 4):                          # the quantized lanes
+        qp = codec.quantize_plane_cache(planes, bits)
+        bc_fused.bc_fused_matmul(x, qp["wr"], qp["ws1"], qp["ws2"], 16,
+                                 [qp[n + "_s"] for n in ("wr", "ws1", "ws2")])
+    pool, sc = codec.quantize_page_block(torch.from_numpy(
+        rng.randn(3, 4, 2, 16).astype(np.float32)))
+    table = torch.tensor([[1, 2], [0, 0]], dtype=torch.int32)
+    pos = torch.tensor([5, -1], dtype=torch.int32)
+    paged_attention.paged_attention(torch.zeros((2, 4, 16)), pool, pool,
+                                    table, pos, k_scale=sc, v_scale=sc)
+    paged.paged_gather(pool, table)
+    # the plain versions ran: no count moved, on any lane
+    assert [(kn.launches, kn.fn_launches) for kn in kernels] == before
+    assert set(bc_fused.KERNEL.fn_launches) == {"bc_fused", "bc_fused_i8",
+                                                "bc_fused_i4"}
+    assert set(paged_attention.KERNEL.fn_launches) == {
+        "paged_attention", "paged_attention_i8"}

@@ -24,6 +24,7 @@ from repro.serve import kvcache as jkv  # noqa: E402
 from repro_torch.configs.registry import get_smoke_config as tget  # noqa: E402
 from repro_torch.models.convert import from_jax_params  # noqa: E402
 from repro_torch.obs.metrics import Registry  # noqa: E402
+from repro_torch.quant.codec import QuantPolicy  # noqa: E402
 from repro_torch.serve import engine as teng  # noqa: E402
 from repro_torch.serve import kvcache as tkv  # noqa: E402
 
@@ -112,7 +113,8 @@ def test_pack_prefill_cache_matches_repro(setup):
     ref = jkv.pack_prefill_cache(jkv.build_pool(cfg, P, page), [jdense],
                                  jnp.asarray(pages), page)
     for kv_dtype in ("f32", "bf16"):
-        pool = tkv.build_pool(tcfg, P, page, kv_dtype, device="cpu")
+        pool = tkv.build_pool(tcfg, P, page, QuantPolicy(kv_dtype),
+                              device="cpu")
         got = tkv.pack_prefill_cache(
             pool, {k: torch.from_numpy(v) for k, v in dense.items()},
             torch.from_numpy(pages), page)
