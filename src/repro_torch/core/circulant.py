@@ -17,6 +17,16 @@ Pallas kernel unwired and runs ``bc_matmul_spectral`` through XLA;
 ``bc_matmul_spectral`` here is the same plain math and the reference the
 kernel is held against.
 
+The ``kernel_fn`` hook of ``bc_matmul_spectral`` is ported with ``repro``'s
+rule: with it set and float32 planes, the contraction is
+``kernel_fn(xr, xi, cache)`` (the port's is ``kernels/ops.py:
+spectral_contract``, the ``spectral_matmul`` kernel), while the DFT and
+inverse DFT stay dense products against ``dft_mats``; quantized planes skip
+it.  ``apply_linear(..., kernel_fn=...)`` routes a hooked projection with
+float32 planes there and a hooked projection with quantized planes to the
+fused kernel's quantized lane.  ``repro`` leaves the hook unwired; the
+port's batch engine passes it at prefill (``serve/engine.py:Engine``).
+
 Quantized planes (``repro_torch.quant``: int8, or packed-int4 ``uint8``,
 with ``<name>_s`` per-block-row scales beside them) contract in float32
 and fold each plane's scale into its term after the contraction, as
@@ -204,15 +214,22 @@ def bc_matmul_fused(*args, **kwargs):
 
 
 def bc_matmul_spectral(x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                       k: int, n_out: int, gauss: bool = True) -> torch.Tensor:
-    """Inference path in plain PyTorch: cached spectral planes, real-plane
-    Gauss contraction.  Casts to float32 before blockifying and back to
-    ``x.dtype`` after, as ``repro`` does."""
+                       k: int, n_out: int, gauss: bool = True,
+                       kernel_fn=None) -> torch.Tensor:
+    """Inference path: cached spectral planes, real-plane Gauss
+    contraction.  Casts to float32 before blockifying and back to
+    ``x.dtype`` after, as ``repro`` does.
+
+    ``kernel_fn(xr, xi, cache)`` replaces the contraction when the cache is
+    not quantized (``repro``'s rule: quantized caches keep the
+    scale-folding einsum); without it the contraction is plain PyTorch."""
     p, q, kf = cache["wr"].shape
     dtype = x.dtype
     xb = _blockify(x, q, k).float()
     xr, xi = rfft_planes(xb, k)
-    if gauss and "ws1" in cache:
+    if kernel_fn is not None and "wr_s" not in cache:
+        yr, yi = kernel_fn(xr, xi, cache)
+    elif gauss and "ws1" in cache:
         yr, yi = _gauss_contract(xr, xi, cache, "...qf,pqf->...pf")
     else:
         yr, yi = _naive_complex_contract(xr, xi, cache, "...qf,pqf->...pf")
@@ -254,26 +271,38 @@ class LinearSpec:
         return "fft" if mode == "train" else "spectral"
 
 
+def _spectral_linear(x, cache, spec: LinearSpec, n_out: int, kernel_fn):
+    """One projection against spectral planes: through ``kernel_fn`` when
+    the hook is set and the planes are float32, else the fused kernel (its
+    quantized lane for int8 / int4 planes)."""
+    from ..kernels import ops as kops   # kernels import this module
+    if kernel_fn is not None and "wr_s" not in cache:
+        return bc_matmul_spectral(x, cache, spec.block_size, n_out,
+                                  spec.gauss, kernel_fn)
+    return kops.bc_linear(x, cache, spec.block_size, n_out, spec.gauss)
+
+
 def apply_linear(params: Dict[str, torch.Tensor], x: torch.Tensor,
-                 spec: LinearSpec, n_out: int, mode: str = "serve") -> torch.Tensor:
+                 spec: LinearSpec, n_out: int, mode: str = "serve",
+                 kernel_fn=None) -> torch.Tensor:
     """y = x W (+ b).  For block-circulant, W is the (n_out × n_in) generator.
 
     Outside train mode, baked planes (``params["wc_cache"]``) go straight to
     the fused spectral kernel; so do planes derived on the fly for the
-    ``spectral`` path."""
-    from ..kernels import ops as kops   # kernels import this module
+    ``spectral`` path.  With ``kernel_fn`` set, float32 planes go through
+    ``bc_matmul_spectral`` with the hook instead (module docstring)."""
     if spec.kind == "dense":
         y = x @ params["w"].to(x.dtype)
     else:
         path = spec.resolve_path(mode)
         if mode != "train" and "wc_cache" in params:
-            y = kops.bc_linear(x, params["wc_cache"], spec.block_size, n_out,
-                               spec.gauss)
+            y = _spectral_linear(x, params["wc_cache"], spec, n_out,
+                                 kernel_fn)
         elif path == "direct":
             y = bc_matmul_direct(x, params["wc"], n_out)
         elif path == "spectral":
-            y = kops.bc_linear(x, spectral_cache(params["wc"], spec.gauss),
-                               spec.block_size, n_out, spec.gauss)
+            y = _spectral_linear(x, spectral_cache(params["wc"], spec.gauss),
+                                 spec, n_out, kernel_fn)
         else:
             y = bc_matmul_fft(x, params["wc"], n_out, gauss=spec.gauss)
     if "b" in params:
@@ -341,6 +370,8 @@ class Linear(nn.Module):
             out["wc_cache"] = cache
         return out
 
-    def forward(self, x: torch.Tensor, mode: str = "serve") -> torch.Tensor:
-        return apply_linear(self.params(), x, self.spec, self.n_out, mode)
+    def forward(self, x: torch.Tensor, mode: str = "serve",
+                kernel_fn=None) -> torch.Tensor:
+        return apply_linear(self.params(), x, self.spec, self.n_out, mode,
+                            kernel_fn)
 

@@ -16,8 +16,10 @@ from .bc_fused import bc_fused_matmul
 from .flash_attention import flash_attention
 from .paged import paged_gather
 from .paged_attention import paged_attention
+from .spectral_matmul import spectral_matmul
 
-__all__ = ["bc_linear", "flash_attention", "paged_attention", "paged_gather"]
+__all__ = ["bc_linear", "flash_attention", "paged_attention", "paged_gather",
+           "spectral_contract", "spectral_matmul"]
 
 
 def bc_linear(x: torch.Tensor, cache: Dict[str, torch.Tensor], k: int,
@@ -42,3 +44,26 @@ def bc_linear(x: torch.Tensor, cache: Dict[str, torch.Tensor], k: int,
     y = bc_fused_matmul(xb, cache["wr"], cache["ws1"], cache["ws2"], k,
                         scales)
     return y.reshape(*lead, p * k)[..., :n_out].to(x.dtype)
+
+
+def spectral_contract(xr: torch.Tensor, xi: torch.Tensor,
+                      cache: Dict[str, torch.Tensor]):
+    """The ``kernel_fn`` of ``core/circulant.py:bc_matmul_spectral``: the
+    Gauss contraction of input spectra ``xr``/``xi`` (..., q, kf) against
+    the cache's float32 planes (p, q, kf), through ``spectral_matmul``.
+
+    The spectra are laid out as the kernel's (kf, N, q) and the planes as
+    (kf, q, p), and the (kf, N, p) result back as (..., p, kf).  These
+    permutes are copies, made on every call."""
+    missing = [n for n in ("wr", "ws1", "ws2") if n not in cache]
+    if missing:
+        raise ValueError(f"spectral_contract needs the Gauss planes; the "
+                         f"cache lacks {missing}")
+    p, q, kf = cache["wr"].shape
+    lead = xr.shape[:-2]
+    xs = [t.reshape(-1, q, kf).permute(2, 0, 1).contiguous()
+          for t in (xr, xi)]
+    ws = [cache[n].permute(2, 1, 0).contiguous()
+          for n in ("wr", "ws1", "ws2")]
+    yr, yi = spectral_matmul(*xs, *ws)
+    return tuple(t.permute(1, 2, 0).reshape(*lead, p, kf) for t in (yr, yi))

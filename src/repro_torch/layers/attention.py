@@ -1,11 +1,21 @@
-"""Attention block: GQA/MQA/MHA projections, RoPE, and the two cache paths
-the paged serving engine runs (port of ``repro/layers/attention.py``).
+"""Attention block: GQA/MQA/MHA projections (with ``qwen``'s QKV bias and
+per-head qk-norm), RoPE, and the cache paths both serving engines run (port
+of ``repro/layers/attention.py``).
 
-* Prefill with a dense linear cache (``cache_pos`` an int, S >= 1): the
+* Prefill with a dense linear cache (``cache_pos`` an int, S > 1): the
   new K/V are written into the cache at ``cache_pos`` and the block attends
   over its own projections through the flash kernel
   (``kernels/flash_attention.py``).  ``repro`` runs the same math through
   XLA (``chunked_attention``); the port wires the kernel in.
+* Decode against a dense linear cache (``cache_pos`` an int, S == 1; the
+  batch engine): K/V are written into the cache at ``cache_pos``, then the
+  query attends over the cache's first ``cache_pos + 1`` rows through the
+  flash kernel with ``causal=True, kv_offset=cache_pos``.  ``repro`` masks
+  the whole cache with its ``pos`` row (-1 past ``cache_pos``); for a
+  linear cache filled in order that mask keeps exactly the rows
+  ``0..cache_pos``, which is what the slice and the causal offset keep.
+  The query is cast to the cache's dtype and the output back, so a bf16
+  model attends over its float32 cache in float32, as ``repro`` does.
 * Paged decode (``block_table`` set, S == 1): the cache is a page pool
   ``{"k": (P, page, Hkv, D), "v": ...}`` shared by every slot; position
   ``i`` of slot ``b`` lives at page ``block_table[b, i // page]``, offset
@@ -22,8 +32,11 @@ Unlike ``repro``, whose arrays are immutable, the port writes the new K/V
 into the cache and the pool IN PLACE (``index_put_`` / slice assignment):
 the returned cache is the same storage that was passed in.
 
-Not ported yet: sliding-window ring buffers, decode against a dense cache
-(the batch engine), cross-attention, qk-norm and QKV bias (the qwen slice).
+``kernel_fn`` (the spectral-MAC hook, ``core/circulant.py``) is passed to
+the four projections.
+
+Not ported yet: sliding-window ring buffers, cross-attention and fused
+q/k/v projections.
 """
 from __future__ import annotations
 
@@ -36,6 +49,7 @@ from ..core.circulant import Linear, LinearSpec
 from ..kernels import ops as kops
 from ..quant import codec
 from .embeddings import apply_rope
+from .norms import RMSNorm
 
 _NEG = -1e30
 
@@ -46,18 +60,20 @@ class Attention(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         a = cfg.attention
-        if a.qk_norm or a.qkv_bias:
-            raise NotImplementedError("qk-norm and QKV bias are not ported "
-                                      "yet")
         if comp is not None and getattr(comp, "fuse_projections", False):
             raise NotImplementedError("fused q/k/v projections are not "
                                       "ported yet")
-        spec = LinearSpec.from_config(comp, "attn")
+        # q/k/v carry the (dense) QKV bias, o never does (repro :206-207)
+        spec = LinearSpec.from_config(comp, "attn", bias=a.qkv_bias)
+        ospec = LinearSpec.from_config(comp, "attn")
         kw = dict(device=device, generator=generator)
         self.q = Linear(d_model, a.num_heads * a.head_dim, spec, **kw)
         self.k = Linear(d_model, a.num_kv_heads * a.head_dim, spec, **kw)
         self.v = Linear(d_model, a.num_kv_heads * a.head_dim, spec, **kw)
-        self.o = Linear(a.num_heads * a.head_dim, d_model, spec, **kw)
+        self.o = Linear(a.num_heads * a.head_dim, d_model, ospec, **kw)
+        if a.qk_norm:                       # per-head rmsnorm of q and k
+            self.qn = RMSNorm(a.head_dim, device=device)
+            self.kn = RMSNorm(a.head_dim, device=device)
 
 
 def attend(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None,
@@ -107,19 +123,23 @@ def masked_attention(q, k, v, rows, kv_positions, *, softcap=0.0,
 def attention_block(attn: Attention, x: torch.Tensor, *, cfg, causal=True,
                     window=0, cache: Optional[Dict] = None, cache_pos=None,
                     mode: str = "serve", block_table=None,
-                    paged_impl: str = "stream"
+                    paged_impl: str = "stream", kernel_fn=None
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (out, cache).  ``cache`` is a dense cache
     ``{"k": (B, Smax, Hkv, D), "v": ..., "pos": (Smax,)}`` with ``cache_pos``
     the int position of the first new token, or, with ``block_table``
     (B, maxp), a page pool with ``cache_pos`` a (B,) position vector.
-    ``paged_impl`` picks the paged lowering: "stream" or "gather"."""
+    ``paged_impl`` picks the paged lowering: "stream" or "gather".
+    ``kernel_fn`` is the projections' spectral-MAC hook."""
     a = cfg.attention
     B, S, _ = x.shape
     H, Hkv, D = a.num_heads, a.num_kv_heads, a.head_dim
-    q = attn.q(x, mode).reshape(B, S, H, D)
-    k = attn.k(x, mode).reshape(B, S, Hkv, D)
-    v = attn.v(x, mode).reshape(B, S, Hkv, D)
+    q = attn.q(x, mode, kernel_fn).reshape(B, S, H, D)
+    k = attn.k(x, mode, kernel_fn).reshape(B, S, Hkv, D)
+    v = attn.v(x, mode, kernel_fn).reshape(B, S, Hkv, D)
+    if hasattr(attn, "qn"):                              # qwen3 qk-norm
+        q = attn.qn(q)
+        k = attn.kn(k)
 
     paged = block_table is not None and cache is not None
     if paged:
@@ -183,16 +203,21 @@ def attention_block(attn: Attention, x: torch.Tensor, *, cfg, causal=True,
             if window and cache["k"].shape[1] <= window:
                 raise NotImplementedError("sliding-window ring buffers are "
                                           "not ported yet")
-            if S == 1:
-                raise NotImplementedError("decode against a dense cache (the "
-                                          "batch engine) is not ported yet")
             end = q_pos0 + S
+            if end > cache["k"].shape[1]:
+                raise ValueError(f"cache of {cache['k'].shape[1]} positions "
+                                 f"cannot take positions {q_pos0}..{end - 1}")
             cache["k"][:, q_pos0:end] = k.to(cache["k"].dtype)
             cache["v"][:, q_pos0:end] = v.to(cache["v"].dtype)
             cache["pos"][q_pos0:end] = positions[0].to(cache["pos"].dtype)
-        o = attend(q, k, v, causal=causal, window=window,
-                   softcap=a.logit_softcap, q_pos0=q_pos0)
-    out = attn.o(o.reshape(B, S, H * D), mode)
+        if cache is not None and S == 1:        # decode reads the cache
+            kc, vc = cache["k"][:, :end], cache["v"][:, :end]
+            o = attend(q.to(kc.dtype), kc, vc, causal=causal, window=window,
+                       softcap=a.logit_softcap, q_pos0=q_pos0).to(q.dtype)
+        else:
+            o = attend(q, k, v, causal=causal, window=window,
+                       softcap=a.logit_softcap, q_pos0=q_pos0)
+    out = attn.o(o.reshape(B, S, H * D), mode, kernel_fn)
     return out, cache
 
 

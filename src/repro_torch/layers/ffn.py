@@ -37,10 +37,12 @@ class MLP(nn.Module):
 
 
 def mlp(m: MLP, x: torch.Tensor, *, activation: str = "silu",
-        mode: str = "serve") -> torch.Tensor:
-    up = m.up(x, mode)
+        mode: str = "serve", kernel_fn=None) -> torch.Tensor:
+    """``kernel_fn`` is the spectral-MAC hook of the three projections
+    (``core/circulant.py``)."""
+    up = m.up(x, mode, kernel_fn)
     if m.gate is not None:
-        up = _act(activation, m.gate(x, mode)) * up
+        up = _act(activation, m.gate(x, mode, kernel_fn)) * up
     else:
         up = _act(activation, up)
-    return m.down(up, mode)
+    return m.down(up, mode, kernel_fn)

@@ -4,7 +4,8 @@
 numpy leaves (the caller converts, e.g. ``jax.tree.map(np.asarray,
 params)``; this package never imports JAX) and returns the port's
 ``Transformer``.  Each segment's scan axis is unstacked into per-layer
-modules.  Leaves are copied (``np.array``): ``np.asarray`` of a JAX array
+modules.  Every leaf is carried by name, ``qwen``'s dense q/k/v biases
+(``b``) and per-head qk-norm scales (``qn`` / ``kn``) included.  Leaves are copied (``np.array``): ``np.asarray`` of a JAX array
 is read-only.
 
 Baked per-projection planes (``wc_cache``, float32 or quantized: int8 /

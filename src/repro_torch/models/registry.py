@@ -1,13 +1,17 @@
 """Model API over the decoder LM (port of ``repro/models/registry.py:Model``).
 
     init(seed, device)                                -> params (nn.Module)
-    prefill(params, batch, cache)                     -> (logits, cache)
+    prefill(params, batch, cache, kernel_fn)          -> (logits, cache)
     decode_step(params, tokens, cache, pos, table, paged_impl)
                                                       -> (logits, cache)
     init_cache(batch, max_seq, dtype, device)         -> cache
 
-Caches are updated in place and returned.  Not ported yet: the
-encoder-decoder backbone and the training forward.
+``decode_step`` decodes against a dense cache (``pos`` an int, no table:
+the batch engine) or a page pool (``pos`` a (B,) vector and a block
+table: the continuous engine).  ``kernel_fn`` is the projections'
+spectral-MAC hook (``core/circulant.py``).  Caches are updated in place
+and returned.  Not ported yet: the encoder-decoder backbone and the
+training forward.
 """
 from __future__ import annotations
 
@@ -31,10 +35,11 @@ class Model:
     def init(self, seed: int = 0, device=None) -> transformer.Transformer:
         return transformer.init_params(self.cfg, seed=seed, device=device)
 
-    def prefill(self, params, batch: Dict[str, torch.Tensor],
-                cache) -> Tuple[torch.Tensor, Any]:
+    def prefill(self, params, batch: Dict[str, torch.Tensor], cache,
+                kernel_fn=None) -> Tuple[torch.Tensor, Any]:
         return transformer.forward(params, batch["tokens"], self.cfg,
-                                   mode="serve", cache=cache, cache_pos=0)
+                                   mode="serve", cache=cache, cache_pos=0,
+                                   kernel_fn=kernel_fn)
 
     def decode_step(self, params, tokens: torch.Tensor, cache, cache_pos,
                     block_table: Optional[torch.Tensor] = None,

@@ -85,17 +85,18 @@ class Block(nn.Module):
 
 
 def apply_block(block: Block, x, cfg: ArchConfig, *, mode: str, cache=None,
-                cache_pos=None, block_table=None, paged_impl: str = "stream"):
+                cache_pos=None, block_table=None, paged_impl: str = "stream",
+                kernel_fn=None):
     """Returns (x, cache)."""
     h = block.ln1(x)
     a, cache = attn_lib.attention_block(
         block.attn, h, cfg=cfg, causal=True, window=0, cache=cache,
         cache_pos=cache_pos, mode=mode, block_table=block_table,
-        paged_impl=paged_impl)
+        paged_impl=paged_impl, kernel_fn=kernel_fn)
     x = x + a
     h = block.ln2(x)
     x = x + ffn_lib.mlp(block.mlp, h, activation=cfg.ffn_activation,
-                        mode=mode)
+                        mode=mode, kernel_fn=kernel_fn)
     return x, cache
 
 
@@ -151,10 +152,12 @@ def layer_cache(cache: Optional[Dict], i: int) -> Optional[Dict]:
 
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, *,
             mode: str = "serve", cache: Optional[Dict] = None, cache_pos=None,
-            block_table=None, paged_impl: str = "stream"):
+            block_table=None, paged_impl: str = "stream", kernel_fn=None):
     """tokens: (B, S) int.  Returns (logits (B, S, V), cache); ``cache`` is
     updated in place.  ``paged_impl`` picks the paged attention lowering
-    ("stream" or the "gather" oracle, ``layers/attention.py``)."""
+    ("stream" or the "gather" oracle, ``layers/attention.py``);
+    ``kernel_fn`` is every projection's spectral-MAC hook
+    (``core/circulant.py``)."""
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     x = emb_lib.embed(params.embed.table, tokens,
                       scale_by_dim=cfg.name.startswith(("gemma", "recurrent")))
@@ -162,7 +165,8 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, *,
     for i, block in enumerate(params.blocks):
         x, _ = apply_block(block, x, cfg, mode=mode,
                            cache=layer_cache(cache, i), cache_pos=cache_pos,
-                           block_table=block_table, paged_impl=paged_impl)
+                           block_table=block_table, paged_impl=paged_impl,
+                           kernel_fn=kernel_fn)
     x = params.final_norm(x)
     logits = emb_lib.logits(params.embed.table, x, softcap=cfg.logit_softcap)
     return logits, cache

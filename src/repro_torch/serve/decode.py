@@ -1,16 +1,23 @@
-"""Paged continuous-batching step builders (port of the paged half of
-``repro/serve/decode.py``).
+"""Serving step builders (port of ``repro/serve/decode.py``): the batch
+engine's prefill, single-token decode and multi-token decode loop over a
+dense cache, and the continuous engine's B=1 prefill-and-pack and paged
+decode loop.
 
-``make_prefill_pack_step`` is the B=1 right-padded prefill plus the page
-scatter; ``make_paged_decode_loop`` decodes every slot at its own position
-for up to ``chunk`` steps.  ``repro`` runs the decode loop as one device
-program (``lax.while_loop``); here it is a host loop over the chunk's
-steps, each step a forward pass of kernels on the current stream, with the
-same per-slot freeze rules.  Each step reads one bit back to the host
-(whether every slot is done), so the loop, like ``repro``'s, ends early.
+``repro`` runs each decode loop as one device program
+(``lax.while_loop``); here it is a host loop, each step a forward pass of
+kernels on the current stream, with the same per-row freeze rules.  Each
+step reads one bit back to the host (whether every row is done), so the
+loop, like ``repro``'s, ends early; that read is the loop's only sync.
 
-Not ported yet: sampling (``sample=True`` raises), the numerics capture
-side-outputs, and the batch engine's step builders.
+Sampling draws ``categorical(logits / temperature)`` with Gumbel noise from
+a counter-based hash in torch integer operations (``sample_tokens``): the
+noise of a row depends only on the seed, the row's stream (batch row or
+decode slot) and the position it decodes, never on call order or device.
+So ``per_token`` equals ``scan`` and a recompute draws the same noise.  It
+cannot reproduce ``jax.random``'s bits (ROADMAP C).
+
+Not ported yet: the numerics capture side-outputs (``logit_stats``,
+``cache_group_absmax``) and logits sharding.
 """
 from __future__ import annotations
 
@@ -23,6 +30,154 @@ from ..models.registry import build_model
 from . import kvcache as kvc
 
 
+def batch_prefill_kind(batch: int, seq: int) -> str:
+    """Batch engine: one prefill shape per (B, padded S)."""
+    return f"prefill_b{batch}_s{seq}"
+
+
+def batch_decode_kind(steps: int, batch: int) -> str:
+    """Batch engine: one decode loop per (step budget, B)."""
+    return f"decode_loop_s{steps}_b{batch}"
+
+
+# ---------------------------------------------------------------------------
+# sampling: Gumbel-max over a counter-based hash
+# ---------------------------------------------------------------------------
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """(h * c) mod 2^32 for int64 ``h`` in [0, 2^32), without overflowing
+    int64: the constant is split into 16-bit halves."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (h * lo + (((h * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 32-bit finalizer: a bijection of [0, 2^32)."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def gumbel_noise(seed: int, streams: torch.Tensor, positions: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """(B, vocab) float32 Gumbel noise; row b is keyed by
+    ``(seed, streams[b], positions[b])`` and element v by its vocab index."""
+    dev = streams.device
+    h = _fmix32(torch.full_like(streams, seed & _M32, dtype=torch.int64))
+    h = _fmix32(h ^ (streams.long() & _M32))
+    h = _fmix32(h ^ (positions.long() & _M32))
+    v = torch.arange(vocab, device=dev, dtype=torch.int64)
+    bits = _fmix32(_fmix32(h[:, None] ^ v[None, :]) ^ (h[:, None] >> 1))
+    u = ((bits >> 8).float() + 0.5) * (1.0 / (1 << 24))     # in (0, 1)
+    return -torch.log(-torch.log(u))
+
+
+def sample_tokens(logits: torch.Tensor, temperature: float, seed: int,
+                  streams: torch.Tensor, positions: torch.Tensor
+                  ) -> torch.Tensor:
+    """One categorical draw per row at ``logits / temperature`` (B, V):
+    ``argmax(logits / T + Gumbel noise)``, the noise keyed as
+    ``gumbel_noise`` says.  Returns (B,) int32."""
+    g = gumbel_noise(seed, streams, positions, logits.shape[-1])
+    return torch.argmax(logits.float() / temperature + g,
+                        dim=-1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# batch engine: prefill, decode step, decode loop over a dense cache
+# ---------------------------------------------------------------------------
+def make_prefill_step(cfg: ArchConfig, *, kernel_fn=None) -> Callable:
+    """``prefill_step(params, batch, cache)`` -> (last-position logits
+    (B, 1, V), cache).  ``kernel_fn`` is the projections' spectral-MAC hook
+    (the batch engine passes ``kernels/ops.py:spectral_contract``)."""
+    model = build_model(cfg)
+
+    def prefill_step(params, batch, cache):
+        logits, cache = model.prefill(params, batch, cache,
+                                      kernel_fn=kernel_fn)
+        return logits[:, -1:], cache
+    return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig, sample: bool = False,
+                     temperature: float = 1.0, seed: int = 0) -> Callable:
+    """``decode_step(params, tokens (B, 1), cache, cache_pos int)`` ->
+    (logits (B, 1, V), next tokens (B,) int32, cache).  Sampling keys row
+    b's noise by (seed, b, cache_pos), as ``repro`` folds the position into
+    its key; greedy takes the argmax."""
+    model = build_model(cfg)
+
+    def decode_step(params, tokens, cache, cache_pos: int):
+        logits, cache = model.decode_step(params, tokens, cache,
+                                          int(cache_pos))
+        last = logits[:, -1]
+        if sample:
+            B = last.shape[0]
+            rows = torch.arange(B, device=last.device)
+            nxt = sample_tokens(last, temperature, seed, rows,
+                                torch.full_like(rows, int(cache_pos)))
+        else:
+            nxt = torch.argmax(last, dim=-1).to(torch.int32)
+        return logits, nxt, cache
+    return decode_step
+
+
+def make_decode_loop(cfg: ArchConfig, steps: int, *, sample: bool = False,
+                     temperature: float = 1.0, eos_id: Optional[int] = None,
+                     seed: int = 0) -> Callable:
+    """Multi-token decode against a dense cache: up to ``steps`` tokens per
+    row, the first being the prefill's.
+
+    Per-row lengths are honored as in ``repro``: ``lengths[i]`` freezes row
+    ``i`` after its budget (its buffer slots hold ``eos_id`` or 0 and its
+    current token stops advancing); with ``eos_id`` set, a row also freezes
+    after emitting EOS.  The loop exits early once every row is done.  A
+    frozen row still runs through the step (the batch is one tensor); its
+    output is discarded.
+
+    Returns ``decode_loop(params, first_tok, cache, pos0, lengths)`` ->
+    ``(tokens (B, steps) int32, cache, n)``; ``first_tok`` is the
+    prefill's token (slot 0 of the buffer), ``pos0`` the prompt length and
+    ``n`` the number of decode steps (forward passes) it ran.  Each step
+    syncs once, to test whether every row is done.
+    """
+    step = make_decode_step(cfg, sample=sample, temperature=temperature,
+                            seed=seed)
+    fill = 0 if eos_id is None else int(eos_id)
+
+    def decode_loop(params, first_tok, cache, pos0: int, lengths):
+        B = first_tok.shape[0]
+        fill_t = torch.full_like(first_tok, fill)
+        buf = torch.full((B, steps), fill, dtype=torch.int32,
+                         device=first_tok.device)
+        buf[:, 0] = torch.where(lengths > 0, first_tok, fill_t)
+        done = lengths <= 1
+        if eos_id is not None:
+            done = done | (first_tok == eos_id)
+        cur = first_tok
+        n = 0
+        for j in range(1, steps):
+            if bool(done.all()):
+                break
+            _, nxt, cache = step(params, cur[:, None], cache, pos0 + j - 1)
+            buf[:, j] = torch.where(done, fill_t, nxt)
+            nd = done | (j + 1 >= lengths)
+            if eos_id is not None:
+                nd = nd | (nxt == eos_id)
+            cur = torch.where(done, cur, nxt)
+            done = nd
+            n += 1
+        return buf, cache, n
+    return decode_loop
+
+
+# ---------------------------------------------------------------------------
+# continuous engine: B=1 prefill + page pack, paged decode loop
+# ---------------------------------------------------------------------------
 def make_prefill_pack_step(cfg: ArchConfig, n_pages: int,
                            page_size: int) -> Callable:
     """B=1 exact-position prefill + page scatter, one call per admission.
@@ -65,7 +220,8 @@ def make_prefill_pack_step(cfg: ArchConfig, n_pages: int,
 
 
 def make_paged_decode_loop(cfg: ArchConfig, chunk: int, *,
-                           sample: bool = False, eos_id: Optional[int] = None,
+                           sample: bool = False, temperature: float = 1.0,
+                           eos_id: Optional[int] = None, seed: int = 0,
                            nan_guard: bool = True,
                            paged_impl: str = "stream") -> Callable:
     """Decode over paged slots, up to ``chunk`` steps per call.
@@ -79,19 +235,20 @@ def make_paged_decode_loop(cfg: ArchConfig, chunk: int, *,
     trash page (position -1) and its buffer entries hold ``eos_id`` (or 0).
     With ``nan_guard`` a slot whose logits are not all finite freezes like
     an EOS slot, appends nothing, and is flagged in ``anom``.  The loop
-    stops early once every slot is frozen.
+    stops early once every slot is frozen.  With ``sample`` each slot draws
+    with noise keyed by (seed, slot, position), as ``repro`` folds both
+    into its key.
 
     Returns ``decode_loop(params, cur, pool, table, pos, rem)`` ->
     ``(buf (B, chunk), cur, pool, pos, rem, done, anom, steps)``; ``steps``
     is the number of decode steps (forward passes) it ran.
     """
-    if sample:
-        raise NotImplementedError("sampling is not ported yet (greedy only)")
     model = build_model(cfg)
     fill = 0 if eos_id is None else int(eos_id)
 
     def decode_loop(params, cur, pool, table, pos, rem):
         B = cur.shape[0]
+        slots = torch.arange(B, device=cur.device)
         done = rem <= 0
         anom = torch.zeros(B, dtype=torch.bool, device=cur.device)
         buf = torch.full((B, chunk), fill, dtype=torch.int32,
@@ -107,7 +264,11 @@ def make_paged_decode_loop(cfg: ArchConfig, chunk: int, *,
             last = logits[:, -1]
             finite = (torch.isfinite(last).all(dim=-1) if nan_guard
                       else torch.ones_like(done))
-            nxt = torch.argmax(last, dim=-1).to(torch.int32)
+            if sample:
+                nxt = sample_tokens(last, temperature, seed, slots,
+                                    torch.clamp(masked, min=0))
+            else:
+                nxt = torch.argmax(last, dim=-1).to(torch.int32)
             bad = ~done & ~finite
             halt = done | bad
             buf[:, j] = torch.where(halt, torch.full_like(nxt, fill), nxt)

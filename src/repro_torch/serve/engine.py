@@ -1,5 +1,19 @@
-"""Continuous-batching engine over the paged KV pool (port of
-``repro/serve/engine.py:ContinuousEngine``).
+"""Serving engines (port of ``repro/serve/engine.py``): the
+batch-synchronous ``Engine`` (the B=1 oracle) and the continuous-batching
+``ContinuousEngine`` over the paged KV pool.
+
+``Engine`` gathers fixed-size batches of requests, left-pads their prompts,
+prefills each batch once and decodes it against a float32 dense cache
+(``serve/decode.py``).  Under a single-admission schedule (one request,
+B=1) its greedy tokens define what ``ContinuousEngine`` must emit.  Prompt
+bucketing sorts requests by (prompt length, decode budget) before chunking
+them into batches; results come back in request order.  Its prefill runs
+every float32-plane projection's spectral MAC through the
+``spectral_matmul`` kernel (the ``kernel_fn`` hook,
+``kernels/ops.py:spectral_contract``): many rows share one set of planes
+there.  Its decode passes no hook, so the B rows take the fused kernel.
+
+``ContinuousEngine``:
 
 * KV state lives in a paged pool (``serve/kvcache.py``); pages go back to
   the free list the moment a request retires.
@@ -12,14 +26,18 @@
   the pool runs out, and the preempted request recomputes its prefill with
   the tokens it had generated, so greedy output is unchanged.
 
-The engine bakes the spectral planes into ``params`` (in place) and runs on
-the device the weights are on: the card by default, with its CUDA kernels.
-``quant`` (a ``QuantPolicy``) picks the pool's dtype (f32, bf16 or int8
-with per-(page, head) scales) and whether the planes are int8 / int4;
-``paged_attn`` picks the decode attention: "stream" (the paged flash-decode
-kernel) or "gather" (the parity oracle).
+Both engines bake the spectral planes into ``params`` (in place) and run
+on the device the weights are on: the card by default, with its CUDA
+kernels.  ``quant`` (a ``QuantPolicy``) picks whether the planes are
+int8 / int4 and, for ``ContinuousEngine``, the pool's dtype (f32, bf16 or
+int8 with per-(page, head) scales); ``paged_attn`` picks its decode
+attention: "stream" (the paged flash-decode kernel) or "gather" (the parity
+oracle).  Both sample with ``sample=True`` at ``temperature`` from
+``seed`` (``serve/decode.py:sample_tokens``).
 
-Not ported yet: the batch ``Engine``, sampling, request traces, the
+``repro``'s ``mesh`` argument is not taken: on one card a placement is a
+no-op.  ``repro``'s ``obs`` becomes ``registry`` (the port's counters).
+Not ported yet: request traces, the profiler's roofline attribution, the
 numerics health plane and shadow oracle (with the quantization histograms
 that ride it), fault injection and meshes.
 """
@@ -34,6 +52,9 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device, synchronize
+from ..kernels import ops as kops
+from ..models.registry import build_model
+from ..models.transformer import layer_kinds
 from ..obs.metrics import Registry
 from ..quant.codec import QuantPolicy
 from . import decode as dec
@@ -49,14 +70,229 @@ ENGINE_COUNTERS = ("requests", "tokens", "prompt_tokens",
                    "dispatches")
 
 
+def _engine_stats_view(registry: Registry, engine: str) -> Dict:
+    """The half of ``stats()`` both engines share (``repro``'s
+    ``_engine_stats_view``): the counters, pad waste, and tokens/s over
+    prefill plus decode time."""
+    v = registry.value
+    st = {"engine": engine}
+    for name in ENGINE_COUNTERS:
+        val = v(name)
+        st[name] = val if name.endswith("_s") else int(val)
+    st["prompt_pad_waste"] = (st["padded_prompt_tokens"]
+                              - st["prompt_tokens"])
+    st["tokens_per_s"] = st["tokens"] / max(
+        st["prefill_s"] + st["decode_s"], 1e-9)
+    return st
+
+
+def _engine_device(params, device) -> torch.device:
+    """The device the weights are on, which must be ``device`` (default:
+    the card)."""
+    want = resolve_device(device)
+    on = {t.device for t in params.parameters()}
+    if len(on) != 1 or not all(
+            d.type == want.type and want.index in (None, d.index)
+            for d in on):
+        raise ValueError(f"params are on {sorted(map(str, on))}, the "
+                         f"engine runs on {want}")
+    return on.pop()
+
+
 @dataclasses.dataclass
 class Request:
     prompt: np.ndarray                 # (S,) int32
     max_new_tokens: int = 16
     id: int = 0
     # relative deadline (seconds after arrival; None = none), enforced in
-    # the queue and in flight
+    # the continuous engine's queue and in flight; the batch engine ignores
+    # it (its whole batch is one dispatch)
     deadline_s: Optional[float] = None
+
+
+class Engine:
+    """Batch-synchronous engine over a float32 dense cache: the oracle.
+
+    ``decode_mode`` is "scan" (``make_decode_loop``: per-row lengths, EOS
+    freeze, early exit) or "per_token" (one ``make_decode_step`` call per
+    token, no freezing; the results are cut the same way).  Only the
+    weight half of ``quant`` applies: the cache stays float32.  An arch
+    with sliding-window, recurrent or other non-``attn`` blocks raises
+    ``NotImplementedError`` (their caches are not ported).  ``stats()``
+    adds ``prefills`` and ``decode_steps`` (forward passes) to the shared
+    counters, ``cache_bytes`` (the largest dense cache it allocated) and
+    ``dispatch_kinds`` (the prefill and decode-loop shapes it served).
+    """
+
+    def __init__(self, cfg: ArchConfig, params, *, max_batch: int = 8,
+                 max_seq: int = 256, sample: bool = False,
+                 precompute: bool = True, decode_mode: str = "scan",
+                 eos_id: Optional[int] = None, temperature: float = 1.0,
+                 seed: int = 0, bucket_prompts: bool = True,
+                 quant: Optional[QuantPolicy] = None,
+                 registry: Optional[Registry] = None, device=None):
+        if decode_mode not in ("scan", "per_token"):
+            raise ValueError(f"decode_mode {decode_mode!r}: expected 'scan' "
+                             f"or 'per_token'")
+        kinds = sorted(set(layer_kinds(cfg)) - {"attn"})
+        if kinds:
+            raise NotImplementedError(
+                f"{cfg.name}: block kinds {kinds} (sliding-window ring "
+                f"buffers, recurrent state) are not ported yet")
+        self.device = _engine_device(params, device)
+        self.cfg = cfg
+        self.quant = quant or QuantPolicy()
+        # the dense cache stays float32 (the parity oracle); only the
+        # weight half of the policy applies here
+        self.params = (precompute_serving_params(params, cfg, self.quant)
+                       if precompute else params)
+        self.model = build_model(cfg)
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self.sample = sample
+        self.decode_mode = decode_mode
+        self.eos_id = eos_id
+        self.temperature = temperature
+        self.seed = seed
+        self.bucket_prompts = bucket_prompts
+        self._prefill = dec.make_prefill_step(
+            cfg, kernel_fn=kops.spectral_contract)
+        self._decode = dec.make_decode_step(cfg, sample=sample,
+                                            temperature=temperature,
+                                            seed=seed)
+        self._loops: Dict[int, object] = {}
+        self.registry = registry if registry is not None else Registry()
+        reg = self.registry
+        self._ctr = {n: reg.counter(n) for n in ENGINE_COUNTERS}
+        self._c_steps = reg.counter("engine.decode_steps")
+        self._c_prefills = reg.counter("engine.prefills")
+        self._cache_bytes = 0               # largest dense cache so far
+        self._kinds: set = set()            # prefill / decode shapes served
+
+    def _loop_fn(self, steps: int):
+        fn = self._loops.get(steps)
+        if fn is None:
+            fn = dec.make_decode_loop(self.cfg, steps, sample=self.sample,
+                                      temperature=self.temperature,
+                                      eos_id=self.eos_id, seed=self.seed)
+            self._loops[steps] = fn
+        return fn
+
+    def _make_batch(self, reqs: Sequence[Request]) -> Dict:
+        B = len(reqs)
+        S = max(len(r.prompt) for r in reqs)
+        toks = np.zeros((B, S), np.int64)
+        for i, r in enumerate(reqs):
+            toks[i, S - len(r.prompt):] = r.prompt     # left-pad
+        return {"tokens": torch.as_tensor(toks, device=self.device)}
+
+    def generate(self, reqs: Sequence[Request]) -> List[Dict]:
+        """Serve the requests; results in request order.  With
+        ``bucket_prompts`` the requests are grouped into batches by
+        (prompt length, decode budget) first."""
+        if self.bucket_prompts:
+            order = sorted(range(len(reqs)),
+                           key=lambda i: (len(reqs[i].prompt),
+                                          reqs[i].max_new_tokens))
+        else:
+            order = list(range(len(reqs)))
+        out: List[Optional[Dict]] = [None] * len(reqs)
+        for i in range(0, len(order), self.max_batch):
+            idxs = order[i:i + self.max_batch]
+            for j, r in zip(idxs, self._generate_batch(
+                    [reqs[j] for j in idxs])):
+                out[j] = r
+        return out
+
+    def _generate_batch(self, reqs: Sequence[Request]) -> List[Dict]:
+        t0 = time.perf_counter()
+        batch = self._make_batch(reqs)
+        B, S = batch["tokens"].shape
+        if S > self.max_seq:
+            raise ValueError(f"prompt length {S} exceeds max_seq "
+                             f"{self.max_seq}")
+        # decode step j writes cache position S + j - 1 (j = 1..steps-1):
+        # the cache holds S + steps - 1 positions and the budget is clamped
+        steps = max(r.max_new_tokens for r in reqs)
+        steps = max(1, min(steps, self.max_seq - S + 1))
+        with torch.no_grad():
+            cache = self.model.init_cache(B, S + steps - 1,
+                                          dtype=torch.float32,
+                                          device=self.device)
+            self._cache_bytes = max(self._cache_bytes, sum(
+                t.numel() * t.element_size() for t in cache.values()))
+            self._kinds.add(dec.batch_prefill_kind(B, S))
+            logits, cache = self._prefill(self.params, batch, cache)
+            nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            synchronize(self.device)
+            t1 = time.perf_counter()
+            if self.decode_mode == "per_token":
+                gen, n = self._decode_per_token(nxt, cache, S, steps)
+            else:
+                lengths = torch.as_tensor(
+                    [min(r.max_new_tokens, steps) for r in reqs],
+                    dtype=torch.int32, device=self.device)
+                self._kinds.add(dec.batch_decode_kind(steps, B))
+                gen, _, n = self._loop_fn(steps)(self.params, nxt, cache, S,
+                                                 lengths)
+            gen = gen.cpu().numpy()                    # (B, steps)
+        synchronize(self.device)
+        t2 = time.perf_counter()
+        prefill_s, decode_s = t1 - t0, t2 - t1
+
+        out = []
+        for i, r in enumerate(reqs):
+            toks = gen[i, :min(r.max_new_tokens, steps)].tolist()
+            if self.eos_id is not None and self.eos_id in toks:
+                toks = toks[:toks.index(self.eos_id) + 1]
+            status = (FINISHED_EOS if (self.eos_id is not None and toks
+                                       and toks[-1] == self.eos_id)
+                      else FINISHED_BUDGET)
+            out.append({
+                "id": r.id,
+                "tokens": toks,
+                "decode_len": len(toks),
+                "status": status,
+                "preemptions": 0,
+                "tokens_per_s": len(toks) / max(decode_s, 1e-9),
+                "prefill_s": prefill_s,
+                "decode_s": decode_s,
+                "latency_s": prefill_s + decode_s,
+            })
+        c = self._ctr
+        c["requests"].inc(len(reqs))
+        c["dispatches"].inc()
+        c["tokens"].inc(sum(r["decode_len"] for r in out))
+        c["prompt_tokens"].inc(sum(len(r.prompt) for r in reqs))
+        c["padded_prompt_tokens"].inc(B * S)
+        c["prefill_s"].inc(prefill_s)
+        c["decode_s"].inc(decode_s)
+        self._c_prefills.inc()
+        self._c_steps.inc(n)
+        return out
+
+    def _decode_per_token(self, nxt, cache, S: int, steps: int):
+        """One decode-step call per token (the oracle's host loop).
+        Returns ((B, steps) tokens, decode steps run)."""
+        toks = [nxt]
+        for pos in range(S, S + steps - 1):
+            _, nxt, cache = self._decode(self.params, nxt[:, None], cache,
+                                         pos)
+            toks.append(nxt)
+        return torch.stack(toks, 1), steps - 1
+
+    def stats(self) -> Dict:
+        """Engine counters (``repro``'s shared schema; ``batches`` is its
+        alias of ``dispatches``)."""
+        st = _engine_stats_view(self.registry, "batch")
+        st["batches"] = st["dispatches"]
+        st["prefills"] = int(self.registry.value("engine.prefills"))
+        st["decode_steps"] = int(self.registry.value("engine.decode_steps"))
+        st["cache_bytes"] = self._cache_bytes
+        st["dispatch_kinds"] = sorted(self._kinds)
+        st["quant_policy"] = self.quant.describe()
+        st["device"] = str(self.device)
+        return st
 
 
 class ContinuousEngine:
@@ -74,6 +310,7 @@ class ContinuousEngine:
                  num_pages: Optional[int] = None,
                  max_tokens_in_flight: Optional[int] = None,
                  decode_chunk: int = 8, sample: bool = False,
+                 temperature: float = 1.0, seed: int = 0,
                  eos_id: Optional[int] = None,
                  precompute: bool = True, paged_attn: str = "stream",
                  quant: Optional[QuantPolicy] = None,
@@ -88,14 +325,7 @@ class ContinuousEngine:
         if reasons:
             raise ValueError(f"{cfg.name} is not continuous-servable: "
                              f"{'; '.join(reasons)}")
-        want = resolve_device(device)
-        on = {t.device for t in params.parameters()}
-        if len(on) != 1 or not all(
-                d.type == want.type and want.index in (None, d.index)
-                for d in on):
-            raise ValueError(f"params are on {sorted(map(str, on))}, the "
-                             f"engine runs on {want}")
-        self.device = on.pop()
+        self.device = _engine_device(params, device)
         self.cfg = cfg
         self.quant = quant or QuantPolicy()
         self.paged_attn = paged_attn
@@ -137,8 +367,9 @@ class ContinuousEngine:
                                    max_queue=max_queue,
                                    max_preemptions=max_preemptions)
         self._loop = dec.make_paged_decode_loop(
-            cfg, decode_chunk, sample=sample, eos_id=eos_id,
-            nan_guard=nan_guard, paged_impl=paged_attn)
+            cfg, decode_chunk, sample=sample, temperature=temperature,
+            eos_id=eos_id, seed=seed, nan_guard=nan_guard,
+            paged_impl=paged_attn)
         self._prefills: Dict[int, object] = {}
         self._cur = np.zeros(max_slots, np.int32)
         self._pos = np.zeros(max_slots, np.int32)
@@ -448,14 +679,7 @@ class ContinuousEngine:
     def stats(self) -> Dict:
         """Engine + scheduler counters (``repro``'s schema, where ported)."""
         v = self.registry.value
-        st = {"engine": "continuous"}
-        for name in ENGINE_COUNTERS:
-            val = v(name)
-            st[name] = val if name.endswith("_s") else int(val)
-        st["prompt_pad_waste"] = (st["padded_prompt_tokens"]
-                                  - st["prompt_tokens"])
-        st["tokens_per_s"] = st["tokens"] / max(
-            st["prefill_s"] + st["decode_s"], 1e-9)
+        st = _engine_stats_view(self.registry, "continuous")
         st["decode_dispatches"] = st["dispatches"]
         st.update(self.scheduler.stats())
         st["anomalies"] = int(v("engine.anomalies"))

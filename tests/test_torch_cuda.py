@@ -22,10 +22,13 @@ from repro_torch.core import circulant as cc  # noqa: E402
 from repro_torch.kernels import bc_fused as bcf  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged as pg  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import spectral_matmul as sm  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
 from repro_torch.quant import codec  # noqa: E402
-from repro_torch.serve.engine import ContinuousEngine, Request  # noqa: E402
+from repro_torch.serve.engine import (ContinuousEngine, Engine,  # noqa: E402
+                                      Request)
 from repro_torch.serve.params import precompute_serving_params  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -92,6 +95,45 @@ def test_flash_kernel(cuda, dtype, opts):
     v = torch.randn(k.shape, generator=cuda, device="cuda").to(dtype)
     got = fa.flash_attention(q, k, v, **opts)
     _close(got, fa.attention_ref(q, k, v, **opts), dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos", [0, 5, 230])
+def test_flash_kernel_dense_decode(cuda, dtype, pos):
+    """The batch engine's decode: one query row (31 of the block's 32 rows
+    idle) over the cache's first pos + 1 rows, kv_offset = pos."""
+    B, Hq, Hkv, D = 8, 32, 4, 64
+    q = torch.randn((B, Hq, 1, D), generator=cuda, device="cuda").to(dtype)
+    k = torch.randn((B, Hkv, pos + 1, D), generator=cuda,
+                    device="cuda").to(dtype)
+    v = torch.randn(k.shape, generator=cuda, device="cuda").to(dtype)
+    got = fa.flash_attention(q, k, v, causal=True, kv_offset=pos)
+    _close(got, fa.attention_ref(q, k, v, causal=True, kv_offset=pos),
+           dtype == torch.bfloat16)
+
+
+# (F, N, Q, P): odd F, ragged N, Q != P, P = 2, and the q = 86 / 76 shapes
+@pytest.mark.parametrize("F,N,Q,P", [(9, 37, 8, 16), (65, 100, 16, 2),
+                                     (65, 70, 44, 16), (65, 33, 16, 44),
+                                     (65, 20, 86, 16), (65, 21, 20, 76)])
+def test_spectral_matmul_kernel(cuda, F, N, Q, P):
+    xr, xi = (torch.randn((F, N, Q), generator=cuda, device="cuda")
+              for _ in range(2))
+    wr, ws1, ws2 = (torch.randn((F, Q, P), generator=cuda, device="cuda")
+                    for _ in range(3))
+    before = sm.KERNEL.launches
+    yr, yi = sm.spectral_matmul(xr, xi, wr, ws1, ws2)
+    assert sm.KERNEL.launches == before + 1
+    rr, ri = sm.spectral_matmul_plain(xr, xi, wr, ws1, ws2)
+    _close(yr, rr)
+    _close(yi, ri)
+    # through the hook: (..., q, kf) planes against a (p, q, kf) cache
+    cache = {n: t.permute(2, 1, 0).contiguous()
+             for n, t in (("wr", wr), ("ws1", ws1), ("ws2", ws2))}
+    xr2, xi2 = (t.permute(1, 2, 0).reshape(N, Q, F) for t in (xr, xi))
+    hr, hi = kops.spectral_contract(xr2, xi2, cache)
+    _close(hr, rr.permute(1, 2, 0))
+    _close(hi, ri.permute(1, 2, 0))
 
 
 @pytest.mark.parametrize("q_dtype,kv_dtype", [
@@ -167,4 +209,29 @@ def test_engine_on_card_matches_cpu(cuda, quant, paged_attn):
                                page_size=4, decode_chunk=4, device=dev,
                                quant=quant, paged_attn=paged_attn)
         out[dev] = [r["tokens"] for r in eng.generate(reqs)]
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("quant", [None,
+                                   codec.QuantPolicy(quant_weights=True)])
+def test_batch_engine_on_card_matches_cpu(cuda, quant):
+    """The batch engine on the card (the spectral_matmul hook at prefill
+    for float32 planes, bc_fused at decode, flash at both) against the
+    CPU's plain path: identical greedy tokens."""
+    cfg = get_smoke_config("tinyllama-1.1b").replace(dtype="float32")
+    rng = np.random.RandomState(0)
+    reqs = [Request(prompt=rng.randint(1, 500, size=s).astype(np.int32),
+                    max_new_tokens=n, id=i)
+            for i, (s, n) in enumerate([(20, 9), (12, 14), (9, 6)])]
+    base = precompute_serving_params(init_params(cfg, seed=0, device="cpu"),
+                                     cfg, quant)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        before = sm.KERNEL.launches
+        eng = Engine(cfg, copy.deepcopy(base).to(dev), max_batch=2,
+                     max_seq=32, device=dev, quant=quant)
+        out[dev] = [r["tokens"] for r in eng.generate(reqs)]
+        hooked = 7 * cfg.num_layers * eng.stats()["prefills"]
+        want = hooked if dev == "cuda" and quant is None else 0
+        assert sm.KERNEL.launches == before + want
     assert out["cuda"] == out["cpu"]

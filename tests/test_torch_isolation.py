@@ -21,11 +21,11 @@ from repro_torch.configs.registry import get_smoke_config  # noqa: E402
 from repro_torch.core import circulant as cc  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels import (bc_fused, flash_attention, paged,  # noqa: E402
-                                 paged_attention)
+                                 paged_attention, spectral_matmul)
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
 from repro_torch.quant import codec  # noqa: E402
-from repro_torch.serve.engine import ContinuousEngine  # noqa: E402
+from repro_torch.serve.engine import ContinuousEngine, Engine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -40,7 +40,9 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 for name in ("repro_torch.quant", "repro_torch.quant.codec",
-             "repro_torch.quant.calibrate", "repro_torch.kernels.paged"):
+             "repro_torch.quant.calibrate", "repro_torch.kernels.paged",
+             "repro_torch.kernels.spectral_matmul",
+             "repro_torch.serve.decode", "repro_torch.serve.engine"):
     assert name in names, name
 leaked = sorted(n for n in sys.modules if n == "repro" or n.startswith("repro."))
 assert not leaked, leaked
@@ -69,6 +71,8 @@ def test_no_device_means_the_card():
     cpu_model = init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ContinuousEngine(cfg, cpu_model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(cfg, cpu_model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.from_jax_params({}, cfg)
     from repro_torch.launch import serve
@@ -110,13 +114,18 @@ def test_wrappers_refuse_non_cpu_tensors():
     for p in (pool, pool8):
         with pytest.raises(ValueError, match="expected CUDA"):
             paged.paged_gather(p, table)
+    x = torch.zeros((9, 4, 3), **meta)
+    w = torch.zeros((9, 3, 5), **meta)
+    with pytest.raises(ValueError, match="expected CUDA"):
+        spectral_matmul.spectral_matmul(x, x, w, w, w)
 
 
 def test_kernel_counters_start_at_zero_and_cpu_path_does_not_count():
     rng = np.random.RandomState(0)
     x = torch.from_numpy(rng.randn(4, 3, 16).astype(np.float32))
     planes = cc.spectral_cache(torch.ones((2, 3, 16)))
-    kernels = (bc_fused.KERNEL, paged_attention.KERNEL, paged.KERNEL)
+    kernels = (bc_fused.KERNEL, paged_attention.KERNEL, paged.KERNEL,
+               spectral_matmul.KERNEL)
     before = [(kn.launches, dict(kn.fn_launches)) for kn in kernels]
     bc_fused.bc_fused_matmul(x, planes["wr"], planes["ws1"], planes["ws2"],
                              16)
@@ -131,9 +140,13 @@ def test_kernel_counters_start_at_zero_and_cpu_path_does_not_count():
     paged_attention.paged_attention(torch.zeros((2, 4, 16)), pool, pool,
                                     table, pos, k_scale=sc, v_scale=sc)
     paged.paged_gather(pool, table)
+    xs = torch.from_numpy(rng.randn(9, 4, 3).astype(np.float32))
+    ws = torch.from_numpy(rng.randn(9, 3, 5).astype(np.float32))
+    spectral_matmul.spectral_matmul(xs, xs, ws, ws, ws)
     # the plain versions ran: no count moved, on any lane
     assert [(kn.launches, kn.fn_launches) for kn in kernels] == before
     assert set(bc_fused.KERNEL.fn_launches) == {"bc_fused", "bc_fused_i8",
                                                 "bc_fused_i4"}
     assert set(paged_attention.KERNEL.fn_launches) == {
         "paged_attention", "paged_attention_i8"}
+    assert set(spectral_matmul.KERNEL.fn_launches) == {"spectral_matmul"}

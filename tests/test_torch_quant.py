@@ -414,8 +414,9 @@ def test_engine_int4_planes_match_repro(setup):
 
 def test_launch_cli_quantized_on_cpu(capsys):
     from repro_torch.launch import serve
-    serve.main(["--arch", ARCH, "--device", "cpu", "--requests", "2",
-                "--new-tokens", "4", "--max-batch", "2", "--kv-dtype",
+    serve.main(["--arch", ARCH, "--engine", "continuous", "--device", "cpu",
+                "--requests", "2", "--new-tokens", "4", "--max-batch", "2",
+                "--kv-dtype",
                 "int8", "--quant-weights", "--weight-bits", "4"])
     out = capsys.readouterr().out
     assert "statuses={'FINISHED_BUDGET': 2}" in out

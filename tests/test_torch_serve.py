@@ -205,13 +205,14 @@ def test_engine_refuses_params_on_another_device(setup):
     _, tcfg, _, model = setup
     with pytest.raises(ValueError, match="params are on"):
         teng.ContinuousEngine(tcfg, model, device="meta")
-    with pytest.raises(NotImplementedError):
-        teng.ContinuousEngine(tcfg, model, device="cpu", sample=True)
+    with pytest.raises(ValueError, match="paged_attn"):
+        teng.ContinuousEngine(tcfg, model, device="cpu", paged_attn="dense")
 
 
 def test_launch_cli_on_cpu(capsys):
     from repro_torch.launch import serve
-    serve.main(["--arch", "tinyllama-1.1b", "--device", "cpu",
+    serve.main(["--arch", "tinyllama-1.1b", "--engine", "continuous",
+                "--device", "cpu",
                 "--requests", "3", "--new-tokens", "4", "--max-batch", "2"])
     out = capsys.readouterr().out
     assert "3 requests, 12 tokens" in out
