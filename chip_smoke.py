@@ -46,8 +46,10 @@ itself.  Each phase prints one JSON line:
 The kernels phase adds ``spectral_matmul`` at every batch-prefill shape
 (F = 65, N = 2048 rows), the whole projection at those shapes under three
 lowerings (the hook, ``bc_fused``, dense ``torch.matmul``), the flash kernel
-at the dense-decode shape, and ``bc_fused`` / ``paged_attention`` at qwen's
-shapes.
+at the dense-decode shape, and ``bc_fused`` / ``paged_attention`` / the
+flash kernel (head dim 128: bf16 prefill, float32 one-row decode) at qwen's
+shapes.  Each case carries its launch plan where the kernel has one, and
+``bound_share`` = bound / device time.
 
 Then the card's name and power limit, the kernel summary
 ``{"kernels": [...]}`` (one entry per lane), and last the line
@@ -58,6 +60,7 @@ without a CUDA device.
 from __future__ import annotations
 
 import copy
+import ctypes
 import json
 import statistics
 import subprocess
@@ -279,6 +282,7 @@ def check_bc_fused(cfg, gen, shapes=None, batches=(8, 256),
                 bound_ms, bound_by = bound(nbytes, flops, torch.float32)
                 lanes[lane].append({
                     "case": f"{name}_b{B}", "shape": [B, p, q, k],
+                    "plan": bc_fused.plan(B, p, q, k, lane)._asdict(),
                     "planes": str(pl[0].dtype).split(".")[-1],
                     "max_abs_err": err, "tol": tol,
                     **kernel_times(lambda: bc_fused.bc_fused_matmul(
@@ -293,7 +297,7 @@ def check_bc_fused(cfg, gen, shapes=None, batches=(8, 256),
     return {lane: (cases, "up_gate_b8") for lane, cases in lanes.items()}
 
 
-def check_flash(cfg, gen):
+def check_flash(cfg, gen, prefix=""):
     a = cfg.attention
     Hq, Hkv, D = a.num_heads, a.num_kv_heads, a.head_dim
     cases = []
@@ -330,7 +334,7 @@ def check_flash(cfg, gen):
         flops = 4 * D * pairs
         bound_ms, bound_by = bound(nbytes, flops, dtype)
         cases.append({
-            "case": f"prefill_{str(dtype).split('.')[-1]}_s{S}",
+            "case": f"{prefix}prefill_{str(dtype).split('.')[-1]}_s{S}",
             "shape": [1, Hq, Hkv, S, D], "max_abs_err": err, "tol": tol,
             **kernel_times(lambda: fa.flash_attention(q, k, v)),
             "plain_ms": time_ms(lambda: fa.attention_ref(q, k, v)),
@@ -449,10 +453,11 @@ def check_gather(cfg, gen):
     return {"paged_gather": (cases, "gather_float32_b8")}
 
 
-def check_flash_decode(cfg, gen):
+def check_flash_decode(cfg, gen, prefix=""):
     """The batch engine's decode attention: 8 rows of one query each over a
     float32 dense cache of 231 positions (kv_offset 230), the longest the
-    serve_batch phase reaches (prompt 200 + 31 decode steps)."""
+    serve_batch phase reaches (prompt 200 + 31 decode steps); the G query
+    heads of a KV head share a block and the keys split over blocks."""
     a = cfg.attention
     Hq, Hkv, D = a.num_heads, a.num_kv_heads, a.head_dim
     B, Skv = 8, 231
@@ -475,8 +480,10 @@ def check_flash_decode(cfg, gen):
     flops = 4 * D * B * Hq * Skv
     bound_ms, bound_by = bound(nbytes, flops, torch.float32)
     case = {
-        "case": f"decode_float32_b{B}_skv{Skv}",
+        "case": f"{prefix}decode_float32_b{B}_skv{Skv}",
         "shape": [B, Hq, Hkv, 1, Skv, D], "kv_offset": off,
+        "plan": {**fa.plan(B, Hq, Hkv, 1, Skv, D, torch.float32)._asdict(),
+                 "dtype": "float32"},
         "max_abs_err": max_err(got, ref),
         "tol": 1e-4 * max(1.0, float(ref.abs().max())),
         **kernel_times(lambda: fa.flash_attention(q, k, v, causal=True,
@@ -613,12 +620,19 @@ def phase_kernels(cfg):
             lambda qc=qc: check_bc_fused(qc, gen, new_projections(qc),
                                          lane_names=("bc_fused",)),
             lambda qc=qc, f=family: check_paged(qc, gen, float_only=True,
-                                                prefix=f"{f}_")]
+                                                prefix=f"{f}_"),
+            # head dim 128: the other tensor-core tiling of the bf16 lane
+            lambda qc=qc, f=family: check_flash(qc, gen, prefix=f"{f}_"),
+            lambda qc=qc, f=family: check_flash_decode(qc, gen,
+                                                       prefix=f"{f}_")]
     out = {}
     for check in checks:
         for lane, (cases, main_case) in check().items():
             if not cases:
                 continue
+            for c in cases:                  # share of the bound reached
+                c["bound_share"] = (c["bound_ms"] / c["device_ms"]
+                                    if c.get("device_ms") else None)
             out.setdefault(lane, ([], main_case))[0].extend(cases)
             emit({"phase": "kernels", "kernel": lane, "cases": cases})
             bad = [c["case"] for c in cases
@@ -1199,7 +1213,14 @@ def main() -> int:
           "nvidia_smi": card, "device": torch.cuda.get_device_name(0)})
     t0 = time.perf_counter()
     secs = build.build()
+    # clusters of each size the card runs at once (bc_fused's plan assumes
+    # bc_fused.MAX_CLUSTERS; another count makes plans slower, not wrong)
+    occ = bc_fused.KERNEL.lib().bc_fused_max_active_clusters
+    occ.argtypes, occ.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    clusters = {cs: occ(cs, bc_fused.MAX_SMEM) for cs in bc_fused.MAX_CLUSTERS}
     emit({"phase": "build", "nvcc_s": secs,
+          "bc_fused_max_active_clusters": clusters,
+          "as_planned": clusters == bc_fused.MAX_CLUSTERS,
           "wall_s": time.perf_counter() - t0,
           "libraries": {n: str(build.library_path(n).relative_to(ROOT))
                         for n in build.KERNEL_NAMES},

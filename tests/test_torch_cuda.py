@@ -83,6 +83,28 @@ def test_bc_fused_quantized_lanes(cuda, bits, B, p, q, k):
                                           qp["ws2"], k, scales))
 
 
+@pytest.mark.parametrize("k", [16, 128])
+@pytest.mark.parametrize("p,q", [(1, 13), (2, 16), (3, 44), (86, 16),
+                                 (16, 86), (76, 20)])
+@pytest.mark.parametrize("B", [1, 3, 8, 70, 256])
+def test_bc_fused_tiling_edges(cuda, B, p, q, k):
+    """The launch plan's edges: one row, ragged row tiles, q-split (p < 4)
+    and p-split clusters, chunked q, on all three lanes."""
+    w = torch.randn((p, q, k), generator=cuda, device="cuda") / (q * k) ** .5
+    planes = cc.spectral_cache(w)
+    xb = torch.randn((B, q, k), generator=cuda, device="cuda")
+    variants = [((planes["wr"], planes["ws1"], planes["ws2"]), None)]
+    for bits in (8, 4):
+        qp = codec.quantize_plane_cache(planes, bits)
+        variants.append(((qp["wr"], qp["ws1"], qp["ws2"]),
+                         [qp[n + "_s"] for n in ("wr", "ws1", "ws2")]))
+    for pl, scales in variants:
+        before = bcf.KERNEL.launches
+        got = bcf.bc_fused_matmul(xb, *pl, k, scales)
+        assert bcf.KERNEL.launches == before + 1
+        _close(got, bcf.bc_fused_matmul_plain(xb, *pl, k, scales))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("opts", [dict(), dict(window=8),
                                   dict(softcap=5.0, kv_offset=16),
@@ -110,6 +132,50 @@ def test_flash_kernel_dense_decode(cuda, dtype, pos):
     got = fa.flash_attention(q, k, v, causal=True, kv_offset=pos)
     _close(got, fa.attention_ref(q, k, v, causal=True, kv_offset=pos),
            dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("opts", ["last", "window_softcap", "half_masked",
+                                  "all_masked"])
+@pytest.mark.parametrize("Skv", [1, 31, 32, 33, 231, 1000])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_packing_and_split(cuda, dtype, D, G, Skv, opts):
+    """One query row per (batch, head) with the G heads of a KV head packed
+    into one block and, in float32, the keys split over blocks: windows,
+    softcap and kv_offset under packing and split; a split (or a whole
+    row) with no valid key."""
+    B, Hkv = 3, 2
+    kw = {"last": dict(kv_offset=Skv - 1),
+          "window_softcap": dict(kv_offset=Skv - 1, window=40, softcap=4.0),
+          "half_masked": dict(kv_offset=Skv // 2),
+          "all_masked": dict(kv_offset=-1)}[opts]
+    q = torch.randn((B, Hkv * G, 1, D), generator=cuda,
+                    device="cuda").to(dtype)
+    k = torch.randn((B, Hkv, Skv, D), generator=cuda, device="cuda").to(dtype)
+    v = torch.randn(k.shape, generator=cuda, device="cuda").to(dtype)
+    before = fa.KERNEL.launches
+    got = fa.flash_attention(q, k, v, causal=True, **kw)
+    assert fa.KERNEL.launches == before + 1
+    if opts == "all_masked":
+        assert (got == 0).all()
+    _close(got, fa.attention_ref(q, k, v, causal=True, **kw),
+           dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 63, 65, 200])
+def test_flash_kernel_head_dim_128(cuda, dtype, S):
+    """qwen's head dim (the other bf16 tensor-core tiling), causal prefill
+    at ragged lengths, G = 8 and G = 4."""
+    for Hq, Hkv in ((16, 2), (32, 8)):
+        q = torch.randn((1, Hq, S, 128), generator=cuda,
+                        device="cuda").to(dtype)
+        k = torch.randn((1, Hkv, S, 128), generator=cuda,
+                        device="cuda").to(dtype)
+        v = torch.randn(k.shape, generator=cuda, device="cuda").to(dtype)
+        _close(fa.flash_attention(q, k, v), fa.attention_ref(q, k, v),
+               dtype == torch.bfloat16)
 
 
 # (F, N, Q, P): odd F, ragged N, Q != P, P = 2, and the q = 86 / 76 shapes
