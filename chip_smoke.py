@@ -7,7 +7,7 @@ It imports neither ``jax`` nor ``repro``; it puts ``src/`` on ``sys.path``
 itself.  Each phase prints one JSON line:
 
   env           torch / CUDA versions and the card (nvidia-smi)
-  build         nvcc time and library paths of the four CUDA libraries
+  build         nvcc time and library paths of the five CUDA libraries
   kernels       each kernel lane against its plain PyTorch version on the
                 card, at the full-width tinyllama-1.1b shapes of the serving
                 paths: error and tolerance, kernel / plain / library times
@@ -48,8 +48,9 @@ The kernels phase adds ``spectral_matmul`` at every batch-prefill shape
 lowerings (the hook, ``bc_fused``, dense ``torch.matmul``), the flash kernel
 at the dense-decode shape, and ``bc_fused`` / ``paged_attention`` / the
 flash kernel (head dim 128: bf16 prefill, float32 one-row decode) at qwen's
-shapes.  Each case carries its launch plan where the kernel has one, and
-``bound_share`` = bound / device time.
+shapes; ``paged_attention`` also with every slot at the table's last
+column (cases ending ``_full``).  Each case carries its launch plan where
+the kernel has one, and ``bound_share`` = bound / device time.
 
 Then the card's name and power limit, the kernel summary
 ``{"kernels": [...]}`` (one entry per lane), and last the line
@@ -348,25 +349,28 @@ def check_flash(cfg, gen, prefix=""):
 def check_paged(cfg, gen, float_only=False, prefix=""):
     """The float lanes (bf16 and f32 queries on an f32 pool) and the int8
     lane (the same pool quantized per (page, head); f32 and bf16 queries),
-    at the serve phase's 8 slots and mixed positions.  ``float_only``: the
-    bf16-query, f32-pool case alone (``prefix`` names its arch)."""
+    at the serve phase's 8 slots and mixed positions (the main cases), and
+    again with every slot at the table's last column (``_full``).
+    ``float_only``: the bf16-query, f32-pool case alone (``prefix`` names
+    its arch)."""
     a = cfg.attention
     Hq, Hkv, D = a.num_heads, a.num_kv_heads, a.head_dim
     page, maxp, B = 16, 16, 8
     # mixed lengths: a partial last page (200, 17, 130, 95), page-aligned
     # ends (63, 239), a slot inside its first page (5), and an idle slot
-    positions = torch.tensor([200, 17, 63, -1, 130, 5, 239, 95],
-                             dtype=torch.int32, device="cuda")
+    mixed = torch.tensor([200, 17, 63, -1, 130, 5, 239, 95],
+                         dtype=torch.int32, device="cuda")
+    full = torch.full((B,), maxp * page - 1, dtype=torch.int32,
+                      device="cuda")
     P = B * maxp + 1
     perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
     table = perm[:B * maxp].reshape(B, maxp).to(torch.int32).contiguous()
-    table[3] = 0                              # idle slot owns no page
+    mixed_table = table.clone()
+    mixed_table[3] = 0                        # idle slot owns no page
     pool_k = torch.randn((P, page, Hkv, D), generator=gen, device="cuda")
     pool_v = torch.randn((P, page, Hkv, D), generator=gen, device="cuda")
     k8, ks = codec.quantize_page_block(pool_k)
     v8, vs = codec.quantize_page_block(pool_v)
-    live = int((positions.clamp(min=-1) + 1).sum())
-    live_pages = int(((positions + page) // page).clamp(min=0).sum())
     lanes = {"paged_attention": [], "paged_attention_i8": []}
     variants = (("paged_attention", torch.bfloat16, pool_k, pool_v, {}),
                 ("paged_attention", torch.float32, pool_k, pool_v, {}),
@@ -376,41 +380,50 @@ def check_paged(cfg, gen, float_only=False, prefix=""):
                  {"k_scale": ks, "v_scale": vs}))
     for lane, dtype, pk, pv, scales in variants[:1 if float_only else 4]:
         q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(dtype)
-        got = pa.paged_attention(q, pk, pv, table, positions, **scales)
-        ref = pa.paged_attention_stream(q, pk, pv, table, positions,
-                                        **scales)
-        torch.cuda.synchronize()
-        if not bool((got[3] == 0).all()):
-            raise AssertionError(f"{lane}: the idle slot is not exactly 0")
-        err = max_err(got, ref)
-        if dtype == torch.bfloat16:
-            # float32 in both, one rounding to bf16 each (see check_flash)
-            tol = 2.0 ** -7 * max(1.0, float(ref.float().abs().max()))
-        else:
-            # identical codes and scales on both sides: float32 sums in
-            # another order, held at 1e-4 of the output's scale
-            tol = 1e-4 * max(1.0, float(ref.abs().max()))
-        nbytes = (2 * q.numel() * q.element_size()
-                  + 2 * live * Hkv * D * pk.element_size()
-                  + (2 * live_pages * Hkv * 4 if scales else 0)
-                  + table.numel() * 4 + B * 4)
-        flops = 4 * Hq * D * live + (2 * live * Hkv * D if scales else 0)
-        bound_ms, bound_by = bound(nbytes, flops, torch.float32)
-        pool_name = "int8" if scales else "float32"
-        lanes[lane].append({
-            "case": prefix + (
-                f"decode_int8_{str(dtype).split('.')[-1]}_b{B}"
-                if scales else f"decode_{str(dtype).split('.')[-1]}_b{B}"),
-            "shape": [B, Hq, Hkv, D, page, maxp], "pool": pool_name,
-            "positions": positions.tolist(), "max_abs_err": err, "tol": tol,
-            "idle_slot_exact_zero": True,
-            **kernel_times(lambda: pa.paged_attention(
-                q, pk, pv, table, positions, **scales)),
-            "plain_ms": time_ms(lambda: pa.paged_attention_stream(
-                q, pk, pv, table, positions, **scales)),
-            "library_ms": None, "library": None,
-            "bytes": nbytes, "flops": flops,
-            "bound_ms": bound_ms, "bound_by": bound_by})
+        for suffix, positions, tab in (("", mixed, mixed_table),
+                                       ("_full", full, table)):
+            got = pa.paged_attention(q, pk, pv, tab, positions, **scales)
+            ref = pa.paged_attention_stream(q, pk, pv, tab, positions,
+                                            **scales)
+            torch.cuda.synchronize()
+            idle = positions < 0
+            if not bool((got[idle] == 0).all()):
+                raise AssertionError(f"{lane}: the idle slot is not "
+                                     f"exactly 0")
+            err = max_err(got, ref)
+            if dtype == torch.bfloat16:
+                # float32 in both, one rounding to bf16 each (see
+                # check_flash)
+                tol = 2.0 ** -7 * max(1.0, float(ref.float().abs().max()))
+            else:
+                # identical codes and scales on both sides: float32 sums in
+                # another order, held at 1e-4 of the output's scale
+                tol = 1e-4 * max(1.0, float(ref.abs().max()))
+            live = int((positions.clamp(min=-1) + 1).sum())
+            live_pages = int(((positions + page) // page).clamp(min=0).sum())
+            nbytes = (2 * q.numel() * q.element_size()
+                      + 2 * live * Hkv * D * pk.element_size()
+                      + (2 * live_pages * Hkv * 4 if scales else 0)
+                      + tab.numel() * 4 + B * 4)
+            flops = 4 * Hq * D * live + (2 * live * Hkv * D if scales else 0)
+            bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+            pl = pa.plan(B, Hq, Hkv, D, page, maxp, pk.dtype)
+            dt = str(dtype).split('.')[-1]
+            lanes[lane].append({
+                "case": prefix + (f"decode_int8_{dt}_b{B}" if scales
+                                  else f"decode_{dt}_b{B}") + suffix,
+                "shape": [B, Hq, Hkv, D, page, maxp],
+                "pool": "int8" if scales else "float32",
+                "plan": pl._asdict(),
+                "positions": positions.tolist(), "max_abs_err": err,
+                "tol": tol, "idle_slot_exact_zero": bool(idle.any()),
+                **kernel_times(lambda: pa.paged_attention(
+                    q, pk, pv, tab, positions, **scales)),
+                "plain_ms": time_ms(lambda: pa.paged_attention_stream(
+                    q, pk, pv, tab, positions, **scales)),
+                "library_ms": None, "library": None,
+                "bytes": nbytes, "flops": flops,
+                "bound_ms": bound_ms, "bound_by": bound_by})
     return {"paged_attention": (lanes["paged_attention"],
                                 "decode_bfloat16_b8"),
             "paged_attention_i8": (lanes["paged_attention_i8"],

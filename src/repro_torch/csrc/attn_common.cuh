@@ -3,8 +3,8 @@
 // softmax update of one query row against one tile of 32 keys.
 //
 // Layout of a tile in shared memory (float32):
-//   ks[c * (D + 1) + d]  key c, dim d (row stride D + 1: lane c reads
-//                        column d without bank conflicts)
+//   ks[c * (D + 4) + d]  key c, dim d (row stride D + 4: lane c reads
+//                        its row as float4 without bank conflicts)
 //   vs[c * D + d]        value c, dim d (lane d reads row c)
 // Each warp owns its query rows.  Lane c scores key c of the tile; the
 // softmax statistics are reduced across the warp; lane d accumulates
@@ -51,17 +51,36 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // One query row (already scaled, float32, in shared memory) against one
-// tile.  `valid` is this lane's mask bit for its key.  All 32 lanes of the
-// warp must call it together.  A tile in which no key is valid leaves
-// (m, l, acc) exactly as they were.
-__device__ __forceinline__ void row_tile_update(
+// tile, the head dim fixed at compile time (DT = 64 or 128; 0 = D at run
+// time): K rows of stride D + 4 read as float4, the dot in four partial
+// sums, so it is not one chain of D dependent FMAs.  `valid` is this
+// lane's mask bit for its key.  All 32 lanes of the warp must call it
+// together.  A tile in which no key is valid leaves (m, l, acc) exactly as
+// they were.
+template <int DT>
+__device__ __forceinline__ void row_tile_f32(
     const float* __restrict__ qrow, const float* __restrict__ ks,
     const float* __restrict__ vs, int D, bool valid, float softcap,
     float& m, float& l, float (&acc)[kDPerLane]) {
+  const int Dn = DT ? DT : D;
   const int lane = threadIdx.x & 31;
-  const float* krow = ks + lane * (D + 1);
+  const float* krow = ks + lane * (Dn + 4);
   float s = 0.f;
-  for (int d = 0; d < D; ++d) s = fmaf(qrow[d], krow[d], s);
+  if (DT) {
+    float s4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int d = 0; d < DT; d += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(qrow + d);
+      const float4 c = *reinterpret_cast<const float4*>(krow + d);
+      s4[0] = fmaf(a.x, c.x, s4[0]);
+      s4[1] = fmaf(a.y, c.y, s4[1]);
+      s4[2] = fmaf(a.z, c.z, s4[2]);
+      s4[3] = fmaf(a.w, c.w, s4[3]);
+    }
+    s = (s4[0] + s4[1]) + (s4[2] + s4[3]);
+  } else {
+    for (int d = 0; d < D; ++d) s = fmaf(qrow[d], krow[d], s);
+  }
   if (softcap != 0.f) s = softcap * tanhf(s / softcap);
   s = valid ? s : kNeg;
   const float m_new = fmaxf(m, warp_max(s));
@@ -71,13 +90,14 @@ __device__ __forceinline__ void row_tile_update(
   m = m_new;
 #pragma unroll
   for (int e = 0; e < kDPerLane; ++e) acc[e] *= alpha;
+#pragma unroll 8
   for (int c = 0; c < kTile; ++c) {
     const float pc = __shfl_sync(0xffffffffu, p, c);
-    const float* vrow = vs + c * D;
+    const float* vrow = vs + c * Dn;
 #pragma unroll
     for (int e = 0; e < kDPerLane; ++e) {
       const int d = lane + 32 * e;
-      if (d < D) acc[e] = fmaf(pc, vrow[d], acc[e]);
+      if (d < Dn) acc[e] = fmaf(pc, vrow[d], acc[e]);
     }
   }
 }

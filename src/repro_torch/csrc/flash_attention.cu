@@ -37,8 +37,9 @@
 //   flash_combine merges the splits in a fixed order in the same call.
 //   A split or row that sees no valid key has m = -1e30, l = 0, acc = 0
 //   and merges to exactly 0.  Inside a block, lane c scores key c of a
-//   32-key tile (attn_common.cuh:row_tile_update's scheme), with the head
-//   dim fixed at compile time for 64 and 128 (float4 dots).
+//   32-key tile (attn_common.cuh:row_tile_f32, shared with the paged
+//   kernel), with the head dim fixed at compile time for 64 and 128
+//   (float4 dots).
 // The plan (lane, splits, keys per split) is chosen in Python
 // (kernels/flash_attention.py:plan), a pure function of the shapes.
 #include "attn_common.cuh"
@@ -271,55 +272,6 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 constexpr int kF32Warps = 8;
 constexpr int kF32MaxRows = 64;              // packed rows a block, at most
 constexpr int kF32RowsPerWarp = kF32MaxRows / kF32Warps;
-
-// attn::row_tile_update for a head dim fixed at compile time (DT = 64 or
-// 128; 0 = D at run time): K rows of stride D + 4 read as float4, the dot
-// in four partial sums, so it is not one chain of D dependent FMAs.
-template <int DT>
-__device__ __forceinline__ void row_tile_f32(
-    const float* __restrict__ qrow, const float* __restrict__ ks,
-    const float* __restrict__ vs, int D, bool valid, float softcap,
-    float& m, float& l, float (&acc)[attn::kDPerLane]) {
-  using namespace attn;
-  const int Dn = DT ? DT : D;
-  const int lane = threadIdx.x & 31;
-  const float* krow = ks + lane * (Dn + 4);
-  float s = 0.f;
-  if (DT) {
-    float s4[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int d = 0; d < DT; d += 4) {
-      const float4 a = *reinterpret_cast<const float4*>(qrow + d);
-      const float4 c = *reinterpret_cast<const float4*>(krow + d);
-      s4[0] = fmaf(a.x, c.x, s4[0]);
-      s4[1] = fmaf(a.y, c.y, s4[1]);
-      s4[2] = fmaf(a.z, c.z, s4[2]);
-      s4[3] = fmaf(a.w, c.w, s4[3]);
-    }
-    s = (s4[0] + s4[1]) + (s4[2] + s4[3]);
-  } else {
-    for (int d = 0; d < D; ++d) s = fmaf(qrow[d], krow[d], s);
-  }
-  if (softcap != 0.f) s = softcap * tanhf(s / softcap);
-  s = valid ? s : kNeg;
-  const float m_new = fmaxf(m, warp_max(s));
-  const float p = valid ? expf(s - m_new) : 0.f;
-  const float alpha = expf(m - m_new);
-  l = l * alpha + warp_sum(p);
-  m = m_new;
-#pragma unroll
-  for (int e = 0; e < kDPerLane; ++e) acc[e] *= alpha;
-#pragma unroll 8
-  for (int c = 0; c < kTile; ++c) {
-    const float pc = __shfl_sync(0xffffffffu, p, c);
-    const float* vrow = vs + c * Dn;
-#pragma unroll
-    for (int e = 0; e < kDPerLane; ++e) {
-      const int d = lane + 32 * e;
-      if (d < Dn) acc[e] = fmaf(pc, vrow[d], acc[e]);
-    }
-  }
-}
 
 // Grid (row tiles, B * Hkv, splits), `rows` packed rows a block.  Packed
 // row pr = position * G + g (query head hk * G + g).  With one split the

@@ -12,10 +12,16 @@ row is exactly zero).
 An int8 pool (``k_scale``/``v_scale``, one float32 scale per (page, KV
 head)) takes the kernel's int8 lane, ``paged_attention_i8``, which
 dequantizes each code as it fills its shared-memory tile.
+
+The kernel splits each slot's table into ranges of whole pages over
+blocks and merges the ranges in the same call; ``plan`` picks the split
+from the shapes alone (never from ``positions``), so a call can be
+captured in a CUDA graph.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -23,14 +29,48 @@ from .build import Kernel, check_cuda, ptr
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = Kernel("paged_attention", {
-    "paged_attention": [_VP] * 6 + [_I] * 7 + [_F, _F, _I, _I],
-    "paged_attention_i8": [_VP] * 8 + [_I] * 7 + [_F, _F, _I]})
+    "paged_attention": [_VP] * 7 + [_I] * 7 + [_F, _F] + [_I] * 5,
+    "paged_attention_i8": [_VP] * 9 + [_I] * 7 + [_F, _F] + [_I] * 4})
 
 _NEG = -1e30
 BLOCK_PAGES = 4           # pages per step of the plain streamed loop
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 MAX_GROUP = 16            # query heads per KV head the CUDA block serves
+SMS = 132                 # streaming multiprocessors of an H100
+KEY_TILE = 32             # csrc attn::kTile
+MAX_SPLIT_PAGES = 512     # page ids (and scales) a block stages
+
+
+class PagedPlan(NamedTuple):
+    """``splits`` ranges of ``pages_per_split`` whole pages of the table
+    (the last may be shorter), ``warps`` warps a block; the grid's
+    ``blocks`` (Hkv, B, splits) and each block's ``smem_bytes``."""
+    splits: int
+    pages_per_split: int
+    warps: int
+    blocks: int
+    smem_bytes: int
+
+
+def plan(B: int, Hq: int, Hkv: int, D: int, page: int, maxp: int,
+         kv_dtype: torch.dtype) -> PagedPlan:
+    """The launch plan, a pure function of the shapes.  One block per
+    (KV head, slot, split).  While B * Hkv blocks leave SMs idle, the
+    table's maxp pages are split into SMS // (B * Hkv) ranges or fewer
+    (never more blocks than one wave of SMs, never an empty range): at 8
+    slots and 16 pages, 4 ranges of 4 pages at 4 KV heads, 8 of 2 at 2,
+    2 of 8 at 8.  One range where B * Hkv already fills the card, unless
+    the table has more than ``MAX_SPLIT_PAGES`` pages.  4 warps, or 8
+    where G > 4, so each of up to 8 query rows has its own warp."""
+    G = Hq // Hkv
+    want = max(1, min(maxp, SMS // (B * Hkv)))
+    pps = min(-(-maxp // want), MAX_SPLIT_PAGES)
+    splits = -(-maxp // pps)
+    warps = 4 if G <= 4 else 8
+    stage = 4 * pps * (3 if kv_dtype == torch.int8 else 1)
+    smem = 4 * (G * D + 2 * KEY_TILE * (2 * D + 4)) + stage
+    return PagedPlan(splits, pps, warps, B * Hkv * splits, smem)
 
 
 def paged_attention_stream(q, pool_k, pool_v, table, positions, *,
@@ -123,16 +163,24 @@ def paged_attention(q, pool_k, pool_v, table, positions, *, scale=None,
         raise ValueError(f"paged_attention: head dim {D} (max "
                          f"{MAX_HEAD_DIM}) or group {Hq // Hkv} (max "
                          f"{MAX_GROUP}) too large")
+    maxp = table.shape[1]
+    pl = plan(B, Hq, Hkv, D, page, maxp, pool_k.dtype)
     scale = scale if scale is not None else D ** -0.5
     out = torch.empty_like(q)
-    dims = (B, Hq, Hkv, D, page, table.shape[1], P, float(scale),
-            float(softcap), DTYPE_CODES[q.dtype])
+    part = None                       # the splits' (m, l) and acc
+    if pl.splits > 1:
+        part = torch.empty(pl.splits * B * Hq * (D + 2), device=device,
+                           dtype=torch.float32)
+    part_ptr = ctypes.c_void_p(None if part is None else part.data_ptr())
+    dims = (B, Hq, Hkv, D, page, maxp, P, float(scale), float(softcap),
+            DTYPE_CODES[q.dtype])
+    split = (pl.pages_per_split, pl.splits, pl.warps)
     if quant:
         KERNEL.launch("paged_attention_i8", device, ptr(q), ptr(pool_k),
                       ptr(pool_v), ptr(k_scale), ptr(v_scale), ptr(table),
-                      ptr(positions), ptr(out), *dims)
+                      ptr(positions), ptr(out), part_ptr, *dims, *split)
     else:
         KERNEL.launch("paged_attention", device, ptr(q), ptr(pool_k),
                       ptr(pool_v), ptr(table), ptr(positions), ptr(out),
-                      *dims, DTYPE_CODES[pool_k.dtype])
+                      part_ptr, *dims, DTYPE_CODES[pool_k.dtype], *split)
     return out

@@ -202,12 +202,33 @@ def test_spectral_matmul_kernel(cuda, F, N, Q, P):
     _close(hi, ri.permute(1, 2, 0))
 
 
+def _graph_call(fn):
+    """``fn()`` captured in a CUDA graph; returns (graph, its output)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # warm: build, attributes
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+# (Hkv, G, D, page, maxp, B): split over pages (G = 1, 8, 16; D = 64 and
+# 128), a run-time D with 16-byte loads (96), one that takes the scalar
+# path (18), and one split where B * Hkv fills the card (70 * 2 blocks)
+PAGED_SHAPES = [(2, 1, 64, 4, 6, 4), (2, 8, 64, 4, 6, 4),
+                (2, 8, 128, 4, 6, 4), (2, 16, 64, 4, 6, 4),
+                (4, 4, 96, 16, 5, 4), (2, 3, 18, 4, 6, 4),
+                (2, 8, 64, 16, 3, 70)]
+
+
 @pytest.mark.parametrize("q_dtype,kv_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
     (torch.bfloat16, torch.bfloat16)])
-@pytest.mark.parametrize("G", [1, 8])
-def test_paged_kernel(cuda, G, q_dtype, kv_dtype):
-    Hkv, D, page, maxp, B = 2, 64, 4, 6, 4
+@pytest.mark.parametrize("Hkv,G,D,page,maxp,B", PAGED_SHAPES)
+def test_paged_kernel(cuda, Hkv, G, D, page, maxp, B, q_dtype, kv_dtype):
     P = B * maxp + 1
     pool_k = torch.randn((P, page, Hkv, D), generator=cuda,
                          device="cuda").to(kv_dtype)
@@ -215,28 +236,37 @@ def test_paged_kernel(cuda, G, q_dtype, kv_dtype):
                          device="cuda").to(kv_dtype)
     perm = torch.randperm(P - 1, generator=cuda, device="cuda") + 1
     table = perm[:B * maxp].reshape(B, maxp).to(torch.int32).contiguous()
-    positions = torch.tensor([9, -1, 23, 0], dtype=torch.int32,
-                             device="cuda")
+    last = maxp * page - 1
+    # idle, a page boundary, the table's last column, its first column
+    pos = [9, -1, last, 0] + [(7 * i) % (last + 1) for i in range(B - 4)]
+    positions = torch.tensor(pos, dtype=torch.int32, device="cuda")
     q = torch.randn((B, Hkv * G, D), generator=cuda,
                     device="cuda").to(q_dtype)
-    got = pa.paged_attention(q, pool_k, pool_v, table, positions,
-                             softcap=3.0)
-    assert (got[1] == 0).all()
-    _close(got, pa.paged_attention_stream(q, pool_k, pool_v, table,
-                                          positions, softcap=3.0),
-           q_dtype == torch.bfloat16)
+    pl = pa.plan(B, Hkv * G, Hkv, D, page, maxp, kv_dtype)
+    assert (pl.splits > 1) == (B * Hkv < pa.SMS)
     # the int8 lane on the same values, quantized per (page, head)
     k8, ks = codec.quantize_page_block(pool_k.float())
     v8, vs = codec.quantize_page_block(pool_v.float())
-    before = pa.KERNEL.fn_launches["paged_attention_i8"]
-    got = pa.paged_attention(q, k8, v8, table, positions, softcap=3.0,
-                             k_scale=ks, v_scale=vs)
-    assert pa.KERNEL.fn_launches["paged_attention_i8"] == before + 1
-    assert (got[1] == 0).all()
-    _close(got, pa.paged_attention_stream(q, k8, v8, table, positions,
-                                          softcap=3.0, k_scale=ks,
-                                          v_scale=vs),
-           q_dtype == torch.bfloat16)
+    lanes = {"paged_attention": (pool_k, pool_v, {}),
+             "paged_attention_i8": (k8, v8, {"k_scale": ks, "v_scale": vs})}
+    for lane, (pk, pv, scales) in lanes.items():
+        def call():
+            return pa.paged_attention(q, pk, pv, table, positions,
+                                      softcap=3.0, **scales)
+        before = dict(pa.KERNEL.fn_launches)
+        got = call()
+        after = pa.KERNEL.fn_launches
+        assert {f: after[f] - before[f] for f in after} == {
+            f: int(f == lane) for f in after}   # one launch, this lane
+        assert (got[1] == 0).all()
+        _close(got, pa.paged_attention_stream(q, pk, pv, table, positions,
+                                              softcap=3.0, **scales),
+               q_dtype == torch.bfloat16)
+        assert torch.equal(call(), got)         # merged in a fixed order
+        graph, out = _graph_call(call)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, got)            # replay = eager, bit for bit
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

@@ -12,7 +12,14 @@ the kernels rely on, checked on the CPU (no card needed).
   DFT -> iDFT round trip, against float64.
 - Split-KV: the combine of per-split (m, l, acc) in plain PyTorch against
   ``attention_ref``, with splits (and rows) in which every key is masked.
+- ``paged_attention``: its plan at the heads of the three archs covers
+  every page of the table exactly once, fits shared memory and takes no
+  positions; the page-range split and its in-order merge, emulated in
+  plain PyTorch, against ``paged_attention_stream`` over f32 and int8
+  pools.
 """
+import inspect
+
 import numpy as np
 import pytest
 
@@ -22,6 +29,8 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import circulant as cc  # noqa: E402
 from repro_torch.kernels import bc_fused as bcf  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.quant import codec  # noqa: E402
 
 ARCHS = ("tinyllama-1.1b", "qwen2.5-3b", "qwen3-4b")
 BATCHES = (1, 8, 64, 208, 256, 2048)
@@ -302,3 +311,117 @@ def test_split_kv_combine_matches_attention_ref(opts):
         assert bool((got == 0).all()) and bool((ref == 0).all())
     scale = max(1.0, float(ref.abs().max()))
     assert float((got - ref).abs().max()) <= 1e-5 * scale
+
+
+# ---------------------------------------------------------------------------
+# paged_attention: the plan and the page-range split
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("page", [4, 16])
+@pytest.mark.parametrize("maxp", [1, 5, 16])
+@pytest.mark.parametrize("B", [1, 4, 8, 64])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_paged_plan(arch, B, maxp, page):
+    Hq, Hkv, D = _heads(arch)
+    assert "positions" not in inspect.signature(pa.plan).parameters
+    for kv_dtype in (torch.float32, torch.bfloat16, torch.int8):
+        pl = pa.plan(B, Hq, Hkv, D, page, maxp, kv_dtype)
+        covered = torch.zeros(maxp, dtype=torch.int64)
+        for s in range(pl.splits):              # the kernel's page ranges
+            first = s * pl.pages_per_split
+            assert first < maxp                  # no empty split
+            covered[first:first + pl.pages_per_split] += 1
+        assert bool((covered == 1).all())
+        assert pl.smem_bytes <= bcf.MAX_SMEM == 232448
+        assert pl.blocks == B * Hkv * pl.splits
+        G = Hq // Hkv
+        assert pl.warps in (4, 8) and G <= pl.warps * 4
+        assert pl.warps >= min(G, 8)             # a warp per row up to 8
+        if B * Hkv >= pa.SMS:                    # the card is already full
+            assert pl.splits == 1
+        else:                                    # about one wave, no more
+            assert pl.blocks <= pa.SMS
+    if B == 8 and maxp == 16:                    # the serve phases' shape
+        want = {"tinyllama-1.1b": (4, 4), "qwen2.5-3b": (8, 2),
+                "qwen3-4b": (2, 8)}[arch]
+        assert (pl.splits, pl.pages_per_split) == want
+
+
+def _split_paged(q, pool_k, pool_v, table, positions, pps, softcap=0.0,
+                 k_scale=None, v_scale=None):
+    """paged attention as the kernel computes it: each split of ``pps``
+    whole pages gives its (m, l, acc) over its valid keys (a split whose
+    first column lies past the position does nothing); the live splits
+    merge in split order; a slot with none is exactly 0."""
+    _, page, Hkv, D = pool_k.shape
+    B, maxp = table.shape
+    Hq = q.shape[1]
+    G = Hq // Hkv
+    qh = q.reshape(B, Hkv, G, D).float() * D ** -0.5
+    out = torch.zeros((B, Hkv, G, D))
+    for b in range(B):
+        ncols = min(int(positions[b]) + 1, maxp * page)
+        parts = []
+        for s in range(-(-maxp // pps)):
+            c0 = s * pps * page
+            c1 = min(ncols, c0 + pps * page)
+            if c0 >= ncols:
+                continue
+            cols = torch.arange(c0, c1)
+            pids = table[b, cols // page].long()
+            kc = pool_k[pids, cols % page].float()            # (n, Hkv, D)
+            vc = pool_v[pids, cols % page].float()
+            if k_scale is not None:
+                kc = kc * k_scale[pids][:, :, None]
+                vc = vc * v_scale[pids][:, :, None]
+            sc = torch.einsum("hgd,khd->hgk", qh[b], kc)
+            if softcap:
+                sc = softcap * torch.tanh(sc / softcap)
+            m = sc.amax(-1)
+            p = torch.exp(sc - m[..., None])
+            parts.append((m, p.sum(-1), torch.einsum("hgk,khd->hgd", p, vc)))
+        if not parts:
+            continue
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        l = sum(l * torch.exp(m - mx) for m, l, _ in parts)
+        acc = sum(a * torch.exp(m - mx)[..., None] for m, _, a in parts)
+        out[b] = acc / l[..., None]
+    return out.reshape(B, Hq, D)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("softcap", [0.0, 3.0])
+def test_split_paged_matches_stream(softcap, int8):
+    Hq, Hkv, D, page, maxp, B = 32, 4, 64, 16, 16, 8
+    pl = pa.plan(B, Hq, Hkv, D, page, maxp, torch.int8 if int8 else
+                 torch.float32)
+    assert pl.splits > 1
+    rng = np.random.RandomState(2)
+    P = B * maxp + 1
+    pool_k, pool_v = (torch.from_numpy(rng.randn(P, page, Hkv, D)
+                                       .astype(np.float32))
+                      for _ in range(2))
+    scales = {}
+    if int8:
+        pool_k, ks = codec.quantize_page_block(pool_k)
+        pool_v, vs = codec.quantize_page_block(pool_v)
+        scales = {"k_scale": ks, "v_scale": vs}
+    table = torch.from_numpy((rng.permutation(P - 1)[:B * maxp] + 1)
+                             .reshape(B, maxp).astype(np.int32))
+    last = maxp * page - 1
+    # idle, first column, a page's last and first column, a split's last
+    # column, the table's last column, past it, and a middle one
+    span = pl.pages_per_split * page
+    positions = torch.tensor([-1, 0, page - 1, page, span - 1, last,
+                              last + 7, 100], dtype=torch.int32)
+    q = torch.from_numpy(rng.randn(B, Hq, D).astype(np.float32))
+    got = _split_paged(q, pool_k, pool_v, table, positions,
+                       pl.pages_per_split, softcap, **scales)
+    ref = pa.paged_attention_stream(q, pool_k, pool_v, table, positions,
+                                    softcap=softcap, **scales)
+    assert bool((got[0] == 0).all()) and bool((ref[0] == 0).all())
+    scale = max(1.0, float(ref.abs().max()))
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+    idle = torch.full((B,), -1, dtype=torch.int32)   # an all-idle batch
+    got = _split_paged(q, pool_k, pool_v, table, idle, pl.pages_per_split,
+                       softcap, **scales)
+    assert bool((got == 0).all())
