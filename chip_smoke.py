@@ -44,7 +44,9 @@ itself.  Each phase prints one JSON line:
                 B=1 oracle check on one request each
 
 The kernels phase adds ``spectral_matmul`` at every batch-prefill shape
-(F = 65, N = 2048 rows), the whole projection at those shapes under three
+(F = 65, N = 2048 rows) in both of its layouts (``repro``'s contiguous
+one, and the hook's views: cases ending ``_hook``), each also repeated
+and replayed from a CUDA graph for the same bits, the whole projection at those shapes under three
 lowerings (the hook, ``bc_fused``, dense ``torch.matmul``), the flash kernel
 at the dense-decode shape, and ``bc_fused`` / ``paged_attention`` / the
 flash kernel (head dim 128: bf16 prefill, float32 one-row decode) at qwen's
@@ -523,10 +525,43 @@ def spectral_shapes():
     return out
 
 
+def hook_views(xr, xi, wr, ws1, ws2):
+    """The same values as ``kops.spectral_contract`` passes them: (F, N, Q)
+    views of (N, Q, F) spectra and (F, Q, P) views of (P, Q, F) planes
+    (``spectral_matmul``'s bin-minor layout)."""
+    xs = [t.permute(1, 2, 0).contiguous().permute(2, 0, 1) for t in (xr, xi)]
+    ws = [t.permute(2, 1, 0).contiguous().permute(2, 1, 0)
+          for t in (wr, ws1, ws2)]
+    return (*xs, *ws)
+
+
+def replay_equal(fn, want) -> bool:
+    """One call of ``fn`` captured in a CUDA graph and replayed: do its
+    outputs equal ``want`` bit for bit?"""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return all(torch.equal(o, w) for o, w in zip(out, want))
+
+
 def check_spectral(cfg, gen):
     """``spectral_matmul`` against its plain version at every batch-prefill
-    shape (F = 65, N = 2048 rows), with the library time of one complex64
-    ``torch.matmul`` computing the same product."""
+    shape (F = 65, N = 2048 rows), in both layouts: ``repro``'s contiguous
+    one (``<name>_n2048``) and the views ``spectral_contract`` passes
+    (``<name>_n2048_hook``).  Each case is called twice (the same bits) and
+    replayed from a CUDA graph (the eager call's bits); the library time
+    is one complex64 ``torch.matmul`` computing the same product; a hook
+    case also times ``copies_ms``, the layout copies of its operands that
+    ``spectral_contract`` made on every call before it read views.  The
+    tolerance: 3xTF32 sums Q terms in another order than ``torch.bmm``,
+    ~1e-6 of the output scale; 1e-4 of it is allowed."""
     cases = []
     for name, n_in, n_out, k in spectral_shapes():
         F_, N = k // 2 + 1, ROWS
@@ -536,36 +571,58 @@ def check_spectral(cfg, gen):
         wr, ws1, ws2 = (torch.randn((F_, Q, P), generator=gen,
                                     device="cuda") * Q ** -0.5
                         for _ in range(3))
-        planes = (xr, xi, wr, ws1, ws2)
-        got = sm.spectral_matmul(*planes)
-        ref = sm.spectral_matmul_plain(*planes)
-        torch.cuda.synchronize()
-        err = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
-        # float32 sums of Q terms in another order: ~1e-6 of the scale
-        tol = 1e-4 * max(1.0, float(ref[0].abs().max()),
-                         float(ref[1].abs().max()))
         xc, wc = torch.complex(xr, xi), torch.complex(wr, ws1 + wr)
+        library_ms = time_ms(lambda: torch.matmul(xc, wc))
+        del xc, wc
         nbytes = 4 * F_ * (2 * N * Q + 3 * Q * P + 2 * N * P)
         flops = 6 * F_ * N * Q * P
         bound_ms, bound_by = bound(nbytes, flops, torch.float32)
-        cases.append({
-            "case": f"{name}_n{N}", "shape": [F_, N, Q, P],
-            "max_abs_err": err, "tol": tol,
-            **kernel_times(lambda: sm.spectral_matmul(*planes)),
-            "plain_ms": time_ms(lambda: sm.spectral_matmul_plain(*planes)),
-            "library_ms": time_ms(lambda: torch.matmul(xc, wc)),
-            "library": "torch.matmul on complex64 (F, N, Q) @ (F, Q, P)",
-            "bytes": nbytes, "flops": flops,
-            "bound_ms": bound_ms, "bound_by": bound_by})
+        major = (xr, xi, wr, ws1, ws2)
+        for suffix, planes in (("", major), ("_hook", hook_views(*major))):
+            call = lambda: sm.spectral_matmul(*planes)  # noqa: E731
+            got = call()
+            again = call()
+            ref = sm.spectral_matmul_plain(*planes)
+            torch.cuda.synchronize()
+            repeat_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+            graph_equal = replay_equal(call, got)
+            if not (repeat_equal and graph_equal):
+                raise AssertionError(f"spectral_matmul {name}{suffix}: "
+                                     f"repeat {repeat_equal}, graph replay "
+                                     f"{graph_equal}")
+            err = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
+            tol = 1e-4 * max(1.0, float(ref[0].abs().max()),
+                             float(ref[1].abs().max()))
+            layout = sm.layout_of(*planes)
+            pl = sm.plan(F_, N, Q, P, layout)
+            # the hook's layout copies the parent tree made on every call
+            copies = ({"copies_ms": graph_ms(
+                lambda: [t.contiguous() for t in planes])} if suffix else {})
+            cases.append({
+                "case": f"{name}_n{N}{suffix}", "shape": [F_, N, Q, P],
+                "layout": sm.LAYOUT_NAMES[layout],
+                "plan": {**pl._asdict(), "grid": pl.grid, "block": pl.block,
+                         "rows": pl.rows, "p_tile": pl.p_tile},
+                "max_abs_err": err, "tol": tol,
+                "repeat_equal": repeat_equal, "graph_equal": graph_equal,
+                **kernel_times(call),
+                "plain_ms": time_ms(lambda: sm.spectral_matmul_plain(
+                    *planes)),
+                "library_ms": library_ms,
+                "library": "torch.matmul on complex64 (F, N, Q) @ (F, Q, P)",
+                **copies, "bytes": nbytes, "flops": flops,
+                "bound_ms": bound_ms, "bound_by": bound_by})
+            del got, again, ref
     return {"spectral_matmul": (cases, "tinyllama_q_o_n2048")}
 
 
 def phase_lowering(cfg, gen):
     """One projection at N = 2048 rows (tinyllama-1.1b's batch prefill),
-    device times (CUDA-graph replay) of three lowerings: the hook path
-    (DFT product, permutes, ``spectral_matmul``, permutes, iDFT product),
-    ``bc_fused``, and dense ``torch.matmul`` against the materialized W.
-    The hook path's parts are timed one by one as well."""
+    device times (CUDA-graph replay) of three lowerings: the hook path (DFT
+    product, ``spectral_matmul`` on views of the spectra and the planes,
+    iDFT product: no copy between them), ``bc_fused``, and dense
+    ``torch.matmul`` against the materialized W.  The hook path's parts
+    are timed one by one as well."""
     k = cfg.compression.block_attn
     rows = []
     for name, (n_in, n_out) in projections(cfg).items():
@@ -587,19 +644,12 @@ def phase_lowering(cfg, gen):
         p, q, kf = cache["wr"].shape
         xb = cc._blockify(x, q, k).float()
         xr, xi = cc.rfft_planes(xb, k)
-        to_x = lambda t: t.reshape(-1, q, kf).permute(  # noqa: E731
-            2, 0, 1).contiguous()
-        to_w = lambda t: t.permute(2, 1, 0).contiguous()  # noqa: E731
-        args = (to_x(xr), to_x(xi), *(to_w(cache[n])
-                                      for n in ("wr", "ws1", "ws2")))
-        yr, yi = sm.spectral_matmul(*args)
-        ybr, ybi = (t.permute(1, 2, 0).reshape(ROWS, p, kf)
-                    for t in (yr, yi))
+        views = ([t.view(-1, q, kf).permute(2, 0, 1) for t in (xr, xi)]
+                 + [cache[n].permute(2, 1, 0) for n in ("wr", "ws1", "ws2")])
+        ybr, ybi = kops.spectral_contract(xr, xi, cache)
         parts = {
             "dft": lambda: cc.rfft_planes(xb, k),
-            "permute_in": lambda: (to_x(xr), to_x(xi), *(
-                to_w(cache[n]) for n in ("wr", "ws1", "ws2"))),
-            "spectral_matmul": lambda: sm.spectral_matmul(*args),
+            "spectral_matmul": lambda: sm.spectral_matmul(*views),
             "idft": lambda: cc.irfft_planes(ybr, ybi, k)}
         rows.append({
             "projection": name, "rows": ROWS, "shape": [p, q, k],

@@ -84,6 +84,8 @@
 
 #include <cstdint>
 
+#include "mma_tf32.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -113,28 +115,6 @@ __device__ __forceinline__ float plane_at(const void* __restrict__ w,
   const uint8_t byte = static_cast<const uint8_t*>(w)[row * kb + (f >> 1)];
   const int nib = (f & 1) ? (byte >> 4) : (byte & 0xF);
   return static_cast<float>((nib ^ 8) - 8);   // sign-extend the nibble
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// v = hi + lo with hi, lo both TF32 (lo carries the 13 bits hi drops)
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = to_tf32(v);
-  lo = to_tf32(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {

@@ -138,9 +138,12 @@ class Kernel:
 
 
 def check_cuda(name: str, tensors: Dict[str, torch.Tensor],
-               dtypes: Dict[str, Sequence[torch.dtype]]) -> torch.device:
-    """Raise unless every tensor is contiguous, on one CUDA device, and of
-    an accepted dtype.  Returns that device."""
+               dtypes: Dict[str, Sequence[torch.dtype]],
+               contiguous: bool = True) -> torch.device:
+    """Raise unless every tensor is on one CUDA device, of an accepted
+    dtype and (``contiguous``) contiguous.  Returns that device.  A kernel
+    that reads its operands through their strides checks their layout
+    itself (``contiguous=False``)."""
     device = None
     for key, t in tensors.items():
         if t.device.type != "cuda":
@@ -150,7 +153,7 @@ def check_cuda(name: str, tensors: Dict[str, torch.Tensor],
         elif t.device != device:
             raise ValueError(f"{name}: {key} is on {t.device}, the other "
                              f"inputs on {device}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
         if key in dtypes and t.dtype not in dtypes[key]:
             raise ValueError(f"{name}: {key} has dtype {t.dtype}, expected "

@@ -52,18 +52,19 @@ def spectral_contract(xr: torch.Tensor, xi: torch.Tensor,
     Gauss contraction of input spectra ``xr``/``xi`` (..., q, kf) against
     the cache's float32 planes (p, q, kf), through ``spectral_matmul``.
 
-    The spectra are laid out as the kernel's (kf, N, q) and the planes as
-    (kf, q, p), and the (kf, N, p) result back as (..., p, kf).  These
-    permutes are copies, made on every call."""
+    A function of views: the spectra reach the kernel as (kf, N, q) views
+    of their (N, q, kf) storage and the planes as (kf, q, p) views of
+    theirs (``spectral_matmul``'s bin-minor layout), and its (kf, N, p)
+    result is a view of a contiguous (N, p, kf) buffer, returned as
+    (..., p, kf) without a copy.  Spectra whose (N, q, kf) rows are not
+    contiguous raise in ``spectral_matmul``; they are never copied."""
     missing = [n for n in ("wr", "ws1", "ws2") if n not in cache]
     if missing:
         raise ValueError(f"spectral_contract needs the Gauss planes; the "
                          f"cache lacks {missing}")
     p, q, kf = cache["wr"].shape
     lead = xr.shape[:-2]
-    xs = [t.reshape(-1, q, kf).permute(2, 0, 1).contiguous()
-          for t in (xr, xi)]
-    ws = [cache[n].permute(2, 1, 0).contiguous()
-          for n in ("wr", "ws1", "ws2")]
+    xs = [t.view(-1, q, kf).permute(2, 0, 1) for t in (xr, xi)]
+    ws = [cache[n].permute(2, 1, 0) for n in ("wr", "ws1", "ws2")]
     yr, yi = spectral_matmul(*xs, *ws)
-    return tuple(t.permute(1, 2, 0).reshape(*lead, p, kf) for t in (yr, yi))
+    return tuple(t.permute(1, 2, 0).view(*lead, p, kf) for t in (yr, yi))

@@ -178,25 +178,47 @@ def test_flash_kernel_head_dim_128(cuda, dtype, S):
                dtype == torch.bfloat16)
 
 
-# (F, N, Q, P): odd F, ragged N, Q != P, P = 2, and the q = 86 / 76 shapes
+# (F, N, Q, P): odd F, ragged N, Q != P, P = 2, and the q = 86 / 76 shapes;
+# each in repro's contiguous layout and as the hook's views (bin-minor)
+@pytest.mark.parametrize("layout", ["bin_major", "bin_minor"])
 @pytest.mark.parametrize("F,N,Q,P", [(9, 37, 8, 16), (65, 100, 16, 2),
                                      (65, 70, 44, 16), (65, 33, 16, 44),
                                      (65, 20, 86, 16), (65, 21, 20, 76)])
-def test_spectral_matmul_kernel(cuda, F, N, Q, P):
+def test_spectral_matmul_kernel(cuda, F, N, Q, P, layout):
     xr, xi = (torch.randn((F, N, Q), generator=cuda, device="cuda")
               for _ in range(2))
     wr, ws1, ws2 = (torch.randn((F, Q, P), generator=cuda, device="cuda")
                     for _ in range(3))
+    if layout == "bin_minor":     # the same values through strided views
+        xr, xi = (t.permute(1, 2, 0).contiguous().permute(2, 0, 1)
+                  for t in (xr, xi))
+        wr, ws1, ws2 = (t.permute(2, 1, 0).contiguous().permute(2, 1, 0)
+                        for t in (wr, ws1, ws2))
+    want = sm.BIN_MINOR if layout == "bin_minor" else sm.BIN_MAJOR
+    assert sm.layout_of(xr, xi, wr, ws1, ws2) == want
+
+    def call():
+        return sm.spectral_matmul(xr, xi, wr, ws1, ws2)
+
     before = sm.KERNEL.launches
-    yr, yi = sm.spectral_matmul(xr, xi, wr, ws1, ws2)
+    yr, yi = call()
     assert sm.KERNEL.launches == before + 1
+    assert yr.stride() == ((N * P, P, 1) if want == sm.BIN_MAJOR
+                           else (1, P * F, F))    # X's layout
     rr, ri = sm.spectral_matmul_plain(xr, xi, wr, ws1, ws2)
     _close(yr, rr)
     _close(yi, ri)
+    again = call()                                # no atomics: same bits
+    assert torch.equal(again[0], yr) and torch.equal(again[1], yi)
+    graph, out = _graph_call(call)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], yr) and torch.equal(out[1], yi)
     # through the hook: (..., q, kf) planes against a (p, q, kf) cache
     cache = {n: t.permute(2, 1, 0).contiguous()
              for n, t in (("wr", wr), ("ws1", ws1), ("ws2", ws2))}
-    xr2, xi2 = (t.permute(1, 2, 0).reshape(N, Q, F) for t in (xr, xi))
+    xr2, xi2 = (t.permute(1, 2, 0).contiguous().reshape(N, Q, F)
+                for t in (xr, xi))
     hr, hi = kops.spectral_contract(xr2, xi2, cache)
     _close(hr, rr.permute(1, 2, 0))
     _close(hi, ri.permute(1, 2, 0))

@@ -17,6 +17,11 @@ the kernels rely on, checked on the CPU (no card needed).
   positions; the page-range split and its in-order merge, emulated in
   plain PyTorch, against ``paged_attention_stream`` over f32 and int8
   pools.
+- ``spectral_matmul``: its plan at the 11 batch-prefill shapes and the card
+  test's ragged ones, in both layouts, writes every output exactly once,
+  fits shared memory and the grid, pads Q and P to multiples of 8, and
+  refuses a Q that fits nothing; the 3xTF32 Gauss MAC at Q = 86, emulated
+  in numpy, keeps float32 accuracy.
 """
 import inspect
 
@@ -30,6 +35,7 @@ from repro_torch.core import circulant as cc  # noqa: E402
 from repro_torch.kernels import bc_fused as bcf  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import spectral_matmul as smm  # noqa: E402
 from repro_torch.quant import codec  # noqa: E402
 
 ARCHS = ("tinyllama-1.1b", "qwen2.5-3b", "qwen3-4b")
@@ -425,3 +431,130 @@ def test_split_paged_matches_stream(softcap, int8):
     got = _split_paged(q, pool_k, pool_v, table, idle, pl.pages_per_split,
                        softcap, **scales)
     assert bool((got == 0).all())
+
+
+# ---------------------------------------------------------------------------
+# spectral_matmul
+# ---------------------------------------------------------------------------
+def _spectral_shapes():
+    """(Q, P) of every distinct batch-prefill projection of the three
+    archs (q = input blocks, p = output blocks): 11 shapes."""
+    return sorted({(q, p) for _, _, p, q, _ in SHAPES})
+
+
+# the 11 batch-prefill shapes at F = 65, N = 2048, and the card test's
+# small ragged ones
+SPECTRAL_CASES = ([(65, 2048, q, p) for q, p in _spectral_shapes()]
+                  + [(9, 37, 8, 16), (65, 100, 16, 2), (65, 70, 44, 16),
+                     (65, 33, 16, 44), (65, 20, 86, 16), (65, 21, 20, 76)])
+
+
+def _spectral_coverage(pl, F, N, P):
+    """The kernel's indexing replayed on the host: ``out[f, n, p]`` counts
+    the warp units that write output (f, n, p).  Blocks (chunk c, split s)
+    take bins [c F / chunks, (c + 1) F / chunks) and row tiles s,
+    s + splits, ...;
+    each tile's units are (bin, 16-row mma tile, group of jn 8-column
+    tiles)."""
+    out = np.zeros((F, N, P), np.int16)
+    tiles = -(-N // pl.rows)
+    rows = np.zeros(N, np.int16)
+    for s in range(pl.splits):
+        for t in range(s, tiles, pl.splits):
+            rows[t * pl.rows:(t + 1) * pl.rows] += 1
+    nt = smm.pad8(P) // 8
+    for c in range(pl.chunks):
+        bins = range(c * F // pl.chunks, (c + 1) * F // pl.chunks)
+        assert 1 <= len(bins) <= pl.fc
+        for nt0 in range(0, nt, pl.jn):
+            cols = slice(nt0 * 8, min(P, (nt0 + min(pl.jn, nt - nt0)) * 8))
+            out[bins.start:bins.stop, :, cols] += rows[None, :, None]
+    return out
+
+
+@pytest.mark.parametrize("layout", [smm.BIN_MAJOR, smm.BIN_MINOR],
+                         ids=["bin_major", "bin_minor"])
+@pytest.mark.parametrize("F,N,Q,P", SPECTRAL_CASES)
+def test_spectral_plan(F, N, Q, P, layout):
+    pl = smm.plan(F, N, Q, P, layout)
+    assert len(_spectral_shapes()) == 11
+    assert pl.layout == layout and pl.path == "mma_3xtf32"
+    assert pl.smem_bytes <= smm.MAX_SMEM == 232448
+    assert pl.per_sm * (pl.smem_bytes + smm.SMEM_RESERVED) <= smm.SM_SMEM
+    # what csrc/spectral_matmul.cu:spectral_matmul accepts
+    assert pl.fc in smm.FCS and pl.stages in (2, 3)
+    assert pl.smem_bytes == smm.smem_bytes(Q, P, layout, pl.fc, pl.rows,
+                                           pl.stages)
+    assert 1 <= pl.jn <= smm.MAX_J and pl.p_tile == 8 * pl.jn
+    assert 1 <= pl.chunks <= F and -(-F // pl.chunks) <= pl.fc
+    assert pl.rows in smm.ROWS
+    assert 1 <= pl.splits <= min(smm.MAX_GRID_Y, -(-N // pl.rows))
+    assert pl.grid == (pl.chunks, pl.splits) and pl.block == 256
+    # one wave of blocks: every block is resident at once
+    assert pl.chunks * pl.splits <= smm.SMS * pl.per_sm or pl.splits == 1
+    # Q and P padded with zeros to the mma's multiples of 8
+    for n in (Q, P):
+        assert smm.pad8(n) % 8 == 0 and n <= smm.pad8(n) < n + 8
+    out = _spectral_coverage(pl, F, N, P)
+    assert bool((out == 1).all()), "an output is written 0 or 2+ times"
+
+
+@pytest.mark.parametrize("layout", [smm.BIN_MAJOR, smm.BIN_MINOR])
+def test_spectral_plan_refuses(layout):
+    with pytest.raises(ValueError, match="no launch plan"):
+        smm.plan(65, 2048, 1000, 2, layout)     # Q beyond shared memory
+    with pytest.raises(ValueError, match="empty shape"):
+        smm.plan(65, 0, 16, 16, layout)
+    with pytest.raises(ValueError, match="layout"):
+        smm.plan(65, 2048, 16, 16, 2)
+
+
+def _mma_product(a, b):
+    """a @ b as the spectral kernel forms it: K padded with zeros to a
+    multiple of 8; per mma (8 terms of K, summed in order in float32)
+    lo*hi and hi*lo go into one float32 sum and hi*hi into another, added
+    at the end (csrc/spectral_matmul.cu)."""
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    K = a.shape[1]
+    pad = -K % 8
+    a, b = np.pad(a, ((0, 0), (0, pad))), np.pad(b, ((0, pad), (0, 0)))
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    hh = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    lo = np.zeros_like(hh)
+
+    def mma(x, y, k0):
+        s = np.zeros_like(hh)
+        for kk in range(k0, k0 + 8):
+            s += np.outer(x[:, kk], y[kk]).astype(np.float32)
+        return s
+
+    for k0 in range(0, K + pad, 8):
+        lo += mma(al, bh, k0)
+        lo += mma(ah, bl, k0)
+        hh += mma(ah, bh, k0)
+    return hh + lo
+
+
+def test_3xtf32_gauss_mac_keeps_float32_accuracy():
+    """The Gauss MAC at qwen2.5's down projection (Q = 86, P = 16) in
+    3xTF32, against float64, beside float32 FMAs in order."""
+    rng = np.random.RandomState(0)
+    N, Q, P = 64, 86, 16
+    xr, xi = (rng.randn(N, Q).astype(np.float32) for _ in range(2))
+    wr, ws1, ws2 = ((rng.randn(Q, P) * Q ** -0.5).astype(np.float32)
+                    for _ in range(3))
+    xs = xr + xi                                  # float32, as the kernel
+    d = lambda a: a.astype(np.float64)            # noqa: E731
+    t1 = d(xs) @ d(wr)
+    ref = (t1 - d(xi) @ d(ws2), t1 + d(xr) @ d(ws1))
+    scale = max(float(np.abs(r).max()) for r in ref)
+    err = {}
+    for mode, prod in (("f32", lambda a, b: _product(a, b, "f32")),
+                       ("3xtf32", _mma_product)):
+        t1, t2, t3 = prod(xs, wr), prod(xr, ws1), prod(xi, ws2)
+        err[mode] = max(float(np.abs(t1 - t3 - ref[0]).max()),
+                        float(np.abs(t1 + t2 - ref[1]).max()))
+    print(f"Gauss MAC Q=86, max abs error (output scale {scale:.3f}): {err}")
+    assert err["3xtf32"] <= 2 * err["f32"]
+    assert err["3xtf32"] <= 1e-5 * scale

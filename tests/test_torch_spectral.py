@@ -8,6 +8,13 @@ values, in another order.  The hook is held at Q != P as well (16 x 44,
 44 x 16, 16 x 2), where a transposed layout would give wrong numbers, and
 its skip rule (quantized caches never reach it) is counted in both
 packages.
+
+``spectral_matmul`` reads its operands through their strides in two
+layouts: ``repro``'s contiguous one and the views the hook passes
+(bin-minor: X (F, B, Q) with strides (1, Q F, F), W (F, Q, P) with
+strides (1, F, Q F)), the result in X's layout.  The hook hands it views
+of its inputs' storage and returns views of its outputs (no copy either
+way, checked by storage pointers); every other layout raises.
 """
 import numpy as np
 import pytest
@@ -168,3 +175,102 @@ def test_hook_skipped_for_quantized_caches_in_both_packages(bits):
     assert tq.plane_from_cache(tcache, "wr", k // 2 + 1)[1] is not None
     _close(got.numpy(), want)
     _close(routed.numpy(), want)
+
+
+def _bin_minor(a, perm):
+    """A numpy array as the hook passes it: a (strided) torch view of a
+    contiguous transpose (``perm`` puts the bin axis last)."""
+    inv = np.argsort(perm)
+    return torch.from_numpy(np.ascontiguousarray(a.transpose(perm))) \
+        .permute(*inv)
+
+
+@pytest.mark.parametrize("F,B,Q,P", [
+    (9, 4, 3, 5), (65, 8, 16, 16), (33, 16, 44, 16), (9, 24, 16, 8),
+    (65, 6, 86, 16), (65, 6, 20, 76)])
+def test_spectral_matmul_bin_minor_views_match_repro(F, B, Q, P):
+    """The hook's layout: X (F, B, Q) with strides (1, Q F, F), W (F, Q, P)
+    with strides (1, F, Q F); the result in X's layout, the numbers of
+    repro's kernel on contiguous copies."""
+    rng = np.random.RandomState(F + B + Q + P)
+    planes = _planes(rng, F, B, Q, P)
+    xr, xi = (_bin_minor(a, (1, 2, 0)) for a in planes[:2])
+    ws = [_bin_minor(a, (2, 1, 0)) for a in planes[2:]]
+    assert xr.stride() == (1, Q * F, F) and ws[0].stride() == (1, F, Q * F)
+    assert tsm.layout_of(xr, xi, *ws) == tsm.BIN_MINOR
+    yr, yi = tsm.spectral_matmul(xr, xi, *ws)
+    assert yr.shape == (F, B, P) and yr.stride() == (1, P * F, F)
+    kr, ki = jsm.spectral_matmul(*map(jnp.asarray, planes), block_b=64,
+                                 block_p=64, interpret=True)
+    _close(yr.numpy(), kr)
+    _close(yi.numpy(), ki)
+
+
+def test_spectral_contract_passes_views_without_copies(monkeypatch):
+    """spectral_contract hands spectral_matmul views of its inputs' storage
+    (no copy in) and returns views of spectral_matmul's outputs (no copy
+    out), contiguous (..., p, kf)."""
+    rng = np.random.RandomState(3)
+    p, q, kf = 3, 5, 9
+    cache = {n: _t(rng.randn(p, q, kf).astype(np.float32))
+             for n in ("wr", "ws1", "ws2")}
+    xr, xi = (_t(rng.randn(2, 4, q, kf).astype(np.float32))
+              for _ in range(2))
+    seen = {}
+
+    def recording(*args):
+        seen["args"] = args
+        seen["out"] = tsm.spectral_matmul(*args)
+        return seen["out"]
+
+    monkeypatch.setattr(tops, "spectral_matmul", recording)
+    yr, yi = tops.spectral_contract(xr, xi, cache)
+    inputs = (xr, xi, cache["wr"], cache["ws1"], cache["ws2"])
+    for arg, src in zip(seen["args"], inputs):
+        assert arg.data_ptr() == src.data_ptr()
+        assert arg.untyped_storage().data_ptr() == \
+            src.untyped_storage().data_ptr()
+    assert seen["args"][0].stride() == (1, q * kf, kf)
+    assert seen["args"][2].stride() == (1, kf, q * kf)
+    for got, out in zip((yr, yi), seen["out"]):
+        assert got.shape == (2, 4, p, kf) and got.is_contiguous()
+        assert got.data_ptr() == out.data_ptr()
+    want = tcc._gauss_contract(xr, xi, cache, "...qf,pqf->...pf")
+    _close(yr.numpy(), want[0].numpy())
+    _close(yi.numpy(), want[1].numpy())
+
+
+def _refused_layouts():
+    """name -> (xr, xi, wr, ws1, ws2) in a layout the kernel does not take."""
+    rng = np.random.RandomState(5)
+    F, B, Q, P = 9, 4, 3, 5
+    planes = [_t(a) for a in _planes(rng, F, B, Q, P)]
+    minor_x = [_bin_minor(a.numpy(), (1, 2, 0)) for a in planes[:2]]
+    minor_w = [_bin_minor(a.numpy(), (2, 1, 0)) for a in planes[2:]]
+    wide = _t(rng.randn(F, B, 2 * Q).astype(np.float32))[..., ::2]
+    return {
+        "no_unit_stride": (wide, wide, *planes[2:]),
+        "x_minor_w_major": (*minor_x, *planes[2:]),
+        "x_major_w_minor": (*planes[:2], *minor_w),
+        "w_transposed": (*planes[:2], *(w.transpose(1, 2).contiguous()
+                                        .transpose(1, 2)
+                                        for w in planes[2:])),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_refused_layouts()))
+def test_spectral_matmul_refuses_other_layouts(name):
+    with pytest.raises(ValueError, match="neither bin-major"):
+        tsm.spectral_matmul(*_refused_layouts()[name])
+
+
+def test_spectral_contract_refuses_strided_spectra():
+    """Spectra whose (N, q, kf) rows are not contiguous (the real part of a
+    complex FFT) raise; spectral_contract never copies them."""
+    rng = np.random.RandomState(6)
+    p, q, kf = 3, 5, 9
+    cache = {n: _t(rng.randn(p, q, kf).astype(np.float32))
+             for n in ("wr", "ws1", "ws2")}
+    xc = torch.fft.rfft(_t(rng.randn(4, q, 16).astype(np.float32)), dim=-1)
+    with pytest.raises(ValueError, match="neither bin-major"):
+        tops.spectral_contract(xc.real, xc.imag, cache)
