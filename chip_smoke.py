@@ -42,6 +42,21 @@ itself.  Each phase prints one JSON line:
   serve_qwen    qwen2.5-3b and qwen3-4b at their published widths and
                 depth through both engines (exact launch counts), and the
                 B=1 oracle check on one request each
+  serve_phi3    phi-3-vision-4.2b (the vision stub: 576 zero patch
+                embeddings replace the first prompt slots; 32 heads of 96)
+                at its published widths and depth: 4 requests of 600-760
+                tokens through both engines (exact launch counts; every
+                prefill on the bf16 flash lane at head dim 96), the B=1
+                oracle check on one float32 request of 600 + 16 tokens
+  serve_moe     llama4-maverick-400b-a17b (48 layers alternating dense and
+                mixture-of-experts, 128 experts top-1 plus a shared expert)
+                at its published widths and depth: 4 requests of 17-64
+                tokens through both engines (exact launch counts: every
+                expert's three projections a launch of ``bc_fused`` per MoE
+                layer and forward pass), the B=1 oracle check on one
+                float32 request of 48 + 8 tokens with the smallest gap
+                between the two largest router logits it met; peak device
+                memory and the phase's wall time
 
 The kernels phase adds ``spectral_matmul`` at every batch-prefill shape
 (F = 65, N = 2048 rows) in both of its layouts (``repro``'s contiguous
@@ -50,9 +65,16 @@ and replayed from a CUDA graph for the same bits, the whole projection at those 
 lowerings (the hook, ``bc_fused``, dense ``torch.matmul``), the flash kernel
 at the dense-decode shape, and ``bc_fused`` / ``paged_attention`` / the
 flash kernel (head dim 128: bf16 prefill, float32 one-row decode) at qwen's
-shapes; ``paged_attention`` also with every slot at the table's last
-column (cases ending ``_full``).  Each case carries its launch plan where
-the kernel has one, and ``bound_share`` = bound / device time.
+shapes, the same at phi-3-vision's head dim 96 (bf16 prefill at 640
+positions; the float32 one-row decode and ``paged_attention`` on both pool
+lanes, at its 32 KV heads (G = 1), at the shapes of serve_phi3's last
+decode step: 4 rows over 775 keys, 4 slots of 64-page tables at
+positions 614-774), and ``bc_fused`` on all three lanes at llama4's
+projection and expert shapes (4 rows) and phi-3-vision's;
+``paged_attention`` also with one slot idle where none is (cases ending
+``_idle``) and with every slot at the table's last column (``_full``).
+Each case carries its launch plan where the kernel has one, and
+``bound_share`` = bound / device time.
 
 Then the card's name and power limit, the kernel summary
 ``{"kernels": [...]}`` (one entry per lane), and last the line
@@ -86,13 +108,14 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import paged as pg  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import spectral_matmul as sm  # noqa: E402
+from repro_torch.layers import ffn  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
-from repro_torch.models.transformer import init_params  # noqa: E402
+from repro_torch.models.transformer import init_params, layer_kinds  # noqa: E402
 from repro_torch.quant import codec  # noqa: E402
 from repro_torch.serve import decode as dec  # noqa: E402
 from repro_torch.serve import kvcache as kvc  # noqa: E402
 from repro_torch.serve.engine import (ContinuousEngine, Engine,  # noqa: E402
-                                      Request)
+                                      Request, frontend_inputs)
 from repro_torch.serve.params import precompute_serving_params  # noqa: E402
 
 ARCH = "tinyllama-1.1b"
@@ -104,7 +127,17 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 LIBRARIES = (bc_fused.KERNEL, fa.KERNEL, pa.KERNEL, pg.KERNEL, sm.KERNEL)
 QWEN = ("qwen2.5-3b", "qwen3-4b")
+PHI3, MOE = "phi-3-vision-4.2b", "llama4-maverick-400b-a17b"
 ROWS = 8 * 256              # batch-prefill rows: 8 prompts padded to 256
+# serve_arch's requests and engine sizes for serve_phi3 / serve_moe (4
+# requests; ContinuousEngine with SLOTS slots and pages of PAGE).  The
+# kernels phase checks phi-3's decode attention at the shapes they give.
+SERVE_ARCH = {
+    PHI3: dict(lo=600, hi=760, new=16, max_seq=1024, oracle_len=600,
+               oracle_new=16),
+    MOE: dict(lo=17, hi=64, new=8, max_seq=128, oracle_len=48,
+              oracle_new=8)}
+SLOTS, PAGE = 4, 16
 # Every lane, one exported C function each: (library, the TPU kernel it
 # replaces, the kernel-check group and case its times come from, the phase
 # whose run gives its launch count).
@@ -130,6 +163,28 @@ LANES = {
                         "src/repro/kernels/spectral_matmul.py:42",
                         "spectral_matmul", "tinyllama_q_o_n2048",
                         "serve_batch"),
+}
+# The lanes again at the shapes phi-3-vision and llama4 bring (head dim
+# 96, G = 1, expert blocks), named ``<lane>@<shape>``; launches from that
+# arch's run in serve_phi3 / serve_moe (the decode cases at that run's
+# last decode step: see ``decode_shapes``).
+NEW_SHAPES = {
+    "flash_attention@d96": (fa.KERNEL,
+                            "src/repro/kernels/flash_attention.py:75",
+                            "flash_attention", "phi3_prefill_bfloat16_s640",
+                            f"{PHI3}/continuous"),
+    "flash_attention@d96_decode": (fa.KERNEL,
+                                   "src/repro/kernels/flash_attention.py:75",
+                                   "flash_attention",
+                                   "phi3_decode_float32_b4_skv775",
+                                   f"{PHI3}/batch"),
+    "paged_attention@d96_g1": (pa.KERNEL,
+                               "src/repro/kernels/paged_attention.py:181",
+                               "paged_attention", "phi3_decode_bfloat16_b4",
+                               f"{PHI3}/continuous"),
+    "bc_fused@expert": (bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48",
+                        "bc_fused", "llama4_expert_up_gate_b4",
+                        f"{MOE}/continuous"),
 }
 
 
@@ -300,13 +355,14 @@ def check_bc_fused(cfg, gen, shapes=None, batches=(8, 256),
     return {lane: (cases, "up_gate_b8") for lane, cases in lanes.items()}
 
 
-def check_flash(cfg, gen, prefix=""):
+def check_flash(cfg, gen, prefix="", s_bf16=256, s_f32=48):
+    """The bf16 prefill lane at ``s_bf16`` positions (by default the
+    longest prompt the serve phase's max_seq of 256 admits) and the float32
+    lane at ``s_f32`` (the serve_parity prompt)."""
     a = cfg.attention
     Hq, Hkv, D = a.num_heads, a.num_kv_heads, a.head_dim
     cases = []
-    # (dtype, S): bf16 at the longest prompt the serve phase's max_seq of
-    # 256 admits, f32 at the serve_parity prompt
-    for dtype, S in ((torch.bfloat16, 256), (torch.float32, 48)):
+    for dtype, S in ((torch.bfloat16, s_bf16), (torch.float32, s_f32)):
         q = torch.randn((1, Hq, S, D), generator=gen, device="cuda").to(dtype)
         k = torch.randn((1, Hkv, S, D), generator=gen, device="cuda").to(dtype)
         v = torch.randn((1, Hkv, S, D), generator=gen, device="cuda").to(dtype)
@@ -348,27 +404,38 @@ def check_flash(cfg, gen, prefix=""):
     return {"flash_attention": (cases, "prefill_bfloat16_s256")}
 
 
-def check_paged(cfg, gen, float_only=False, prefix=""):
+# the serve phase's positions (8 slots, tables of 16 pages): a partial
+# last page (200, 17, 130, 95), page-aligned ends (63, 239), a slot inside
+# its first page (5), and an idle slot (-1)
+SERVE_POSITIONS = (200, 17, 63, -1, 130, 5, 239, 95)
+
+
+def check_paged(cfg, gen, float_only=False, prefix="", maxp=16,
+                positions=SERVE_POSITIONS):
     """The float lanes (bf16 and f32 queries on an f32 pool) and the int8
-    lane (the same pool quantized per (page, head); f32 and bf16 queries),
-    at the serve phase's 8 slots and mixed positions (the main cases), and
-    again with every slot at the table's last column (``_full``).
-    ``float_only``: the bf16-query, f32-pool case alone (``prefix`` names
-    its arch)."""
+    lane (the same pool quantized per (page, head); f32 and bf16 queries)
+    over one slot a position and tables of ``maxp`` pages of 16 (by
+    default the serve phase's): at ``positions`` (the main cases), with
+    the middle slot idle where no slot is (``_idle``), and with every slot
+    at the table's last column (``_full``).  ``float_only``: the
+    bf16-query, f32-pool case alone (``prefix`` names its arch)."""
     a = cfg.attention
     Hq, Hkv, D = a.num_heads, a.num_kv_heads, a.head_dim
-    page, maxp, B = 16, 16, 8
-    # mixed lengths: a partial last page (200, 17, 130, 95), page-aligned
-    # ends (63, 239), a slot inside its first page (5), and an idle slot
-    mixed = torch.tensor([200, 17, 63, -1, 130, 5, 239, 95],
-                         dtype=torch.int32, device="cuda")
+    page, B = PAGE, len(positions)
+    mixed = torch.tensor(positions, dtype=torch.int32, device="cuda")
     full = torch.full((B,), maxp * page - 1, dtype=torch.int32,
                       device="cuda")
     P = B * maxp + 1
     perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
     table = perm[:B * maxp].reshape(B, maxp).to(torch.int32).contiguous()
     mixed_table = table.clone()
-    mixed_table[3] = 0                        # idle slot owns no page
+    mixed_table[mixed < 0] = 0                # an idle slot owns no page
+    runs = [("", mixed, mixed_table)]
+    if not bool((mixed < 0).any()):
+        idle, idle_table = mixed.clone(), table.clone()
+        idle[B // 2], idle_table[B // 2] = -1, 0
+        runs.append(("_idle", idle, idle_table))
+    runs.append(("_full", full, table))
     pool_k = torch.randn((P, page, Hkv, D), generator=gen, device="cuda")
     pool_v = torch.randn((P, page, Hkv, D), generator=gen, device="cuda")
     k8, ks = codec.quantize_page_block(pool_k)
@@ -382,8 +449,7 @@ def check_paged(cfg, gen, float_only=False, prefix=""):
                  {"k_scale": ks, "v_scale": vs}))
     for lane, dtype, pk, pv, scales in variants[:1 if float_only else 4]:
         q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(dtype)
-        for suffix, positions, tab in (("", mixed, mixed_table),
-                                       ("_full", full, table)):
+        for suffix, positions, tab in runs:
             got = pa.paged_attention(q, pk, pv, tab, positions, **scales)
             ref = pa.paged_attention_stream(q, pk, pv, tab, positions,
                                             **scales)
@@ -468,14 +534,14 @@ def check_gather(cfg, gen):
     return {"paged_gather": (cases, "gather_float32_b8")}
 
 
-def check_flash_decode(cfg, gen, prefix=""):
-    """The batch engine's decode attention: 8 rows of one query each over a
-    float32 dense cache of 231 positions (kv_offset 230), the longest the
-    serve_batch phase reaches (prompt 200 + 31 decode steps); the G query
-    heads of a KV head share a block and the keys split over blocks."""
+def check_flash_decode(cfg, gen, prefix="", B=8, Skv=231):
+    """The batch engine's decode attention: ``B`` rows of one query each
+    over a float32 dense cache of ``Skv`` positions (kv_offset Skv - 1);
+    by default the longest the serve_batch phase reaches (8 rows, prompt
+    200 + 31 decode steps).  The G query heads of a KV head share a block
+    and the keys split over blocks."""
     a = cfg.attention
     Hq, Hkv, D = a.num_heads, a.num_kv_heads, a.head_dim
-    B, Skv = 8, 231
     q = torch.randn((B, Hq, 1, D), generator=gen, device="cuda")
     k = torch.randn((B, Hkv, Skv, D), generator=gen, device="cuda")
     v = torch.randn((B, Hkv, Skv, D), generator=gen, device="cuda")
@@ -668,9 +734,18 @@ def kernel_gen():
     return gen
 
 
+def expert_projections(cfg):
+    """llama4's projections at the shapes tinyllama-1.1b's lack (its q/o,
+    k/v and dense MLP), the experts' among them: an expert's up/gate and
+    down have the dense MLP's shapes."""
+    return {f"llama4_{'expert_' if name in ('up_gate', 'down') else ''}"
+            f"{name}": io for name, io in projections(cfg).items()}
+
+
 def phase_kernels(cfg):
     gen = kernel_gen()
     qwen = {arch: get_config(arch) for arch in QWEN}
+    phi3, moe = get_config(PHI3), get_config(MOE)
     checks = [lambda: check_bc_fused(cfg, gen),
               lambda: check_flash(cfg, gen),
               lambda: check_flash_decode(cfg, gen),
@@ -688,6 +763,22 @@ def phase_kernels(cfg):
             lambda qc=qc, f=family: check_flash(qc, gen, prefix=f"{f}_"),
             lambda qc=qc, f=family: check_flash_decode(qc, gen,
                                                        prefix=f"{f}_")]
+    at = decode_shapes(PHI3)
+    checks += [
+        # head dim 96: the bf16 lane's third tiling, at a serve_phi3
+        # prompt's length; the float32 lane at the oracle's prompt; decode
+        # at serve_phi3's last step (paged: G = 1)
+        lambda: check_flash(phi3, gen, prefix="phi3_", s_bf16=640,
+                            s_f32=600),
+        lambda: check_flash_decode(phi3, gen, prefix="phi3_", B=at["rows"],
+                                   Skv=at["keys"]),
+        lambda: check_paged(phi3, gen, prefix="phi3_", maxp=at["maxp"],
+                            positions=at["positions"]),
+        lambda: check_bc_fused(phi3, gen, {"phi3_up_gate": (
+            phi3.d_model, phi3.d_ff)}, batches=(8,)),
+        # a decode's dropless expert buffer at 4 slots: 4 rows an expert
+        lambda: check_bc_fused(moe, gen, expert_projections(moe),
+                               batches=(4,))]
     out = {}
     for check in checks:
         for lane, (cases, main_case) in check().items():
@@ -714,6 +805,29 @@ def make_requests(cfg, n, lo, hi, new_tokens, rng):
     return [Request(prompt=rng.randint(0, cfg.vocab_size, size=int(s))
                     .astype(np.int32), max_new_tokens=new_tokens, id=i)
             for i, s in enumerate(lens)]
+
+
+def arch_requests(cfg, lo, hi, new, **_):
+    """serve_arch's requests: a one-request warm-up, then 4 of ``lo``-``hi``
+    prompt tokens and ``new`` new tokens (random, from the seed)."""
+    rng = np.random.RandomState(SEED)
+    return (make_requests(cfg, 1, lo, lo, 2, rng),
+            make_requests(cfg, 4, lo, hi, new, rng))
+
+
+def decode_shapes(arch):
+    """The decode attention shapes of serve_arch's run of ``arch`` at its
+    last decode step: the continuous engine's table width and each slot's
+    position (prompt + new - 2), the batch engine's rows and keys (the
+    longest prompt + new - 1)."""
+    s = SERVE_ARCH[arch]
+    _, reqs = arch_requests(get_config(arch), **s)
+    lens = [len(r.prompt) for r in reqs]
+    if len(reqs) != SLOTS:
+        raise AssertionError(f"{len(reqs)} requests for {SLOTS} slots")
+    return {"maxp": kvc.pages_for(s["max_seq"], PAGE),
+            "positions": tuple(n + s["new"] - 2 for n in lens),
+            "rows": len(reqs), "keys": max(lens) + s["new"] - 1}
 
 
 def lane_counts():
@@ -881,17 +995,43 @@ def batch_summary(phase, cfg, results, reqs, st, launches, wall, peak):
             "quant_policy": st["quant_policy"]}
 
 
+def projections_per_pass(cfg):
+    """(projections the spectral-MAC hook can take, expert projections) in
+    one forward pass: q k v o up gate down of a dense layer; q k v o and
+    the shared expert's three of an MoE layer, plus up gate down of every
+    expert (``repro``'s expert FFN takes no hook)."""
+    kinds = layer_kinds(cfg)
+    n_moe = kinds.count("moe")
+    shared = 3 if cfg.moe.shared_expert else 0
+    return (7 * (len(kinds) - n_moe) + (4 + shared) * n_moe,
+            3 * cfg.moe.num_experts * n_moe)
+
+
+def continuous_launches(cfg, st, lane="bc_fused"):
+    """What one continuous-engine run must launch: every projection of a
+    prefill or decode step through the fused kernel's lane, the flash
+    kernel once per layer and prefill, the paged kernel once per layer and
+    decode step."""
+    hooked, experts = projections_per_pass(cfg)
+    pre, steps = st["prefills"], st["decode_steps"]
+    return {lane: (hooked + experts) * (pre + steps),
+            "flash_attention": cfg.num_layers * pre,
+            "paged_attention": cfg.num_layers * steps}
+
+
 def batch_launches(cfg, st, lane="bc_fused", hooked=True):
     """What one batch-engine run must launch: every projection of a
-    prefill through ``spectral_matmul`` (float32 planes, ``hooked``) or the
-    fused kernel's lane, every decode projection through the fused kernel,
-    the flash kernel once per layer and forward pass."""
-    per_pass = 7 * cfg.num_layers
+    prefill but the experts' through ``spectral_matmul`` (float32 planes,
+    ``hooked``) or the fused kernel's lane, the experts' and every decode
+    projection through the fused kernel, the flash kernel once per layer
+    and forward pass."""
+    plain, experts = projections_per_pass(cfg)
     pre, steps = st["prefills"], st["decode_steps"]
-    want = {lane: per_pass * (steps + (0 if hooked else pre)),
+    want = {lane: (plain + experts) * steps
+            + (experts if hooked else plain + experts) * pre,
             "flash_attention": cfg.num_layers * (pre + steps)}
     if hooked:
-        want["spectral_matmul"] = per_pass * pre
+        want["spectral_matmul"] = plain * pre
     return want
 
 
@@ -1013,7 +1153,7 @@ def greedy_trace(cfg, params, prompt, new, policy, paged_impl):
         cache = model.init_cache(1, pp * page, dtype=torch.float32,
                                  device=dev)
         logits, dense = model.prefill(params, {"tokens": torch.as_tensor(
-            toks[None], device=dev)}, cache)
+            toks[None], device=dev), **frontend_inputs(cfg, 1, dev)}, cache)
         kvc.pack_prefill_cache(pool, dense, pages[:pp], page, true_len=S)
         steps = [logits[0, S - 1].float().cpu()]
         table = pages[None].to(torch.int32)
@@ -1120,7 +1260,8 @@ def batch_trace(cfg, params, prompt, new):
         cache = model.init_cache(1, S + new - 1, dtype=torch.float32,
                                  device=dev)
         logits, cache = prefill(params, {"tokens": torch.as_tensor(
-            prompt[None], dtype=torch.int64, device=dev)}, cache)
+            prompt[None], dtype=torch.int64, device=dev),
+            **frontend_inputs(cfg, 1, dev)}, cache)
         steps = [logits[0, -1].float().cpu()]
         for i in range(new - 1):
             cur = torch.tensor([[int(steps[-1].argmax())]], device=dev)
@@ -1208,60 +1349,92 @@ def phase_batch_parity(cfg):
     return out
 
 
-def phase_serve_qwen():
-    """Each qwen model at its published widths and depth, random weights
-    from the seed: 4 requests through each engine (exact launch counts),
-    then the B=1 oracle check on one float32 request."""
-    out = {}
-    for arch in QWEN:
-        cfg = get_config(arch)
-        L = cfg.num_layers
-        per_pass = 7 * L
-        params = init_params(cfg, seed=SEED, device=DEVICE)
-        rng = np.random.RandomState(SEED)
-        warm = make_requests(cfg, 1, 17, 17, 2, rng)
-        reqs = make_requests(cfg, 4, 17, 200, 16, rng)
-        runs = {}
-        engines = {
-            "batch": lambda: Engine(cfg, params, max_batch=8, max_seq=256,
-                                    device=DEVICE),
-            "continuous": lambda: ContinuousEngine(
-                cfg, params, max_slots=4, max_seq=256, page_size=16,
-                decode_chunk=8, device=DEVICE)}
-        for name, make in engines.items():
-            make().generate(warm)
-            results, st, launches, wall, peak = timed_run(make(), reqs)
-            pre, steps = st["prefills"], st["decode_steps"]
-            if name == "batch":
-                want = batch_launches(cfg, st)
-            else:
-                want = {"bc_fused": per_pass * (pre + steps),
-                        "flash_attention": L * pre,
-                        "paged_attention": L * steps}
-            check_launches(launches, want)
-            tokens = sum(r["decode_len"] for r in results)
-            runs[name] = {
-                "requests": len(results), "tokens": tokens, "wall_s": wall,
-                "tokens_per_s": tokens / wall, "prefill_s": st["prefill_s"],
-                "decode_s": st["decode_s"], "prefills": pre,
-                "decode_steps": steps,
-                "ms_per_step": 1e3 * st["decode_s"] / max(steps, 1),
-                "launches": launches, "peak_memory_bytes": peak,
-                "cache_or_pool_bytes": st.get("cache_bytes",
-                                              st.get("pool_bytes"))}
-        prompt = np.random.RandomState(SEED + 4).randint(
-            0, cfg.vocab_size, size=48).astype(np.int32)
-        _, oracle = oracle_check(cfg.replace(dtype="float32"), params,
-                                 prompt, 16)
-        out[arch] = {"phase": "serve_qwen", "arch": arch, "layers": L,
-                     "d_model": cfg.d_model, "d_ff": cfg.d_ff,
-                     "vocab": cfg.vocab_size,
-                     "prompt_lens": [len(r.prompt) for r in reqs],
-                     **runs, "oracle_b1_float32": oracle}
-        emit(out[arch])
-        del params
-        torch.cuda.empty_cache()
+def serve_arch(arch, phase, *, lo, hi, new, max_seq, oracle_len, oracle_new):
+    """One arch at its published widths and depth, random weights from the
+    seed: 4 requests of ``lo``-``hi`` prompt tokens and ``new`` new tokens
+    through each engine (after a one-request warm-up; exact launch counts
+    per lane), then the B=1 oracle check on one float32 request of
+    ``oracle_len`` + ``oracle_new`` tokens, with the smallest gap between
+    the two largest router logits of any token an MoE layer routed there
+    (``layers/ffn.py:top2_gap``: a gap under the logits' rounding error may
+    route otherwise under another lowering).  Returns the phase's line."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    L = cfg.num_layers
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    warm, reqs = arch_requests(cfg, lo, hi, new)
+    runs = {}
+    engines = {
+        "batch": lambda: Engine(cfg, params, max_batch=8, max_seq=max_seq,
+                                device=DEVICE),
+        "continuous": lambda: ContinuousEngine(
+            cfg, params, max_slots=SLOTS, max_seq=max_seq, page_size=PAGE,
+            decode_chunk=8, device=DEVICE)}
+    for name, make in engines.items():
+        make().generate(warm)
+        results, st, launches, wall, peak = timed_run(make(), reqs)
+        pre, steps = st["prefills"], st["decode_steps"]
+        want = (batch_launches(cfg, st) if name == "batch"
+                else continuous_launches(cfg, st))
+        check_launches(launches, want)
+        tokens = sum(r["decode_len"] for r in results)
+        runs[name] = {
+            "requests": len(results), "tokens": tokens, "wall_s": wall,
+            "tokens_per_s": tokens / wall, "prefill_s": st["prefill_s"],
+            "decode_s": st["decode_s"], "prefills": pre,
+            "decode_steps": steps,
+            "ms_per_step": 1e3 * st["decode_s"] / max(steps, 1),
+            "launches": launches, "peak_memory_bytes": peak,
+            "cache_or_pool_bytes": st.get("cache_bytes",
+                                          st.get("pool_bytes"))}
+    prompt = np.random.RandomState(SEED + 4).randint(
+        0, cfg.vocab_size, size=oracle_len).astype(np.int32)
+    moes = [m for m in params.modules() if isinstance(m, ffn.MoE)]
+    for m in moes:
+        m.logit_gaps = []
+    _, oracle = oracle_check(cfg.replace(dtype="float32"), params, prompt,
+                             oracle_new)
+    if moes:
+        oracle["min_router_logit_gap"] = min(g for m in moes
+                                             for g in m.logit_gaps)
+    for m in moes:
+        m.logit_gaps = None
+    hooked, experts = projections_per_pass(cfg)
+    out = {"phase": phase, "arch": arch, "layers": L,
+           "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size,
+           "prompt_lens": [len(r.prompt) for r in reqs],
+           **runs, "oracle_b1_float32": oracle,
+           "bc_fused_per_pass": hooked + experts,
+           "expert_launches_per_pass": experts,
+           "phase_wall_s": time.perf_counter() - t0,
+           "phase_peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    emit(out)
+    del params
+    torch.cuda.empty_cache()
     return out
+
+
+def phase_serve_qwen():
+    """Each qwen model at its published widths and depth through both
+    engines, then the B=1 oracle check on one float32 request."""
+    return {arch: serve_arch(arch, "serve_qwen", lo=17, hi=200, new=16,
+                             max_seq=256, oracle_len=48, oracle_new=16)
+            for arch in QWEN}
+
+
+def phase_serve_phi3():
+    """phi-3-vision-4.2b: image-plus-text prompts longer than its 576 patch
+    slots, so the zero patches replace a real prefix."""
+    return serve_arch(PHI3, "serve_phi3", **SERVE_ARCH[PHI3])
+
+
+def phase_serve_moe():
+    """llama4-maverick-400b-a17b.  The oracle's prompt of 48 tokens fills
+    3 pages exactly, so both engines route the same 48 tokens under the
+    same capacity."""
+    return serve_arch(MOE, "serve_moe", **SERVE_ARCH[MOE])
 
 
 def main() -> int:
@@ -1303,12 +1476,17 @@ def main() -> int:
     phase_serve_batch_quant(cfg)
     phase_batch_parity(cfg)
     phase_serve_qwen()
+    for arch, out in ((PHI3, phase_serve_phi3()), (MOE, phase_serve_moe())):
+        for engine in ("continuous", "batch"):
+            runs[f"{arch}/{engine}"] = out[engine]
     phase_lowering(cfg, kernel_gen())
     summary = []
-    for name, (lib, replaces, group, main_case, run) in LANES.items():
+    for name, (lib, replaces, group, main_case, run) in (
+            list(LANES.items()) + list(NEW_SHAPES.items())):
         cases, _ = kernels[group]
         c = next(c for c in cases if c["case"] == main_case)
-        launches = runs[run]["launches"][name]
+        fn = name.split("@")[0]
+        launches = runs[run]["launches"][fn]
         if not launches:
             raise AssertionError(f"{name}: no launch in the {run} run")
         summary.append({

@@ -140,8 +140,10 @@ def irfft_planes(yr: torch.Tensor, yi: torch.Tensor, k: int):
 # Spectral weight cache (offline FFT of the generators)
 # ---------------------------------------------------------------------------
 def spectral_cache(w: torch.Tensor, gauss: bool = True) -> Dict[str, torch.Tensor]:
-    """rfft(w) as real planes (p, q, kf), plus the Gauss combinations
-    ``ws1 = wi - wr`` and ``ws2 = wr + wi`` that make the MAC 3 products."""
+    """rfft(w) as real planes (..., p, q, kf), plus the Gauss combinations
+    ``ws1 = wi - wr`` and ``ws2 = wr + wi`` that make the MAC 3 products.
+    Leading axes pass through: an MoE's (E, p, q, k) expert stack gives
+    (E, p, q, kf) planes."""
     wr, wi = rfft_planes(w.float(), w.shape[-1])
     out = {"wr": wr, "wi": wi}
     if gauss:
@@ -353,6 +355,11 @@ class Linear(nn.Module):
         planes = {n: getattr(self, f"wc_cache_{n}") for n in CACHE_KEYS}
         planes = {n: t for n, t in planes.items() if t is not None}
         return planes or None
+
+    def plane_caches(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Baked caches by buffer prefix (``quant/codec.py:baked_caches``)."""
+        cache = self.wc_cache
+        return {} if cache is None else {"wc_cache": cache}
 
     def bake_spectral(self, gauss: bool = True) -> None:
         """Store ``spectral_cache(wc)`` next to the generators (idempotent)."""

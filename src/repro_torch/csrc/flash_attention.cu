@@ -25,7 +25,11 @@
 //   as the A operand of P V (FlashAttention-2), and the row sum l is
 //   taken from the float32 P.  Tiles wholly masked for a warp are
 //   skipped; tiles outside the block's causal / window extent are never
-//   loaded.
+//   loaded.  Head dims 64, 96 and 128 are compile-time instances: D / 16
+//   k-steps of Q K^T and D / 8 output tiles of P V, a row of shared
+//   memory padded to D + 8 values (144, 208 and 272 bytes: the 8 rows an
+//   ldmatrix reads land on 8 distinct groups of 4 banks), and
+//   2 x 5 x 64 x (D + 8) bytes of shared memory (Q plus two K/V buffers).
 // - float32 (flash_f32_kernel), the parity lane, on the CUDA cores: GQA
 //   packing puts the G query heads of a KV head and the query rows of a
 //   position together (packed row = position * G + head), up to 64 packed
@@ -472,8 +476,8 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
 }  // namespace
 
 // q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D); o: (B, Hq, Sq, D), all of one
-// dtype (0 = float32, 1 = bfloat16), contiguous.  bfloat16 takes D = 64 or
-// 128 (the tensor-core tiles) and one split; it ignores `rows`.  float32
+// dtype (0 = float32, 1 = bfloat16), contiguous.  bfloat16 takes D = 64,
+// 96 or 128 (the tensor-core tiles) and one split; it ignores `rows`.  float32
 // takes D <= 128, `rows` (<= 64) packed rows a block and `splits` key
 // ranges of `chunk` keys (a multiple of 32); with splits > 1 (only where
 // G * Sq <= rows) part is float32 scratch of
@@ -497,6 +501,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (dtype != 1 || splits != 1) return (int)cudaErrorInvalidValue;
   if (D == 64)
     return (int)launch_bf16<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
+                                causal, window, softcap, kv_offset, s);
+  if (D == 96)
+    return (int)launch_bf16<96>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
                                 causal, window, softcap, kv_offset, s);
   if (D == 128)
     return (int)launch_bf16<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,

@@ -6,7 +6,7 @@ Port of ``repro/kernels/flash_attention.py`` and of its reference
 on CUDA tensors it launches ``csrc/flash_attention.cu`` (or raises), on CPU
 tensors it runs ``attention_ref``.  Layout (B, H, S, D), as in ``repro``.
 
-Two lanes: bf16 on the tensor cores (head dims 64 and 128), float32 on the
+Two lanes: bf16 on the tensor cores (head dims 64, 96 and 128), float32 on the
 CUDA cores with the G query heads of a KV head packed into one block and,
 where that grid is small (decode), the keys split over blocks and merged
 in the same call.  ``plan`` picks the split from the shapes alone.
@@ -27,7 +27,7 @@ KERNEL = Kernel("flash_attention", {
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
-BF16_HEAD_DIMS = (64, 128)   # the bf16 lane's tensor-core tilings
+BF16_HEAD_DIMS = (64, 96, 128)   # the bf16 lane's tensor-core tilings
 SMS = 132                    # streaming multiprocessors of an H100
 BF16_ROWS, F32_ROWS, KEY_TILE = 64, 64, 32   # csrc kBQ, kF32MaxRows, kTile
 F32_MIN_ROWS = 8                             # one packed row a warp

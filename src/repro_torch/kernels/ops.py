@@ -18,8 +18,9 @@ from .paged import paged_gather
 from .paged_attention import paged_attention
 from .spectral_matmul import spectral_matmul
 
-__all__ = ["bc_linear", "flash_attention", "paged_attention", "paged_gather",
-           "spectral_contract", "spectral_matmul"]
+__all__ = ["bc_expert_linear", "bc_linear", "flash_attention",
+           "paged_attention", "paged_gather", "spectral_contract",
+           "spectral_matmul"]
 
 
 def bc_linear(x: torch.Tensor, cache: Dict[str, torch.Tensor], k: int,
@@ -44,6 +45,22 @@ def bc_linear(x: torch.Tensor, cache: Dict[str, torch.Tensor], k: int,
     y = bc_fused_matmul(xb, cache["wr"], cache["ws1"], cache["ws2"], k,
                         scales)
     return y.reshape(*lead, p * k)[..., :n_out].to(x.dtype)
+
+
+def bc_expert_linear(x: torch.Tensor, cache: Dict[str, torch.Tensor], k: int,
+                     n_out: int, gauss: bool = True) -> torch.Tensor:
+    """An expert stack's projection: x (E, C, n_in) -> (E, C, n_out),
+    expert ``e``'s rows against its planes ``cache[name][e]`` (planes
+    (E, p, q, kf), scales (E, p, 1)).  One ``bc_linear`` per expert on the
+    views ``x[e]`` and ``planes[e]``, nothing copied: on the card one launch
+    of the fused kernel's float32, int8 or int4 lane each, on the CPU its
+    plain version (``repro`` vmaps ``bc_matmul_spectral`` the same way)."""
+    E, C, _ = x.shape
+    out = torch.empty((E, C, n_out), dtype=x.dtype, device=x.device)
+    for e in range(E):
+        out[e] = bc_linear(x[e], {name: t[e] for name, t in cache.items()},
+                           k, n_out, gauss)
+    return out
 
 
 def spectral_contract(xr: torch.Tensor, xi: torch.Tensor,

@@ -10,6 +10,9 @@ KV pool, on the CUDA card unless ``--device`` names another.
       --paged-attn gather
 
 Weights are random, drawn from ``--seed`` (no checkpoint is loaded).
+Prompts are 16-31 random tokens; a ``vision_stub`` arch (phi-3-vision)
+gets ``num_patches`` more, the slots its zero patch embeddings replace, as
+an image-plus-text request would.
 """
 from __future__ import annotations
 
@@ -84,7 +87,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     params = init_params(cfg, seed=args.seed, device=device)
     quant = QuantPolicy(args.kv_dtype, args.quant_weights, args.weight_bits)
-    max_seq = 64 + args.new_tokens
+    image = cfg.num_patches if cfg.frontend == "vision_stub" else 0
+    max_seq = image + 64 + args.new_tokens
     if args.engine == "continuous":
         engine = ContinuousEngine(cfg, params, max_slots=args.max_batch,
                                   max_seq=max_seq, page_size=args.page_size,
@@ -103,8 +107,9 @@ def main(argv=None):
                         seed=args.seed, bucket_prompts=not args.no_bucket,
                         quant=quant, device=device)
     rng = np.random.RandomState(args.seed)
-    reqs = [Request(prompt=rng.randint(0, cfg.vocab_size, size=rng.randint(
-        16, 32)).astype(np.int32), max_new_tokens=args.new_tokens, id=i)
+    reqs = [Request(prompt=rng.randint(0, cfg.vocab_size, size=image
+                                       + rng.randint(16, 32)).astype(
+        np.int32), max_new_tokens=args.new_tokens, id=i)
         for i in range(args.requests)]
     t0 = time.perf_counter()
     results = engine.generate(reqs)

@@ -1,16 +1,32 @@
-"""Feed-forward layers: the gated MLP (unfused up/gate).
+"""Feed-forward layers: the gated MLP (unfused up/gate) and mixture of
+experts (port of ``repro/layers/ffn.py``).
 
-Not ported yet: mixture-of-experts and the fused up/gate projection.
+The MoE routes tokens as ``repro`` does: grouped token-choice top-k with a
+capacity factor, float32 router logits, one-hot dispatch and combine.
+Expert weights are ``(E, ...)`` stacks (``Experts``): per-expert
+block-circulant generators (E, p, q, k) when the config sets
+``block_expert``, dense (E, d_in, d_out) otherwise.  At serve the
+circulant stacks run against their baked (E, p, q, kf) planes through
+``kernels/ops.py:bc_expert_linear`` (one fused-kernel launch per expert
+and projection on the card).
+
+Not ported yet: the fused up/gate projection, and the MoE's load-balancing
+auxiliary loss (``repro`` returns it for training; serving discards it).
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import circulant as cc
 from ..core.circulant import Linear, LinearSpec
+from ..kernels import ops as kops
+
+EXPERT_PROJECTIONS = ("up", "gate", "down")
 
 
 def _act(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -46,3 +62,179 @@ def mlp(m: MLP, x: torch.Tensor, *, activation: str = "silu",
     else:
         up = _act(activation, up)
     return m.down(up, mode, kernel_fn)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts
+# ---------------------------------------------------------------------------
+class Experts(nn.Module):
+    """The experts' up / gate / down stacks (``repro``'s ``experts``
+    dict).  With block size ``k`` each is (E, p, q, k) generators drawn
+    like ``repro``'s per-expert ``init_block_circulant``; without, dense
+    (E, n_in, n_out) at ``1/sqrt(n_in)``.  ``bake_spectral`` stores each
+    stack's planes as buffers ``<proj>_cache_<plane>`` ((E, p, q, kf);
+    quantized planes keep (E, p, 1) scales in ``<proj>_cache_<plane>_s``),
+    so ``.to()`` moves them with the weights.  Without a ``generator`` the
+    weights are zeros, to be filled by ``models/convert.py``."""
+
+    def __init__(self, num_experts: int, d_model: int, d_ff: int, k: int, *,
+                 device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.block_size = k
+        dims = {"up": (d_model, d_ff), "gate": (d_model, d_ff),
+                "down": (d_ff, d_model)}
+        for name, (n_in, n_out) in dims.items():
+            shape = ((num_experts, cc.num_blocks(n_out, k),
+                      cc.num_blocks(n_in, k), k) if k
+                     else (num_experts, n_in, n_out))
+            w = (torch.randn(shape, generator=generator, device=device)
+                 / math.sqrt(n_in) if generator is not None
+                 else torch.zeros(shape, device=device))
+            setattr(self, name, nn.Parameter(w, requires_grad=False))
+            for key in cc.CACHE_KEYS:
+                self.register_buffer(f"{name}_cache_{key}", None)
+
+    def cache(self, name: str) -> Optional[Dict[str, torch.Tensor]]:
+        planes = {key: getattr(self, f"{name}_cache_{key}")
+                  for key in cc.CACHE_KEYS}
+        planes = {key: t for key, t in planes.items() if t is not None}
+        return planes or None
+
+    def plane_caches(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Baked caches by buffer prefix (``quant/codec.py:baked_caches``)."""
+        return {f"{n}_cache": c for n in EXPERT_PROJECTIONS
+                if (c := self.cache(n)) is not None}
+
+    def bake_spectral(self, gauss: bool = True) -> None:
+        """Store ``spectral_cache`` of each stack (idempotent)."""
+        for name in EXPERT_PROJECTIONS:
+            if self.cache(name) is None:
+                for key, plane in cc.spectral_cache(getattr(self, name),
+                                                    gauss).items():
+                    setattr(self, f"{name}_cache_{key}", plane)
+
+
+class MoE(nn.Module):
+    """Router ``(d_model, E)``, the expert stacks and the optional shared
+    expert (a gated ``MLP`` of the same width), as ``repro``'s
+    ``init_moe``."""
+
+    def __init__(self, d_model: int, d_ff: int, moe_cfg, comp=None, *,
+                 device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        E = moe_cfg.num_experts
+        k = (comp.block_for("expert")
+             if comp is not None and comp.enabled else 0)
+        self.experts = Experts(E, d_model, d_ff, k, device=device,
+                               generator=generator)
+        router = (torch.randn((d_model, E), generator=generator,
+                              device=device) / math.sqrt(d_model)
+                  if generator is not None
+                  else torch.zeros((d_model, E), device=device))
+        self.router = nn.Parameter(router, requires_grad=False)
+        self.shared = (MLP(d_model, d_ff, comp, device=device,
+                           generator=generator)
+                       if moe_cfg.shared_expert else None)
+        self.logit_gaps: Optional[List[float]] = None   # see ``moe``
+
+
+def _expert_ffn(ex: Experts, xe: torch.Tensor, activation: str, d_ff: int,
+                d_model: int, gauss: bool, mode: str) -> torch.Tensor:
+    """xe: (E, cap, d_model) -> (E, cap, d_model), each expert's rows
+    through its own weights.  Circulant stacks take their baked planes
+    (derived on the fly where none are baked); ``repro`` takes no
+    spectral-MAC hook here, so neither does the port."""
+    k = ex.block_size
+    if not k:
+        up = torch.einsum("ecd,edf->ecf", xe, ex.up.to(xe.dtype))
+        gate = torch.einsum("ecd,edf->ecf", xe, ex.gate.to(xe.dtype))
+        h = _act(activation, gate) * up
+        return torch.einsum("ecf,efd->ecd", h, ex.down.to(xe.dtype))
+    if mode == "train":
+        raise NotImplementedError("MoE training is not ported yet")
+
+    def proj(name, x, n_out):
+        cache = ex.cache(name)
+        if cache is None:
+            cache = cc.spectral_cache(getattr(ex, name), gauss)
+        return kops.bc_expert_linear(x, cache, k, n_out, gauss)
+
+    h = _act(activation, proj("gate", xe, d_ff)) * proj("up", xe, d_ff)
+    return proj("down", h, d_model)
+
+
+def route(router: torch.Tensor, xt: torch.Tensor, E: int, topk: int,
+          cap: int):
+    """Grouped top-k routing of ``repro``'s ``moe``.  xt: (G, g, d).
+    Returns the dispatch and combine tensors (G, g, E, cap) in xt.dtype,
+    the chosen experts (G, g, topk) and the float32 router logits
+    (G, g, E):
+    float32 router logits, softmax, top-k, gates renormalised to sum 1;
+    each (token, choice) takes the next free position of its expert's
+    capacity buffer in token order (a cumsum), and a choice past ``cap``
+    is dropped."""
+    G, g, _ = xt.shape
+    logits = torch.einsum("gtd,de->gte", xt.float(), router.float())
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, topk, dim=-1)     # (G, g, topk)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    onehot = F.one_hot(gate_idx, E)                           # (G,g,topk,E)
+    flat = onehot.reshape(G, g * topk, E)
+    pos_in_e = torch.cumsum(flat, dim=1) - flat
+    pos = (pos_in_e * flat).sum(-1).reshape(G, g, topk)
+    slots = torch.arange(cap, device=xt.device)
+    # one_hot(pos, cap) is all zero where pos >= cap: the choice is dropped
+    disp = (onehot.to(xt.dtype)[..., :, None]
+            * (pos[..., None] == slots).to(xt.dtype)[..., None, :])
+    comb = disp * gate_vals[..., None, None].to(xt.dtype)
+    return disp.sum(2), comb.sum(2), gate_idx, logits
+
+
+def top2_gap(logits: torch.Tensor) -> torch.Tensor:
+    """The smallest gap between a token's two largest router logits: a
+    token whose gap is under the logits' rounding error may route
+    otherwise under another lowering."""
+    top = torch.topk(logits, 2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).min()
+
+
+def moe(m: MoE, x: torch.Tensor, *, d_ff: int, moe_cfg, comp=None,
+        activation: str = "silu", mode: str = "serve",
+        kernel_fn=None) -> torch.Tensor:
+    """Grouped top-k token-choice MoE, x: (B, S, d) -> (B, S, d).
+
+    Routing groups of ``g = gcd(min(router_group_size, T), T)`` tokens
+    (T = B * S); each expert's buffer holds ``cap = min(ceil(g * topk / E
+    * capacity_factor), g)`` tokens a group, and decode at serve (S == 1)
+    is dropless, ``cap = g``.  Pad tokens route and take capacity like any
+    other, as in ``repro``.  ``kernel_fn`` (the spectral-MAC hook) reaches
+    the shared expert only.  The load-balancing loss of ``repro``'s
+    ``moe`` is a training output and is not computed.  Where
+    ``m.logit_gaps`` is a list, each call appends its ``top2_gap``."""
+    B, S, d = x.shape
+    E, topk = moe_cfg.num_experts, moe_cfg.top_k
+    T = B * S
+    g = math.gcd(min(moe_cfg.router_group_size, T), T)
+    G = T // g
+    cap = max(1, int(math.ceil(g * topk / E * moe_cfg.capacity_factor)))
+    cap = min(cap, g)
+    if mode == "serve" and S == 1:
+        cap = g                  # dropless decode: every token one expert
+    gauss = comp.gauss_trick if comp is not None else True
+
+    xt = x.reshape(G, g, d)
+    disp, comb, _, logits = route(m.router, xt, E, topk, cap)  # (G,g,E,cap)
+    if m.logit_gaps is not None:
+        m.logit_gaps.append(float(top2_gap(logits)))
+    xe = torch.einsum("gtd,gtec->gecd", xt, disp)             # (G,E,cap,d)
+    xe = xe.transpose(0, 1).reshape(E, G * cap, d)
+    ye = _expert_ffn(m.experts, xe, activation, d_ff, d, gauss, mode)
+    ye = ye.reshape(E, G, cap, d).transpose(0, 1)             # (G,E,cap,d)
+    out = torch.einsum("gecd,gtec->gtd", ye, comb)
+    if m.shared is not None:
+        out = out + mlp(m.shared, xt, activation=activation, mode=mode,
+                        kernel_fn=kernel_fn)
+    return out.reshape(B, S, d)

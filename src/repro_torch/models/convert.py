@@ -8,11 +8,15 @@ modules.  Every leaf is carried by name, ``qwen``'s dense q/k/v biases
 (``b``) and per-head qk-norm scales (``qn`` / ``kn``) included.  Leaves are copied (``np.array``): ``np.asarray`` of a JAX array
 is read-only.
 
-Baked per-projection planes (``wc_cache``, float32 or quantized: int8 /
-packed-int4 ``uint8`` planes with ``<name>_s`` scales) are carried into the
-``Linear``'s ``wc_cache_*`` buffers in their own dtype, so both packages
-can serve bit-identical planes; ``precompute_serving_params`` then leaves
-them as they are.  The fused ``qkv_cache`` / ``upgate_cache`` planes are
+An MoE block's ``moe`` subtree is carried the same way: ``router``, the
+expert stacks ``experts/{up,gate,down}`` and the shared expert ``shared``.
+
+Baked planes (a projection's ``wc_cache``, an expert stack's
+``{up,gate,down}_cache``; float32 or quantized: int8 / packed-int4
+``uint8`` planes with ``<name>_s`` scales) are carried into the module's
+``<cache>_*`` buffers in their own dtype, so both packages can serve
+bit-identical planes; ``precompute_serving_params`` then leaves them as
+they are.  The fused ``qkv_cache`` / ``upgate_cache`` planes are
 not ported and are skipped (the port bakes its own per-projection planes).
 """
 from __future__ import annotations
@@ -28,6 +32,7 @@ from ..device import resolve_device
 from .transformer import Transformer, segments_for
 
 _SKIP = ("qkv_cache", "upgate_cache")
+_PLANE_DICTS = ("wc_cache", "up_cache", "gate_cache", "down_cache")
 
 
 def _copy_into(module: torch.nn.Module, tree: Mapping[str, Any], index,
@@ -39,8 +44,8 @@ def _copy_into(module: torch.nn.Module, tree: Mapping[str, Any], index,
         if name in _SKIP:
             continue
         path = f"{where}.{name}" if where else name
-        if name == "wc_cache":
-            _copy_planes(module, node, index, path)
+        if name in _PLANE_DICTS:
+            _copy_planes(module, name, node, index, path)
             continue
         if isinstance(node, Mapping):
             _copy_into(getattr(module, name), node, index, path)
@@ -55,18 +60,17 @@ def _copy_into(module: torch.nn.Module, tree: Mapping[str, Any], index,
             target.copy_(torch.from_numpy(arr))
 
 
-def _copy_planes(module: torch.nn.Module, cache: Mapping[str, Any], index,
-                 where: str) -> None:
-    """Copy a baked ``wc_cache`` dict into ``module``'s plane buffers,
-    keeping each leaf's dtype."""
+def _copy_planes(module: torch.nn.Module, prefix: str,
+                 cache: Mapping[str, Any], index, where: str) -> None:
+    """Copy a baked cache dict into ``module``'s plane buffers
+    ``<prefix>_<plane>``, keeping each leaf's dtype."""
     unknown = set(cache) - set(CACHE_KEYS)
     if unknown:
         raise ValueError(f"{where}: unknown plane keys {sorted(unknown)}")
-    device = module.wc.device
+    device = next(module.parameters()).device
     for key, node in cache.items():
         arr = np.array(node if index is None else node[index])
-        setattr(module, f"wc_cache_{key}",
-                torch.from_numpy(arr).to(device))
+        setattr(module, f"{prefix}_{key}", torch.from_numpy(arr).to(device))
 
 
 def from_jax_params(tree: Mapping[str, Any], cfg: ArchConfig,

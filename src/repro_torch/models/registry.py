@@ -6,9 +6,11 @@
                                                       -> (logits, cache)
     init_cache(batch, max_seq, dtype, device)         -> cache
 
-``decode_step`` decodes against a dense cache (``pos`` an int, no table:
-the batch engine) or a page pool (``pos`` a (B,) vector and a block
-table: the continuous engine).  ``kernel_fn`` is the projections'
+``batch`` holds ``tokens`` and, for a ``vision_stub`` config, ``patches``
+(B, num_patches, d_model): the stub's precomputed patch embeddings, which
+replace the first token slots.  ``decode_step`` decodes against a dense
+cache (``pos`` an int, no table: the batch engine) or a page pool (``pos``
+a (B,) vector and a block table: the continuous engine).  ``kernel_fn`` is the projections'
 spectral-MAC hook (``core/circulant.py``).  Caches are updated in place
 and returned.  Not ported yet: the encoder-decoder backbone and the
 training forward.
@@ -39,7 +41,8 @@ class Model:
                 kernel_fn=None) -> Tuple[torch.Tensor, Any]:
         return transformer.forward(params, batch["tokens"], self.cfg,
                                    mode="serve", cache=cache, cache_pos=0,
-                                   kernel_fn=kernel_fn)
+                                   kernel_fn=kernel_fn,
+                                   frontend_embeds=batch.get("patches"))
 
     def decode_step(self, params, tokens: torch.Tensor, cache, cache_pos,
                     block_table: Optional[torch.Tensor] = None,

@@ -1,4 +1,5 @@
-"""Decoder LM for the ``attn`` block kind (port of ``repro/models/transformer.py``).
+"""Decoder LM for the ``attn`` and ``moe`` block kinds (port of
+``repro/models/transformer.py``).
 
 ``repro`` stacks each segment's block params over a scan axis; the port
 keeps one ``nn.Module`` per layer in a ``ModuleList`` and loops over them.
@@ -11,8 +12,13 @@ Caches are stacked over layers: a dense cache is
 (L, P, Hkv) for an int8 pool, ``serve/kvcache.py``); layer ``i`` reads and
 writes the views ``cache["k"][i]`` ... in place.
 
-Not ported yet: the other block kinds (sliding-window, MoE, recurrent,
-xLSTM), learned positions and frontend embeddings.
+The ``vision_stub`` frontend is ported: ``forward(..., frontend_embeds=)``
+replaces the first ``num_patches`` token slots with the given patch
+embeddings, exactly as ``repro`` concatenates them (a prompt shorter than
+``num_patches`` comes out ``num_patches`` long).
+
+Not ported yet: the other block kinds (sliding-window, recurrent, xLSTM),
+learned positions, the audio frontend and encoder-decoder stacks.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ from ..layers import embeddings as emb_lib
 from ..layers import ffn as ffn_lib
 from ..layers import norms as norm_lib
 
-PORTED_KINDS = ("attn",)
+PORTED_KINDS = ("attn", "moe")
 
 
 def segments_for(cfg: ArchConfig) -> List[Tuple[Tuple[str, ...], int]]:
@@ -67,7 +73,8 @@ def layer_kinds(cfg: ArchConfig) -> List[str]:
 
 
 class Block(nn.Module):
-    """``attn`` block: rmsnorm → attention → residual → rmsnorm → MLP →
+    """``attn`` / ``moe`` block: rmsnorm → attention → residual → rmsnorm →
+    MLP (``attn``) or mixture of experts (``moe``, in ``self.moe``) →
     residual."""
 
     def __init__(self, kind: str, cfg: ArchConfig, *, device: torch.device,
@@ -81,7 +88,10 @@ class Block(nn.Module):
         self.ln1 = norm_lib.init_norm(cfg.norm, d, device=device)
         self.attn = attn_lib.Attention(cfg, d, comp, **kw)
         self.ln2 = norm_lib.init_norm(cfg.norm, d, device=device)
-        self.mlp = ffn_lib.MLP(d, cfg.d_ff, comp, **kw)
+        if kind == "moe":
+            self.moe = ffn_lib.MoE(d, cfg.d_ff, cfg.moe, comp, **kw)
+        else:
+            self.mlp = ffn_lib.MLP(d, cfg.d_ff, comp, **kw)
 
 
 def apply_block(block: Block, x, cfg: ArchConfig, *, mode: str, cache=None,
@@ -95,9 +105,14 @@ def apply_block(block: Block, x, cfg: ArchConfig, *, mode: str, cache=None,
         paged_impl=paged_impl, kernel_fn=kernel_fn)
     x = x + a
     h = block.ln2(x)
-    x = x + ffn_lib.mlp(block.mlp, h, activation=cfg.ffn_activation,
+    if hasattr(block, "moe"):
+        f = ffn_lib.moe(block.moe, h, d_ff=cfg.d_ff, moe_cfg=cfg.moe,
+                        comp=cfg.compression, activation=cfg.ffn_activation,
                         mode=mode, kernel_fn=kernel_fn)
-    return x, cache
+    else:
+        f = ffn_lib.mlp(block.mlp, h, activation=cfg.ffn_activation,
+                        mode=mode, kernel_fn=kernel_fn)
+    return x + f, cache
 
 
 class Transformer(nn.Module):
@@ -106,10 +121,11 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device: torch.device,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.max_position or cfg.frontend != "none" or cfg.is_encoder_decoder:
-            raise NotImplementedError(f"{cfg.name}: learned positions, "
-                                      f"frontends and encoder-decoder stacks "
-                                      f"are not ported yet")
+        if (cfg.max_position or cfg.frontend not in ("none", "vision_stub")
+                or cfg.is_encoder_decoder):
+            raise NotImplementedError(f"{cfg.name}: learned positions, the "
+                                      f"audio frontend and encoder-decoder "
+                                      f"stacks are not ported yet")
         if not cfg.tie_embeddings:
             raise NotImplementedError("untied LM heads are not ported yet")
         kw = dict(device=device, generator=generator)
@@ -152,16 +168,22 @@ def layer_cache(cache: Optional[Dict], i: int) -> Optional[Dict]:
 
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, *,
             mode: str = "serve", cache: Optional[Dict] = None, cache_pos=None,
-            block_table=None, paged_impl: str = "stream", kernel_fn=None):
-    """tokens: (B, S) int.  Returns (logits (B, S, V), cache); ``cache`` is
+            block_table=None, paged_impl: str = "stream", kernel_fn=None,
+            frontend_embeds: Optional[torch.Tensor] = None):
+    """tokens: (B, S) int.  Returns (logits (B, S', V), cache); ``cache`` is
     updated in place.  ``paged_impl`` picks the paged attention lowering
     ("stream" or the "gather" oracle, ``layers/attention.py``);
     ``kernel_fn`` is every projection's spectral-MAC hook
-    (``core/circulant.py``)."""
+    (``core/circulant.py``).  ``frontend_embeds`` (B, num_patches, d_model)
+    replace the first ``num_patches`` token slots, so ``S' = max(S,
+    num_patches)``."""
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     x = emb_lib.embed(params.embed.table, tokens,
                       scale_by_dim=cfg.name.startswith(("gemma", "recurrent")))
     x = x.to(dtype)
+    if frontend_embeds is not None:
+        n = frontend_embeds.shape[1]
+        x = torch.cat([frontend_embeds.to(dtype), x[:, n:]], dim=1)
     for i, block in enumerate(params.blocks):
         x, _ = apply_block(block, x, cfg, mode=mode,
                            cache=layer_cache(cache, i), cache_pos=cache_pos,

@@ -18,16 +18,17 @@ import torch
 from torch import nn
 
 from .codec import (INT4_QMAX, INT8_QMAX, PLANE_NAMES, SCALE_SUFFIX,
-                    baked_linears)
+                    baked_caches)
 
 
 def weight_absmax_report(params: nn.Module) -> Dict[str, Dict]:
-    """``{"<module path>/wc_cache": {plane: stats}}`` over every ``Linear``
-    of ``params`` with baked (and possibly quantized) planes.  Per plane:
+    """``{"<module path>/<cache>": {plane: stats}}`` over every baked (and
+    possibly quantized) cache of ``params``: ``wc_cache`` of a ``Linear``,
+    ``{up,gate,down}_cache`` of an expert stack.  Per plane:
     ``bytes``, ``absmax``, ``scale_max`` and ``scale_min``; on quantized
     planes the scales are read back rather than derived."""
     report: Dict[str, Dict] = {}
-    for path, _, cache in baked_linears(params):
+    for path, _, prefix, cache in baked_caches(params):
         entry = {}
         for name in PLANE_NAMES:
             if name not in cache:
@@ -49,5 +50,5 @@ def weight_absmax_report(params: nn.Module) -> Dict[str, Dict]:
                              scale_max=float(rows.max() / INT8_QMAX),
                              scale_min=float(rows.min() / INT8_QMAX))
             entry[name] = stats
-        report[f"{path}/wc_cache"] = entry
+        report[f"{path}/{prefix}"] = entry
     return report

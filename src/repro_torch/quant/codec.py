@@ -179,32 +179,41 @@ def plane_from_cache(cache: Dict[str, torch.Tensor], name: str, kf: int
     return w.float(), scale
 
 
-def baked_linears(params: nn.Module):
-    """Every module of ``params`` that carries baked spectral planes
-    (``core/circulant.py:Linear`` after ``bake_spectral``)."""
+def baked_caches(params: nn.Module):
+    """Every baked spectral cache of ``params``, as ``(module path, module,
+    prefix, cache)``: the module keeps plane ``name`` in its buffer
+    ``<prefix>_<name>``.  A module offers its caches through
+    ``plane_caches()`` (``{prefix: cache}``): a ``core/circulant.py:Linear``
+    its ``wc_cache``, an MoE's ``layers/ffn.py:Experts`` the
+    ``{up,gate,down}_cache`` stacks ((E, p, q, kf) planes)."""
     for name, m in params.named_modules():
-        cache = getattr(m, "wc_cache", None)
-        if isinstance(cache, dict) and "wr" in cache:
-            yield name, m, cache
+        caches = getattr(m, "plane_caches", None)
+        if caches is None:
+            continue
+        for prefix, cache in caches().items():
+            if "wr" in cache:
+                yield name, m, prefix, cache
 
 
 def quantize_serving_params(params: nn.Module, bits: int = 8) -> nn.Module:
     """Quantize every baked spectral cache of ``params`` IN PLACE: each
-    ``Linear``'s ``wc_cache_<plane>`` buffer becomes int8 (or packed uint8)
-    and ``wc_cache_<plane>_s`` holds its scales.  Generators and dense
-    weights are untouched.  Idempotent; returns ``params``."""
-    for _, m, cache in baked_linears(params):
+    plane buffer ``<prefix>_<plane>`` becomes int8 (or packed uint8) and
+    ``<prefix>_<plane>_s`` holds its per-block-row scales ((p, 1), or
+    (E, p, 1) on an expert stack).  Generators and dense weights are
+    untouched.  Idempotent; returns ``params``."""
+    for _, m, prefix, cache in baked_caches(params):
         for key, t in quantize_plane_cache(cache, bits).items():
-            setattr(m, f"wc_cache_{key}", t)
+            setattr(m, f"{prefix}_{key}", t)
     return params
 
 
 def plane_clip_report(params: nn.Module) -> Dict[str, int]:
     """Saturation census over every quantized plane of ``params``:
     ``{"clipped", "total", "planes"}``.  Packed int4 planes count against
-    the int4 rail, the odd-length pad nibble as unclipped."""
+    the int4 rail, the odd-length pad nibble as unclipped.  An expert
+    stack's (E, p, q, kf) plane counts as one plane."""
     counts = {"clipped": 0, "total": 0, "planes": 0}
-    for _, _, cache in baked_linears(params):
+    for _, _, _, cache in baked_caches(params):
         for name in PLANE_NAMES:
             if name not in cache or name + SCALE_SUFFIX not in cache:
                 continue

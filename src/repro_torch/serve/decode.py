@@ -92,7 +92,8 @@ def sample_tokens(logits: torch.Tensor, temperature: float, seed: int,
 # ---------------------------------------------------------------------------
 def make_prefill_step(cfg: ArchConfig, *, kernel_fn=None) -> Callable:
     """``prefill_step(params, batch, cache)`` -> (last-position logits
-    (B, 1, V), cache).  ``kernel_fn`` is the projections' spectral-MAC hook
+    (B, 1, V), cache).  ``batch`` holds ``tokens`` and, for a vision-stub
+    config, the ``patches`` that replace the first token slots.  ``kernel_fn`` is the projections' spectral-MAC hook
     (the batch engine passes ``kernels/ops.py:spectral_contract``)."""
     model = build_model(cfg)
 
@@ -187,7 +188,9 @@ def make_prefill_pack_step(cfg: ArchConfig, n_pages: int,
     until decode overwrites it.  The dense prefill cache is float32 and is
     scattered into the pool's dtype.
 
-    An int8 pool is packed with ``true_len`` (the pad tail zeroed before
+    ``batch`` holds the padded ``tokens`` (1, spad) and, for a
+    vision-stub config, ``patches``.  An int8 pool is packed with
+    ``true_len`` (the pad tail zeroed before
     the page scales are derived) and with its saturation census.
 
     Returns ``prefill_pack(params, batch, pool, pages, true_len)`` ->

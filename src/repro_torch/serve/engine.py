@@ -99,6 +99,16 @@ def _engine_device(params, device) -> torch.device:
     return on.pop()
 
 
+def frontend_inputs(cfg: ArchConfig, batch: int, device) -> Dict:
+    """The stub frontend's inputs a prefill batch carries, as ``repro``'s
+    engines feed them: zero ``patches`` (batch, num_patches, d_model)
+    float32 for a ``vision_stub`` config, nothing otherwise."""
+    if cfg.frontend != "vision_stub":
+        return {}
+    return {"patches": torch.zeros((batch, cfg.num_patches, cfg.d_model),
+                                   dtype=torch.float32, device=device)}
+
+
 @dataclasses.dataclass
 class Request:
     prompt: np.ndarray                 # (S,) int32
@@ -117,8 +127,8 @@ class Engine:
     freeze, early exit) or "per_token" (one ``make_decode_step`` call per
     token, no freezing; the results are cut the same way).  Only the
     weight half of ``quant`` applies: the cache stays float32.  An arch
-    with sliding-window, recurrent or other non-``attn`` blocks raises
-    ``NotImplementedError`` (their caches are not ported).  ``stats()``
+    with sliding-window, recurrent or other blocks than ``attn`` and
+    ``moe`` raises ``NotImplementedError`` (their caches are not ported).  ``stats()``
     adds ``prefills`` and ``decode_steps`` (forward passes) to the shared
     counters, ``cache_bytes`` (the largest dense cache it allocated) and
     ``dispatch_kinds`` (the prefill and decode-loop shapes it served).
@@ -134,7 +144,7 @@ class Engine:
         if decode_mode not in ("scan", "per_token"):
             raise ValueError(f"decode_mode {decode_mode!r}: expected 'scan' "
                              f"or 'per_token'")
-        kinds = sorted(set(layer_kinds(cfg)) - {"attn"})
+        kinds = sorted(set(layer_kinds(cfg)) - {"attn", "moe"})
         if kinds:
             raise NotImplementedError(
                 f"{cfg.name}: block kinds {kinds} (sliding-window ring "
@@ -184,7 +194,8 @@ class Engine:
         toks = np.zeros((B, S), np.int64)
         for i, r in enumerate(reqs):
             toks[i, S - len(r.prompt):] = r.prompt     # left-pad
-        return {"tokens": torch.as_tensor(toks, device=self.device)}
+        return {"tokens": torch.as_tensor(toks, device=self.device),
+                **frontend_inputs(self.cfg, B, self.device)}
 
     def generate(self, reqs: Sequence[Request]) -> List[Dict]:
         """Serve the requests; results in request order.  With
@@ -553,7 +564,8 @@ class ContinuousEngine:
         spad = n_pages * self.page_size
         toks = np.zeros(spad, np.int64)
         toks[:S] = prompt                              # right-pad
-        batch = {"tokens": torch.as_tensor(toks[None], device=self.device)}
+        batch = {"tokens": torch.as_tensor(toks[None], device=self.device),
+                 **frontend_inputs(self.cfg, 1, self.device)}
         pages = torch.as_tensor(self.block_table.pages(slot.index)[:n_pages],
                                 dtype=torch.int64, device=self.device)
         with torch.no_grad():

@@ -4,14 +4,15 @@
 The serve hot path runs input DFT → spectral MAC → iDFT with no weight
 transform in the loop: ``precompute_serving_params`` FFTs every
 block-circulant generator that serves through the spectral path once and
-stores the planes beside it (``Linear.wc_cache``).  With a ``QuantPolicy``
+stores the planes beside it (``Linear.wc_cache``; for an MoE's expert
+stacks, the per-expert ``{up,gate,down}_cache`` planes of
+``layers/ffn.py:Experts``, (E, p, q, kf) each).  With a ``QuantPolicy``
 whose ``quant_weights`` is set, the planes are then quantized to int8 (or
 packed int4) with per-block-row scales.  Unlike ``repro``'s pure tree
 transform, it bakes (and quantizes) the planes into the module IN PLACE and
 returns it; it is idempotent.
 
-Not ported yet: the fused ``qkv_cache`` / ``upgate_cache`` planes and the
-per-expert caches.
+Not ported yet: the fused ``qkv_cache`` / ``upgate_cache`` planes.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..core import circulant as cc
-from ..quant.codec import (SCALE_SUFFIX, QuantPolicy, baked_linears,
+from ..layers.ffn import Experts
+from ..quant.codec import (SCALE_SUFFIX, QuantPolicy, baked_caches,
                            quantize_serving_params)
 
 
@@ -36,7 +38,7 @@ def _spectral_at_serve(comp, k: int) -> bool:
 def _baked_bits(params: nn.Module):
     """The bits of the planes already baked into ``params``: None (float32
     planes or none baked), 8 or 4."""
-    for _, _, cache in baked_linears(params):
+    for _, _, _, cache in baked_caches(params):
         if "wr" + SCALE_SUFFIX in cache:
             return 4 if cache["wr"].dtype == torch.uint8 else 8
         return None
@@ -63,8 +65,13 @@ def precompute_serving_params(params: nn.Module, cfg: ArchConfig,
                          f"{'float32' if want is None else f'int{want}'} "
                          f"planes (planes are quantized in place)")
     for m in params.modules():
-        if (isinstance(m, cc.Linear) and m.spec.kind == "block_circulant"
-                and _spectral_at_serve(comp, m.spec.block_size)):
+        if isinstance(m, cc.Linear):
+            k = m.spec.block_size if m.spec.kind == "block_circulant" else 0
+        elif isinstance(m, Experts):
+            k = m.block_size
+        else:
+            continue
+        if _spectral_at_serve(comp, k):
             m.bake_spectral(comp.gauss_trick)
     if want is not None:
         quantize_serving_params(params, want)

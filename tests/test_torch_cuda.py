@@ -353,3 +353,120 @@ def test_batch_engine_on_card_matches_cpu(cuda, quant):
         want = hooked if dev == "cuda" and quant is None else 0
         assert sm.KERNEL.launches == before + want
     assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 63, 65, 200, 640])
+def test_flash_kernel_head_dim_96(cuda, dtype, S):
+    """phi-3-vision's head dim (the bf16 lane's D = 96 instance): causal
+    prefill at ragged lengths, MHA (32 / 32) and G = 4, then the batch
+    engine's one-row decode over the same keys."""
+    for Hq, Hkv in ((32, 32), (8, 2)):
+        q = torch.randn((1, Hq, S, 96), generator=cuda,
+                        device="cuda").to(dtype)
+        k = torch.randn((1, Hkv, S, 96), generator=cuda,
+                        device="cuda").to(dtype)
+        v = torch.randn(k.shape, generator=cuda, device="cuda").to(dtype)
+        before = fa.KERNEL.launches
+        _close(fa.flash_attention(q, k, v), fa.attention_ref(q, k, v),
+               dtype == torch.bfloat16)
+        assert fa.KERNEL.launches == before + 1
+        row = q[:, :, -1:].contiguous()
+        _close(fa.flash_attention(row, k, v, kv_offset=S - 1),
+               fa.attention_ref(row, k, v, kv_offset=S - 1),
+               dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("B", [1, 4])
+def test_paged_kernel_phi3_mha(cuda, q_dtype, kv_dtype, B):
+    """phi-3-vision's paged decode: 32 KV heads of 96, G = 1 (one query
+    row a block), pages of 16, on both pool lanes."""
+    Hkv, D, page, maxp = 32, 96, 16, 64
+    P = B * maxp + 1
+    pool_k = torch.randn((P, page, Hkv, D), generator=cuda,
+                         device="cuda").to(kv_dtype)
+    pool_v = torch.randn(pool_k.shape, generator=cuda,
+                         device="cuda").to(kv_dtype)
+    perm = torch.randperm(P - 1, generator=cuda, device="cuda") + 1
+    table = perm[:B * maxp].reshape(B, maxp).to(torch.int32).contiguous()
+    positions = torch.tensor([615, 700, -1, 1023][:B], dtype=torch.int32,
+                             device="cuda")
+    q = torch.randn((B, Hkv, D), generator=cuda, device="cuda").to(q_dtype)
+    k8, ks = codec.quantize_page_block(pool_k.float())
+    v8, vs = codec.quantize_page_block(pool_v.float())
+    for pk, pv, scales in ((pool_k, pool_v, {}),
+                           (k8, v8, {"k_scale": ks, "v_scale": vs})):
+        got = pa.paged_attention(q, pk, pv, table, positions, **scales)
+        _close(got, pa.paged_attention_stream(q, pk, pv, table, positions,
+                                              **scales),
+               q_dtype == torch.bfloat16)
+        if B > 2:
+            assert (got[2] == 0).all()
+
+
+# expert shapes of llama4 (p / q of 64 / 40 and 40 / 64, rows of a
+# decode's dropless buffer and of a prefill's capacity of 1) and
+# phi-3-vision's up/gate
+@pytest.mark.parametrize("B,p,q", [(4, 64, 40), (4, 40, 64), (1, 64, 40),
+                                   (8, 64, 24)])
+def test_bc_fused_expert_and_phi3_shapes(cuda, B, p, q):
+    k = 128
+    w = torch.randn((p, q, k), generator=cuda, device="cuda") / (q * k) ** .5
+    planes = cc.spectral_cache(w)
+    xb = torch.randn((B, q, k), generator=cuda, device="cuda")
+    for bits in (None, 8, 4):
+        qp = planes if bits is None else codec.quantize_plane_cache(planes,
+                                                                    bits)
+        scales = (None if bits is None
+                  else [qp[n + "_s"] for n in ("wr", "ws1", "ws2")])
+        pl = (qp["wr"], qp["ws1"], qp["ws2"])
+        before = bcf.KERNEL.launches
+        got = bcf.bc_fused_matmul(xb, *pl, k, scales)
+        assert bcf.KERNEL.launches == before + 1
+        _close(got, bcf.bc_fused_matmul_plain(xb, *pl, k, scales))
+
+
+@pytest.mark.parametrize("bits", [None, 8, 4])
+def test_bc_expert_linear_on_card(cuda, bits):
+    """An expert stack's projection: one fused-kernel launch per expert on
+    views of the stack, equal to the plain per-expert product."""
+    E, C, k, n_in, n_out = 5, 3, 16, 48, 80
+    w = torch.randn((E, n_out // k, n_in // k, k), generator=cuda,
+                    device="cuda") / n_in ** .5
+    cache = cc.spectral_cache(w)
+    if bits is not None:
+        cache = codec.quantize_plane_cache(cache, bits)
+    x = torch.randn((E, C, n_in), generator=cuda, device="cuda")
+    before = bcf.KERNEL.launches
+    got = kops.bc_expert_linear(x, cache, k, n_out)
+    assert bcf.KERNEL.launches == before + E
+    want = kops.bc_expert_linear(x.cpu(), {n: t.cpu() for n, t in
+                                           cache.items()}, k, n_out)
+    _close(got.cpu(), want)
+
+
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
+                                  "phi-3-vision-4.2b"])
+def test_moe_and_vision_engines_on_card_match_cpu(cuda, arch):
+    """llama4 (MoE, smoke) and phi-3-vision (the vision stub, smoke)
+    through both engines on the card against the CPU's plain path: the
+    same greedy tokens."""
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    rng = np.random.RandomState(0)
+    reqs = [Request(prompt=rng.randint(1, 500, size=s).astype(np.int32),
+                    max_new_tokens=n, id=i)
+            for i, (s, n) in enumerate([(20, 9), (16, 7), (12, 6)])]
+    base = precompute_serving_params(init_params(cfg, seed=0, device="cpu"),
+                                     cfg)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = copy.deepcopy(base).to(dev)
+        cont = ContinuousEngine(cfg, model, max_slots=2, max_seq=32,
+                                page_size=4, decode_chunk=4, device=dev)
+        batch = Engine(cfg, model, max_batch=2, max_seq=32, device=dev)
+        out[dev] = [[r["tokens"] for r in eng.generate(reqs)]
+                    for eng in (cont, batch)]
+    assert out["cuda"] == out["cpu"]

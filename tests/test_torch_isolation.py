@@ -41,7 +41,7 @@ for name in names:
 import chip_smoke
 for name in ("repro_torch.quant", "repro_torch.quant.codec",
              "repro_torch.quant.calibrate", "repro_torch.kernels.paged",
-             "repro_torch.kernels.spectral_matmul",
+             "repro_torch.kernels.spectral_matmul", "repro_torch.layers.ffn",
              "repro_torch.serve.decode", "repro_torch.serve.engine"):
     assert name in names, name
 leaked = sorted(n for n in sys.modules if n == "repro" or n.startswith("repro."))

@@ -1,13 +1,16 @@
 """The launch plans of the port's redesigned CUDA kernels, and the arithmetic
 the kernels rely on, checked on the CPU (no card needed).
 
-- ``bc_fused``: for every projection of tinyllama-1.1b, qwen2.5-3b and
-  qwen3-4b and B in {1, 8, 64, 208, 256, 2048}, the plan covers every
+- ``bc_fused``: for every projection of tinyllama-1.1b, qwen2.5-3b,
+  qwen3-4b, phi-3-vision-4.2b and llama4-maverick-400b-a17b (whose expert
+  projections share the shapes of its dense MLP) and B in {1, 8, 64, 208,
+  256, 2048}, the plan covers every
   output row and block exactly once, computes each row's DFT exactly once,
   fits the H100's shared memory and a portable cluster, and at B = 8
   launches a full cluster of 8 blocks per row.
 - ``flash_attention``: the same properties of its plan at one query row
-  (G in {1, 4, 8}) and at prefill.
+  (G in {1, 4, 8}) and at prefill; the bf16 lane's head dims (64, 96 and
+  128) and their shared memory.
 - 3xTF32: a numpy emulation of TF32 rounding (``cvt.rna``) on the k = 128
   DFT -> iDFT round trip, against float64.
 - Split-KV: the combine of per-split (m, l, acc) in plain PyTorch against
@@ -39,13 +42,16 @@ from repro_torch.kernels import spectral_matmul as smm  # noqa: E402
 from repro_torch.quant import codec  # noqa: E402
 
 ARCHS = ("tinyllama-1.1b", "qwen2.5-3b", "qwen3-4b")
+# the archs ported since: phi-3-vision (MHA, head dim 96) and llama4 (GQA
+# 40 / 8, its experts at the shapes of its dense MLP)
+NEW_ARCHS = ("phi-3-vision-4.2b", "llama4-maverick-400b-a17b")
 BATCHES = (1, 8, 64, 208, 256, 2048)
 
 
-def _block_shapes():
+def _block_shapes(archs):
     """(arch, projection, p, q, k) of every distinct projection."""
     out = []
-    for arch in ARCHS:
+    for arch in archs:
         cfg = get_config(arch)
         a, k = cfg.attention, cfg.compression.block_attn
         d, hq, hkv = cfg.d_model, a.num_heads * a.head_dim, \
@@ -61,7 +67,7 @@ def _block_shapes():
     return out
 
 
-SHAPES = _block_shapes()
+SHAPES = _block_shapes(ARCHS + NEW_ARCHS)
 
 
 def _bc_coverage(pl, B, p, q, k):
@@ -163,10 +169,16 @@ FLASH_CASES = (
     + [(8, 16, 2, 1, 231, 128, torch.float32)]
     # prefill: bf16 serve shapes, the float32 parity prompt, ragged
     + [(1, *_heads(a)[:2], 256, 256, _heads(a)[2], torch.bfloat16)
-       for a in ARCHS]
+       for a in ARCHS + NEW_ARCHS]
     + [(1, 32, 4, 48, 48, 64, torch.float32),
        (2, 8, 2, 37, 37, 64, torch.float32),
-       (2, 8, 2, 37, 37, 64, torch.bfloat16)])
+       (2, 8, 2, 37, 37, 64, torch.bfloat16)]
+    # phi-3-vision (MHA, D = 96): its serve prefills, the float32 oracle
+    # prompt and its one-row decode
+    + [(1, 32, 32, 768, 768, 96, torch.bfloat16),
+       (4, 32, 32, 760, 760, 96, torch.bfloat16),
+       (1, 32, 32, 600, 600, 96, torch.float32),
+       (1, 32, 32, 1, 615, 96, torch.float32)])
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,dtype", FLASH_CASES)
@@ -188,6 +200,21 @@ def test_flash_plan(B, Hq, Hkv, Sq, Skv, D, dtype):
 def test_flash_plan_refuses_untiled_bf16_head_dim():
     with pytest.raises(ValueError, match="tensor cores"):
         fa.plan(1, 8, 2, 16, 16, 80, torch.bfloat16)
+
+
+@pytest.mark.parametrize("D,smem", [(64, 46080), (96, 66560), (128, 87040),
+                                    (192, None), (256, None)])
+def test_flash_plan_bf16_head_dims(D, smem):
+    """The bf16 lane tiles D = 64, 96 and 128 with Q and two K/V buffers of
+    64 rows padded to D + 8 values (2 x 5 x 64 x (D + 8) bytes); 192 and
+    256 are not ported yet and raise."""
+    if smem is None:
+        with pytest.raises(ValueError, match="tensor cores"):
+            fa.plan(1, 32, 32, 768, 768, D, torch.bfloat16)
+        return
+    pl = fa.plan(1, 32, 32, 768, 768, D, torch.bfloat16)
+    assert pl.smem_bytes == smem == 2 * 5 * fa.BF16_ROWS * (D + 8)
+    assert (pl.rows, pl.splits, pl.blocks) == (64, 1, 12 * 32)
 
 
 # ---------------------------------------------------------------------------
@@ -325,7 +352,7 @@ def test_split_kv_combine_matches_attention_ref(opts):
 @pytest.mark.parametrize("page", [4, 16])
 @pytest.mark.parametrize("maxp", [1, 5, 16])
 @pytest.mark.parametrize("B", [1, 4, 8, 64])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS)
 def test_paged_plan(arch, B, maxp, page):
     Hq, Hkv, D = _heads(arch)
     assert "positions" not in inspect.signature(pa.plan).parameters
@@ -346,7 +373,7 @@ def test_paged_plan(arch, B, maxp, page):
             assert pl.splits == 1
         else:                                    # about one wave, no more
             assert pl.blocks <= pa.SMS
-    if B == 8 and maxp == 16:                    # the serve phases' shape
+    if B == 8 and maxp == 16 and arch in ARCHS:  # the serve phases' shape
         want = {"tinyllama-1.1b": (4, 4), "qwen2.5-3b": (8, 2),
                 "qwen3-4b": (2, 8)}[arch]
         assert (pl.splits, pl.pages_per_split) == want
@@ -439,14 +466,22 @@ def test_split_paged_matches_stream(softcap, int8):
 def _spectral_shapes():
     """(Q, P) of every distinct batch-prefill projection of the three
     archs (q = input blocks, p = output blocks): 11 shapes."""
-    return sorted({(q, p) for _, _, p, q, _ in SHAPES})
+    return sorted({(q, p) for _, _, p, q, _ in _block_shapes(ARCHS)})
 
 
-# the 11 batch-prefill shapes at F = 65, N = 2048, and the card test's
-# small ragged ones
+def _new_spectral_shapes():
+    """(Q, P) of the batch-prefill projections phi-3-vision and llama4
+    add (llama4's experts take ``bc_fused``, not the hook)."""
+    return sorted({(q, p) for _, _, p, q, _ in _block_shapes(NEW_ARCHS)}
+                  - set(_spectral_shapes()))
+
+
+# the 11 batch-prefill shapes at F = 65, N = 2048, the card test's small
+# ragged ones, then the new archs' at their serve prefills' rows
 SPECTRAL_CASES = ([(65, 2048, q, p) for q, p in _spectral_shapes()]
                   + [(9, 37, 8, 16), (65, 100, 16, 2), (65, 70, 44, 16),
-                     (65, 33, 16, 44), (65, 20, 86, 16), (65, 21, 20, 76)])
+                     (65, 33, 16, 44), (65, 20, 86, 16), (65, 21, 20, 76)]
+                  + [(65, 3040, q, p) for q, p in _new_spectral_shapes()])
 
 
 def _spectral_coverage(pl, F, N, P):
