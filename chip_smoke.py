@@ -48,12 +48,15 @@ itself.  Each phase prints one JSON line:
                 tokens through both engines (exact launch counts; every
                 prefill on the bf16 flash lane at head dim 96), the B=1
                 oracle check on one float32 request of 600 + 16 tokens
+                (its prefills on the float32 tensor-core flash kernel;
+                the launches of every oracle check are counted)
   serve_moe     llama4-maverick-400b-a17b (48 layers alternating dense and
                 mixture-of-experts, 128 experts top-1 plus a shared expert)
                 at its published widths and depth: 4 requests of 17-64
-                tokens through both engines (exact launch counts: every
-                expert's three projections a launch of ``bc_fused`` per MoE
-                layer and forward pass), the B=1 oracle check on one
+                tokens through both engines (exact launch counts: each of
+                the three expert projections one launch of ``bc_fused``
+                over all 128 experts per MoE layer and forward pass), the
+                B=1 oracle check on one
                 float32 request of 48 + 8 tokens with the smallest gap
                 between the two largest router logits it met; peak device
                 memory and the phase's wall time
@@ -69,8 +72,12 @@ shapes, the same at phi-3-vision's head dim 96 (bf16 prefill at 640
 positions; the float32 one-row decode and ``paged_attention`` on both pool
 lanes, at its 32 KV heads (G = 1), at the shapes of serve_phi3's last
 decode step: 4 rows over 775 keys, 4 slots of 64-page tables at
-positions 614-774), and ``bc_fused`` on all three lanes at llama4's
-projection and expert shapes (4 rows) and phi-3-vision's;
+positions 614-774), ``bc_fused`` on all three lanes at llama4's
+projection and expert shapes (4 rows) and phi-3-vision's, and llama4's
+expert stack (128 experts of 4 rows, up/gate) in one launch on each lane,
+held bit for bit to the per-expert loop and to its CUDA-graph replay.
+Every flash case times ``F.scaled_dot_product_attention`` under each of
+its backends and takes the one ``SDPA_PINNED`` names as its library time;
 ``paged_attention`` also with one slot idle where none is (cases ending
 ``_idle``) and with every slot at the table's last column (``_full``).
 Each case carries its launch plan where the kernel has one, and
@@ -167,7 +174,8 @@ LANES = {
 # The lanes again at the shapes phi-3-vision and llama4 bring (head dim
 # 96, G = 1, expert blocks), named ``<lane>@<shape>``; launches from that
 # arch's run in serve_phi3 / serve_moe (the decode cases at that run's
-# last decode step: see ``decode_shapes``).
+# last decode step: see ``decode_shapes``), counted on the kernel path
+# ``SHAPE_PATHS`` names where it names one (beside the lane's total).
 NEW_SHAPES = {
     "flash_attention@d96": (fa.KERNEL,
                             "src/repro/kernels/flash_attention.py:75",
@@ -185,8 +193,24 @@ NEW_SHAPES = {
     "bc_fused@expert": (bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48",
                         "bc_fused", "llama4_expert_up_gate_b4",
                         f"{MOE}/continuous"),
+    # the float32 prefill on the tensor cores at serve_phi3's oracle prompt
+    # (launches: the B=1 oracle check's run), and the expert stack in one
+    # launch at serve_moe's decode shape
+    "flash_attention@d96_prefill_f32": (
+        fa.KERNEL, "src/repro/kernels/flash_attention.py:75",
+        "flash_attention", "phi3_prefill_float32_s600", f"{PHI3}/oracle"),
+    "bc_fused@experts": (bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48",
+                         "bc_fused", "llama4_experts_up_gate_e128_c4",
+                         f"{MOE}/continuous"),
 }
 
+
+# the plan path (``Kernel.path_launches``) whose launches a new shape's
+# line counts: the flash kernel its plan chose, bc_fused's expert stacks
+SHAPE_PATHS = {"flash_attention@d96": "bf16", "bc_fused@expert": "single",
+               "flash_attention@d96_decode": "f32_rows",
+               "flash_attention@d96_prefill_f32": "f32_mma",
+               "bc_fused@experts": "experts"}
 
 T0 = time.perf_counter()
 
@@ -355,6 +379,56 @@ def check_bc_fused(cfg, gen, shapes=None, batches=(8, 256),
     return {lane: (cases, "up_gate_b8") for lane, cases in lanes.items()}
 
 
+# The SDPA backend each dtype's library time is pinned to, in every run:
+# flash for bf16; memory-efficient for float32 (flash takes no float32).
+SDPA_PINNED = {torch.bfloat16: "FLASH_ATTENTION",
+               torch.float32: "EFFICIENT_ATTENTION"}
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH")
+
+
+def sdpa_library(q, k, v, **kw):
+    """One ``F.scaled_dot_product_attention`` call on the same inputs as
+    the yardstick: ``library_ms`` under the backend ``SDPA_PINNED`` names
+    for the dtype, beside each backend's time (or why it refused) and the
+    unpinned call's, which lets PyTorch choose.  GQA through
+    ``enable_gqa`` where the backend takes it, else on K/V with their
+    heads repeated beforehand (the repeat is not timed)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    G = q.shape[1] // k.shape[1]
+    sdpa = F.scaled_dot_product_attention
+    reps = ((k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1))
+            if G > 1 else (k, v))
+    ways = (("enable_gqa", lambda: sdpa(q, k, v, enable_gqa=True, **kw)),
+            ("repeated", lambda: sdpa(q, *reps, **kw)))
+    backends = {}
+    for name in SDPA_BACKENDS:
+        why = None
+        with sdpa_kernel([getattr(SDPBackend, name)]):
+            for gqa, fn in ways:
+                try:
+                    fn()
+                    torch.cuda.synchronize()
+                except (RuntimeError, TypeError) as e:
+                    why = str(e).splitlines()[0][:160]
+                    continue
+                backends[name] = {"ms": time_ms(fn), "gqa": gqa}
+                break
+        if name not in backends:
+            backends[name] = {"refused": why}
+    default = next(fn for gqa, fn in ways)
+    pinned = SDPA_PINNED[q.dtype]
+    if "ms" not in backends[pinned]:
+        raise AssertionError(f"SDPA refused its pinned backend {pinned}: "
+                             f"{backends[pinned]}")
+    return {"library_ms": backends[pinned]["ms"],
+            "library": "F.scaled_dot_product_attention("
+                       + ", ".join(f"{a}={b}" for a, b in kw.items())
+                       + f") under SDPBackend.{pinned}",
+            "library_backend": pinned, "sdpa_backends": backends,
+            "library_unpinned_ms": time_ms(default)}
+
+
 def check_flash(cfg, gen, prefix="", s_bf16=256, s_f32=48):
     """The bf16 prefill lane at ``s_bf16`` positions (by default the
     longest prompt the serve phase's max_seq of 256 admits) and the float32
@@ -376,17 +450,6 @@ def check_flash(cfg, gen, prefix="", s_bf16=256, s_f32=48):
             tol = 2.0 ** -7 * max(1.0, float(ref.float().abs().max()))
         else:
             tol = 1e-4 * max(1.0, float(ref.abs().max()))
-        try:
-            F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                           enable_gqa=True)
-            kk, vv = k, v
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q, kk, vv, is_causal=True, enable_gqa=True)
-        except TypeError:                    # torch without enable_gqa
-            kk = k.repeat_interleave(Hq // Hkv, dim=1)
-            vv = v.repeat_interleave(Hq // Hkv, dim=1)
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q, kk, vv, is_causal=True)
         item = q.element_size()
         nbytes = item * (2 * q.numel() + k.numel() + v.numel())
         pairs = Hq * S * (S + 1) // 2          # causal (row, col) pairs
@@ -394,11 +457,13 @@ def check_flash(cfg, gen, prefix="", s_bf16=256, s_f32=48):
         bound_ms, bound_by = bound(nbytes, flops, dtype)
         cases.append({
             "case": f"{prefix}prefill_{str(dtype).split('.')[-1]}_s{S}",
-            "shape": [1, Hq, Hkv, S, D], "max_abs_err": err, "tol": tol,
+            "shape": [1, Hq, Hkv, S, D],
+            "plan": {**fa.plan(1, Hq, Hkv, S, S, D, dtype)._asdict(),
+                     "dtype": str(dtype).split(".")[-1]},
+            "max_abs_err": err, "tol": tol,
             **kernel_times(lambda: fa.flash_attention(q, k, v)),
             "plain_ms": time_ms(lambda: fa.attention_ref(q, k, v)),
-            "library_ms": time_ms(lib),
-            "library": "F.scaled_dot_product_attention(is_causal, enable_gqa)",
+            **sdpa_library(q, k, v, is_causal=True),
             "bytes": nbytes, "flops": flops,
             "bound_ms": bound_ms, "bound_by": bound_by})
     return {"flash_attention": (cases, "prefill_bfloat16_s256")}
@@ -538,8 +603,9 @@ def check_flash_decode(cfg, gen, prefix="", B=8, Skv=231):
     """The batch engine's decode attention: ``B`` rows of one query each
     over a float32 dense cache of ``Skv`` positions (kv_offset Skv - 1);
     by default the longest the serve_batch phase reaches (8 rows, prompt
-    200 + 31 decode steps).  The G query heads of a KV head share a block
-    and the keys split over blocks."""
+    200 + 31 decode steps).  The G query heads of a KV head share a block,
+    the keys split over blocks and, below 8 packed rows a block, over the
+    block's warps (the plan's ``key_groups``)."""
     a = cfg.attention
     Hq, Hkv, D = a.num_heads, a.num_kv_heads, a.head_dim
     q = torch.randn((B, Hq, 1, D), generator=gen, device="cuda")
@@ -549,14 +615,6 @@ def check_flash_decode(cfg, gen, prefix="", B=8, Skv=231):
     got = fa.flash_attention(q, k, v, causal=True, kv_offset=off)
     ref = fa.attention_ref(q, k, v, causal=True, kv_offset=off)
     torch.cuda.synchronize()
-    try:
-        F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
-        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            q, k, v, enable_gqa=True)
-    except TypeError:                        # torch without enable_gqa
-        kk = k.repeat_interleave(Hq // Hkv, dim=1)
-        vv = v.repeat_interleave(Hq // Hkv, dim=1)
-        lib = lambda: F.scaled_dot_product_attention(q, kk, vv)  # noqa: E731
     nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
     flops = 4 * D * B * Hq * Skv
     bound_ms, bound_by = bound(nbytes, flops, torch.float32)
@@ -571,8 +629,7 @@ def check_flash_decode(cfg, gen, prefix="", B=8, Skv=231):
                                                   kv_offset=off)),
         "plain_ms": time_ms(lambda: fa.attention_ref(q, k, v, causal=True,
                                                      kv_offset=off)),
-        "library_ms": time_ms(lib),
-        "library": "F.scaled_dot_product_attention(enable_gqa), one row",
+        **sdpa_library(q, k, v),
         "bytes": nbytes, "flops": flops,
         "bound_ms": bound_ms, "bound_by": bound_by}
     return {"flash_attention": ([case], None)}
@@ -728,6 +785,93 @@ def phase_lowering(cfg, gen):
     return rows
 
 
+def check_bc_experts(cfg, gen, C=4):
+    """An expert stack's projection as ``bc_expert_linear`` launches it at
+    serve_moe's decode (every expert's dropless buffer of C = 4 rows at 4
+    slots): the up/gate projection of all E = 128 experts, one launch on
+    each plane lane.  It must equal the per-expert loop (the parent tree's
+    path, timed beside it as ``loop_*``) bit for bit, and its replay from a
+    CUDA graph the eager call; the error is against the plain version
+    expert by expert.  Library: one ``torch.bmm`` against the dense
+    (E, n_in, n_out) float32 stack, built here and freed after."""
+    E, k = cfg.moe.num_experts, cfg.compression.block_for("expert")
+    kf = k // 2 + 1
+    n_in, n_out = cfg.d_model, cfg.d_ff
+    w = torch.stack([cc.init_block_circulant(n_in, n_out, k, generator=gen,
+                                             device="cuda")
+                     for _ in range(E)])
+    E, p, q, _ = w.shape
+    planes = cc.spectral_cache(w)
+    x = torch.randn((E, C, n_in), generator=gen, device="cuda")
+    xb = cc._blockify(x, q, k).contiguous()
+    dense = torch.empty((E, n_in, n_out), device="cuda")
+    for e in range(E):
+        dense[e] = cc.materialize_dense(w[e], n_out, n_in).T
+    library_ms = time_ms(lambda: torch.bmm(x, dense))
+    del dense, w
+    torch.cuda.empty_cache()
+    variants = {"bc_fused": ((planes["wr"], planes["ws1"], planes["ws2"]),
+                             None)}
+    for bits, lane in ((8, "bc_fused_i8"), (4, "bc_fused_i4")):
+        qp = codec.quantize_plane_cache(planes, bits)
+        variants[lane] = ((qp["wr"], qp["ws1"], qp["ws2"]),
+                          [qp[n + "_s"] for n in ("wr", "ws1", "ws2")])
+    out = {}
+    for lane, (pl, scales) in variants.items():
+        per = lambda e: (*(t[e] for t in pl), k,  # noqa: E731
+                         None if scales is None else [s[e] for s in scales])
+        call = lambda: bc_fused.bc_fused_matmul(xb, *pl, k,  # noqa: E731
+                                                scales)
+        loop = lambda: torch.stack([  # noqa: E731
+            bc_fused.bc_fused_matmul(xb[e], *per(e)) for e in range(E)])
+        plain = lambda: torch.stack([  # noqa: E731
+            bc_fused.bc_fused_matmul_plain(xb[e], *per(e))
+            for e in range(E)])
+        before = bc_fused.KERNEL.fn_launches[lane]
+        got = call()
+        if bc_fused.KERNEL.fn_launches[lane] != before + 1:
+            raise AssertionError(f"{lane}: the expert stack took "
+                                 f"{bc_fused.KERNEL.fn_launches[lane] - before}"
+                                 f" launches")
+        want = loop()
+        ref = plain()
+        torch.cuda.synchronize()
+        loop_equal = torch.equal(got, want)
+        graph_equal = replay_equal(lambda: (call(),), (got,))
+        if not (loop_equal and graph_equal):
+            raise AssertionError(f"{lane} expert stack: per-expert loop "
+                                 f"{loop_equal}, graph replay {graph_equal}")
+        row_bytes = pl[0].shape[-1] * pl[0].element_size()
+        nbytes = (4 * (E * C * q * k + 4 * k * kf + E * C * p * k)
+                  + 3 * E * p * q * row_bytes
+                  + (0 if scales is None else 3 * 4 * E * p))
+        flops = E * (4 * C * q * k * kf + 6 * C * p * q * kf + C * q * kf
+                     + 2 * C * p * kf + 4 * C * p * kf * k
+                     + (0 if scales is None else 3 * C * p * kf))
+        bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+        loop_t = kernel_times(loop)
+        out[lane] = ([{
+            "case": f"llama4_experts_up_gate_e{E}_c{C}",
+            "shape": [E, C, p, q, k],
+            "launch_args": list(bc_fused.launch_args(C, p, q, k, lane, E)),
+            "planes": str(pl[0].dtype).split(".")[-1],
+            "loop_equal": loop_equal, "graph_equal": graph_equal,
+            "max_abs_err": max_err(got, ref),
+            "tol": 1e-4 * max(1.0, float(ref.abs().max())),
+            **kernel_times(call),
+            "loop_ms": loop_t["kernel_ms"],
+            "loop_device_ms": loop_t["device_ms"],
+            "plain_ms": time_ms(plain, reps=3, inner=1, warmup=1),
+            "plain": "bc_fused_matmul_plain expert by expert",
+            "library_ms": library_ms,
+            "library": "torch.bmm against the dense (E, n_in, n_out) "
+                       "float32 stack",
+            "bytes": nbytes, "flops": flops,
+            "bound_ms": bound_ms, "bound_by": bound_by}], None)
+        del got, want, ref
+    return out
+
+
 def kernel_gen():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -778,7 +922,9 @@ def phase_kernels(cfg):
             phi3.d_model, phi3.d_ff)}, batches=(8,)),
         # a decode's dropless expert buffer at 4 slots: 4 rows an expert
         lambda: check_bc_fused(moe, gen, expert_projections(moe),
-                               batches=(4,))]
+                               batches=(4,)),
+        # ... and all 128 of them in the one launch serve_moe makes
+        lambda: check_bc_experts(moe, gen)]
     out = {}
     for check in checks:
         for lane, (cases, main_case) in check().items():
@@ -832,6 +978,12 @@ def decode_shapes(arch):
 
 def lane_counts():
     return {fn: n for lib in LIBRARIES for fn, n in lib.fn_launches.items()}
+
+
+def path_counts():
+    """Launches per plan path, by library (those that name their paths)."""
+    return {lib.name: dict(lib.path_launches) for lib in LIBRARIES
+            if lib.path_launches}
 
 
 def timed_run(engine, reqs):
@@ -996,15 +1148,15 @@ def batch_summary(phase, cfg, results, reqs, st, launches, wall, peak):
 
 
 def projections_per_pass(cfg):
-    """(projections the spectral-MAC hook can take, expert projections) in
+    """(projections the spectral-MAC hook can take, expert launches) in
     one forward pass: q k v o up gate down of a dense layer; q k v o and
-    the shared expert's three of an MoE layer, plus up gate down of every
-    expert (``repro``'s expert FFN takes no hook)."""
+    the shared expert's three of an MoE layer, plus one launch each for
+    up, gate and down over all the experts (``repro``'s expert FFN takes
+    no hook)."""
     kinds = layer_kinds(cfg)
     n_moe = kinds.count("moe")
     shared = 3 if cfg.moe.shared_expert else 0
-    return (7 * (len(kinds) - n_moe) + (4 + shared) * n_moe,
-            3 * cfg.moe.num_experts * n_moe)
+    return 7 * (len(kinds) - n_moe) + (4 + shared) * n_moe, 3 * n_moe
 
 
 def continuous_launches(cfg, st, lane="bc_fused"):
@@ -1364,6 +1516,7 @@ def serve_arch(arch, phase, *, lo, hi, new, max_seq, oracle_len, oracle_new):
     L = cfg.num_layers
     params = init_params(cfg, seed=SEED, device=DEVICE)
     warm, reqs = arch_requests(cfg, lo, hi, new)
+    hooked, experts = projections_per_pass(cfg)
     runs = {}
     engines = {
         "batch": lambda: Engine(cfg, params, max_batch=8, max_seq=max_seq,
@@ -1378,8 +1531,14 @@ def serve_arch(arch, phase, *, lo, hi, new, max_seq, oracle_len, oracle_new):
         want = (batch_launches(cfg, st) if name == "batch"
                 else continuous_launches(cfg, st))
         check_launches(launches, want)
+        paths = path_counts()
+        stacks = paths.get("bc_fused", {}).get("experts", 0)
+        if stacks != experts * (pre + steps):
+            raise AssertionError(f"{arch} {name}: {stacks} expert-stack "
+                                 f"launches, expected {experts} a pass")
         tokens = sum(r["decode_len"] for r in results)
         runs[name] = {
+            "paths": paths,
             "requests": len(results), "tokens": tokens, "wall_s": wall,
             "tokens_per_s": tokens / wall, "prefill_s": st["prefill_s"],
             "decode_s": st["decode_s"], "prefills": pre,
@@ -1393,14 +1552,21 @@ def serve_arch(arch, phase, *, lo, hi, new, max_seq, oracle_len, oracle_new):
     moes = [m for m in params.modules() if isinstance(m, ffn.MoE)]
     for m in moes:
         m.logit_gaps = []
+    for lib in LIBRARIES:
+        lib.reset_counts()
     _, oracle = oracle_check(cfg.replace(dtype="float32"), params, prompt,
                              oracle_new)
+    runs["oracle"] = {"launches": lane_counts(), "paths": path_counts()}
+    flash = runs["oracle"]["paths"].get("flash_attention", {})
+    if cfg.attention.head_dim in fa.F32_MMA_HEAD_DIMS and not flash.get(
+            "f32_mma"):
+        raise AssertionError(f"{arch}: the float32 oracle's prefills did not "
+                             f"take the tensor-core kernel: {flash}")
     if moes:
         oracle["min_router_logit_gap"] = min(g for m in moes
                                              for g in m.logit_gaps)
     for m in moes:
         m.logit_gaps = None
-    hooked, experts = projections_per_pass(cfg)
     out = {"phase": phase, "arch": arch, "layers": L,
            "d_model": cfg.d_model, "d_ff": cfg.d_ff,
            "vocab": cfg.vocab_size,
@@ -1477,7 +1643,7 @@ def main() -> int:
     phase_batch_parity(cfg)
     phase_serve_qwen()
     for arch, out in ((PHI3, phase_serve_phi3()), (MOE, phase_serve_moe())):
-        for engine in ("continuous", "batch"):
+        for engine in ("continuous", "batch", "oracle"):
             runs[f"{arch}/{engine}"] = out[engine]
     phase_lowering(cfg, kernel_gen())
     summary = []
@@ -1487,17 +1653,23 @@ def main() -> int:
         c = next(c for c in cases if c["case"] == main_case)
         fn = name.split("@")[0]
         launches = runs[run]["launches"][fn]
+        extra = {}
+        if name in SHAPE_PATHS:
+            extra = {"lane_launches": launches, "path": SHAPE_PATHS[name]}
+            launches = runs[run]["paths"].get(lib.name, {}).get(
+                SHAPE_PATHS[name], 0)
         if not launches:
             raise AssertionError(f"{name}: no launch in the {run} run")
         summary.append({
             "name": name, "route": "cuda",
             "source": str(lib.source.relative_to(ROOT)),
             "replaces": replaces, "launches": launches, "launches_in": run,
+            **extra,
             "case": main_case, "max_abs_err": c["max_abs_err"],
             "tol": c["tol"], "ms": c["kernel_ms"], "kernel_ms": c["kernel_ms"],
             "device_ms": c["device_ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_us": c["bound_ms"] * 1e3, "bound_by": c["bound_by"],
-            "library_ms": c["library_ms"]})
+            "bound_share": c["bound_share"], "library_ms": c["library_ms"]})
     print(card, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
 // Helpers shared by the two attention kernels (flash_attention.cu and
-// paged_attention.cu): dtype conversion, warp reductions, and the online-
-// softmax update of one query row against one tile of 32 keys.
+// paged_attention.cu): dtype conversion, warp reductions, the row store,
+// and (paged_attention.cu's) online-softmax update of one query row
+// against one tile of 32 keys.
 //
 // Layout of a tile in shared memory (float32):
 //   ks[c * (D + 4) + d]  key c, dim d (row stride D + 4: lane c reads

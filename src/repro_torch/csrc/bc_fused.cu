@@ -76,6 +76,14 @@
 //   the shapes: R is as small as fills whole waves of the 15 clusters of 8
 //   that an H100 runs at once; launch() checks the plan and returns
 //   cudaErrorInvalidValue for one it cannot run.
+// - An expert stack (llama4's MoE: E experts, each its own rows and
+//   planes) is one launch a projection: the expert index is blockIdx.y,
+//   clusters stay along x, and each block moves its pointers by the
+//   expert's strides (for_expert) before anything else.  The plan is the
+//   one expert's, so each expert's arithmetic is the single call's and
+//   the output equals the per-expert loop bit for bit; E * 32 blocks at
+//   llama4's decode (128 experts of 4 rows) instead of 128 launches that
+//   each fill a quarter of the card.
 // Not done here: wgmma (M is 16-86 rows a tile, where mma.sync fits), TMA,
 // double-buffered chunks, planes staged in shared memory (tried for
 // decode: the copies cost more than the L2 waits they saved).
@@ -238,7 +246,31 @@ struct Args {
   float* y;                             // (B, p, k)
   int B, p, q, k;
   int R, cs, mode, share, qc;           // the launch plan
+  int E;                                // experts (gridDim.y); 1: one call
+  long long sx, sw, ss, sy;             // strides between experts, in
+                                        // elements of x, a plane, a scale
+                                        // vector and y
 };
+
+// The arguments of expert e: x, the planes, their scales and y moved by e
+// strides (a plane's stride counts its storage elements: floats, int8
+// values, or bytes of packed int4).  Everything else is one expert's.
+template <int P>
+__device__ __forceinline__ Args for_expert(Args a, int e) {
+  constexpr size_t kElem = P == kF32 ? sizeof(float) : 1;
+  const size_t wb = (size_t)e * a.sw * kElem;
+  a.x += (size_t)e * a.sx;
+  a.y += (size_t)e * a.sy;
+  a.wr = static_cast<const char*>(a.wr) + wb;
+  a.ws1 = static_cast<const char*>(a.ws1) + wb;
+  a.ws2 = static_cast<const char*>(a.ws2) + wb;
+  if (P != kF32) {
+    a.s_wr += (size_t)e * a.ss;
+    a.s_ws1 += (size_t)e * a.ss;
+    a.s_ws2 += (size_t)e * a.ss;
+  }
+  return a;
+}
 
 __host__ __device__ inline int ncols(int k) { return ((k + 2) + 7) / 8 * 8; }
 
@@ -412,7 +444,9 @@ __device__ __forceinline__ void mac(const Args& a, const float* Xall,
 }
 
 template <int P>
-__global__ void __launch_bounds__(kThreads, 1) bc_fused_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads, 1)
+bc_fused_kernel(const Args args) {
+  const Args a = for_expert<P>(args, blockIdx.y);
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int k = a.k, NC = ncols(k), ldx = k + 4, ldy = NC + 4;
@@ -540,7 +574,11 @@ cudaError_t launch(Args a, cudaStream_t stream) {
       a.share < 1 || (ps && a.share * a.cs < a.p) ||
       (!ps && a.share * a.cs < a.q) || (ps && (a.qc < 1 || a.qc > a.q)) ||
       (reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.cpan) |
-       reinterpret_cast<uintptr_t>(a.cpan_t)) % 16)
+       reinterpret_cast<uintptr_t>(a.cpan_t)) % 16 ||
+      a.E < 1 || a.E > 65535 ||
+      (a.E > 1 && (a.sx < (long long)a.B * a.q * a.k || a.sx % 4 != 0 ||
+                   a.sw < 1 || a.sy < (long long)a.B * a.p * a.k ||
+                   (P != kF32 && a.ss < a.p))))
     return cudaErrorInvalidValue;
   if (!ps) a.qc = a.q;
   const size_t smem = sizeof(float) * (size_t)layout(a).total;
@@ -560,7 +598,7 @@ cudaError_t launch(Args a, cudaStream_t stream) {
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles * a.cs);
+  cfg.gridDim = dim3(tiles * a.cs, a.E);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -574,14 +612,15 @@ Args make_args(const void* xb, const void* wr, const void* ws1,
                const void* ws2, const void* s_wr, const void* s_ws1,
                const void* s_ws2, const void* cpan, const void* cpan_t,
                void* y, int B, int p, int q, int k, int R, int cs, int mode,
-               int share, int qc) {
+               int share, int qc, int E, long long sx, long long sw,
+               long long ss, long long sy) {
   return Args{static_cast<const float*>(xb), wr, ws1, ws2,
               static_cast<const float*>(s_wr),
               static_cast<const float*>(s_ws1),
               static_cast<const float*>(s_ws2),
               static_cast<const float*>(cpan),
               static_cast<const float*>(cpan_t), static_cast<float*>(y),
-              B, p, q, k, R, cs, mode, share, qc};
+              B, p, q, k, R, cs, mode, share, qc, E, sx, sw, ss, sy};
 }
 
 }  // namespace
@@ -596,42 +635,51 @@ extern "C" const char* error_string(int err) {
 // xb and cpan 16-byte aligned.  The plan: R rows per tile, a cluster of cs
 // blocks (1, 2, 4 or 8), mode 0 (p-split: share output blocks a block, q
 // chunks of qc input blocks) or 1 (q-split: share input blocks a block).
+// An expert stack: E such products in one launch (grid y), expert e's
+// xb, planes and y at e * sx, e * sw and e * sy elements from the first
+// (sx a multiple of 4); one expert is E = 1 (the strides then unread).
 // Returns a cudaError_t (cudaErrorInvalidValue for a plan it cannot run).
 extern "C" int bc_fused(const void* xb, const void* wr, const void* ws1,
                         const void* ws2, const void* cpan,
                         const void* cpan_t, void* y, int B, int p, int q,
                         int k, int R, int cs, int mode, int share, int qc,
-                        void* stream) {
+                        int E, long long sx, long long sw, long long ss,
+                        long long sy, void* stream) {
   return (int)launch<kF32>(
       make_args(xb, wr, ws1, ws2, nullptr, nullptr, nullptr, cpan, cpan_t, y,
-                B, p, q, k, R, cs, mode, share, qc),
+                B, p, q, k, R, cs, mode, share, qc, E, sx, sw, ss, sy),
       static_cast<cudaStream_t>(stream));
 }
 
 // As bc_fused, with int8 planes (p, q, k/2 + 1) and their float32 row
-// scales s_wr, s_ws1, s_ws2 (p,).
+// scales s_wr, s_ws1, s_ws2 (p,), expert e's at e * ss.
 extern "C" int bc_fused_i8(const void* xb, const void* wr, const void* ws1,
                            const void* ws2, const void* s_wr,
                            const void* s_ws1, const void* s_ws2,
                            const void* cpan, const void* cpan_t, void* y,
                            int B, int p, int q, int k, int R, int cs,
-                           int mode, int share, int qc, void* stream) {
+                           int mode, int share, int qc, int E, long long sx,
+                           long long sw, long long ss, long long sy,
+                           void* stream) {
   return (int)launch<kI8>(
       make_args(xb, wr, ws1, ws2, s_wr, s_ws1, s_ws2, cpan, cpan_t, y, B, p,
-                q, k, R, cs, mode, share, qc),
+                q, k, R, cs, mode, share, qc, E, sx, sw, ss, sy),
       static_cast<cudaStream_t>(stream));
 }
 
-// As bc_fused_i8, with packed-int4 planes (p, q, (k/2 + 2) / 2) uint8.
+// As bc_fused_i8, with packed-int4 planes (p, q, (k/2 + 2) / 2) uint8
+// (sw in bytes).
 extern "C" int bc_fused_i4(const void* xb, const void* wr, const void* ws1,
                            const void* ws2, const void* s_wr,
                            const void* s_ws1, const void* s_ws2,
                            const void* cpan, const void* cpan_t, void* y,
                            int B, int p, int q, int k, int R, int cs,
-                           int mode, int share, int qc, void* stream) {
+                           int mode, int share, int qc, int E, long long sx,
+                           long long sw, long long ss, long long sy,
+                           void* stream) {
   return (int)launch<kI4>(
       make_args(xb, wr, ws1, ws2, s_wr, s_ws1, s_ws2, cpan, cpan_t, y, B, p,
-                q, k, R, cs, mode, share, qc),
+                q, k, R, cs, mode, share, qc, E, sx, sw, ss, sy),
       static_cast<cudaStream_t>(stream));
 }
 

@@ -8,11 +8,13 @@
 // Hkv = 4, D = 64, S = 256) q, k, v and the output are ~2.4 MB, ~0.7 us at
 // 3.35 TB/s, and the causal products ~270 MFLOP, ~0.3 us on the bf16
 // tensor cores: bytes, barely, and in practice latency (a few tiles per
-// block).  At the float32 decode shape (8 rows of one query, 231 keys)
-// the bound is ~1.2 us of bytes; there too what a kernel spends is
-// latency: a launch, a few 32-key tiles, and how many SMs share them.
+// block).  The float32 prefill at phi-3-vision's oracle prompt (S = 600,
+// 32 / 32 heads of 96) does 2.2 GFLOP, 33 us at the 67 TFLOP/s float32
+// rate of the CUDA cores: operations, unless they go to the tensor cores.
+// The float32 one-row decode is bytes: at serve_phi3's last step (4 rows,
+// 775 keys, 32 KV heads of 96) 76 MB of K/V, 22.8 us.
 //
-// Design, two lanes:
+// Design, three kernels:
 // - bf16 (flash_bf16_kernel): one block of 4 warps per (batch, query
 //   head, 64 query rows), each warp 16 rows.  Q K^T and P V run on
 //   mma.sync m16n8k16 (bf16 in, float32 accumulators) with fragments
@@ -30,23 +32,36 @@
 //   memory padded to D + 8 values (144, 208 and 272 bytes: the 8 rows an
 //   ldmatrix reads land on 8 distinct groups of 4 banks), and
 //   2 x 5 x 64 x (D + 8) bytes of shared memory (Q plus two K/V buffers).
-// - float32 (flash_f32_kernel), the parity lane, on the CUDA cores: GQA
-//   packing puts the G query heads of a KV head and the query rows of a
-//   position together (packed row = position * G + head), up to 64 packed
-//   rows a block (fewer where that leaves SMs idle: the S = 48 prefill),
-//   so each K/V tile is read once for all the block's heads.  When the
-//   grid would be small (decode: B * Hkv = 32 blocks at tinyllama) the
-//   key range is split over blocks (flash-decoding): each split writes
-//   its partial (m, l, acc) to scratch the wrapper allocates, and
-//   flash_combine merges the splits in a fixed order in the same call.
-//   A split or row that sees no valid key has m = -1e30, l = 0, acc = 0
-//   and merges to exactly 0.  Inside a block, lane c scores key c of a
-//   32-key tile (attn_common.cuh:row_tile_f32, shared with the paged
-//   kernel), with the head dim fixed at compile time for 64 and 128
-//   (float4 dots).
-// The plan (lane, splits, keys per split) is chosen in Python
+// - float32 prefill (flash_f32_mma_kernel, G * Sq >= 16 packed rows, D =
+//   64, 96 or 128): the bf16 lane's FlashAttention-2 layout with the GQA
+//   packing of the rows kernel (packed row = position * G + head, so a
+//   K/V tile serves the G heads of its KV head): 64 packed rows a block,
+//   16 a warp, 32-key tiles double-buffered with cp.async (16-byte
+//   copies).  Q K^T and P V run on mma.sync m16n8k8 in TF32 with the
+//   3xTF32 split (mma_tf32.cuh, as bc_fused and spectral_matmul use it):
+//   hi*hi + lo*hi + hi*lo keeps float32 accuracy where one TF32 product
+//   keeps three digits.  The score tile's columns are ordered (key_of) so
+//   that its accumulator fragment is P's A fragment as it stands.  Row
+//   tiles are launched longest causal extent first.
+// - float32 rows kernel (flash_f32_kernel: the one-row decode, and head
+//   dims without a tensor-core instance), on the CUDA cores.  GQA packing
+//   up to 64 packed rows a block (fewer where that leaves SMs idle), keys
+//   in 32-key stages double-buffered with cp.async (16-byte copies at
+//   compile-time D = 64, 96, 128; 4-byte at a run-time D).  Where a block
+//   holds fewer rows than its 8 warps (G * Sq < 8: phi-3-vision's G = 1
+//   decode) the warps of a row split every stage's keys among themselves
+//   (kw = 8 / rows groups, nk = 32 / kw keys each, kw lanes a key's dot)
+//   and merge their (m, l, acc) in warp order at the end, so no warp
+//   idles.  When the grid would still be small (decode: B * Hkv = 32
+//   blocks at tinyllama) the key range is split over blocks
+//   (flash-decoding): each split writes its partial (m, l, acc) to
+//   scratch the wrapper allocates, and flash_combine merges the splits in
+//   a fixed order in the same call.  A split, group or row that sees no
+//   valid key has m = -1e30, l = 0, acc = 0 and merges to exactly 0.
+// The plan (kernel, rows, splits, keys per split) is chosen in Python
 // (kernels/flash_attention.py:plan), a pure function of the shapes.
 #include "attn_common.cuh"
+#include "mma_tf32.cuh"
 
 #include <math_constants.h>
 
@@ -273,14 +288,227 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ------------------------------------------------------------- float32 --
+// 16 bytes (4 bytes) global -> shared; zeros instead where !valid
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem), "r"(valid ? 4 : 0));
+}
+
+// Tensor-core prefill: one block of 4 warps per (64 packed rows, batch x
+// KV head), each warp 16 rows; 32-key tiles.
+constexpr int kFR = 64;                      // packed rows a block
+constexpr int kFK = 32;                      // keys a tile
+constexpr int kFThreads = 128;
+
+// The key behind column n (0..7) of an 8-key score tile.  With this order
+// the scores' accumulator fragment holds, in each thread, the keys t and
+// t + 4 that the A fragment of P V takes from it: no shuffle between the
+// two products.
+__device__ __forceinline__ int key_of(int n) { return (n >> 1) + (n & 1) * 4; }
+
+// Grid (row tiles, B * Hkv): packed row pr = position * G + g (query head
+// hk * G + g), the row tiles taken from the last (the longest causal
+// extent) to the first.  Q K^T and P V on mma.sync m16n8k8, each product
+// hi*hi + lo*hi + hi*lo (3xTF32, mma_tf32.cuh); Q, K and V stay float32
+// in shared memory, padded rows (D + 4 for Q and K, D + 8 for V) so every
+// fragment load hits 32 distinct banks.
+template <int D>
+__global__ void __launch_bounds__(kFThreads)
+flash_f32_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     int Hq, int Hkv, int Sq, int Skv, float scale,
+                     int causal, int window, float softcap, int kv_offset) {
+  constexpr int LQ = D + 4, LK = D + 4, LV = D + 8, CH = D / 4;
+  constexpr int TILE = kFK * (LK + LV);
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;                           // (kFR, LQ)
+  float* kvs = qs + kFR * LQ;                // [buffer][K (kFK, LK), V (kFK, LV)]
+
+  const int G = Hq / Hkv, NR = G * Sq;
+  const int bh = blockIdx.y, b = bh / Hkv, hk = bh % Hkv;
+  const int pr0 = (gridDim.x - 1 - blockIdx.x) * kFR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float* kb = k + (size_t)bh * Skv * D;
+  const float* vb = v + (size_t)bh * Skv * D;
+  const auto q_off = [&](int pr) {           // row pr of q / o
+    return (((size_t)b * Hq + hk * G + pr % G) * Sq + pr / G) * D;
+  };
+
+  // KV extent any row of this block can see
+  const int last = min(pr0 + kFR, NR) - 1;
+  const int kv_hi = causal ? max(0, min(Skv, last / G + kv_offset + 1)) : Skv;
+  const int kv_lo =
+      window ? max(0, pr0 / G + kv_offset - window + 1) / kFK * kFK : 0;
+  const int ntile = kv_hi > kv_lo ? (kv_hi - kv_lo + kFK - 1) / kFK : 0;
+
+  for (int idx = threadIdx.x; idx < kFR * CH; idx += kFThreads) {
+    const int r = idx / CH, c = (idx % CH) * 4, pr = pr0 + r;
+    cp_async16(qs + r * LQ + c, q + (pr < NR ? q_off(pr) : 0) + c, pr < NR);
+  }
+  const auto load_kv = [&](int buf, int t0) {
+    float* ks = kvs + buf * TILE;
+    float* vs = ks + kFK * LK;
+    for (int idx = threadIdx.x; idx < kFK * CH; idx += kFThreads) {
+      const int r = idx / CH, c = (idx % CH) * 4, col = t0 + r;
+      const size_t off = (size_t)(col < kv_hi ? col : 0) * D + c;
+      cp_async16(ks + r * LK + c, kb + off, col < kv_hi);
+      cp_async16(vs + r * LV + c, vb + off, col < kv_hi);
+    }
+  };
+  if (ntile > 0) load_kv(0, kv_lo);
+  asm volatile("cp.async.commit_group;");
+
+  float oacc[D / 8][4], m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[i][e] = 0.f;
+  const int wr0 = pr0 + warp * 16;
+  const int rows[2] = {wr0 + g, wr0 + g + 8};
+  const int pos[2] = {rows[0] / G + kv_offset, rows[1] / G + kv_offset};
+  const int wfirst = wr0 / G + kv_offset;
+  const int wlast = min(wr0 + 15, NR - 1) / G + kv_offset;
+  const float* qw = qs + warp * 16 * LQ;
+
+  for (int it = 0; it < ntile; ++it) {
+    const int t0 = kv_lo + it * kFK;
+    if (it + 1 < ntile) {
+      load_kv((it + 1) & 1, t0 + kFK);
+      asm volatile("cp.async.commit_group;\ncp.async.wait_group 1;" ::
+                       : "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    __syncthreads();
+    // tiles wholly masked for this warp's rows are skipped
+    const bool skip = wr0 >= NR || (causal && t0 > wlast) ||
+                      (window && t0 + kFK - 1 <= wfirst - window);
+    if (!skip) {
+      const float* ks = kvs + (it & 1) * TILE;
+      const float* vs = ks + kFK * LK;
+      float s[kFK / 8][4];
+#pragma unroll
+      for (int i = 0; i < kFK / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const float* qa = qw + g * LQ + kk * 8 + t;
+        uint32_t ah[4], al[4];
+        split_tf32_alu(qa[0], ah[0], al[0]);
+        split_tf32_alu(qa[8 * LQ], ah[1], al[1]);
+        split_tf32_alu(qa[4], ah[2], al[2]);
+        split_tf32_alu(qa[8 * LQ + 4], ah[3], al[3]);
+#pragma unroll
+        for (int nt = 0; nt < kFK / 8; ++nt) {
+          const float* kr = ks + (nt * 8 + key_of(g)) * LK + kk * 8 + t;
+          uint32_t b0h, b0l, b1h, b1l;
+          split_tf32_alu(kr[0], b0h, b0l);
+          split_tf32_alu(kr[4], b1h, b1l);
+          mma_tf32(s[nt], al, b0h, b1h);
+          mma_tf32(s[nt], ah, b0l, b1l);
+          mma_tf32(s[nt], ah, b0h, b1h);
+        }
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < kFK / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = t0 + i * 8 + t + 4 * (e & 1);
+          const int p = pos[e >> 1];
+          float x = s[i][e] * scale;
+          if (softcap != 0.f) x = softcap * tanhf(x / softcap);
+          const bool valid = col < Skv && (!causal || col <= p) &&
+                             (!window || col > p - window);
+          s[i][e] = valid ? x : -CUDART_INF_F;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[i][e]);
+        }
+      }
+      float alpha[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = expf(m[r] - mx[r]);
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int i = 0; i < kFK / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[i][e] = expf(s[i][e] - m[e >> 1]);   // masked: exp(-inf) = 0
+          ls[e >> 1] += s[i][e];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        oacc[i][0] *= alpha[0];
+        oacc[i][1] *= alpha[0];
+        oacc[i][2] *= alpha[1];
+        oacc[i][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int kc = 0; kc < kFK / 8; ++kc) {
+        // A of P V: (g, key t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+        uint32_t ph[4], pl[4];
+        split_tf32_alu(s[kc][0], ph[0], pl[0]);
+        split_tf32_alu(s[kc][2], ph[1], pl[1]);
+        split_tf32_alu(s[kc][1], ph[2], pl[2]);
+        split_tf32_alu(s[kc][3], ph[3], pl[3]);
+        const float* vr = vs + (kc * 8 + t) * LV + g;
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt) {
+          uint32_t b0h, b0l, b1h, b1l;
+          split_tf32_alu(vr[nt * 8], b0h, b0l);
+          split_tf32_alu(vr[4 * LV + nt * 8], b1h, b1l);
+          mma_tf32(oacc[nt], pl, b0h, b1h);
+          mma_tf32(oacc[nt], ph, b0l, b1l);
+          mma_tf32(oacc[nt], ph, b0h, b1h);
+        }
+      }
+    }
+    __syncthreads();                          // buffer consumed
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= NR) continue;
+    // a row that never saw a valid key has oacc == 0: exactly 0 out
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    float* orow = o + q_off(rows[r]);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<float2*>(orow + i * 8 + 2 * t) =
+          make_float2(oacc[i][2 * r] * inv, oacc[i][2 * r + 1] * inv);
+  }
+}
+
+// Rows kernel (decode, and head dims without a tensor-core instance).
 constexpr int kF32Warps = 8;
 constexpr int kF32MaxRows = 64;              // packed rows a block, at most
 constexpr int kF32RowsPerWarp = kF32MaxRows / kF32Warps;
 
-// Grid (row tiles, B * Hkv, splits), `rows` packed rows a block.  Packed
-// row pr = position * G + g (query head hk * G + g).  With one split the
-// rows are written to o; with more, (m, l) and acc go to part for
-// flash_combine.
+// Grid (row tiles, B * Hkv, splits), `rows` (a power of two) packed rows
+// a block, the split's keys in 32-key stages double-buffered with
+// cp.async.  rows >= 8: a warp owns rows / 8 rows and lane c scores key c
+// of a stage.  rows < 8 (the one-row decode): kw = 8 / rows warps share a
+// row, warp w taking row w % rows and the keys [j nk, (j + 1) nk) of
+// every stage, j = w / rows, nk = 32 / kw (so every warp of the block
+// works); kw lanes split a key's dot product (lane = key * kw + part),
+// and the kw partial (m, l, acc) of a row merge in warp order at the end.
+// With one split the rows are written to o; with more, (m, l) and acc go
+// to part for flash_combine.
 template <int DT>
 __global__ void __launch_bounds__(kF32Warps * 32)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -292,14 +520,22 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   using namespace attn;
   extern __shared__ __align__(16) float smem[];
   const int Dn = DT ? DT : D;
-  float* qs = smem;                          // (rows, Dn)
-  float* ks = qs + rows * Dn;                // (kTile, Dn + 4)
-  float* vs = ks + kTile * (Dn + 4);         // (kTile, Dn)
+  const int kw = rows < kF32Warps ? kF32Warps / rows : 1;  // key groups
+  const int rpw = rows > kF32Warps ? rows / kF32Warps : 1; // rows a warp
+  const int nk = kTile / kw;                 // keys a warp scores a stage
+  const int KS = Dn + 4 * kw;                // K row stride: the kw lanes
+                                             // of a key's dot, conflict-free
+  float* qs = smem;                          // (rows, Dn), scaled
+  float* tiles = qs + rows * Dn;             // [2][K (kTile, KS), V (kTile, Dn)]
+  const int tile_f = kTile * (KS + Dn);
 
   const int G = Hq / Hkv, NR = G * Sq;
   const int bh = blockIdx.y, b = bh / Hkv, hk = bh % Hkv;
   const int pr0 = blockIdx.x * rows, split = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = kw > 1 ? warp % rows : warp;   // first row of this warp
+  const int grp = kw > 1 ? warp / rows : 0;     // its key group
+  const int key = lane / kw, prt = lane % kw;   // its key and dot part
   const float* kb = k + (size_t)bh * Skv * Dn;
   const float* vb = v + (size_t)bh * Skv * Dn;
   const auto q_off = [&](int pr) {           // row pr of q / o
@@ -317,6 +553,30 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   : 0;
   lo = max(lo, split * chunk);
   hi = min(hi, (split + 1) * chunk);
+  const int ntile = hi > lo ? (hi - lo + kTile - 1) / kTile : 0;
+
+  const auto load = [&](int buf, int t0) {   // keys past hi: zeros
+    float* ks = tiles + buf * tile_f;
+    float* vs = ks + kTile * KS;
+    if (DT) {
+      constexpr int CH = DT / 4;
+      for (int idx = threadIdx.x; idx < kTile * CH; idx += blockDim.x) {
+        const int c = idx / CH, d = (idx % CH) * 4, col = t0 + c;
+        const size_t off = (size_t)(col < hi ? col : 0) * DT + d;
+        cp_async16(ks + c * KS + d, kb + off, col < hi);
+        cp_async16(vs + c * DT + d, vb + off, col < hi);
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < kTile * Dn; idx += blockDim.x) {
+        const int c = idx / Dn, d = idx % Dn, col = t0 + c;
+        const size_t off = (size_t)(col < hi ? col : 0) * Dn + d;
+        cp_async4(ks + c * KS + d, kb + off, col < hi);
+        cp_async4(vs + c * Dn + d, vb + off, col < hi);
+      }
+    }
+  };
+  if (ntile > 0) load(0, lo);
+  asm volatile("cp.async.commit_group;");
 
   float m[kF32RowsPerWarp], l[kF32RowsPerWarp], acc[kF32RowsPerWarp][kDPerLane];
 #pragma unroll
@@ -327,39 +587,111 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = 0; e < kDPerLane; ++e) acc[rr][e] = 0.f;
   }
 
-  for (int t0 = lo; t0 < hi; t0 += kTile) {
-    __syncthreads();                         // previous tile consumed
-    for (int idx = threadIdx.x; idx < kTile * Dn; idx += blockDim.x) {
-      const int c = idx / Dn, d = idx % Dn, col = t0 + c;
-      float kk = 0.f, vv = 0.f;              // zero-fill past Skv
-      if (col < Skv) {
-        kk = kb[(size_t)col * Dn + d];
-        vv = vb[(size_t)col * Dn + d];
-      }
-      ks[c * (Dn + 4) + d] = kk;
-      vs[c * Dn + d] = vv;
+  for (int it = 0; it < ntile; ++it) {
+    const int t0 = lo + it * kTile;
+    if (it + 1 < ntile) {
+      load((it + 1) & 1, t0 + kTile);
+      asm volatile("cp.async.commit_group;\ncp.async.wait_group 1;" ::
+                       : "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
     }
     __syncthreads();
-    const int col = t0 + lane;
+    const float* ks = tiles + (it & 1) * tile_f;
+    const float* vs = ks + kTile * KS;
+    const int c = grp * nk + key;            // this lane's key in the stage
+    const float* krow = ks + c * KS;
 #pragma unroll
     for (int rr = 0; rr < kF32RowsPerWarp; ++rr) {
-      const int r = rr * kF32Warps + warp;   // rows spread over the warps
-      if (r >= rows || pr0 + r >= NR) continue;   // warp-uniform
+      if (rr >= rpw) break;
+      const int r = r0 + rr * kF32Warps;
+      if (pr0 + r >= NR) continue;           // warp-uniform
       const int pos = (pr0 + r) / G + kv_offset;
-      if (causal && t0 > pos) continue;      // tile wholly in the future
+      if (causal && t0 > pos) continue;      // stage wholly in the future
       if (window && t0 + kTile - 1 <= pos - window) continue;
-      bool valid = col < hi;
-      if (causal) valid = valid && col <= pos;
-      if (window) valid = valid && col > pos - window;
-      row_tile_f32<DT>(qs + r * Dn, ks, vs, Dn, valid, softcap, m[rr],
-                       l[rr], acc[rr]);
+      const float* qrow = qs + r * Dn;
+      float s = 0.f;
+      if (DT) {
+        float s4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+        for (int d = 4 * prt; d < DT; d += 4 * kw) {
+          const float4 a = *reinterpret_cast<const float4*>(qrow + d);
+          const float4 x = *reinterpret_cast<const float4*>(krow + d);
+          s4[0] = fmaf(a.x, x.x, s4[0]);
+          s4[1] = fmaf(a.y, x.y, s4[1]);
+          s4[2] = fmaf(a.z, x.z, s4[2]);
+          s4[3] = fmaf(a.w, x.w, s4[3]);
+        }
+        s = (s4[0] + s4[1]) + (s4[2] + s4[3]);
+      } else {
+        for (int d = prt; d < Dn; d += kw) s = fmaf(qrow[d], krow[d], s);
+      }
+      for (int off = 1; off < kw; off <<= 1)   // the key's kw parts
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (softcap != 0.f) s = softcap * tanhf(s / softcap);
+      const int col = t0 + c;
+      const bool valid = col < hi && (!causal || col <= pos) &&
+                         (!window || col > pos - window);
+      s = valid ? s : kNeg;
+      const float m_new = fmaxf(m[rr], warp_max(s));
+      const float p = valid ? expf(s - m_new) : 0.f;
+      const float alpha = expf(m[rr] - m_new);
+      float ps = p;                          // over the warp's keys, once
+      for (int off = 16; off >= kw; off >>= 1)   // each (warp_sum at kw = 1)
+        ps += __shfl_xor_sync(0xffffffffu, ps, off);
+      l[rr] = l[rr] * alpha + ps;
+      m[rr] = m_new;
+#pragma unroll
+      for (int e = 0; e < kDPerLane; ++e) acc[rr][e] *= alpha;
+      const float* vrow = vs + grp * nk * Dn;
+      for (int j = 0; j < nk; ++j) {
+        const float pc = __shfl_sync(0xffffffffu, p, j * kw);
+#pragma unroll
+        for (int e = 0; e < kDPerLane; ++e) {
+          const int d = lane + 32 * e;
+          if (d < Dn) acc[rr][e] = fmaf(pc, vrow[j * Dn + d], acc[rr][e]);
+        }
+      }
     }
+    __syncthreads();                         // buffer consumed
+  }
+
+  if (kw > 1) {
+    // the key groups of a row merge in warp order (rows < 8: one row a
+    // warp), through the free tile buffers
+    float* slot = tiles + warp * (Dn + 2);
+    if (lane == 0) {
+      slot[0] = m[0];
+      slot[1] = l[0];
+    }
+#pragma unroll
+    for (int e = 0; e < kDPerLane; ++e)
+      if (lane + 32 * e < Dn) slot[2 + lane + 32 * e] = acc[0][e];
+    __syncthreads();
+    if (grp != 0) return;
+    float mx = kNeg;
+    for (int j = 0; j < kw; ++j)
+      mx = fmaxf(mx, tiles[(j * rows + r0) * (Dn + 2)]);
+    float ls = 0.f, a[kDPerLane] = {0.f, 0.f, 0.f, 0.f};
+    for (int j = 0; j < kw; ++j) {
+      const float* sl = tiles + (j * rows + r0) * (Dn + 2);
+      const float cj = expf(sl[0] - mx);
+      ls += sl[1] * cj;
+#pragma unroll
+      for (int e = 0; e < kDPerLane; ++e)
+        if (lane + 32 * e < Dn) a[e] += sl[2 + lane + 32 * e] * cj;
+    }
+    m[0] = mx;
+    l[0] = ls;
+#pragma unroll
+    for (int e = 0; e < kDPerLane; ++e) acc[0][e] = a[e];
   }
 
 #pragma unroll
   for (int rr = 0; rr < kF32RowsPerWarp; ++rr) {
-    const int r = rr * kF32Warps + warp, pr = pr0 + r;
-    if (r >= rows || pr >= NR) continue;
+    if (rr >= rpw) break;
+    const int r = r0 + rr * kF32Warps, pr = pr0 + r;
+    if (pr >= NR) continue;
     if (splits == 1) {
       row_store(o + q_off(pr), Dn, l[rr], acc[rr]);
       continue;
@@ -426,13 +758,16 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 }
 
 template <int DT>
-cudaError_t launch_f32_dt(const float* q, const float* k, const float* v,
-                          float* o, float* part, int B, int Hq, int Hkv,
-                          int Sq, int Skv, int D, float scale, int causal,
-                          int window, float softcap, int kv_offset, int rows,
-                          int splits, int chunk, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)rows * D +
-                                       (size_t)attn::kTile * (2 * D + 4));
+cudaError_t launch_f32_rows(const float* q, const float* k, const float* v,
+                            float* o, float* part, int B, int Hq, int Hkv,
+                            int Sq, int Skv, int D, float scale, int causal,
+                            int window, float softcap, int kv_offset,
+                            int rows, int splits, int chunk,
+                            cudaStream_t stream) {
+  const int kw = rows < kF32Warps ? kF32Warps / rows : 1;
+  const size_t smem =
+      sizeof(float) * ((size_t)rows * D +
+                       (size_t)2 * attn::kTile * (2 * D + 4 * kw));
   cudaError_t e = opt_in((const void*)flash_f32_kernel<DT>, smem);
   if (e != cudaSuccess) return e;
   const int NR = (Hq / Hkv) * Sq;
@@ -448,37 +783,74 @@ cudaError_t launch_f32_dt(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_f32_mma(const float* q, const float* k, const float* v,
+                           float* o, int B, int Hq, int Hkv, int Sq, int Skv,
+                           float scale, int causal, int window, float softcap,
+                           int kv_offset, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * ((size_t)kFR * (D + 4) + (size_t)2 * kFK * (2 * D + 12));
+  cudaError_t e = opt_in((const void*)flash_f32_mma_kernel<D>, smem);
+  if (e != cudaSuccess) return e;
+  const int NR = (Hq / Hkv) * Sq;
+  dim3 grid((NR + kFR - 1) / kFR, B * Hkv);
+  flash_f32_mma_kernel<D><<<grid, kFThreads, smem, stream>>>(
+      q, k, v, o, Hq, Hkv, Sq, Skv, scale, causal, window, softcap,
+      kv_offset);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_f32(const float* q, const float* k, const float* v,
                        float* o, float* part, int B, int Hq, int Hkv, int Sq,
                        int Skv, int D, float scale, int causal, int window,
                        float softcap, int kv_offset, int rows, int splits,
-                       int chunk, cudaStream_t stream) {
+                       int chunk, int mma, cudaStream_t stream) {
+  if (mma) {
+    if (rows != kFR || splits != 1) return cudaErrorInvalidValue;
+    if (D == 64)
+      return launch_f32_mma<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
+                                causal, window, softcap, kv_offset, stream);
+    if (D == 96)
+      return launch_f32_mma<96>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
+                                causal, window, softcap, kv_offset, stream);
+    if (D == 128)
+      return launch_f32_mma<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
+                                 causal, window, softcap, kv_offset, stream);
+    return cudaErrorInvalidValue;
+  }
   const int NR = (Hq / Hkv) * Sq;
-  if (rows < 1 || rows > kF32MaxRows || splits < 1 ||
+  if (rows < 1 || rows > kF32MaxRows || (rows & (rows - 1)) != 0 ||
+      splits < 1 ||
       (splits > 1 && (part == nullptr || chunk < attn::kTile ||
                       chunk % attn::kTile != 0 ||
                       (size_t)splits * chunk < (size_t)Skv || NR > rows)))
     return cudaErrorInvalidValue;
   if (splits == 1) chunk = Skv > 0 ? Skv : 1;
   if (D == 64)
-    return launch_f32_dt<64>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D, scale,
-                             causal, window, softcap, kv_offset, rows, splits,
-                             chunk, stream);
+    return launch_f32_rows<64>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D,
+                               scale, causal, window, softcap, kv_offset,
+                               rows, splits, chunk, stream);
+  if (D == 96)
+    return launch_f32_rows<96>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D,
+                               scale, causal, window, softcap, kv_offset,
+                               rows, splits, chunk, stream);
   if (D == 128)
-    return launch_f32_dt<128>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D,
-                              scale, causal, window, softcap, kv_offset, rows,
-                              splits, chunk, stream);
-  return launch_f32_dt<0>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D, scale,
-                          causal, window, softcap, kv_offset, rows, splits,
-                          chunk, stream);
+    return launch_f32_rows<128>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D,
+                                scale, causal, window, softcap, kv_offset,
+                                rows, splits, chunk, stream);
+  return launch_f32_rows<0>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D, scale,
+                            causal, window, softcap, kv_offset, rows, splits,
+                            chunk, stream);
 }
 
 }  // namespace
 
 // q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D); o: (B, Hq, Sq, D), all of one
 // dtype (0 = float32, 1 = bfloat16), contiguous.  bfloat16 takes D = 64,
-// 96 or 128 (the tensor-core tiles) and one split; it ignores `rows`.  float32
-// takes D <= 128, `rows` (<= 64) packed rows a block and `splits` key
+// 96 or 128 (the tensor-core tiles) and one split; it ignores `rows`.
+// float32 with mma = 1 is the tensor-core prefill: D = 64, 96 or 128,
+// rows = 64, one split.  float32 with mma = 0 is the rows kernel: D <= 128,
+// `rows` (a power of two <= 64) packed rows a block and `splits` key
 // ranges of `chunk` keys (a multiple of 32); with splits > 1 (only where
 // G * Sq <= rows) part is float32 scratch of
 // splits * B * Hkv * G * Sq * (D + 2).  Returns a cudaError_t.
@@ -487,7 +859,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int Sq, int Skv, int D, float scale,
                                int causal, int window, float softcap,
                                int kv_offset, int dtype, int rows,
-                               int splits, int chunk, void* stream) {
+                               int splits, int chunk, int mma,
+                               void* stream) {
   if (B <= 0 || Sq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 ||
       D > attn::kMaxD || Skv < 0)
     return (int)cudaErrorInvalidValue;
@@ -497,8 +870,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o),
         static_cast<float*>(part), B, Hq, Hkv, Sq, Skv, D, scale, causal,
-        window, softcap, kv_offset, rows, splits, chunk, s);
-  if (dtype != 1 || splits != 1) return (int)cudaErrorInvalidValue;
+        window, softcap, kv_offset, rows, splits, chunk, mma, s);
+  if (dtype != 1 || splits != 1 || mma) return (int)cudaErrorInvalidValue;
   if (D == 64)
     return (int)launch_bf16<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
                                 causal, window, softcap, kv_offset, s);

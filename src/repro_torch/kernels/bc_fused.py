@@ -18,6 +18,12 @@ does; the planes are never dequantized in device memory.  Activations are
 float32: the serve path casts them before blockifying and back after
 (``kernels/ops.py:bc_linear``).
 
+An expert stack (xb (E, B, q, k), planes (E, p, q, kf), scales (E, p, 1))
+is one launch: the kernel puts the expert index on its grid and reads each
+expert's rows, planes and scales at its stride (``launch_args``), with one
+expert's plan, so the result equals the per-expert calls bit for bit.  On
+the CPU the stack runs the plain version expert by expert.
+
 ``plan`` cuts a call into tiles of rows shared by a thread-block cluster
 (the source's head note says how); it is a pure function of the shapes,
 so the CPU tests check it against the kernel's indexing.  ``dft_panel`` / ``dft_panel_t`` are the one DFT matrix the
@@ -33,8 +39,10 @@ import torch
 from ..core import circulant as cc
 from .build import Kernel, check_cuda, ptr
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
-_PLAN = [_I] * 9                   # B, p, q, k, rows, cluster, mode, share, qc
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# B, p, q, k, rows, cluster, mode, share, qc; E and the expert strides
+# (x, plane, scales, y)
+_PLAN = [_I] * 10 + [_LL] * 4
 KERNEL = Kernel("bc_fused", {"bc_fused": [_VP] * 7 + _PLAN,
                              "bc_fused_i8": [_VP] * 10 + _PLAN,
                              "bc_fused_i4": [_VP] * 10 + _PLAN})
@@ -146,6 +154,21 @@ def plan(B: int, p: int, q: int, k: int, lane: str = "bc_fused") -> Plan:
                      f"p={p}, q={q}, k={k} ({MAX_SMEM} bytes a block)")
 
 
+def launch_args(B: int, p: int, q: int, k: int, lane: str = "bc_fused",
+                E: int = 1) -> Tuple[int, ...]:
+    """The integer arguments of one launch over E experts of B rows each,
+    a pure function of the shapes: the shape and one expert's plan (B, p,
+    q, k, rows, cluster, mode, share, qchunk), then E and the strides
+    between experts of contiguous stacks, each in its tensor's elements:
+    xb (B q k), a plane (p q kf; the int4 lane's packed bytes), a scale
+    vector (p), y (B p k).  E = 1 is a single product."""
+    pl = plan(B, p, q, k, lane)
+    kf = k // 2 + 1
+    row = (kf + 1) // 2 if lane == "bc_fused_i4" else kf
+    return (B, p, q, k, pl.rows, pl.cluster, pl.mode, pl.share, pl.qchunk,
+            E, B * q * k, p * q * row, p, B * p * k)
+
+
 _PANELS: Dict[Tuple[int, str], torch.Tensor] = {}
 
 
@@ -193,9 +216,17 @@ def bc_fused_matmul(xb: torch.Tensor, wr: torch.Tensor, ws1: torch.Tensor,
                     ) -> torch.Tensor:
     """xb: (B, q, k) float32; planes (p, q, k//2+1) float32, or int8 / packed
     uint8 with ``scales`` = (s_wr, s_ws1, s_ws2), each (p, 1) float32
-    -> (B, p, k) float32."""
+    -> (B, p, k) float32.  An expert stack adds a leading E to every
+    operand: xb (E, B, q, k), planes (E, p, q, ·), scales (E, p, 1) ->
+    (E, B, p, k), expert e's rows against its own planes."""
+    stacked = xb.dim() == 4
     if xb.device.type == "cpu":
-        return bc_fused_matmul_plain(xb, wr, ws1, ws2, k, scales)
+        if not stacked:
+            return bc_fused_matmul_plain(xb, wr, ws1, ws2, k, scales)
+        return torch.stack([bc_fused_matmul_plain(
+            xb[e], wr[e], ws1[e], ws2[e], k,
+            None if scales is None else [s[e] for s in scales])
+            for e in range(xb.shape[0])])
     lane = LANES.get(wr.dtype)
     tensors = {"xb": xb, "wr": wr, "ws1": ws1, "ws2": ws2}
     dtypes = {"xb": (torch.float32,)}
@@ -210,8 +241,15 @@ def bc_fused_matmul(xb: torch.Tensor, wr: torch.Tensor, ws1: torch.Tensor,
                          f"{'with' if scales is not None else 'without'} "
                          f"scales; expected float32 planes without scales "
                          f"or int8 / uint8 planes with them")
-    B, q, kx = xb.shape
-    p, qw, kw = wr.shape
+    E = xb.shape[0] if stacked else 1
+    lead = (E,) if stacked else ()
+    if xb.dim() != 3 + stacked or wr.dim() != 3 + stacked or (
+            stacked and wr.shape[0] != E):
+        raise ValueError(f"bc_fused: xb {tuple(xb.shape)} and planes "
+                         f"{tuple(wr.shape)} are not one product or one "
+                         f"stack of {E} experts")
+    B, q, kx = xb.shape[-3:]
+    p, qw, kw = wr.shape[-3:]
     kf = k // 2 + 1
     want_kw = (kf + 1) // 2 if wr.dtype == torch.uint8 else kf
     if kx != k or qw != q or kw != want_kw:
@@ -219,18 +257,18 @@ def bc_fused_matmul(xb: torch.Tensor, wr: torch.Tensor, ws1: torch.Tensor,
                          f"planes {tuple(wr.shape)} do not fit block size {k}")
     if ws1.shape != wr.shape or ws2.shape != wr.shape:
         raise ValueError("bc_fused: wr/ws1/ws2 must share one shape")
-    if scales is not None and any(s.numel() != p for s in scales):
+    if scales is not None and any(s.numel() != E * p for s in scales):
         raise ValueError(f"bc_fused: scales must hold one value per output "
-                         f"block ({p})")
+                         f"block ({p}) and expert ({E})")
     if xb.data_ptr() % 16:
         raise ValueError("bc_fused: xb must start 16-byte aligned (its rows "
                          "are staged with 16-byte asynchronous copies)")
-    pl = plan(B, p, q, k, lane)
-    y = torch.empty((B, p, k), device=device, dtype=torch.float32)
+    y = torch.empty((*lead, B, p, k), device=device, dtype=torch.float32)
     planes = [ptr(wr), ptr(ws1), ptr(ws2)]
     if scales is not None:
         planes += [ptr(s) for s in scales]
     KERNEL.launch(lane, device, ptr(xb), *planes, ptr(dft_panel(k, device)),
-                  ptr(dft_panel_t(k, device)), ptr(y), B, p, q, k, pl.rows,
-                  pl.cluster, pl.mode, pl.share, pl.qchunk)
+                  ptr(dft_panel_t(k, device)), ptr(y),
+                  *launch_args(B, p, q, k, lane, E),
+                  path="experts" if stacked else "single")
     return y

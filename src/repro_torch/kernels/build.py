@@ -96,19 +96,23 @@ class Kernel:
     ``signatures`` maps each exported C function to its ``ctypes`` argument
     types; every function returns a ``cudaError_t`` as an int.  ``launch``
     calls one on the current CUDA stream (passed last), raises if it
-    returned an error, and otherwise adds one to ``launches`` and to
-    ``fn_launches[fn]`` (one count per exported function, i.e. per lane)."""
+    returned an error, and otherwise adds one to ``launches``, to
+    ``fn_launches[fn]`` (one count per exported function, i.e. per lane)
+    and, where the wrapper names the kernel its plan chose (``path``), to
+    ``path_launches[path]``."""
 
     def __init__(self, name: str, signatures: Dict[str, Sequence]):
         self.name = name
         self.signatures = dict(signatures)
         self.launches = 0
         self.fn_launches = {fn: 0 for fn in self.signatures}
+        self.path_launches: Dict[str, int] = {}
         self._lib: Optional[ctypes.CDLL] = None
 
     def reset_counts(self) -> None:
         self.launches = 0
         self.fn_launches = {fn: 0 for fn in self.signatures}
+        self.path_launches = {}
 
     @property
     def source(self) -> Path:
@@ -126,7 +130,8 @@ class Kernel:
             self._lib = lib
         return self._lib
 
-    def launch(self, fn: str, device: torch.device, *args) -> None:
+    def launch(self, fn: str, device: torch.device, *args,
+               path: Optional[str] = None) -> None:
         lib = self.lib()
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, fn)(*args, stream)
@@ -135,6 +140,8 @@ class Kernel:
                                f"({lib.error_string(err).decode()})")
         self.launches += 1
         self.fn_launches[fn] += 1
+        if path is not None:
+            self.path_launches[path] = self.path_launches.get(path, 0) + 1
 
 
 def check_cuda(name: str, tensors: Dict[str, torch.Tensor],

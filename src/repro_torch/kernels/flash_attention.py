@@ -6,10 +6,14 @@ Port of ``repro/kernels/flash_attention.py`` and of its reference
 on CUDA tensors it launches ``csrc/flash_attention.cu`` (or raises), on CPU
 tensors it runs ``attention_ref``.  Layout (B, H, S, D), as in ``repro``.
 
-Two lanes: bf16 on the tensor cores (head dims 64, 96 and 128), float32 on the
-CUDA cores with the G query heads of a KV head packed into one block and,
-where that grid is small (decode), the keys split over blocks and merged
-in the same call.  ``plan`` picks the split from the shapes alone.
+Three kernels, one ``path`` each in the plan: ``bf16`` on the tensor cores
+(head dims 64, 96 and 128); ``f32_mma``, the float32 prefill (16 packed
+rows or more) on the tensor cores in 3xTF32 at the same head dims;
+``f32_rows``, float32 on the CUDA cores (the one-row decode, other head
+dims), with the G query heads of a KV head packed into one block, the
+warps of a block splitting the keys where it holds fewer rows than warps,
+and, where the grid is small, the keys split over blocks and merged in the
+same call.  ``plan`` picks the kernel and the splits from the shapes alone.
 """
 from __future__ import annotations
 
@@ -23,37 +27,50 @@ from .build import Kernel, check_cuda, ptr
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = Kernel("flash_attention", {
     "flash_attention": [_VP] * 5 + [_I] * 6 + [_F, _I, _I, _F, _I, _I, _I,
-                                               _I, _I]})
+                                               _I, _I, _I]})
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 BF16_HEAD_DIMS = (64, 96, 128)   # the bf16 lane's tensor-core tilings
 SMS = 132                    # streaming multiprocessors of an H100
 BF16_ROWS, F32_ROWS, KEY_TILE = 64, 64, 32   # csrc kBQ, kF32MaxRows, kTile
-F32_MIN_ROWS = 8                             # one packed row a warp
+F32_WARPS = 8                                # csrc kF32Warps
+F32_MMA_HEAD_DIMS = (64, 96, 128)            # the f32 tensor-core instances
+F32_MMA_ROWS, F32_MMA_KEYS = 64, 32          # csrc kFR, kFK
+F32_MMA_MIN_ROWS = 16                        # one m16 tile of packed rows
 
 
 class FlashPlan(NamedTuple):
     """``rows`` (packed) query rows a block; ``splits`` key ranges of
-    ``chunk`` keys each (float32 lane; 1 for bf16); the grid's ``blocks``
-    and each block's ``smem_bytes``."""
+    ``chunk`` keys each (the f32 rows kernel; 1 otherwise); the grid's
+    ``blocks`` and each block's ``smem_bytes``; the kernel (``path``:
+    ``bf16``, ``f32_mma`` or ``f32_rows``) and, for ``f32_rows``, the
+    ``key_groups`` of warps that split a row's keys (8 // rows below 8
+    rows, else 1)."""
     dtype: torch.dtype
     rows: int
     splits: int
     chunk: int
     blocks: int
     smem_bytes: int
+    path: str
+    key_groups: int
 
 
 def plan(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int,
          dtype: torch.dtype) -> FlashPlan:
     """The launch plan, a pure function of the shapes.  bf16: one block
-    per (batch, query head, 64 rows).  float32: one block per (batch, KV
-    head, tile of packed rows, G heads x Sq positions); a tile holds up to
-    64 packed rows, halved (down to 8, one a warp) while the grid would
-    not fill the SMs.  Where all of a KV head's rows fit one tile and the
-    grid still would not fill them, the keys are split into ranges of a
-    multiple of 32 keys, enough ranges to reach about SMS blocks."""
+    per (batch, query head, 64 rows).  float32 with at least 16 packed
+    rows (G heads x Sq positions) at D = 64, 96 or 128: the tensor-core
+    prefill, one block per (batch, KV head, 64 packed rows).  Other
+    float32: the rows kernel, one block per (batch, KV head, tile of
+    packed rows); a tile holds up to 64 packed rows, a power of two no
+    wider than the rows there are (down to 1: the warps then split the
+    keys), halved down to 8 while the grid would not fill the SMs.  Where
+    all of a KV head's rows fit one tile and the grid still would not fill
+    them, the keys are split into ranges of a multiple of 32 keys, enough
+    ranges to reach about SMS blocks: each block keeps all its warps busy
+    (the key groups), so one block an SM fills the card."""
     if dtype == torch.bfloat16:
         if D not in BF16_HEAD_DIMS:
             raise ValueError(f"flash_attention: the bf16 lane tiles head "
@@ -61,13 +78,20 @@ def plan(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int,
                              f"not {D}")
         return FlashPlan(dtype, BF16_ROWS, 1, max(Skv, 1),
                          -(-Sq // BF16_ROWS) * Hq * B,
-                         2 * 5 * BF16_ROWS * (D + 8))
+                         2 * 5 * BF16_ROWS * (D + 8), "bf16", 1)
     packed = (Hq // Hkv) * Sq
+    if D in F32_MMA_HEAD_DIMS and packed >= F32_MMA_MIN_ROWS:
+        return FlashPlan(dtype, F32_MMA_ROWS, 1, max(Skv, 1),
+                         -(-packed // F32_MMA_ROWS) * B * Hkv,
+                         4 * (F32_MMA_ROWS * (D + 4)
+                              + 2 * F32_MMA_KEYS * (2 * D + 12)),
+                         "f32_mma", 1)
     rows = F32_ROWS
-    while rows > F32_MIN_ROWS and rows // 2 >= packed:
+    while rows > 1 and rows // 2 >= packed:
         rows //= 2                          # no wider than the rows there are
-    while rows > F32_MIN_ROWS and -(-packed // rows) * B * Hkv < SMS:
+    while rows > F32_WARPS and -(-packed // rows) * B * Hkv < SMS:
         rows //= 2                          # more blocks
+    groups = max(1, F32_WARPS // rows)
     base = -(-packed // rows) * B * Hkv
     splits, chunk = 1, max(Skv, 1)
     if packed <= rows and base < SMS and Skv > KEY_TILE:
@@ -75,7 +99,8 @@ def plan(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int,
         chunk = -(-(-(-Skv // want)) // KEY_TILE) * KEY_TILE
         splits = -(-Skv // chunk)
     return FlashPlan(dtype, rows, splits, chunk, base * splits,
-                     4 * (rows * D + KEY_TILE * (2 * D + 4)))
+                     4 * (rows * D + 2 * KEY_TILE * (2 * D + 4 * groups)),
+                     "f32_rows", groups)
 
 
 def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
@@ -136,5 +161,6 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                   ctypes.c_void_p(None if part is None else part.data_ptr()),
                   B, Hq, Hkv, Sq, Skv, D, float(scale), int(bool(causal)),
                   int(window), float(softcap), int(kv_offset),
-                  DTYPE_CODES[q.dtype], pl.rows, pl.splits, pl.chunk)
+                  DTYPE_CODES[q.dtype], pl.rows, pl.splits, pl.chunk,
+                  int(pl.path == "f32_mma"), path=pl.path)
     return o

@@ -51,16 +51,27 @@ def bc_expert_linear(x: torch.Tensor, cache: Dict[str, torch.Tensor], k: int,
                      n_out: int, gauss: bool = True) -> torch.Tensor:
     """An expert stack's projection: x (E, C, n_in) -> (E, C, n_out),
     expert ``e``'s rows against its planes ``cache[name][e]`` (planes
-    (E, p, q, kf), scales (E, p, 1)).  One ``bc_linear`` per expert on the
-    views ``x[e]`` and ``planes[e]``, nothing copied: on the card one launch
-    of the fused kernel's float32, int8 or int4 lane each, on the CPU its
-    plain version (``repro`` vmaps ``bc_matmul_spectral`` the same way)."""
+    (E, p, q, kf), scales (E, p, 1)), as ``repro`` vmaps
+    ``bc_matmul_spectral`` over the experts.  The Gauss planes go to the
+    fused kernel as one stack: on the card one launch of its float32, int8
+    or int4 lane for all E experts (each expert's rows at e * C, its planes
+    and scales at their strides: nothing is copied), on the CPU its plain
+    version expert by expert.  Casts as ``bc_linear`` does."""
     E, C, _ = x.shape
-    out = torch.empty((E, C, n_out), dtype=x.dtype, device=x.device)
-    for e in range(E):
-        out[e] = bc_linear(x[e], {name: t[e] for name, t in cache.items()},
-                           k, n_out, gauss)
-    return out
+    if "ws1" not in cache or not gauss:
+        out = torch.empty((E, C, n_out), dtype=x.dtype, device=x.device)
+        for e in range(E):
+            out[e] = bc_linear(x[e], {n: t[e] for n, t in cache.items()}, k,
+                               n_out, gauss)
+        return out
+    scales = None
+    if "wr_s" in cache:
+        scales = (cache["wr_s"], cache["ws1_s"], cache["ws2_s"])
+    _, p, q, _ = cache["wr"].shape
+    xb = cc._blockify(x, q, k).float().contiguous()       # (E, C, q, k)
+    y = bc_fused_matmul(xb, cache["wr"], cache["ws1"], cache["ws2"], k,
+                        scales)
+    return y.reshape(E, C, p * k)[..., :n_out].to(x.dtype)
 
 
 def spectral_contract(xr: torch.Tensor, xi: torch.Tensor,

@@ -138,13 +138,13 @@ def test_flash_kernel_dense_decode(cuda, dtype, pos):
                                   "all_masked"])
 @pytest.mark.parametrize("Skv", [1, 31, 32, 33, 231, 1000])
 @pytest.mark.parametrize("G", [1, 4, 8])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 96, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_packing_and_split(cuda, dtype, D, G, Skv, opts):
     """One query row per (batch, head) with the G heads of a KV head packed
-    into one block and, in float32, the keys split over blocks: windows,
-    softcap and kv_offset under packing and split; a split (or a whole
-    row) with no valid key."""
+    into one block and, in float32, the keys split over blocks and (G < 8)
+    over the warps of a block: windows, softcap and kv_offset under
+    packing and split; a split (or a whole row) with no valid key."""
     B, Hkv = 3, 2
     kw = {"last": dict(kv_offset=Skv - 1),
           "window_softcap": dict(kv_offset=Skv - 1, window=40, softcap=4.0),
@@ -355,12 +355,15 @@ def test_batch_engine_on_card_matches_cpu(cuda, quant):
     assert out["cuda"] == out["cpu"]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S", [1, 63, 65, 200, 640])
+@pytest.mark.parametrize("dtype,S", [
+    *[(dt, s) for dt in (torch.float32, torch.bfloat16)
+      for s in (1, 63, 65, 200, 640)],
+    *[(torch.float32, s) for s in (16, 17, 600)]])
 def test_flash_kernel_head_dim_96(cuda, dtype, S):
-    """phi-3-vision's head dim (the bf16 lane's D = 96 instance): causal
-    prefill at ragged lengths, MHA (32 / 32) and G = 4, then the batch
-    engine's one-row decode over the same keys."""
+    """phi-3-vision's head dim (the bf16 lane's D = 96 instance; the
+    float32 tensor-core prefill from 16 packed rows): causal prefill at
+    ragged lengths, MHA (32 / 32) and G = 4, then the batch engine's
+    one-row decode over the same keys."""
     for Hq, Hkv in ((32, 32), (8, 2)):
         q = torch.randn((1, Hq, S, 96), generator=cuda,
                         device="cuda").to(dtype)
@@ -375,6 +378,31 @@ def test_flash_kernel_head_dim_96(cuda, dtype, S):
         _close(fa.flash_attention(row, k, v, kv_offset=S - 1),
                fa.attention_ref(row, k, v, kv_offset=S - 1),
                dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("opts", [dict(window=40), dict(softcap=5.0),
+                                  dict(window=24, softcap=3.0, kv_offset=9),
+                                  dict(causal=False), dict(kv_offset=-20)])
+@pytest.mark.parametrize("D", [64, 96, 128])
+@pytest.mark.parametrize("S", [16, 17, 600])
+def test_flash_f32_tensor_core_prefill(cuda, S, D, opts):
+    """The float32 prefill on the tensor cores (3xTF32) at every head dim
+    it has, MHA and G = 4: windows, softcap, kv_offset, no mask, and rows
+    that see no key at all (exactly 0); within 1e-4 of the scale of
+    ``attention_ref``."""
+    for Hq, Hkv in ((32, 32), (8, 2)):
+        q = torch.randn((1, Hq, S, D), generator=cuda, device="cuda")
+        k = torch.randn((1, Hkv, S, D), generator=cuda, device="cuda")
+        v = torch.randn(k.shape, generator=cuda, device="cuda")
+        assert fa.plan(1, Hq, Hkv, S, S, D, torch.float32).path == "f32_mma"
+        before = fa.KERNEL.path_launches.get("f32_mma", 0)
+        got = fa.flash_attention(q, k, v, **opts)
+        assert fa.KERNEL.path_launches["f32_mma"] == before + 1
+        ref = fa.attention_ref(q, k, v, **opts)
+        _close(got, ref)
+        if opts.get("kv_offset", 0) < 0:
+            dead = ref.abs().amax(-1) == 0        # rows before the first key
+            assert bool(dead.any()) and (got[dead] == 0).all()
 
 
 @pytest.mark.parametrize("q_dtype,kv_dtype", [
@@ -429,10 +457,47 @@ def test_bc_fused_expert_and_phi3_shapes(cuda, B, p, q):
         _close(got, bcf.bc_fused_matmul_plain(xb, *pl, k, scales))
 
 
+@pytest.mark.parametrize("C", [1, 4, 17])
+@pytest.mark.parametrize("E", [1, 3, 128])
+def test_bc_fused_expert_stack_is_the_per_expert_loop(cuda, E, C):
+    """One launch over an expert stack equals the per-expert calls on
+    views of the stack bit for bit, on all three lanes, eagerly and
+    replayed from a CUDA graph."""
+    k, p, q = 128, 16, 8
+    w = torch.randn((E, p, q, k), generator=cuda, device="cuda") / (q * k) ** .5
+    planes = cc.spectral_cache(w)
+    xb = torch.randn((E, C, q, k), generator=cuda, device="cuda")
+    for bits in (None, 8, 4):
+        qp = planes if bits is None else codec.quantize_plane_cache(planes,
+                                                                    bits)
+        pl = (qp["wr"], qp["ws1"], qp["ws2"])
+        scales = (None if bits is None
+                  else [qp[n + "_s"] for n in ("wr", "ws1", "ws2")])
+        before = bcf.KERNEL.launches
+        got = bcf.bc_fused_matmul(xb, *pl, k, scales)
+        assert bcf.KERNEL.launches == before + 1
+        loop = torch.stack([bcf.bc_fused_matmul(
+            xb[e], *(t[e] for t in pl), k,
+            None if scales is None else [s[e] for s in scales])
+            for e in range(E)])
+        assert torch.equal(got, loop)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            bcf.bc_fused_matmul(xb, *pl, k, scales)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replay = bcf.bc_fused_matmul(xb, *pl, k, scales)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replay, got)
+
+
 @pytest.mark.parametrize("bits", [None, 8, 4])
 def test_bc_expert_linear_on_card(cuda, bits):
-    """An expert stack's projection: one fused-kernel launch per expert on
-    views of the stack, equal to the plain per-expert product."""
+    """An expert stack's projection: one fused-kernel launch for the whole
+    stack, equal to the plain per-expert product."""
     E, C, k, n_in, n_out = 5, 3, 16, 48, 80
     w = torch.randn((E, n_out // k, n_in // k, k), generator=cuda,
                     device="cuda") / n_in ** .5
@@ -442,7 +507,7 @@ def test_bc_expert_linear_on_card(cuda, bits):
     x = torch.randn((E, C, n_in), generator=cuda, device="cuda")
     before = bcf.KERNEL.launches
     got = kops.bc_expert_linear(x, cache, k, n_out)
-    assert bcf.KERNEL.launches == before + E
+    assert bcf.KERNEL.launches == before + 1
     want = kops.bc_expert_linear(x.cpu(), {n: t.cpu() for n, t in
                                            cache.items()}, k, n_out)
     _close(got.cpu(), want)

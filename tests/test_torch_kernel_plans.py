@@ -1,7 +1,9 @@
 """The launch plans of the port's redesigned CUDA kernels, and the arithmetic
 the kernels rely on, checked on the CPU (no card needed).
 
-- ``bc_fused``: for every projection of tinyllama-1.1b, qwen2.5-3b,
+- ``bc_fused``: the integer arguments of a launch over an expert stack
+  (one expert's plan, E and the contiguous strides per lane; E = 1 is the
+  single call).  For every projection of tinyllama-1.1b, qwen2.5-3b,
   qwen3-4b, phi-3-vision-4.2b and llama4-maverick-400b-a17b (whose expert
   projections share the shapes of its dense MLP) and B in {1, 8, 64, 208,
   256, 2048}, the plan covers every
@@ -10,7 +12,12 @@ the kernels rely on, checked on the CPU (no card needed).
   launches a full cluster of 8 blocks per row.
 - ``flash_attention``: the same properties of its plan at one query row
   (G in {1, 4, 8}) and at prefill; the bf16 lane's head dims (64, 96 and
-  128) and their shared memory.
+  128) and their shared memory; the float32 kernel each shape takes
+  (tensor cores from 16 packed rows at D = 64, 96, 128); at the one-row
+  decode, the key groups (every warp of a block busy, each key of a split
+  scored by exactly one warp) and their warp-order merge, emulated in
+  plain PyTorch against ``attention_ref``; one Q K^T / P V tile in
+  3xTF32, emulated in numpy.
 - 3xTF32: a numpy emulation of TF32 rounding (``cvt.rna``) on the k = 128
   DFT -> iDFT round trip, against float64.
 - Split-KV: the combine of per-split (m, l, acc) in plain PyTorch against
@@ -156,6 +163,34 @@ def test_bc_fused_plan_refuses(p, q, k):
         bcf.plan(8, p, q, k)
 
 
+@pytest.mark.parametrize("lane", list(bcf.LANES.values()))
+@pytest.mark.parametrize("E", [1, 3, 128])
+@pytest.mark.parametrize("B,p,q,k", [(4, 64, 40, 128), (4, 40, 64, 128),
+                                     (17, 2, 16, 128), (3, 5, 13, 16)])
+def test_bc_fused_expert_stack_args(B, p, q, k, E, lane):
+    """A launch over an expert stack passes one expert's shape and plan,
+    then E and the strides between experts of contiguous stacks, each in
+    its tensor's elements (the int4 lane's planes in packed bytes); a pure
+    function of the shapes, and at E = 1 the single call's arguments."""
+    assert list(inspect.signature(bcf.launch_args).parameters) == [
+        "B", "p", "q", "k", "lane", "E"]
+    args = bcf.launch_args(B, p, q, k, lane, E)
+    assert args == bcf.launch_args(B, p, q, k, lane, E)
+    pl = bcf.plan(B, p, q, k, lane)
+    assert args[:9] == (B, p, q, k, pl.rows, pl.cluster, pl.mode, pl.share,
+                        pl.qchunk)
+    assert args[9] == E
+    kf = k // 2 + 1
+    plane_dtype = {v: d for d, v in bcf.LANES.items()}[lane]
+    row = (kf + 1) // 2 if plane_dtype == torch.uint8 else kf
+    stacks = (torch.empty((E, B, q, k)),
+              torch.empty((E, p, q, row), dtype=plane_dtype),
+              torch.empty((E, p, 1)), torch.empty((E, B, p, k)))
+    assert args[10:] == tuple(t.stride(0) for t in stacks)
+    if E == 1:
+        assert bcf.launch_args(B, p, q, k, lane) == args
+
+
 def _heads(arch):
     a = get_config(arch).attention
     return a.num_heads, a.num_kv_heads, a.head_dim
@@ -178,7 +213,14 @@ FLASH_CASES = (
     + [(1, 32, 32, 768, 768, 96, torch.bfloat16),
        (4, 32, 32, 760, 760, 96, torch.bfloat16),
        (1, 32, 32, 600, 600, 96, torch.float32),
-       (1, 32, 32, 1, 615, 96, torch.float32)])
+       (1, 32, 32, 1, 615, 96, torch.float32)]
+    # serve_phi3's last decode step, the tensor-core prefill's smallest
+    # shapes (16 packed rows, one over), G = 2 and 4 decode (key groups)
+    + [(4, 32, 32, 1, 775, 96, torch.float32),
+       (1, 32, 32, 16, 16, 96, torch.float32),
+       (1, 32, 32, 17, 17, 96, torch.float32),
+       (1, 8, 2, 3, 300, 128, torch.float32),
+       (3, 8, 4, 1, 100, 64, torch.float32)])
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,dtype", FLASH_CASES)
@@ -195,6 +237,126 @@ def test_flash_plan(B, Hq, Hkv, Sq, Skv, D, dtype):
         assert pl.blocks >= min(128, B * Hkv * tiles)
     if dtype == torch.bfloat16:
         assert pl.splits == 1
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D", [
+    (1, 32, 32, 600, 600, 96), (1, 32, 32, 16, 16, 64),
+    (1, 8, 2, 8, 40, 128), (2, 8, 2, 37, 37, 64), (1, 32, 32, 15, 15, 96),
+    (1, 32, 32, 600, 600, 80), (8, 32, 4, 1, 231, 64)])
+def test_flash_f32_kernel_choice(B, Hq, Hkv, Sq, Skv, D):
+    """float32 takes the tensor-core prefill from 16 packed rows (G heads
+    x Sq positions) at D = 64, 96, 128, one block per 64 packed rows and
+    no split; fewer rows, or another head dim, take the rows kernel."""
+    pl = fa.plan(B, Hq, Hkv, Sq, Skv, D, torch.float32)
+    packed = (Hq // Hkv) * Sq
+    mma = packed >= fa.F32_MMA_MIN_ROWS and D in fa.F32_MMA_HEAD_DIMS
+    assert pl.path == ("f32_mma" if mma else "f32_rows")
+    if mma:
+        assert (pl.rows, pl.splits, pl.key_groups) == (fa.F32_MMA_ROWS, 1, 1)
+        assert pl.blocks == -(-packed // fa.F32_MMA_ROWS) * B * Hkv
+        assert pl.smem_bytes == 4 * (64 * (D + 4) + 2 * 32 * (2 * D + 12))
+    assert pl.smem_bytes <= bcf.MAX_SMEM
+
+
+# the one-row decode shapes whose blocks hold fewer packed rows than warps
+KEY_GROUP_CASES = [(4, 32, 32, 1, 775, 96), (1, 32, 32, 1, 615, 96),
+                   (8, 8, 8, 1, 33, 64), (3, 2, 2, 1, 1000, 64),
+                   (8, 16, 4, 1, 231, 128), (2, 4, 2, 1, 100, 64),
+                   (1, 4, 4, 1, 31, 96)]
+
+
+def _group_keys(pl, Skv, split, group):
+    """The keys warp group ``group`` of split ``split`` scores: in every
+    32-key stage of the split's range, its nk = 32 / key_groups keys."""
+    lo, hi = split * pl.chunk, min(Skv, (split + 1) * pl.chunk)
+    nk = fa.KEY_TILE // pl.key_groups
+    keys = []
+    for t0 in range(lo, hi, fa.KEY_TILE):
+        keys += [c for c in range(t0 + group * nk, t0 + (group + 1) * nk)
+                 if c < hi]
+    return keys
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D", KEY_GROUP_CASES)
+def test_flash_decode_key_groups(B, Hq, Hkv, Sq, Skv, D):
+    """At the one-row decode the warps of a block split its keys: the plan
+    (a pure function of the shapes) gives every warp of a block a (row,
+    key group), and each key of the cache is scored by exactly one
+    (split, group)."""
+    assert list(inspect.signature(fa.plan).parameters) == [
+        "B", "Hq", "Hkv", "Sq", "Skv", "D", "dtype"]
+    pl = fa.plan(B, Hq, Hkv, Sq, Skv, D, torch.float32)
+    assert pl == fa.plan(B, Hq, Hkv, Sq, Skv, D, torch.float32)
+    packed = (Hq // Hkv) * Sq
+    assert pl.path == "f32_rows" and pl.rows >= packed
+    assert pl.rows * pl.key_groups == fa.F32_WARPS   # every warp busy
+    warps = {(w % pl.rows, w // pl.rows) for w in range(fa.F32_WARPS)}
+    assert len(warps) == fa.F32_WARPS                # one (row, group) each
+    seen = torch.zeros(Skv, dtype=torch.int64)
+    for split in range(pl.splits):
+        for group in range(pl.key_groups):
+            seen[_group_keys(pl, Skv, split, group)] += 1
+    assert bool((seen == 1).all())
+    assert pl.smem_bytes == 4 * (pl.rows * D + 2 * fa.KEY_TILE
+                                 * (2 * D + 4 * pl.key_groups))
+
+
+def _state(q, k, v, mask, keys, softcap):
+    """(m, l, acc) of the online softmax over ``keys`` (m = -1e30, l = 0,
+    acc = 0 where none is valid), as a warp group ends its stages."""
+    D = q.shape[-1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q * D ** -0.5, k[:, :, keys])
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    ms = mask[:, keys]
+    m = torch.where(ms, s, torch.full_like(s, -1e30)).amax(-1)
+    p = torch.where(ms, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    return m, p.sum(-1), torch.einsum("bhqk,bhkd->bhqd", p, v[:, :, keys])
+
+
+def _merge(parts):
+    """Merge (m, l, acc) states in the order given."""
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    l = sum(l * torch.exp(m - mx) for m, l, _ in parts)
+    acc = sum(a * torch.exp(m - mx)[..., None] for m, _, a in parts)
+    return mx, l, acc
+
+
+@pytest.mark.parametrize("opts", [dict(kv_offset=299),
+                                  dict(kv_offset=299, window=70, softcap=4.),
+                                  dict(kv_offset=100), dict(kv_offset=-1)])
+def test_key_group_merge_matches_attention_ref(opts):
+    """The one-row decode at G = 1 as the rows kernel computes it: each
+    warp group's (m, l, acc) over its keys of every stage, merged in warp
+    order within a split, then the splits in split order; against
+    ``attention_ref``, and exactly 0 where every key is masked."""
+    B, H, Skv, D = 2, 4, 300, 96
+    pl = fa.plan(B, H, H, 1, Skv, D, torch.float32)
+    assert pl.key_groups == 8 and pl.splits > 1
+    rng = np.random.RandomState(2)
+    q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32))
+               for s in ((B, H, 1, D), (B, H, Skv, D), (B, H, Skv, D)))
+    pos = torch.arange(1)[:, None] + opts["kv_offset"]
+    cols = torch.arange(Skv)[None, :]
+    mask = cols <= pos
+    if opts.get("window"):
+        mask &= cols > pos - opts["window"]
+    splits = []
+    for split in range(pl.splits):
+        groups = []
+        for g in range(pl.key_groups):               # warp order
+            keys = _group_keys(pl, Skv, split, g)
+            if keys:
+                groups.append(_state(q, k, v, mask, keys,
+                                     opts.get("softcap", 0.0)))
+        splits.append(_merge(groups))
+    _, l, acc = _merge(splits)
+    got = acc / torch.clamp(l, min=1e-30)[..., None]
+    ref = fa.attention_ref(q, k, v, causal=True, **opts)
+    if opts["kv_offset"] < 0:
+        assert bool((got == 0).all()) and bool((ref == 0).all())
+    scale = max(1.0, float(ref.abs().max()))
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
 
 
 def test_flash_plan_refuses_untiled_bf16_head_dim():
@@ -593,3 +755,56 @@ def test_3xtf32_gauss_mac_keeps_float32_accuracy():
     print(f"Gauss MAC Q=86, max abs error (output scale {scale:.3f}): {err}")
     assert err["3xtf32"] <= 2 * err["f32"]
     assert err["3xtf32"] <= 1e-5 * scale
+
+
+def _split_alu(a):
+    """csrc/mma_tf32.cuh:split_tf32_alu: hi rounds to nearest, ties away
+    (``_tf32``); lo = a - hi exactly, of which the tensor cores read the
+    top 19 bits (truncated toward zero)."""
+    a = np.ascontiguousarray(a, dtype=np.float32)
+    hi = _tf32(a)
+    lo = (a - hi).view(np.uint32) & np.uint32(0xFFFFE000)
+    return hi, lo.view(np.float32)
+
+
+def _mma3(a, b):
+    """a @ b as the float32 tensor-core flash kernel forms it: per mma of
+    8 terms of K (summed in float32), lo*hi, hi*lo and hi*hi in that
+    order into one float32 accumulator."""
+    ah, al = _split_alu(a)
+    bh, bl = _split_alu(b)
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            acc += np.einsum("mk,kn->mn", x[:, k0:k0 + 8],
+                             y[k0:k0 + 8]).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("D", [64, 96, 128])
+def test_3xtf32_flash_tile_keeps_float32_accuracy(D):
+    """One warp's tile of the float32 tensor-core prefill: 16 query rows
+    against 32 keys, Q K^T in 3xTF32, the softmax in float32, P V in
+    3xTF32; against float64 within 1e-4 of the output's scale (one TF32
+    product, beside it, misses that)."""
+    rng = np.random.RandomState(D)
+    q, k, v = (rng.randn(*s).astype(np.float32)
+               for s in ((16, D), (32, D), (32, D)))
+    scale = D ** -0.5
+    d = lambda a: a.astype(np.float64)               # noqa: E731
+    s64 = d(q) @ d(k).T * scale
+    p64 = np.exp(s64 - s64.max(-1, keepdims=True))
+    ref = (p64 / p64.sum(-1, keepdims=True)) @ d(v)
+
+    def tile(prod):
+        s = prod(q, k.T) * np.float32(scale)
+        p = np.exp(s - s.max(-1, keepdims=True)).astype(np.float32)
+        return prod(p, v) / p.sum(-1, keepdims=True)
+
+    out_scale = max(1.0, float(np.abs(ref).max()))
+    err = {"3xtf32": float(np.abs(tile(_mma3) - ref).max()),
+           "tf32": float(np.abs(tile(lambda a, b: _product(a, b, "tf32"))
+                                - ref).max())}
+    print(f"flash tile D={D}, max abs error (scale {out_scale:.3f}): {err}")
+    assert err["3xtf32"] <= 1e-5 * out_scale    # well inside 1e-4
+    assert err["tf32"] > 1e-4 * out_scale       # the reason for the split
