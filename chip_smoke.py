@@ -60,6 +60,26 @@ itself.  Each phase prints one JSON line:
                 float32 request of 48 + 8 tokens with the smallest gap
                 between the two largest router logits it met; peak device
                 memory and the phase's wall time
+  serve_fused   tinyllama-1.1b with ``fuse_projections``: the serve phase's
+                16 requests through both engines on float32, int8 and int4
+                planes (an int8 pool): 88 ``bc_fused`` launches a forward
+                pass (q/k/v and up/gate one launch each), the batch
+                prefill's MAC through ``spectral_matmul`` at P = 20 and 88,
+                plane bytes equal to the unfused engine's; then one float32
+                request of each of the five archs fused against unfused on
+                the same weights (llama4's re-baked in place): prefill
+                logits within 1e-4 of their scale, greedy tokens equal up to
+                the first near-tie
+  decode_graph  the continuous engine's decode loop replayed from its CUDA
+                graph against the same loop run eagerly, on the f32 and
+                bf16 pools (stream), the gather path and the int8 pool,
+                greedy and sampled: tokens, positions, budgets, pool bytes
+                (but the trash page's) and launch counts equal; capture count and seconds; a step
+                that reads the card inside fails to capture and raises
+
+Every ``ContinuousEngine`` above decodes by replaying the CUDA graph of its
+step, captured when the engine is built (``serve/decode.py``); its launch
+counts are the replays' (warm-up and capture are counted apart).
 
 The kernels phase adds ``spectral_matmul`` at every batch-prefill shape
 (F = 65, N = 2048 rows) in both of its layouts (``repro``'s contiguous
@@ -202,6 +222,23 @@ NEW_SHAPES = {
     "bc_fused@experts": (bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48",
                          "bc_fused", "llama4_experts_up_gate_e128_c4",
                          f"{MOE}/continuous"),
+    # projection fusion (serve_fused): q/k/v and up/gate as one projection
+    # in the continuous engine's decode (B = 8), and the batch prefill's MAC
+    # at their P; launches are the lane's in that run
+    "bc_fused@fused_qkv": (bc_fused.KERNEL,
+                           "src/repro/kernels/bc_fused.py:48", "bc_fused",
+                           "tinyllama_fused_qkv_b8", "serve_fused"),
+    "bc_fused@fused_up_gate": (bc_fused.KERNEL,
+                               "src/repro/kernels/bc_fused.py:48",
+                               "bc_fused", "tinyllama_fused_up_gate_b8",
+                               "serve_fused"),
+    "spectral_matmul@fused_qkv": (
+        sm.KERNEL, "src/repro/kernels/spectral_matmul.py:42",
+        "spectral_matmul", "tinyllama_fused_qkv_n2048", "serve_fused_batch"),
+    "spectral_matmul@fused_up_gate": (
+        sm.KERNEL, "src/repro/kernels/spectral_matmul.py:42",
+        "spectral_matmul", "tinyllama_fused_up_gate_n2048",
+        "serve_fused_batch"),
 }
 
 
@@ -674,7 +711,16 @@ def replay_equal(fn, want) -> bool:
     return all(torch.equal(o, w) for o, w in zip(out, want))
 
 
-def check_spectral(cfg, gen):
+def fused_projections(cfg):
+    """tinyllama-1.1b's fused projections: q/k/v as one (p = 16 + 2 + 2)
+    and up/gate as one (p = 44 + 44)."""
+    a = cfg.attention
+    hq, hkv = a.num_heads * a.head_dim, a.num_kv_heads * a.head_dim
+    return {"tinyllama_fused_qkv": (cfg.d_model, hq + 2 * hkv),
+            "tinyllama_fused_up_gate": (cfg.d_model, 2 * cfg.d_ff)}
+
+
+def check_spectral(cfg, gen, shapes=None):
     """``spectral_matmul`` against its plain version at every batch-prefill
     shape (F = 65, N = 2048 rows), in both layouts: ``repro``'s contiguous
     one (``<name>_n2048``) and the views ``spectral_contract`` passes
@@ -686,7 +732,7 @@ def check_spectral(cfg, gen):
     tolerance: 3xTF32 sums Q terms in another order than ``torch.bmm``,
     ~1e-6 of the output scale; 1e-4 of it is allowed."""
     cases = []
-    for name, n_in, n_out, k in spectral_shapes():
+    for name, n_in, n_out, k in shapes or spectral_shapes():
         F_, N = k // 2 + 1, ROWS
         Q, P = cc.num_blocks(n_in, k), cc.num_blocks(n_out, k)
         xr, xi = (torch.randn((F_, N, Q), generator=gen, device="cuda")
@@ -890,12 +936,19 @@ def phase_kernels(cfg):
     gen = kernel_gen()
     qwen = {arch: get_config(arch) for arch in QWEN}
     phi3, moe = get_config(PHI3), get_config(MOE)
+    k = cfg.compression.block_attn
     checks = [lambda: check_bc_fused(cfg, gen),
               lambda: check_flash(cfg, gen),
               lambda: check_flash_decode(cfg, gen),
               lambda: check_paged(cfg, gen),
               lambda: check_gather(cfg, gen),
-              lambda: check_spectral(cfg, gen)]
+              lambda: check_spectral(cfg, gen),
+              # projection fusion's shapes: bc_fused on all three lanes
+              # and the batch prefill's MAC at P = 20 and 88
+              lambda: check_bc_fused(cfg, gen, fused_projections(cfg)),
+              lambda: check_spectral(cfg, gen, [
+                  (name, *io, k)
+                  for name, io in fused_projections(cfg).items()])]
     for qc in qwen.values():                 # the shapes qwen adds
         family = qc.name.split("-")[0]
         checks += [
@@ -1051,7 +1104,19 @@ def serve_summary(phase, cfg, results, reqs, st, launches, wall, peak):
             "preempted": st["preempted"], "quant_policy": st["quant_policy"],
             "attention_impl": st["attention_impl"],
             "attention_bytes_per_token": st["attention_bytes_per_token"],
-            "decode_peak_bytes_est": st["decode_peak_bytes_est"]}
+            "decode_peak_bytes_est": st["decode_peak_bytes_est"],
+            "ms_per_step": 1e3 * st["decode_s"] / max(st["decode_steps"], 1),
+            **decode_graphs(st)}
+
+
+def decode_graphs(st):
+    """A continuous engine on the card decodes from the one CUDA graph it
+    captured when it was built."""
+    if st["decode_graphs"] != 1:
+        raise AssertionError(f"{st['decode_graphs']} decode-step captures, "
+                             f"expected 1")
+    return {"decode_graphs": st["decode_graphs"],
+            "decode_capture_s": st["decode_capture_s"]}
 
 
 def phase_serve(cfg):
@@ -1152,11 +1217,15 @@ def projections_per_pass(cfg):
     one forward pass: q k v o up gate down of a dense layer; q k v o and
     the shared expert's three of an MoE layer, plus one launch each for
     up, gate and down over all the experts (``repro``'s expert FFN takes
-    no hook)."""
+    no hook).  With projection fusion q/k/v are one projection and so are
+    up/gate (the shared expert's too; expert stacks never fuse)."""
     kinds = layer_kinds(cfg)
     n_moe = kinds.count("moe")
-    shared = 3 if cfg.moe.shared_expert else 0
-    return 7 * (len(kinds) - n_moe) + (4 + shared) * n_moe, 3 * n_moe
+    fuse = cfg.compression.fuse_projections
+    attn, mlp = (2, 2) if fuse else (4, 3)
+    shared = mlp if cfg.moe.shared_expert else 0
+    return ((attn + mlp) * (len(kinds) - n_moe) + (attn + shared) * n_moe,
+            3 * n_moe)
 
 
 def continuous_launches(cfg, st, lane="bc_fused"):
@@ -1538,6 +1607,7 @@ def serve_arch(arch, phase, *, lo, hi, new, max_seq, oracle_len, oracle_new):
                                  f"launches, expected {experts} a pass")
         tokens = sum(r["decode_len"] for r in results)
         runs[name] = {
+            **(decode_graphs(st) if name == "continuous" else {}),
             "paths": paths,
             "requests": len(results), "tokens": tokens, "wall_s": wall,
             "tokens_per_s": tokens / wall, "prefill_s": st["prefill_s"],
@@ -1550,8 +1620,8 @@ def serve_arch(arch, phase, *, lo, hi, new, max_seq, oracle_len, oracle_new):
     prompt = np.random.RandomState(SEED + 4).randint(
         0, cfg.vocab_size, size=oracle_len).astype(np.int32)
     moes = [m for m in params.modules() if isinstance(m, ffn.MoE)]
-    for m in moes:
-        m.logit_gaps = []
+    for m in moes:                 # before the oracle's engines capture
+        m.logit_gap = torch.full((), float("inf"), device=DEVICE)
     for lib in LIBRARIES:
         lib.reset_counts()
     _, oracle = oracle_check(cfg.replace(dtype="float32"), params, prompt,
@@ -1563,10 +1633,10 @@ def serve_arch(arch, phase, *, lo, hi, new, max_seq, oracle_len, oracle_new):
         raise AssertionError(f"{arch}: the float32 oracle's prefills did not "
                              f"take the tensor-core kernel: {flash}")
     if moes:
-        oracle["min_router_logit_gap"] = min(g for m in moes
-                                             for g in m.logit_gaps)
+        oracle["min_router_logit_gap"] = min(float(m.logit_gap)
+                                             for m in moes)
     for m in moes:
-        m.logit_gaps = None
+        m.logit_gap = None
     out = {"phase": phase, "arch": arch, "layers": L,
            "d_model": cfg.d_model, "d_ff": cfg.d_ff,
            "vocab": cfg.vocab_size,
@@ -1601,6 +1671,272 @@ def phase_serve_moe():
     3 pages exactly, so both engines route the same 48 tokens under the
     same capacity."""
     return serve_arch(MOE, "serve_moe", **SERVE_ARCH[MOE])
+
+
+# ---------------------------------------------------------------------------
+# serve_fused: projection fusion (q/k/v and up/gate as one bc_fused launch)
+# ---------------------------------------------------------------------------
+FUSED_PARITY = {ARCH: (48, 16), QWEN[0]: (48, 16), QWEN[1]: (48, 16),
+                PHI3: (SERVE_ARCH[PHI3]["oracle_len"],
+                       SERVE_ARCH[PHI3]["oracle_new"]),
+                MOE: (SERVE_ARCH[MOE]["oracle_len"],
+                      SERVE_ARCH[MOE]["oracle_new"])}
+
+
+def fused(cfg):
+    return cfg.with_compression(fuse_projections=True)
+
+
+def plane_bytes(cfg, policy):
+    """Bytes of every baked plane (and scale) of ``cfg``'s params on the
+    card under ``policy``: fresh random weights from the seed."""
+    params = precompute_serving_params(
+        init_params(cfg, seed=SEED, device=DEVICE), cfg, policy)
+    n = sum(t.numel() * t.element_size()
+            for _, _, _, c in codec.baked_caches(params) for t in c.values())
+    del params
+    torch.cuda.empty_cache()
+    return n
+
+
+def unbake_fused(params):
+    """Drop the planes of the projections fusion shadows (q/k/v, up/gate),
+    so that the same weights can be baked fused in place."""
+    for m in params.modules():
+        if isinstance(m, cc.FusedProjections):
+            for lin in m.fused_linears():
+                if lin is not None:
+                    for key in cc.CACHE_KEYS:
+                        setattr(lin, f"wc_cache_{key}", None)
+    torch.cuda.empty_cache()
+
+
+def fused_parity(arch):
+    """One float32 request of ``arch`` at its published widths, unfused
+    then fused on the same weights, through the serving path by hand
+    (``greedy_trace``): prefill logits within 1e-4 of their scale and
+    greedy tokens equal up to the first near-tie.  llama4's weights are
+    re-baked fused in place (two copies do not fit the card)."""
+    cfg = get_config(arch).replace(dtype="float32")
+    n, new = FUSED_PARITY[arch]
+    prompt = np.random.RandomState(SEED + 5).randint(
+        0, cfg.vocab_size, size=n).astype(np.int32)
+    policy = codec.QuantPolicy()
+    params = precompute_serving_params(
+        init_params(cfg, seed=SEED + 5, device=DEVICE), cfg)
+    plain = greedy_trace(cfg, params, prompt, new, policy, "stream")
+    if arch == MOE:
+        unbake_fused(params)
+    else:
+        del params
+        torch.cuda.empty_cache()
+        params = init_params(cfg, seed=SEED + 5, device=DEVICE)
+    params = precompute_serving_params(params, fused(cfg))
+    for lib in LIBRARIES:
+        lib.reset_counts()
+    got = greedy_trace(fused(cfg), params, prompt, new, policy, "stream")
+    per_pass = sum(projections_per_pass(fused(cfg)))
+    if bc_fused.KERNEL.launches != per_pass * new:
+        raise AssertionError(f"{arch} fused: {bc_fused.KERNEL.launches} "
+                             f"bc_fused launches over {new} passes, "
+                             f"expected {per_pass} a pass")
+    del params
+    torch.cuda.empty_cache()
+    # float32 through every layer, the fused planes' MAC summing the same
+    # terms as the unfused ones': ~1e-6 of the logit scale, held at 1e-4
+    tol = 1e-4 * max(1.0, float(plain[1][0].abs().max()))
+    err = max_err(got[1][0], plain[1][0])
+    if not err <= tol:
+        raise AssertionError(f"{arch}: fused prefill logits differ by {err} "
+                             f"> {tol}")
+    return {"prompt_len": n, "new_tokens": new, "prefill_logit_max_abs_err":
+            err, "tol": tol, "bc_fused_per_pass": per_pass,
+            **compare_traces(got, plain, tol), "tokens_fused": got[0],
+            "tokens_unfused": plain[0]}
+
+
+def phase_serve_fused(cfg):
+    """tinyllama-1.1b at full width and depth with ``fuse_projections``:
+    the serve phase's 16 requests through the continuous engine and the
+    batch engine, on float32 planes, then int8 and int4 planes (an int8
+    pool): exact launch counts (88 ``bc_fused`` a forward pass; the batch
+    prefill's MAC through ``spectral_matmul`` at P = 20 and 88), plane bytes
+    equal to the unfused engine's; then the fused-against-unfused check on
+    one float32 request of each paged-servable arch."""
+    t0 = time.perf_counter()
+    fcfg = fused(cfg)
+    hooked, _ = projections_per_pass(fcfg)
+    if hooked != 4 * cfg.num_layers:
+        raise AssertionError(f"{hooked} fused projections a pass")
+    runs, out = {}, {"phase": "serve_fused", "arch": ARCH,
+                     "bc_fused_per_pass": hooked}
+    for bits in (None, 8, 4):
+        tag = "float32" if bits is None else f"int{bits}"
+        lane = {None: "bc_fused", 8: "bc_fused_i8", 4: "bc_fused_i4"}[bits]
+        policy = (codec.QuantPolicy() if bits is None else
+                  codec.QuantPolicy("int8", quant_weights=True,
+                                    weight_bits=bits))
+        results, reqs, st, launches, wall, peak = serve_run(fcfg, 16,
+                                                            quant=policy)
+        want = continuous_launches(fcfg, st, lane)
+        if bits is not None:
+            want["paged_attention_i8"] = want.pop("paged_attention")
+        check_launches(launches, want)
+        runs[f"continuous_{tag}"] = serve_summary(
+            "serve_fused", fcfg, results, reqs, st, launches, wall, peak)
+        reqs, results, st, launches, wall, peak = batch_run(fcfg, 16,
+                                                            quant=policy)
+        check_launches(launches, batch_launches(fcfg, st, lane,
+                                                hooked=bits is None))
+        runs[f"batch_{tag}"] = batch_summary(
+            "serve_fused", fcfg, results, reqs, st, launches, wall, peak)
+        sizes = {"fused": plane_bytes(fcfg, policy),
+                 "unfused": plane_bytes(cfg, policy)}
+        if sizes["fused"] != sizes["unfused"]:
+            raise AssertionError(f"{tag} plane bytes {sizes}")
+        runs[f"plane_bytes_{tag}"] = sizes["fused"]
+    out.update(runs)
+    out["parity"] = {arch: fused_parity(arch) for arch in FUSED_PARITY}
+    out["phase_wall_s"] = time.perf_counter() - t0
+    emit(out)
+    return {"serve_fused": runs["continuous_float32"],
+            "serve_fused_batch": runs["batch_float32"]}
+
+
+# ---------------------------------------------------------------------------
+# decode_graph: the continuous engine's step replayed against it eagerly
+# ---------------------------------------------------------------------------
+GRAPH_LENS = (40, 17, 100, None, 64, 23, 200, 90)    # None: an idle slot
+GRAPH_BUDGETS = (20, 3, 13, 0, 9, 0, 17, 5)          # slot 5 stalled
+
+
+def graph_state(cfg, params, policy):
+    """The serve phase's 8 slots after their prefills (B=1, right-padded,
+    packed into pages as the engine packs them): pool, table, and each
+    slot's token, position and budget."""
+    page, maxp = 16, kvc.pages_for(256, 16)
+    pool = kvc.build_pool(cfg, 8 * maxp + 1, page, policy, device=DEVICE)
+    table = np.zeros((8, maxp), np.int32)
+    cur, pos, rem = (np.zeros(8, np.int32) for _ in range(3))
+    rng = np.random.RandomState(SEED + 6)
+    nxt_page = 1
+    for b, (S, budget) in enumerate(zip(GRAPH_LENS, GRAPH_BUDGETS)):
+        if S is None:
+            pos[b] = -1
+            continue
+        n = kvc.pages_for(S + max(budget, 1), page)
+        table[b, :n] = np.arange(nxt_page, nxt_page + n)
+        nxt_page += n
+        n_pre = kvc.pages_for(S, page)
+        toks = np.zeros(n_pre * page, np.int64)
+        toks[:S] = rng.randint(0, cfg.vocab_size, size=S)
+        with torch.no_grad():
+            first, _, pool, _ = dec.make_prefill_pack_step(cfg, n_pre, page)(
+                params, {"tokens": torch.as_tensor(toks[None],
+                                                   device=DEVICE)},
+                pool, torch.as_tensor(table[b, :n_pre], dtype=torch.int64,
+                                      device=DEVICE), S)
+        cur[b], pos[b], rem[b] = int(first), S, budget
+    return pool, table, cur, pos, rem
+
+
+def run_loop(loop, params, pool, table, cur, pos, rem, dispatches=3):
+    """``dispatches`` calls of the loop carrying the state, as the engine
+    makes them: the outputs of each, the decode steps and the seconds."""
+    state = [torch.as_tensor(a) for a in (cur, pos, rem)]
+    tab = torch.as_tensor(table, device=DEVICE)
+    outs, steps = [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(dispatches):
+            buf, c, pool, p, r, done, anom, n = loop(params, state[0], pool,
+                                                     tab, state[1], state[2])
+            outs.append([t.cpu() for t in (buf, c, p, r, done, anom)])
+            steps += n
+            state = [c, p, r]
+    torch.cuda.synchronize()
+    return outs, steps, time.perf_counter() - t0
+
+
+def phase_decode_graph(cfg):
+    """On every pool lane (f32 and bf16 pools on the stream path, the gather
+    path, the int8 pool with int8 planes), greedy and sampled: the paged
+    decode loop replayed from its CUDA graph against the same loop run
+    eagerly, from the same slots (``graph_state``) over 3 dispatches of 8
+    steps.  Tokens, positions, budgets, ``done``, ``anom``, step counts and
+    every byte of the pool but the trash page must be equal; launch counts
+    equal too.  Then a
+    step that reads the card inside must fail to capture, and raise."""
+    lanes = {"f32_stream": (codec.QuantPolicy("f32"), "stream"),
+             "bf16_stream": (codec.QuantPolicy("bf16"), "stream"),
+             "f32_gather": (codec.QuantPolicy("f32"), "gather"),
+             "int8_stream": (codec.QuantPolicy("int8", quant_weights=True),
+                             "stream")}
+    rows = []
+    for name, (policy, impl) in lanes.items():
+        params = precompute_serving_params(
+            init_params(cfg, seed=SEED, device=DEVICE), cfg, policy)
+        pool, table, cur, pos, rem = graph_state(cfg, params, policy)
+        for sample in (False, True):
+            runs = {}
+            for graphs in (False, True):
+                lp = {k: t.clone() for k, t in pool.items()}
+                loop = dec.make_paged_decode_loop(
+                    cfg, 8, sample=sample, seed=7, paged_impl=impl,
+                    graphs=graphs)
+                with torch.no_grad():
+                    loop.slots(params, lp, 8, table.shape[1])
+                for lib in LIBRARIES:
+                    lib.reset_counts()
+                outs, steps, secs = run_loop(loop, params, lp, table, cur,
+                                             pos, rem)
+                runs[graphs] = (outs, steps, secs, lp, lane_counts(), loop)
+            (eo, es, et, ep, el, _), (go, gs, gt, gp, gl, gloop) = (
+                runs[False], runs[True])
+            state_equal = all(torch.equal(a, b) for x, y in zip(eo, go)
+                              for a, b in zip(x, y))
+            # every page but the trash page 0, whose writes are unordered
+            # (and which the capture's warm-up writes too)
+            pool_equal = all(torch.equal(ep[k][:, 1:], gp[k][:, 1:])
+                             for k in ep)
+            if not (state_equal and pool_equal and es == gs and el == gl):
+                raise AssertionError(
+                    f"decode_graph {name} sample={sample}: state "
+                    f"{state_equal}, pool {pool_equal}, steps {es}/{gs}, "
+                    f"launches {el} / {gl}")
+            rows.append({"lane": name, "sample": sample, "steps": gs,
+                         "state_equal": state_equal, "pool_equal": pool_equal,
+                         "launches": gl, "captures": gloop.captures,
+                         "capture_s": gloop.capture_s,
+                         "eager_ms_per_step": 1e3 * et / es,
+                         "replay_ms_per_step": 1e3 * gt / gs,
+                         "tokens": [o[0].tolist() for o in go]})
+        del params, pool
+        torch.cuda.empty_cache()
+    params = precompute_serving_params(
+        init_params(cfg, seed=SEED, device=DEVICE), cfg)
+    pool, table, *_ = graph_state(cfg, params, codec.QuantPolicy())
+    bad = dec.make_paged_decode_loop(cfg, 8, graphs=True)
+    step = bad.step
+
+    def syncing(params, st, pool):            # a host read inside the step
+        step(params, st, pool)
+        bool(st.done.any())
+
+    bad.step = syncing
+    try:
+        with torch.no_grad():
+            bad.slots(params, pool, 8, table.shape[1])
+    except RuntimeError as e:
+        refused = str(e).splitlines()[0][:200]
+    else:
+        raise AssertionError("a step that syncs was captured")
+    emit({"phase": "decode_graph", "arch": ARCH, "slots": 8, "chunk": 8,
+          "lanes": rows, "failed_capture_raises": refused})
+    del params, pool
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
@@ -1645,6 +1981,8 @@ def main() -> int:
     for arch, out in ((PHI3, phase_serve_phi3()), (MOE, phase_serve_moe())):
         for engine in ("continuous", "batch", "oracle"):
             runs[f"{arch}/{engine}"] = out[engine]
+    runs.update(phase_serve_fused(cfg))
+    phase_decode_graph(cfg)
     phase_lowering(cfg, kernel_gen())
     summary = []
     for name, (lib, replaces, group, main_case, run) in (

@@ -32,9 +32,16 @@ with ``<name>_s`` per-block-row scales beside them) contract in float32
 and fold each plane's scale into its term after the contraction, as
 ``repro`` does.
 
-Not ported yet (they raise ``NotImplementedError``): the training path
-(``bc_matmul_fft`` and its hand-derived backward) and ``bc_matmul_fused``
-(projection fusion).
+Projection fusion (``CompressionConfig.fuse_projections``) is ported for
+serving: ``bc_matmul_fused`` runs q/k/v (or up/gate), which share their
+input, as one projection against the planes of their generators
+concatenated on the output-block axis (``fused_spectral_cache``), so one
+input DFT and one fused-kernel launch serve all of them; the output is
+split at the projections' offsets, as ``repro`` does.
+
+Not ported yet (it raises ``NotImplementedError``): the training path
+(``bc_matmul_fft`` and its hand-derived backward, and so the fused
+projections' training lowering).
 """
 from __future__ import annotations
 
@@ -53,6 +60,27 @@ _DFT_MATMUL_MAX = 512     # above this block size the DFT runs as torch.fft
 PLANES = ("wr", "wi", "ws1", "ws2")
 # buffer keys of a baked cache: the planes, then their quantization scales
 CACHE_KEYS = PLANES + tuple(f"{n}_s" for n in PLANES)
+
+
+def register_planes(module: nn.Module, prefix: str) -> None:
+    """Empty buffers ``<prefix>_<key>`` for a baked cache's planes and
+    scales, so that ``.to()`` moves them with the weights once set."""
+    for key in CACHE_KEYS:
+        module.register_buffer(f"{prefix}_{key}", None)
+
+
+def planes_of(module: nn.Module, prefix: str
+              ) -> Optional[Dict[str, torch.Tensor]]:
+    """The cache baked into ``module``'s ``<prefix>_*`` buffers, or None."""
+    planes = {key: getattr(module, f"{prefix}_{key}") for key in CACHE_KEYS}
+    planes = {key: t for key, t in planes.items() if t is not None}
+    return planes or None
+
+
+def set_planes(module: nn.Module, prefix: str,
+               cache: Dict[str, torch.Tensor]) -> None:
+    for key, t in cache.items():
+        setattr(module, f"{prefix}_{key}", t)
 
 
 # ---------------------------------------------------------------------------
@@ -210,11 +238,6 @@ def bc_matmul_fft(*args, **kwargs):
                               "hand-derived backward) is not ported yet")
 
 
-def bc_matmul_fused(*args, **kwargs):
-    raise NotImplementedError("projection fusion (bc_matmul_fused) is not "
-                              "ported yet")
-
-
 def bc_matmul_spectral(x: torch.Tensor, cache: Dict[str, torch.Tensor],
                        k: int, n_out: int, gauss: bool = True,
                        kernel_fn=None) -> torch.Tensor:
@@ -238,6 +261,41 @@ def bc_matmul_spectral(x: torch.Tensor, cache: Dict[str, torch.Tensor],
     y = irfft_planes(yr, yi, k)
     y = y.reshape(*x.shape[:-1], p * k)[..., :n_out]
     return y.to(dtype)
+
+
+def fused_spectral_cache(ws, gauss: bool = True) -> Dict[str, torch.Tensor]:
+    """Spectral cache of several generators (p_i, q, k) concatenated on the
+    output-block axis: (Σp_i, q, kf) planes, in the order of ``ws``, the
+    order the fused call splits its output in (q/k/v, up/gate).  The rfft
+    acts per block, so this equals the concatenation of each generator's
+    ``spectral_cache``."""
+    return spectral_cache(torch.cat(list(ws), dim=-3), gauss)
+
+
+def bc_matmul_fused(x: torch.Tensor, ws, n_outs, mode: str = "serve",
+                    cache: Optional[Dict[str, torch.Tensor]] = None,
+                    gauss: bool = True, kernel_fn=None):
+    """Several projections of one input as one: ``x`` (..., n_in) against
+    the generators ``ws`` ((p_i, q, k) each) -> a list of (..., n_outs[i]).
+
+    ``cache`` is the baked ``fused_spectral_cache(ws)`` (float32, or int8 /
+    packed int4 with per-block-row scales over Σp_i), derived on the fly
+    when absent.  The contraction runs as one projection of Σp_i·k outputs
+    (``_spectral_linear``: one fused-kernel launch, or the ``kernel_fn``
+    hook's MAC for float32 planes), then the output is split at the
+    offsets p_i·k, as ``repro`` does.  Serve lowering only."""
+    if mode == "train":                  # raises: training is not ported
+        return bc_matmul_fft(x, ws, n_outs, gauss=gauss)
+    ps = [w.shape[-3] for w in ws]
+    k = ws[0].shape[-1]
+    if cache is None:
+        cache = fused_spectral_cache(ws, gauss)
+    y = _spectral_linear(x, cache, k, gauss, sum(ps) * k, kernel_fn)
+    outs, off = [], 0
+    for p_i, n_out in zip(ps, n_outs):
+        outs.append(y[..., off:off + n_out])
+        off += p_i * k
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -273,15 +331,14 @@ class LinearSpec:
         return "fft" if mode == "train" else "spectral"
 
 
-def _spectral_linear(x, cache, spec: LinearSpec, n_out: int, kernel_fn):
+def _spectral_linear(x, cache, k: int, gauss: bool, n_out: int, kernel_fn):
     """One projection against spectral planes: through ``kernel_fn`` when
     the hook is set and the planes are float32, else the fused kernel (its
     quantized lane for int8 / int4 planes)."""
     from ..kernels import ops as kops   # kernels import this module
     if kernel_fn is not None and "wr_s" not in cache:
-        return bc_matmul_spectral(x, cache, spec.block_size, n_out,
-                                  spec.gauss, kernel_fn)
-    return kops.bc_linear(x, cache, spec.block_size, n_out, spec.gauss)
+        return bc_matmul_spectral(x, cache, k, n_out, gauss, kernel_fn)
+    return kops.bc_linear(x, cache, k, n_out, gauss)
 
 
 def apply_linear(params: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -298,18 +355,56 @@ def apply_linear(params: Dict[str, torch.Tensor], x: torch.Tensor,
     else:
         path = spec.resolve_path(mode)
         if mode != "train" and "wc_cache" in params:
-            y = _spectral_linear(x, params["wc_cache"], spec, n_out,
-                                 kernel_fn)
+            y = _spectral_linear(x, params["wc_cache"], spec.block_size,
+                                 spec.gauss, n_out, kernel_fn)
         elif path == "direct":
             y = bc_matmul_direct(x, params["wc"], n_out)
         elif path == "spectral":
             y = _spectral_linear(x, spectral_cache(params["wc"], spec.gauss),
-                                 spec, n_out, kernel_fn)
+                                 spec.block_size, spec.gauss, n_out,
+                                 kernel_fn)
         else:
             y = bc_matmul_fft(x, params["wc"], n_out, gauss=spec.gauss)
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y
+
+
+class FusedProjections:
+    """Mixin of a module whose projections ``FUSED`` (``Linear`` children)
+    share their input, so that projection fusion can run them as one
+    (``bc_matmul_fused``).  Their concatenated planes, once baked
+    (``bake_fused``), live in the module's ``<FUSED_CACHE>_*`` buffers;
+    the projections then keep no planes of their own."""
+    FUSED_CACHE: str = ""
+    FUSED: Tuple[str, ...] = ()
+
+    def fused_linears(self):
+        return [getattr(self, n) for n in self.FUSED]
+
+    @property
+    def fused_cache(self) -> Optional[Dict[str, torch.Tensor]]:
+        return planes_of(self, self.FUSED_CACHE)
+
+    def plane_caches(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Baked caches by buffer prefix (``quant/codec.py:baked_caches``)."""
+        cache = self.fused_cache
+        return {} if cache is None else {self.FUSED_CACHE: cache}
+
+    def bake_fused(self, gauss: bool = True) -> None:
+        """Store ``fused_spectral_cache`` of the projections (idempotent)."""
+        if self.fused_cache is None:
+            set_planes(self, self.FUSED_CACHE, fused_spectral_cache(
+                [m.wc for m in self.fused_linears()], gauss))
+
+    def fused(self, x: torch.Tensor, mode: str = "serve", kernel_fn=None):
+        """The projections of ``x`` as one call (``bc_matmul_fused``), each
+        output without its bias."""
+        lins = self.fused_linears()
+        cache = self.fused_cache if mode != "train" else None
+        return bc_matmul_fused(x, [m.wc for m in lins],
+                               [m.n_out for m in lins], mode, cache=cache,
+                               gauss=lins[0].spec.gauss, kernel_fn=kernel_fn)
 
 
 class Linear(nn.Module):
@@ -347,14 +442,11 @@ class Linear(nn.Module):
         if spec.bias:
             self.b = nn.Parameter(torch.zeros((n_out,), device=device),
                                   requires_grad=False)
-        for name in CACHE_KEYS:
-            self.register_buffer(f"wc_cache_{name}", None)
+        register_planes(self, "wc_cache")
 
     @property
     def wc_cache(self) -> Optional[Dict[str, torch.Tensor]]:
-        planes = {n: getattr(self, f"wc_cache_{n}") for n in CACHE_KEYS}
-        planes = {n: t for n, t in planes.items() if t is not None}
-        return planes or None
+        return planes_of(self, "wc_cache")
 
     def plane_caches(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """Baked caches by buffer prefix (``quant/codec.py:baked_caches``)."""
@@ -364,8 +456,7 @@ class Linear(nn.Module):
     def bake_spectral(self, gauss: bool = True) -> None:
         """Store ``spectral_cache(wc)`` next to the generators (idempotent)."""
         if self.wc_cache is None:
-            for name, plane in spectral_cache(self.wc, gauss).items():
-                setattr(self, f"wc_cache_{name}", plane)
+            set_planes(self, "wc_cache", spectral_cache(self.wc, gauss))
 
     def params(self) -> Dict[str, torch.Tensor]:
         out = {}

@@ -10,9 +10,17 @@ raises with ``nvcc``'s stderr if any of them fails.
 
 Nothing here runs when the module is imported: the first launch of a kernel
 (or an explicit ``build()``) compiles it.
+
+Launch counts stay exact when launches are captured into a CUDA graph
+(``serve/decode.py`` replays the continuous engine's decode step):
+inside ``setup(record)`` a launch counts into ``Kernel.setup_launches``
+(warm-up and capture are counted apart), and the record keeps it, so each
+``record.replayed()`` after a replay of the graph adds the captured
+launches to the kernels' counts, per lane and per plan path.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,7 +28,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -90,6 +98,42 @@ def build(names: Iterable[str] = KERNEL_NAMES) -> Dict[str, float]:
     return out
 
 
+class LaunchRecord:
+    """The launches captured into one CUDA graph, by (kernel, exported
+    function, plan path).  ``replayed(n)`` adds them ``n`` times to the
+    kernels' counts: call it after each replay of the graph."""
+
+    def __init__(self):
+        self.launches: Dict[Tuple["Kernel", str, Optional[str]], int] = {}
+
+    def add(self, kernel: "Kernel", fn: str, path: Optional[str]) -> None:
+        key = (kernel, fn, path)
+        self.launches[key] = self.launches.get(key, 0) + 1
+
+    @property
+    def total(self) -> int:
+        return sum(self.launches.values())
+
+    def replayed(self, n: int = 1) -> None:
+        for (kernel, fn, path), count in self.launches.items():
+            kernel.count(fn, path, count * n)
+
+
+_SETUP: List[Optional[LaunchRecord]] = []     # open ``setup`` contexts
+
+
+@contextlib.contextmanager
+def setup(record: Optional[LaunchRecord] = None):
+    """Launches inside count apart, in ``Kernel.setup_launches`` (a CUDA
+    graph's warm-up and capture); ``record`` also keeps them, so that the
+    graph's replays can count them (``LaunchRecord.replayed``)."""
+    _SETUP.append(record)
+    try:
+        yield record
+    finally:
+        _SETUP.pop()
+
+
 class Kernel:
     """One compiled library and the count of its kernel launches.
 
@@ -99,20 +143,26 @@ class Kernel:
     returned an error, and otherwise adds one to ``launches``, to
     ``fn_launches[fn]`` (one count per exported function, i.e. per lane)
     and, where the wrapper names the kernel its plan chose (``path``), to
-    ``path_launches[path]``."""
+    ``path_launches[path]``; inside ``setup`` it adds one to
+    ``setup_launches`` instead (module docstring)."""
 
     def __init__(self, name: str, signatures: Dict[str, Sequence]):
         self.name = name
         self.signatures = dict(signatures)
-        self.launches = 0
-        self.fn_launches = {fn: 0 for fn in self.signatures}
-        self.path_launches: Dict[str, int] = {}
+        self.reset_counts()
         self._lib: Optional[ctypes.CDLL] = None
 
     def reset_counts(self) -> None:
         self.launches = 0
         self.fn_launches = {fn: 0 for fn in self.signatures}
-        self.path_launches = {}
+        self.path_launches: Dict[str, int] = {}
+        self.setup_launches = 0
+
+    def count(self, fn: str, path: Optional[str] = None, n: int = 1) -> None:
+        self.launches += n
+        self.fn_launches[fn] += n
+        if path is not None:
+            self.path_launches[path] = self.path_launches.get(path, 0) + n
 
     @property
     def source(self) -> Path:
@@ -138,10 +188,12 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {err} "
                                f"({lib.error_string(err).decode()})")
-        self.launches += 1
-        self.fn_launches[fn] += 1
-        if path is not None:
-            self.path_launches[path] = self.path_launches.get(path, 0) + 1
+        if not _SETUP:
+            self.count(fn, path)
+            return
+        self.setup_launches += 1
+        if _SETUP[-1] is not None:
+            _SETUP[-1].add(self, fn, path)
 
 
 def check_cuda(name: str, tensors: Dict[str, torch.Tensor],

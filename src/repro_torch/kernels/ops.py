@@ -4,6 +4,11 @@
 chooses by the tensor it is given.  A CPU tensor takes the plain PyTorch
 version, a CUDA tensor takes the hand-written kernel or raises: there is no
 switch, no fallback and no ``torch.compile``.
+
+A cache of fused projections (``qkv_cache``, ``upgate_cache``: the planes
+of q/k/v or up/gate concatenated on the output-block axis) is one more
+(p, q, kf) cache to ``bc_linear`` and ``spectral_contract``: both read it
+as it stands, with no copy of its planes.
 """
 from __future__ import annotations
 

@@ -35,8 +35,13 @@ the returned cache is the same storage that was passed in.
 ``kernel_fn`` (the spectral-MAC hook, ``core/circulant.py``) is passed to
 the four projections.
 
-Not ported yet: sliding-window ring buffers, cross-attention and fused
-q/k/v projections.
+With projection fusion (``CompressionConfig.fuse_projections``) and
+block-circulant q/k/v, the three run as one call against the module's
+``qkv_cache`` planes (``core/circulant.py:bc_matmul_fused``: one
+fused-kernel launch); the QKV bias is added after the split and qk-norm
+runs after it, as in ``repro``.
+
+Not ported yet: sliding-window ring buffers and cross-attention.
 """
 from __future__ import annotations
 
@@ -45,7 +50,8 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..core.circulant import Linear, LinearSpec
+from ..core.circulant import (FusedProjections, Linear, LinearSpec,
+                              register_planes)
 from ..kernels import ops as kops
 from ..quant import codec
 from .embeddings import apply_rope
@@ -54,15 +60,17 @@ from .norms import RMSNorm
 _NEG = -1e30
 
 
-class Attention(nn.Module):
+class Attention(FusedProjections, nn.Module):
+    """q/k/v/o projections, qk-norm scales where the arch has them, and
+    the fused q/k/v planes ``qkv_cache_*`` where projection fusion baked
+    them (``serve/params.py``)."""
+    FUSED_CACHE, FUSED = "qkv_cache", ("q", "k", "v")
+
     def __init__(self, cfg, d_model: int, comp=None, *,
                  device: torch.device,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         a = cfg.attention
-        if comp is not None and getattr(comp, "fuse_projections", False):
-            raise NotImplementedError("fused q/k/v projections are not "
-                                      "ported yet")
         # q/k/v carry the (dense) QKV bias, o never does (repro :206-207)
         spec = LinearSpec.from_config(comp, "attn", bias=a.qkv_bias)
         ospec = LinearSpec.from_config(comp, "attn")
@@ -74,6 +82,7 @@ class Attention(nn.Module):
         if a.qk_norm:                       # per-head rmsnorm of q and k
             self.qn = RMSNorm(a.head_dim, device=device)
             self.kn = RMSNorm(a.head_dim, device=device)
+        register_planes(self, self.FUSED_CACHE)
 
 
 def attend(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None,
@@ -134,9 +143,17 @@ def attention_block(attn: Attention, x: torch.Tensor, *, cfg, causal=True,
     a = cfg.attention
     B, S, _ = x.shape
     H, Hkv, D = a.num_heads, a.num_kv_heads, a.head_dim
-    q = attn.q(x, mode, kernel_fn).reshape(B, S, H, D)
-    k = attn.k(x, mode, kernel_fn).reshape(B, S, Hkv, D)
-    v = attn.v(x, mode, kernel_fn).reshape(B, S, Hkv, D)
+    if (getattr(cfg.compression, "fuse_projections", False)
+            and attn.q.spec.kind == "block_circulant"):
+        q, k, v = attn.fused(x, mode, kernel_fn)
+        if hasattr(attn.q, "b"):                         # qwen QKV bias
+            q, k, v = (t + m.b.to(t.dtype)
+                       for t, m in zip((q, k, v), attn.fused_linears()))
+    else:
+        q, k, v = (m(x, mode, kernel_fn) for m in attn.fused_linears())
+    q = q.reshape(B, S, H, D)
+    k = k.reshape(B, S, Hkv, D)
+    v = v.reshape(B, S, Hkv, D)
     if hasattr(attn, "qn"):                              # qwen3 qk-norm
         q = attn.qn(q)
         k = attn.kn(k)

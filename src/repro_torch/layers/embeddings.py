@@ -42,10 +42,13 @@ def logits(table: torch.Tensor, x: torch.Tensor,
 
 
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    """theta ** (-2i / head_dim) in float32.  theta is filled on the device
+    (no host-to-device copy), so a decode step that calls this can be
+    captured in a CUDA graph."""
     exps = -torch.arange(0, head_dim, 2, dtype=torch.float32,
                          device=device) / head_dim
-    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device),
-                     exps)
+    return torch.pow(torch.full((), theta, dtype=torch.float32,
+                                device=device), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

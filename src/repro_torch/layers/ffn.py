@@ -1,5 +1,11 @@
-"""Feed-forward layers: the gated MLP (unfused up/gate) and mixture of
-experts (port of ``repro/layers/ffn.py``).
+"""Feed-forward layers: the gated MLP and mixture of experts (port of
+``repro/layers/ffn.py``).
+
+With projection fusion (``CompressionConfig.fuse_projections``) a gated
+block-circulant MLP runs up and gate as one call against its
+``upgate_cache`` planes (``core/circulant.py:bc_matmul_fused``), the
+activation on ``gate``, as ``repro`` does; the MoE's shared expert is such
+an MLP.  Expert stacks never fuse.
 
 The MoE routes tokens as ``repro`` does: grouped token-choice top-k with a
 capacity factor, float32 router logits, one-hot dispatch and combine.
@@ -10,13 +16,13 @@ circulant stacks run against their baked (E, p, q, kf) planes through
 ``kernels/ops.py:bc_expert_linear`` (one fused-kernel launch per expert
 and projection on the card).
 
-Not ported yet: the fused up/gate projection, and the MoE's load-balancing
-auxiliary loss (``repro`` returns it for training; serving discards it).
+Not ported yet: the MoE's load-balancing auxiliary loss (``repro`` returns
+it for training; serving discards it).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -37,30 +43,38 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     raise NotImplementedError(f"activation {name!r}")
 
 
-class MLP(nn.Module):
+class MLP(cc.FusedProjections, nn.Module):
+    """up / down (and gate) projections, and the fused up/gate planes
+    ``upgate_cache_*`` where projection fusion baked them
+    (``serve/params.py``)."""
+    FUSED_CACHE, FUSED = "upgate_cache", ("up", "gate")
+
     def __init__(self, d_model: int, d_ff: int, comp=None, gated: bool = True,
                  *, device: torch.device,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if comp is not None and getattr(comp, "fuse_projections", False):
-            raise NotImplementedError("fused up/gate projections are not "
-                                      "ported yet")
         spec = LinearSpec.from_config(comp, "ffn")
         kw = dict(device=device, generator=generator)
         self.up = Linear(d_model, d_ff, spec, **kw)
         self.down = Linear(d_ff, d_model, spec, **kw)
         self.gate = Linear(d_model, d_ff, spec, **kw) if gated else None
+        cc.register_planes(self, self.FUSED_CACHE)
 
 
 def mlp(m: MLP, x: torch.Tensor, *, activation: str = "silu",
-        mode: str = "serve", kernel_fn=None) -> torch.Tensor:
+        mode: str = "serve", kernel_fn=None, comp=None) -> torch.Tensor:
     """``kernel_fn`` is the spectral-MAC hook of the three projections
-    (``core/circulant.py``)."""
-    up = m.up(x, mode, kernel_fn)
-    if m.gate is not None:
+    (``core/circulant.py``); ``comp`` (the config's compression) says
+    whether up and gate fuse."""
+    if (m.gate is not None and getattr(comp, "fuse_projections", False)
+            and m.up.spec.kind == "block_circulant"):
+        up, gate = m.fused(x, mode, kernel_fn)
+        up = _act(activation, gate) * up
+    elif m.gate is not None:
+        up = m.up(x, mode, kernel_fn)
         up = _act(activation, m.gate(x, mode, kernel_fn)) * up
     else:
-        up = _act(activation, up)
+        up = _act(activation, m.up(x, mode, kernel_fn))
     return m.down(up, mode, kernel_fn)
 
 
@@ -92,14 +106,10 @@ class Experts(nn.Module):
                  / math.sqrt(n_in) if generator is not None
                  else torch.zeros(shape, device=device))
             setattr(self, name, nn.Parameter(w, requires_grad=False))
-            for key in cc.CACHE_KEYS:
-                self.register_buffer(f"{name}_cache_{key}", None)
+            cc.register_planes(self, f"{name}_cache")
 
     def cache(self, name: str) -> Optional[Dict[str, torch.Tensor]]:
-        planes = {key: getattr(self, f"{name}_cache_{key}")
-                  for key in cc.CACHE_KEYS}
-        planes = {key: t for key, t in planes.items() if t is not None}
-        return planes or None
+        return cc.planes_of(self, f"{name}_cache")
 
     def plane_caches(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """Baked caches by buffer prefix (``quant/codec.py:baked_caches``)."""
@@ -110,9 +120,8 @@ class Experts(nn.Module):
         """Store ``spectral_cache`` of each stack (idempotent)."""
         for name in EXPERT_PROJECTIONS:
             if self.cache(name) is None:
-                for key, plane in cc.spectral_cache(getattr(self, name),
-                                                    gauss).items():
-                    setattr(self, f"{name}_cache_{key}", plane)
+                cc.set_planes(self, f"{name}_cache",
+                              cc.spectral_cache(getattr(self, name), gauss))
 
 
 class MoE(nn.Module):
@@ -137,7 +146,9 @@ class MoE(nn.Module):
         self.shared = (MLP(d_model, d_ff, comp, device=device,
                            generator=generator)
                        if moe_cfg.shared_expert else None)
-        self.logit_gaps: Optional[List[float]] = None   # see ``moe``
+        # the smallest router logit gap seen (a 0-dim device tensor, updated
+        # in place), or None: not recorded.  See ``moe``.
+        self.logit_gap: Optional[torch.Tensor] = None
 
 
 def _expert_ffn(ex: Experts, xe: torch.Tensor, activation: str, d_ff: int,
@@ -213,7 +224,11 @@ def moe(m: MoE, x: torch.Tensor, *, d_ff: int, moe_cfg, comp=None,
     other, as in ``repro``.  ``kernel_fn`` (the spectral-MAC hook) reaches
     the shared expert only.  The load-balancing loss of ``repro``'s
     ``moe`` is a training output and is not computed.  Where
-    ``m.logit_gaps`` is a list, each call appends its ``top2_gap``."""
+    ``m.logit_gap`` is a tensor, each call folds its ``top2_gap`` into it
+    in place (a running minimum on the device, read by the caller after
+    the dispatch): no host read happens in the call, so it runs inside a
+    captured decode step, whose replays update the tensor that was there
+    at capture."""
     B, S, d = x.shape
     E, topk = moe_cfg.num_experts, moe_cfg.top_k
     T = B * S
@@ -227,8 +242,8 @@ def moe(m: MoE, x: torch.Tensor, *, d_ff: int, moe_cfg, comp=None,
 
     xt = x.reshape(G, g, d)
     disp, comb, _, logits = route(m.router, xt, E, topk, cap)  # (G,g,E,cap)
-    if m.logit_gaps is not None:
-        m.logit_gaps.append(float(top2_gap(logits)))
+    if m.logit_gap is not None:
+        torch.minimum(m.logit_gap, top2_gap(logits), out=m.logit_gap)
     xe = torch.einsum("gtd,gtec->gecd", xt, disp)             # (G,E,cap,d)
     xe = xe.transpose(0, 1).reshape(E, G * cap, d)
     ye = _expert_ffn(m.experts, xe, activation, d_ff, d, gauss, mode)
@@ -236,5 +251,5 @@ def moe(m: MoE, x: torch.Tensor, *, d_ff: int, moe_cfg, comp=None,
     out = torch.einsum("gecd,gtec->gtd", ye, comb)
     if m.shared is not None:
         out = out + mlp(m.shared, xt, activation=activation, mode=mode,
-                        kernel_fn=kernel_fn)
+                        kernel_fn=kernel_fn, comp=comp)
     return out.reshape(B, S, d)

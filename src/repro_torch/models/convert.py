@@ -12,12 +12,12 @@ An MoE block's ``moe`` subtree is carried the same way: ``router``, the
 expert stacks ``experts/{up,gate,down}`` and the shared expert ``shared``.
 
 Baked planes (a projection's ``wc_cache``, an expert stack's
-``{up,gate,down}_cache``; float32 or quantized: int8 / packed-int4
-``uint8`` planes with ``<name>_s`` scales) are carried into the module's
-``<cache>_*`` buffers in their own dtype, so both packages can serve
-bit-identical planes; ``precompute_serving_params`` then leaves them as
-they are.  The fused ``qkv_cache`` / ``upgate_cache`` planes are
-not ported and are skipped (the port bakes its own per-projection planes).
+``{up,gate,down}_cache``, projection fusion's ``qkv_cache`` on an
+attention block and ``upgate_cache`` on a gated MLP; float32 or quantized:
+int8 / packed-int4 ``uint8`` planes with ``<name>_s`` scales) are carried
+into the module's ``<cache>_*`` buffers in their own dtype, so both
+packages can serve bit-identical planes; ``precompute_serving_params``
+then leaves them as they are.
 """
 from __future__ import annotations
 
@@ -31,8 +31,8 @@ from ..core.circulant import CACHE_KEYS
 from ..device import resolve_device
 from .transformer import Transformer, segments_for
 
-_SKIP = ("qkv_cache", "upgate_cache")
-_PLANE_DICTS = ("wc_cache", "up_cache", "gate_cache", "down_cache")
+_PLANE_DICTS = ("wc_cache", "up_cache", "gate_cache", "down_cache",
+                "qkv_cache", "upgate_cache")
 
 
 def _copy_into(module: torch.nn.Module, tree: Mapping[str, Any], index,
@@ -41,8 +41,6 @@ def _copy_into(module: torch.nn.Module, tree: Mapping[str, Any], index,
     ``index`` on the stacked axis) into ``module``'s parameters of the same
     names."""
     for name, node in tree.items():
-        if name in _SKIP:
-            continue
         path = f"{where}.{name}" if where else name
         if name in _PLANE_DICTS:
             _copy_planes(module, name, node, index, path)

@@ -111,7 +111,7 @@ def apply_block(block: Block, x, cfg: ArchConfig, *, mode: str, cache=None,
                         mode=mode, kernel_fn=kernel_fn)
     else:
         f = ffn_lib.mlp(block.mlp, h, activation=cfg.ffn_activation,
-                        mode=mode, kernel_fn=kernel_fn)
+                        mode=mode, kernel_fn=kernel_fn, comp=cfg.compression)
     return x + f, cache
 
 

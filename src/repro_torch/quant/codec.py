@@ -185,7 +185,9 @@ def baked_caches(params: nn.Module):
     ``<prefix>_<name>``.  A module offers its caches through
     ``plane_caches()`` (``{prefix: cache}``): a ``core/circulant.py:Linear``
     its ``wc_cache``, an MoE's ``layers/ffn.py:Experts`` the
-    ``{up,gate,down}_cache`` stacks ((E, p, q, kf) planes)."""
+    ``{up,gate,down}_cache`` stacks ((E, p, q, kf) planes), and under
+    projection fusion an ``Attention`` its ``qkv_cache`` and a gated
+    ``MLP`` its ``upgate_cache`` ((Σp_i, q, kf) planes)."""
     for name, m in params.named_modules():
         caches = getattr(m, "plane_caches", None)
         if caches is None:
@@ -198,8 +200,8 @@ def baked_caches(params: nn.Module):
 def quantize_serving_params(params: nn.Module, bits: int = 8) -> nn.Module:
     """Quantize every baked spectral cache of ``params`` IN PLACE: each
     plane buffer ``<prefix>_<plane>`` becomes int8 (or packed uint8) and
-    ``<prefix>_<plane>_s`` holds its per-block-row scales ((p, 1), or
-    (E, p, 1) on an expert stack).  Generators and dense weights are
+    ``<prefix>_<plane>_s`` holds its per-block-row scales ((p, 1), (Σp_i,
+    1) on fused planes, or (E, p, 1) on an expert stack).  Generators and dense weights are
     untouched.  Idempotent; returns ``params``."""
     for _, m, prefix, cache in baked_caches(params):
         for key, t in quantize_plane_cache(cache, bits).items():

@@ -4,10 +4,13 @@ dense cache, and the continuous engine's B=1 prefill-and-pack and paged
 decode loop.
 
 ``repro`` runs each decode loop as one device program
-(``lax.while_loop``); here it is a host loop, each step a forward pass of
-kernels on the current stream, with the same per-row freeze rules.  Each
+(``lax.while_loop``).  Here the continuous engine's paged step runs over
+static device buffers and, on a CUDA device, is captured once in a CUDA
+graph: each step is one replay (``make_paged_decode_loop``).  The batch
+engine's dense loop is a host loop, each step a forward pass of kernels on
+the current stream.  Both keep ``repro``'s per-row freeze rules, and each
 step reads one bit back to the host (whether every row is done), so the
-loop, like ``repro``'s, ends early; that read is the loop's only sync.
+loops, like ``repro``'s, end early; that read is their only sync.
 
 Sampling draws ``categorical(logits / temperature)`` with Gumbel noise from
 a counter-based hash in torch integer operations (``sample_tokens``): the
@@ -21,11 +24,14 @@ Not ported yet: the numerics capture side-outputs (``logit_stats``,
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional
 
 import torch
 
 from ..configs.base import ArchConfig
+from ..kernels import build
+from ..layers.ffn import MoE
 from ..models.registry import build_model
 from . import kvcache as kvc
 
@@ -222,11 +228,189 @@ def make_prefill_pack_step(cfg: ArchConfig, n_pages: int,
     return prefill_pack
 
 
+class DecodeSlots:
+    """The static device buffers of the paged decode step: per slot the
+    token in flight ``cur``, its position ``pos``, the budget left ``rem``,
+    ``done`` and ``anom``; the output buffer ``buf`` (B, chunk); the
+    column index ``j`` (a (1,) device tensor, as ``dynamic_update_slice``
+    takes it); and the block ``table``.  Each step reads and writes them in
+    place, so one captured CUDA graph replays every step.  ``graph`` and
+    ``record`` (its launches, ``kernels/build.py``) are set where the step
+    is captured."""
+
+    def __init__(self, B: int, chunk: int, maxp: int, device, fill: int):
+        i32 = dict(dtype=torch.int32, device=device)
+        self.fill = fill
+        self.cur = torch.zeros(B, **i32)
+        self.pos = torch.zeros(B, **i32)
+        self.rem = torch.zeros(B, **i32)
+        self.done = torch.ones(B, dtype=torch.bool, device=device)
+        self.anom = torch.zeros(B, dtype=torch.bool, device=device)
+        self.buf = torch.full((B, chunk), fill, **i32)
+        self.j = torch.zeros(1, dtype=torch.int64, device=device)
+        self.table = torch.zeros((B, maxp), **i32)
+        self.params = None          # the weights a captured graph reads
+        self.graph = None
+        self.record = None
+
+    def stage(self, cur, pos, rem, table=None) -> None:
+        """Copy one dispatch's inputs in (host or device tensors); the
+        ``table`` only where it is not the static one already."""
+        self.cur.copy_(cur)
+        self.pos.copy_(pos)
+        self.rem.copy_(rem)
+        if table is not None and table is not self.table:
+            self.table.copy_(table)
+        torch.le(self.rem, 0, out=self.done)
+        self.anom.zero_()
+        self.buf.fill_(self.fill)
+        self.j.zero_()
+
+    def idle(self) -> None:
+        """Every slot frozen at position -1: a step writes only to the
+        trash page and changes no slot."""
+        self.table.zero_()
+        self.stage(torch.zeros_like(self.cur), torch.full_like(self.pos, -1),
+                   torch.zeros_like(self.rem))
+
+
+class PagedDecodeLoop:
+    """``make_paged_decode_loop``'s loop: ``loop(params, cur, pool, table,
+    pos, rem)`` runs up to ``chunk`` steps over the static buffers of
+    ``slots(params, pool, B, maxp)`` and returns copies of them (its
+    docstring).  ``captures`` and ``capture_s`` count the CUDA-graph
+    captures made and their seconds (warm-up included)."""
+
+    def __init__(self, cfg: ArchConfig, chunk: int, *, sample: bool,
+                 temperature: float, eos_id: Optional[int], seed: int,
+                 nan_guard: bool, paged_impl: str, graphs: Optional[bool]):
+        self.model = build_model(cfg)
+        self.chunk = chunk
+        self.sample, self.temperature, self.seed = sample, temperature, seed
+        self.eos_id, self.nan_guard = eos_id, nan_guard
+        self.paged_impl = paged_impl
+        self.graphs = graphs
+        self.fill = 0 if eos_id is None else int(eos_id)
+        self._key, self._slots = None, None
+        self.captures = 0
+        self.capture_s = 0.0
+
+    def step(self, params, st: DecodeSlots, pool) -> None:
+        """One decode step over ``st``, in place (``repro``'s ``body_fn``):
+        a frozen slot decodes at position -1 (its writes go to the trash
+        page) and keeps its state; a slot whose logits are not all finite
+        (``nan_guard``) freezes like an EOS slot, appends ``fill`` and is
+        flagged in ``anom``; the token lands in column ``j`` of ``buf``.
+        No value is read back to the host."""
+        done = st.done
+        masked = torch.where(done, -1, st.pos)
+        logits, _ = self.model.decode_step(params, st.cur[:, None], pool,
+                                           masked, block_table=st.table,
+                                           paged_impl=self.paged_impl)
+        last = logits[:, -1]
+        finite = (torch.isfinite(last).all(dim=-1) if self.nan_guard
+                  else torch.ones_like(done))
+        if self.sample:
+            slots = torch.arange(done.shape[0], device=done.device)
+            nxt = sample_tokens(last, self.temperature, self.seed, slots,
+                                torch.clamp(masked, min=0))
+        else:
+            nxt = torch.argmax(last, dim=-1).to(torch.int32)
+        bad = ~done & ~finite
+        halt = done | bad
+        st.buf.index_copy_(1, st.j, torch.where(halt, st.fill, nxt)[:, None])
+        st.pos.copy_(torch.where(halt, st.pos, st.pos + 1))
+        st.rem.copy_(torch.where(halt, st.rem, st.rem - 1))
+        nd = halt | (st.rem <= 0)
+        if self.eos_id is not None:
+            nd = nd | (~halt & (nxt == self.eos_id))
+        st.cur.copy_(torch.where(halt, st.cur, nxt))
+        st.done.copy_(nd)
+        st.anom.logical_or_(bad)
+        st.j.add_(1)
+
+    def slots(self, params, pool, B: int, maxp: int) -> DecodeSlots:
+        """The static buffers for ``B`` slots of ``maxp``-page tables over
+        ``pool`` with ``params``, made (and, on a CUDA device with
+        ``graphs`` not False, the step captured) when any of these differ
+        from the last call's.  The graph holds the addresses of ``pool``
+        and of the weights: the key has the pool's, and the buffers keep
+        ``params`` alive."""
+        device = pool["k"].device
+        key = (id(params), B, maxp, pool["k"].dtype,
+               tuple(t.data_ptr() for t in pool.values()))
+        if key != self._key:
+            self._key, self._slots = None, None    # free the old graph
+            st = DecodeSlots(B, self.chunk, maxp, device, self.fill)
+            st.params = params
+            capture = (self.graphs if self.graphs is not None
+                       else device.type == "cuda")
+            if capture:
+                self._capture(params, pool, st)
+            self._key, self._slots = key, st
+        return self._slots
+
+    def _capture(self, params, pool, st: DecodeSlots) -> None:
+        """Warm the step up twice on idle slots (a side stream; the second
+        time with synchronizing calls made errors), then capture it.  The
+        launches of both count apart (``kernels/build.py:setup``); an MoE's
+        running router gap is restored after the warm-up.  A capture that
+        fails raises."""
+        if st.cur.device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, the pool "
+                             f"is on {st.cur.device}")
+        t0 = time.perf_counter()
+        device = st.cur.device
+        gaps = [(m, m.logit_gap.clone()) for m in params.modules()
+                if isinstance(m, MoE) and m.logit_gap is not None]
+        st.idle()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        mode = torch.cuda.get_sync_debug_mode()
+        graph, record = torch.cuda.CUDAGraph(), build.LaunchRecord()
+        try:
+            with torch.cuda.stream(side), build.setup():
+                self.step(params, st, pool)   # libraries, cached constants
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    self.step(params, st, pool)
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+            torch.cuda.current_stream(device).wait_stream(side)
+            for m, gap in gaps:
+                m.logit_gap.copy_(gap)
+            with build.setup(record), torch.cuda.graph(graph):
+                self.step(params, st, pool)
+        except Exception as e:
+            raise RuntimeError(f"capturing the paged decode step failed: "
+                               f"{e}") from e
+        torch.cuda.synchronize(device)
+        st.graph, st.record = graph, record
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+
+    def __call__(self, params, cur, pool, table, pos, rem):
+        B, maxp = table.shape
+        st = self.slots(params, pool, B, maxp)
+        st.stage(cur, pos, rem, table)
+        steps = 0
+        while steps < self.chunk and not bool(st.done.all()):
+            if st.graph is not None:
+                st.graph.replay()
+                st.record.replayed()
+            else:
+                self.step(params, st, pool)
+            steps += 1
+        return (st.buf.clone(), st.cur.clone(), pool, st.pos.clone(),
+                st.rem.clone(), st.done.clone(), st.anom.clone(), steps)
+
+
 def make_paged_decode_loop(cfg: ArchConfig, chunk: int, *,
                            sample: bool = False, temperature: float = 1.0,
                            eos_id: Optional[int] = None, seed: int = 0,
                            nan_guard: bool = True,
-                           paged_impl: str = "stream") -> Callable:
+                           paged_impl: str = "stream",
+                           graphs: Optional[bool] = None) -> PagedDecodeLoop:
     """Decode over paged slots, up to ``chunk`` steps per call.
 
     ``paged_impl`` picks the attention lowering of each step: "stream"
@@ -242,47 +426,21 @@ def make_paged_decode_loop(cfg: ArchConfig, chunk: int, *,
     with noise keyed by (seed, slot, position), as ``repro`` folds both
     into its key.
 
-    Returns ``decode_loop(params, cur, pool, table, pos, rem)`` ->
-    ``(buf (B, chunk), cur, pool, pos, rem, done, anom, steps)``; ``steps``
-    is the number of decode steps (forward passes) it ran.
-    """
-    model = build_model(cfg)
-    fill = 0 if eos_id is None else int(eos_id)
+    The step is ``repro``'s ``body_fn`` over static device buffers
+    (``DecodeSlots``).  On a CUDA device it is captured in a CUDA graph once
+    per (slots, table width, pool, weights) and every step is one replay;
+    ``graphs=False`` runs the same step eagerly (on the CPU it always
+    does).  Each step the host reads whether every slot is done, the loop's
+    one sync, so early exit and ``steps`` equal ``repro``'s
+    ``while_loop``.
 
-    def decode_loop(params, cur, pool, table, pos, rem):
-        B = cur.shape[0]
-        slots = torch.arange(B, device=cur.device)
-        done = rem <= 0
-        anom = torch.zeros(B, dtype=torch.bool, device=cur.device)
-        buf = torch.full((B, chunk), fill, dtype=torch.int32,
-                         device=cur.device)
-        steps = 0
-        for j in range(chunk):
-            if bool(done.all()):
-                break
-            masked = torch.where(done, torch.full_like(pos, -1), pos)
-            logits, pool = model.decode_step(params, cur[:, None], pool,
-                                             masked, block_table=table,
-                                             paged_impl=paged_impl)
-            last = logits[:, -1]
-            finite = (torch.isfinite(last).all(dim=-1) if nan_guard
-                      else torch.ones_like(done))
-            if sample:
-                nxt = sample_tokens(last, temperature, seed, slots,
-                                    torch.clamp(masked, min=0))
-            else:
-                nxt = torch.argmax(last, dim=-1).to(torch.int32)
-            bad = ~done & ~finite
-            halt = done | bad
-            buf[:, j] = torch.where(halt, torch.full_like(nxt, fill), nxt)
-            pos = torch.where(halt, pos, pos + 1)
-            rem = torch.where(halt, rem, rem - 1)
-            nd = halt | (rem <= 0)
-            if eos_id is not None:
-                nd = nd | (~halt & (nxt == eos_id))
-            cur = torch.where(halt, cur, nxt)
-            done = nd
-            anom = anom | bad
-            steps += 1
-        return buf, cur, pool, pos, rem, done, anom, steps
-    return decode_loop
+    Returns a ``PagedDecodeLoop``: ``loop(params, cur, pool, table, pos,
+    rem)`` -> ``(buf (B, chunk), cur, pool, pos, rem, done, anom,
+    steps)``; ``steps`` is the number of decode steps (forward passes) it
+    ran; ``cur``, ``pos``, ``rem`` and ``table`` may be host or device
+    tensors.
+    """
+    return PagedDecodeLoop(cfg, chunk, sample=sample,
+                           temperature=temperature, eos_id=eos_id, seed=seed,
+                           nan_guard=nan_guard, paged_impl=paged_impl,
+                           graphs=graphs)

@@ -22,7 +22,10 @@ there.  Its decode passes no hook, so the B rows take the fused kernel.
   B=1, right-padded to a page bucket, and their KV is scattered into pages.
 * Decode runs ``decode_chunk`` steps per dispatch with every slot at its
   own position (``serve/decode.py``); finished slots freeze and retire
-  between dispatches.  Optimistic admission preempts the youngest slot when
+  between dispatches.  On the card the decode step is captured in a CUDA
+  graph when the engine is built (on idle slots) and each step is one
+  replay; the block table is copied into the step's static table when it
+  changes.  Optimistic admission preempts the youngest slot when
   the pool runs out, and the preempted request recomputes its prefill with
   the tokens it had generated, so greedy output is unchanged.
 
@@ -381,12 +384,16 @@ class ContinuousEngine:
             cfg, decode_chunk, sample=sample, temperature=temperature,
             eos_id=eos_id, seed=seed, nan_guard=nan_guard,
             paged_impl=paged_attn)
+        # the decode step's static buffers (on the card its CUDA graph,
+        # captured here, before the first request)
+        with torch.no_grad():
+            self._slots = self._loop.slots(self.params, self.pool, max_slots,
+                                           self.max_pages_per_slot)
         self._prefills: Dict[int, object] = {}
         self._cur = np.zeros(max_slots, np.int32)
         self._pos = np.zeros(max_slots, np.int32)
         self._rem = np.zeros(max_slots, np.int32)
-        self._dev_table = None              # device copy of the block table
-        self._table_version = -1            # BlockTable.version it mirrors
+        self._table_version = -1            # BlockTable.version staged
         self._ctr = {n: reg.counter(n) for n in ENGINE_COUNTERS}
         self._c_anom = reg.counter("engine.anomalies")
         self._c_steps = reg.counter("engine.decode_steps")
@@ -611,14 +618,15 @@ class ContinuousEngine:
         rem_dispatch = self._rem.copy()
         for s in stalled:
             rem_dispatch[s.index] = 0
+        table = self._slots.table           # the captured step reads it
         if self._table_version != self.block_table.version:
-            self._dev_table = self.block_table.device_table(self.device)
+            table.copy_(torch.from_numpy(self.block_table.table))
             self._table_version = self.block_table.version
-        dev = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
+        host = torch.from_numpy
         with torch.no_grad():
             buf, cur, self.pool, pos, rem, done, anom, steps = self._loop(
-                self.params, dev(self._cur), self.pool, self._dev_table,
-                dev(self._pos), dev(rem_dispatch))
+                self.params, host(self._cur), self.pool, table,
+                host(self._pos), host(rem_dispatch))
             buf, cur, pos, rem, done, anom = (
                 t.cpu().numpy() for t in (buf, cur, pos, rem, done, anom))
         synchronize(self.device)
@@ -711,6 +719,8 @@ class ContinuousEngine:
         st["quant_policy"] = self.quant.describe()
         st["prefill_buckets"] = sorted(self._prefills)
         st["attention_impl"] = self.paged_attn
+        st["decode_graphs"] = self._loop.captures
+        st["decode_capture_s"] = self._loop.capture_s
         st.update(kvc.attention_memory_est(
             self.pool, self.max_slots, self.max_pages_per_slot,
             self.page_size, self.paged_attn))

@@ -6,13 +6,17 @@ transform in the loop: ``precompute_serving_params`` FFTs every
 block-circulant generator that serves through the spectral path once and
 stores the planes beside it (``Linear.wc_cache``; for an MoE's expert
 stacks, the per-expert ``{up,gate,down}_cache`` planes of
-``layers/ffn.py:Experts``, (E, p, q, kf) each).  With a ``QuantPolicy``
+``layers/ffn.py:Experts``, (E, p, q, kf) each).  With projection fusion
+(``CompressionConfig.fuse_projections``) it bakes, where ``repro``'s
+``fusable`` holds, the concatenated q/k/v planes ``qkv_cache`` on each
+``Attention`` and up/gate planes ``upgate_cache`` on each gated ``MLP``
+(an MoE's shared expert included; expert stacks never fuse), and the
+projections they shadow get no planes of their own: one copy of each
+plane, as in ``repro``.  With a ``QuantPolicy``
 whose ``quant_weights`` is set, the planes are then quantized to int8 (or
 packed int4) with per-block-row scales.  Unlike ``repro``'s pure tree
 transform, it bakes (and quantizes) the planes into the module IN PLACE and
 returns it; it is idempotent.
-
-Not ported yet: the fused ``qkv_cache`` / ``upgate_cache`` planes.
 """
 from __future__ import annotations
 
@@ -35,6 +39,18 @@ def _spectral_at_serve(comp, k: int) -> bool:
     return spec.resolve_path("serve") == "spectral"
 
 
+def _fusable(comp, m: cc.FusedProjections) -> bool:
+    """Whether the fused serve path shadows ``m``'s projections
+    (``repro``'s ``fusable``): fusion on, every projection
+    block-circulant with one input-block shape, served spectrally."""
+    lins = m.fused_linears()
+    return (getattr(comp, "fuse_projections", False)
+            and all(lin is not None and lin.spec.kind == "block_circulant"
+                    for lin in lins)
+            and len({tuple(lin.wc.shape[-2:]) for lin in lins}) == 1
+            and _spectral_at_serve(comp, lins[0].spec.block_size))
+
+
 def _baked_bits(params: nn.Module):
     """The bits of the planes already baked into ``params``: None (float32
     planes or none baked), 8 or 4."""
@@ -54,8 +70,6 @@ def precompute_serving_params(params: nn.Module, cfg: ArchConfig,
     comp = cfg.compression
     if not comp.enabled:
         return params
-    if getattr(comp, "fuse_projections", False):
-        raise NotImplementedError("fused qkv/upgate planes are not ported yet")
     want = (policy.weight_bits if policy is not None and policy.quant_weights
             else None)
     have = _baked_bits(params)
@@ -64,8 +78,15 @@ def precompute_serving_params(params: nn.Module, cfg: ArchConfig,
                          f"policy asks for "
                          f"{'float32' if want is None else f'int{want}'} "
                          f"planes (planes are quantized in place)")
+    shadowed = set()                      # ids of the fused projections
+    for m in params.modules():
+        if isinstance(m, cc.FusedProjections) and _fusable(comp, m):
+            m.bake_fused(comp.gauss_trick)
+            shadowed.update(map(id, m.fused_linears()))
     for m in params.modules():
         if isinstance(m, cc.Linear):
+            if id(m) in shadowed:
+                continue
             k = m.spec.block_size if m.spec.kind == "block_circulant" else 0
         elif isinstance(m, Experts):
             k = m.block_size

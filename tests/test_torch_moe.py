@@ -136,25 +136,31 @@ def test_moe_matches_repro(topk, block, capacity, S):
 
 
 def test_moe_records_the_smallest_router_logit_gap():
-    """With ``logit_gaps`` set to a list, each ``moe`` call appends the
-    smallest top-1 / top-2 gap of its router logits (held against the gap
-    of repro's float32 logits) and the output does not change; left at
-    None, nothing is recorded."""
+    """With ``logit_gap`` set to a tensor, each ``moe`` call folds the
+    smallest top-1 / top-2 gap of its router logits into it in place (held
+    against the gap of repro's float32 logits; a second call on inputs with
+    wider gaps keeps it) and the output does not change; left at None,
+    nothing is recorded."""
     jm, _, tm, tc, params, m = _layer(1, 0, 8.0)
     x = np.random.RandomState(6).randn(2, 8, D_MODEL).astype(np.float32)
     with torch.no_grad():
         plain = tffn.moe(m, torch.from_numpy(x), d_ff=D_FF, moe_cfg=tm,
                          comp=tc, mode="serve")
-        m.logit_gaps = []
+        assert m.logit_gap is None
+        gap = torch.full((), float("inf"))
+        m.logit_gap = gap
         got = tffn.moe(m, torch.from_numpy(x), d_ff=D_FF, moe_cfg=tm,
                        comp=tc, mode="serve")
+        tffn.moe(m, torch.from_numpy(4 * x), d_ff=D_FF, moe_cfg=tm,
+                 comp=tc, mode="serve")
     assert torch.equal(got, plain)
     logits = np.einsum("td,de->te", x.reshape(-1, D_MODEL),
                        np.asarray(params["router"], np.float32))
     top = np.sort(logits, axis=-1)
     want = float((top[:, -1] - top[:, -2]).min())
-    assert len(m.logit_gaps) == 1
-    np.testing.assert_allclose(m.logit_gaps[0], want, rtol=1e-5, atol=1e-6)
+    assert m.logit_gap is gap                  # updated in place
+    np.testing.assert_allclose(float(m.logit_gap), want, rtol=1e-5,
+                               atol=1e-6)
 
 
 def test_moe_training_is_refused():

@@ -3,12 +3,14 @@
 on one CUDA card, so the two trees' times can be compared within one call.
 
     python3 tools/serve_turns.py --parent DIR [--change DIR] \\
-        [--order PCCP] [--phases serve_phi3,serve_moe] [--out FILE]
+        [--order PCCP] [--phases serve,serve_quant:8,serve_phi3] [--out FILE]
 
 Each turn is a fresh process started in the tree's root: it imports that
 tree's ``chip_smoke``, builds the tree's kernels (into the tree's own
 ``build/``; the first turn of a tree pays its ``nvcc`` time) and runs
-``phase_<name>()`` for each phase, which prints the phase's JSON line.
+``phase_<name>`` for each phase, which prints the phase's JSON line; a
+phase that takes the tinyllama config gets it, and ``name:arg`` passes an
+integer too (``serve_quant:4``: int4 planes).
 Every line is kept with its turn and tree (``--out``, JSON lines), and a
 table of the engines' prefill ms, ms per decode step, tokens per second
 and ``bc_fused`` launches per forward pass is printed.  ``--change``
@@ -22,6 +24,7 @@ import sys
 from pathlib import Path
 
 TURN = """
+import inspect
 import sys
 import torch
 sys.path.insert(0, ".")
@@ -31,8 +34,12 @@ if not torch.cuda.is_available():
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 cs.build.build()
+cfg = cs.get_config(cs.ARCH)
 for name in sys.argv[1:]:
-    getattr(cs, "phase_" + name)()
+    phase, _, arg = name.partition(":")
+    fn = getattr(cs, "phase_" + phase)
+    args = [cfg] if "cfg" in inspect.signature(fn).parameters else []
+    fn(*args, *([int(arg)] if arg else []))
 """
 
 
@@ -67,14 +74,23 @@ def main() -> int:
             return 1
         for line in lines:
             kept.append({"turn": turn, "tree": tag, **line})
-            for engine in ("batch", "continuous"):
-                run = line.get(engine)
-                if not isinstance(run, dict):
-                    continue
-                rows.append((line["phase"], engine, turn, tag,
+            # serve_arch lines hold one run per engine; the serve phases'
+            # lines are one continuous-engine run at their top level
+            runs = {e: line[e] for e in ("batch", "continuous")
+                    if isinstance(line.get(e), dict)}
+            if not runs and "decode_steps" in line:
+                runs = {"continuous": line}
+            phase = line.get("phase")
+            if "weight_bits" in line:
+                phase = f"{phase}_int{line['weight_bits']}"
+            per_pass = line.get("bc_fused_per_pass") or line.get(
+                "launches_per_pass", {}).get("bc_fused")
+            for engine, run in runs.items():
+                rows.append((phase, engine, turn, tag,
                              1e3 * run["prefill_s"] / max(run["prefills"], 1),
-                             run["ms_per_step"], run["tokens_per_s"],
-                             line.get("bc_fused_per_pass")))
+                             1e3 * run["decode_s"]
+                             / max(run["decode_steps"], 1),
+                             run["tokens_per_s"], per_pass))
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text("".join(json.dumps(x) + "\n" for x in kept))
