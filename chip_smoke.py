@@ -70,6 +70,21 @@ itself.  Each phase prints one JSON line:
                 the same weights (llama4's re-baked in place): prefill
                 logits within 1e-4 of their scale, greedy tokens equal up to
                 the first near-tie
+  serve_mixtral, serve_xlstm, serve_whisper  the archs only the batch
+                ``Engine`` serves, at their published widths and depth
+                after a one-request warm-up: mixtral-8x7b (32 layers of
+                sliding-window attention over a ring cache of 4,096 slots,
+                8 experts top-2; 4 requests of 4,096-4,200 + 8 tokens),
+                xlstm-125m (12 mLSTM / sLSTM cells; 4 of 17-200 + 16) and
+                whisper-large-v3 (32 encoder layers over 1,500 zero frames,
+                32 decoder layers with cross-attention over the cached
+                encoder K/V; 4 of 17-200 + 16): exact launch counts per lane
+                (the encoder and cross K/V once a prefill), tokens/s,
+                prefill and step times, cache and peak bytes; the B=1
+                float32 oracle equal to a hand-run ``batch_trace``; and at
+                one group of the layer pattern (full width) the card's
+                float32 prefill logits within 1e-4 of their scale of the
+                CPU's plain path
   decode_graph  the continuous engine's decode loop replayed from its CUDA
                 graph against the same loop run eagerly, on the f32 and
                 bf16 pools (stream), the gather path and the int8 pool,
@@ -96,6 +111,17 @@ positions 614-774), ``bc_fused`` on all three lanes at llama4's
 projection and expert shapes (4 rows) and phi-3-vision's, and llama4's
 expert stack (128 experts of 4 rows, up/gate) in one launch on each lane,
 held bit for bit to the per-expert loop and to its CUDA-graph replay.
+Then the shapes of the batch-only archs, each as their batch run or
+float32 oracle launches it: flash over whisper's 1,500 frames
+(bidirectional, bf16 at 4 requests and float32 at 1), its
+cross-attention (a 4 x 200 row prefill and a one-row decode over 1,500
+keys), mixtral's windowed prefill (window 4,096: bf16 at 4 x 4,200, held
+to the plain version one row at a time, and float32 at 1 x 4,100) and
+ring decode (4 rows over the 4,089 keys of the last step); ``bc_fused``
+at whisper's and xlstm's decode projections and mixtral's expert stack
+(8 experts of 4 rows, all three lanes); ``spectral_matmul`` at whisper's
+encoder rows (N = 6,000).  Their summary entries count the launches of
+that one shape (``Kernel.shape_launches``).
 Every flash case times ``F.scaled_dot_product_attention`` under each of
 its backends and takes the one ``SDPA_PINNED`` names as its library time;
 ``paged_attention`` also with one slot idle where none is (cases ending
@@ -135,9 +161,11 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import paged as pg  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import spectral_matmul as sm  # noqa: E402
+from repro_torch.layers import attention as attn_lib  # noqa: E402
 from repro_torch.layers import ffn  # noqa: E402
-from repro_torch.models.registry import build_model  # noqa: E402
-from repro_torch.models.transformer import init_params, layer_kinds  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.models.registry import build_model, init_params  # noqa: E402
+from repro_torch.models.transformer import layer_kinds  # noqa: E402
 from repro_torch.quant import codec  # noqa: E402
 from repro_torch.serve import decode as dec  # noqa: E402
 from repro_torch.serve import kvcache as kvc  # noqa: E402
@@ -155,6 +183,7 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 LIBRARIES = (bc_fused.KERNEL, fa.KERNEL, pa.KERNEL, pg.KERNEL, sm.KERNEL)
 QWEN = ("qwen2.5-3b", "qwen3-4b")
 PHI3, MOE = "phi-3-vision-4.2b", "llama4-maverick-400b-a17b"
+MIXTRAL, XLSTM, WHISPER = "mixtral-8x7b", "xlstm-125m", "whisper-large-v3"
 ROWS = 8 * 256              # batch-prefill rows: 8 prompts padded to 256
 # serve_arch's requests and engine sizes for serve_phi3 / serve_moe (4
 # requests; ContinuousEngine with SLOTS slots and pages of PAGE).  The
@@ -165,6 +194,42 @@ SERVE_ARCH = {
     MOE: dict(lo=17, hi=64, new=8, max_seq=128, oracle_len=48,
               oracle_new=8)}
 SLOTS, PAGE = 4, 16
+# serve_batch_arch's requests and sizes for the archs only the batch engine
+# serves: 4 requests of lo-hi prompt tokens (mixtral's cover its window of
+# 4,096, as its ring cache requires) and ``new`` new tokens; the B=1
+# float32 oracle of oracle_len + oracle_new; the card-against-CPU check at
+# the depth ``reduced`` (one group of the layer pattern, full width) on a
+# prompt of check_len tokens
+BATCH_ARCH = {
+    MIXTRAL: dict(lo=4096, hi=4200, new=8, max_seq=4224, oracle_len=4100,
+                  oracle_new=8, reduced=dict(num_layers=2), check_len=64),
+    XLSTM: dict(lo=17, hi=200, new=16, max_seq=256, oracle_len=48,
+                oracle_new=16, reduced=dict(num_layers=3), check_len=64),
+    WHISPER: dict(lo=17, hi=200, new=16, max_seq=256, oracle_len=48,
+                  oracle_new=16, reduced=dict(num_layers=2,
+                                              encoder_layers=2),
+                  check_len=48)}
+
+
+def ring_decode_keys(S, steps, window):
+    """The keys mixtral's ring read hands the flash kernel at the last of
+    ``steps`` decode steps after a prefill of S positions: the ring's
+    slot rules (``layers/attention.py``) replayed on a host ``pos`` row of
+    min(window, S + steps) slots, then the slots ``ring_runs`` keeps.
+    Each decode step overwrites a position the window still holds, so the
+    count falls by one a step (4,095 .. 4,089 at S = 4,200)."""
+    smax = min(window, S + steps)
+    pos = torch.arange(S - smax, S, dtype=torch.int32)
+    for p in range(S, S + steps):
+        pos[p % smax] = p
+    return sum(b - a for a, b in attn_lib.ring_runs(pos, S + steps - 1,
+                                                    window))
+
+
+# serve_mixtral's keys at its last ring decode step
+RING_KEYS = ring_decode_keys(BATCH_ARCH[MIXTRAL]["hi"],
+                             BATCH_ARCH[MIXTRAL]["new"] - 1,
+                             get_config(MIXTRAL).attention.sliding_window)
 # Every lane, one exported C function each: (library, the TPU kernel it
 # replaces, the kernel-check group and case its times come from, the phase
 # whose run gives its launch count).
@@ -239,6 +304,51 @@ NEW_SHAPES = {
         sm.KERNEL, "src/repro/kernels/spectral_matmul.py:42",
         "spectral_matmul", "tinyllama_fused_up_gate_n2048",
         "serve_fused_batch"),
+    # the batch-only archs (serve_mixtral / serve_xlstm / serve_whisper):
+    # launches from that arch's batch-engine run, or its float32 oracle,
+    # counted at the case's own shape (``launch_shape``; the plan path's
+    # and the lane's counts beside it)
+    "flash_attention@encoder": (fa.KERNEL,
+                                "src/repro/kernels/flash_attention.py:75",
+                                "flash_attention",
+                                "whisper_encoder_bfloat16_b4_s1500",
+                                f"{WHISPER}/batch"),
+    "flash_attention@encoder_f32": (
+        fa.KERNEL, "src/repro/kernels/flash_attention.py:75",
+        "flash_attention", "whisper_encoder_float32_b1_s1500",
+        f"{WHISPER}/oracle"),
+    "flash_attention@cross_prefill": (
+        fa.KERNEL, "src/repro/kernels/flash_attention.py:75",
+        "flash_attention", "whisper_cross_prefill_float32_b4_s200_skv1500",
+        f"{WHISPER}/batch"),
+    "flash_attention@cross_decode": (
+        fa.KERNEL, "src/repro/kernels/flash_attention.py:75",
+        "flash_attention", "whisper_cross_decode_float32_b4_skv1500",
+        f"{WHISPER}/batch"),
+    "flash_attention@window_prefill": (
+        fa.KERNEL, "src/repro/kernels/flash_attention.py:75",
+        "flash_attention", "mixtral_prefill_bfloat16_b4_s4200_w4096",
+        f"{MIXTRAL}/batch"),
+    "flash_attention@window_prefill_f32": (
+        fa.KERNEL, "src/repro/kernels/flash_attention.py:75",
+        "flash_attention", "mixtral_prefill_float32_s4100_w4096",
+        f"{MIXTRAL}/oracle"),
+    "flash_attention@ring_decode": (
+        fa.KERNEL, "src/repro/kernels/flash_attention.py:75",
+        "flash_attention",
+        f"mixtral_ring_decode_float32_b4_skv{RING_KEYS}",
+        f"{MIXTRAL}/batch"),
+    "bc_fused@whisper": (bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48",
+                         "bc_fused", "whisper_up_b4", f"{WHISPER}/batch"),
+    "bc_fused@xlstm": (bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48",
+                       "bc_fused", "xlstm_qkv_b4", f"{XLSTM}/batch"),
+    "bc_fused@experts_e8": (bc_fused.KERNEL,
+                            "src/repro/kernels/bc_fused.py:48", "bc_fused",
+                            "mixtral_experts_up_gate_e8_c4",
+                            f"{MIXTRAL}/batch"),
+    "spectral_matmul@encoder": (
+        sm.KERNEL, "src/repro/kernels/spectral_matmul.py:42",
+        "spectral_matmul", "whisper_up_n6000_hook", f"{WHISPER}/batch"),
 }
 
 
@@ -247,16 +357,29 @@ NEW_SHAPES = {
 SHAPE_PATHS = {"flash_attention@d96": "bf16", "bc_fused@expert": "single",
                "flash_attention@d96_decode": "f32_rows",
                "flash_attention@d96_prefill_f32": "f32_mma",
-               "bc_fused@experts": "experts"}
+               "bc_fused@experts": "experts",
+               "flash_attention@encoder": "bf16",
+               "flash_attention@encoder_f32": "f32_mma",
+               "flash_attention@cross_prefill": "f32_mma",
+               "flash_attention@cross_decode": "f32_rows",
+               "flash_attention@window_prefill": "bf16",
+               "flash_attention@window_prefill_f32": "f32_mma",
+               "flash_attention@ring_decode": "f32_rows",
+               "bc_fused@whisper": "single", "bc_fused@xlstm": "single",
+               "bc_fused@experts_e8": "experts"}
 
 T0 = time.perf_counter()
+_LAST = [T0]                # when the previous phase line was printed
 
 
 def emit(obj) -> None:
     """One JSON line; a phase's line carries ``t_s``, the seconds since the
-    script started, so each phase's share of the run can be read off."""
+    script started, and ``phase_wall_s``, the seconds since the previous
+    phase line (a phase's own where it measures it)."""
     if "phase" in obj:
-        obj = {**obj, "t_s": time.perf_counter() - T0}
+        now = time.perf_counter()
+        obj = {"phase_wall_s": now - _LAST[0], **obj, "t_s": now - T0}
+        _LAST[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -401,6 +524,7 @@ def check_bc_fused(cfg, gen, shapes=None, batches=(8, 256),
                 bound_ms, bound_by = bound(nbytes, flops, torch.float32)
                 lanes[lane].append({
                     "case": f"{name}_b{B}", "shape": [B, p, q, k],
+                    "launch_shape": bc_fused.shape_key(1, B, p, q, k, lane),
                     "plan": bc_fused.plan(B, p, q, k, lane)._asdict(),
                     "planes": str(pl[0].dtype).split(".")[-1],
                     "max_abs_err": err, "tol": tol,
@@ -424,13 +548,13 @@ SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
                  "MATH")
 
 
-def sdpa_library(q, k, v, **kw):
+def sdpa_library(q, k, v, pinned=None, **kw):
     """One ``F.scaled_dot_product_attention`` call on the same inputs as
     the yardstick: ``library_ms`` under the backend ``SDPA_PINNED`` names
-    for the dtype, beside each backend's time (or why it refused) and the
-    unpinned call's, which lets PyTorch choose.  GQA through
-    ``enable_gqa`` where the backend takes it, else on K/V with their
-    heads repeated beforehand (the repeat is not timed)."""
+    for the dtype (or ``pinned``), beside each backend's time (or why it
+    refused) and the unpinned call's, which lets PyTorch choose.  GQA
+    through ``enable_gqa`` where the backend takes it, else on K/V with
+    their heads repeated beforehand (the repeat is not timed)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     G = q.shape[1] // k.shape[1]
     sdpa = F.scaled_dot_product_attention
@@ -454,7 +578,7 @@ def sdpa_library(q, k, v, **kw):
         if name not in backends:
             backends[name] = {"refused": why}
     default = next(fn for gqa, fn in ways)
-    pinned = SDPA_PINNED[q.dtype]
+    pinned = pinned or SDPA_PINNED[q.dtype]
     if "ms" not in backends[pinned]:
         raise AssertionError(f"SDPA refused its pinned backend {pinned}: "
                              f"{backends[pinned]}")
@@ -672,6 +796,117 @@ def check_flash_decode(cfg, gen, prefix="", B=8, Skv=231):
     return {"flash_attention": ([case], None)}
 
 
+def check_attention(name, B, Hq, Hkv, Sq, Skv, D, dtype, gen, *,
+                    causal=False, window=0, kv_offset=0, sdpa_pinned=None,
+                    ref_rows=False):
+    """One flash case at a shape the three batch-only archs bring: random
+    q (B, Hq, Sq, D) and k/v (B, Hkv, Skv, D) in ``dtype``, the kernel
+    against ``attention_ref`` (tolerance as ``check_flash``), its bound
+    from the (row, key) pairs the mask keeps, and SDPA on the same inputs
+    (a window goes to SDPA as a boolean mask, which its flash backend does
+    not take: such a case pins ``sdpa_pinned``).  With ``ref_rows`` the
+    plain version runs one batch row at a time (its (Hq, Sq, Skv) float32
+    scores for all B rows at once would not fit beside the rest): the
+    error is the largest row's, ``plain_ms`` the time of the B calls."""
+    q = torch.randn((B, Hq, Sq, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Hkv, Skv, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Hkv, Skv, D), generator=gen, device="cuda").to(dtype)
+    kw = dict(causal=causal, window=window, kv_offset=kv_offset)
+    parts = ([slice(b, b + 1) for b in range(B)] if ref_rows
+             else [slice(None)])
+    plain = lambda: [fa.attention_ref(q[r], k[r], v[r], **kw)  # noqa: E731
+                     for r in parts]
+    got = fa.flash_attention(q, k, v, **kw)
+    refs = plain()
+    torch.cuda.synchronize()
+    scale = max(1.0, *(float(ref.float().abs().max()) for ref in refs))
+    tol = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-4) * scale
+    err = max(max_err(got[r], ref) for r, ref in zip(parts, refs))
+    del refs
+    rows = torch.arange(Sq)[:, None] + kv_offset
+    cols = torch.arange(Skv)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool)
+    if causal:
+        mask &= cols <= rows
+    if window:
+        mask &= cols > rows - window
+    pairs = int(mask.sum())
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4 * D * B * Hq * pairs
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    if window or (causal and (kv_offset or Sq != Skv)):
+        lib_kw = {"attn_mask": mask.to("cuda")}
+    else:
+        lib_kw = {"is_causal": True} if causal else {}
+    return {
+        "case": name, "shape": [B, Hq, Hkv, Sq, Skv, D],
+        "launch_shape": fa.shape_key(B, Hq, Hkv, Sq, Skv, D, dtype, **kw),
+        "causal": causal, "window": window, "kv_offset": kv_offset,
+        "pairs": pairs, "ref_rows": ref_rows,
+        "plan": {**fa.plan(B, Hq, Hkv, Sq, Skv, D, dtype)._asdict(),
+                 "dtype": str(dtype).split(".")[-1]},
+        "max_abs_err": err, "tol": tol,
+        **kernel_times(lambda: fa.flash_attention(q, k, v, **kw)),
+        "plain_ms": time_ms(plain, reps=5, inner=2, warmup=1),
+        **sdpa_library(q, k, v, pinned=sdpa_pinned, **lib_kw),
+        "bytes": nbytes, "flops": flops,
+        "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_batch_archs_attention(gen):
+    """The flash kernel at the shapes serve_mixtral and serve_whisper give
+    it: whisper's bidirectional encoder (bf16 as the batch run serves it,
+    4 requests of 1,500 frames, 20/20 heads of 64; float32 as the B=1
+    oracle runs it), its cross-attention over the 1,500 cached keys (the
+    batch run's prefill of 4 x 200 rows and one-row decode, float32: the
+    query is cast to the float32 cache), mixtral's windowed prefill
+    (window 4,096, 32/8 heads of 128: bf16 at the batch run's 4 prompts
+    padded to 4,200, float32 at the oracle's 1 x 4,100) and its ring decode
+    (the batch run's 4 rows at its last decode step, non-causal)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    wa, ma = get_config(WHISPER).attention, get_config(MIXTRAL).attention
+    w = (wa.num_heads, wa.num_kv_heads)
+    m = (ma.num_heads, ma.num_kv_heads)
+    W = ma.sliding_window
+    mix = BATCH_ARCH[MIXTRAL]
+    hi, olen = mix["hi"], mix["oracle_len"]
+    cases = [
+        check_attention("whisper_encoder_bfloat16_b4_s1500", 4, *w, 1500,
+                        1500, wa.head_dim, bf16, gen),
+        check_attention("whisper_encoder_float32_b1_s1500", 1, *w, 1500,
+                        1500, wa.head_dim, f32, gen),
+        check_attention("whisper_cross_prefill_float32_b4_s200_skv1500", 4,
+                        *w, 200, 1500, wa.head_dim, f32, gen),
+        check_attention("whisper_cross_decode_float32_b4_skv1500", 4, *w, 1,
+                        1500, wa.head_dim, f32, gen),
+        check_attention(f"mixtral_prefill_bfloat16_b4_s{hi}_w{W}", 4, *m,
+                        hi, hi, ma.head_dim, bf16, gen, causal=True,
+                        window=W, sdpa_pinned="EFFICIENT_ATTENTION",
+                        ref_rows=True),
+        check_attention(f"mixtral_prefill_float32_s{olen}_w{W}", 1, *m,
+                        olen, olen, ma.head_dim, f32, gen, causal=True,
+                        window=W),
+        check_attention(f"mixtral_ring_decode_float32_b4_skv{RING_KEYS}", 4,
+                        *m, 1, RING_KEYS, ma.head_dim, f32, gen)]
+    return {"flash_attention": (cases, None)}
+
+
+def batch_arch_projections():
+    """(name -> (n_in, n_out)) of whisper's and xlstm's decode projections
+    (the batch engine's B = 4 rows), and whisper's for the encoder's
+    spectral MAC."""
+    wc, xc = get_config(WHISPER), get_config(XLSTM)
+    d, dff = wc.d_model, wc.d_ff
+    whisper = {"whisper_q_o": (d, d), "whisper_up": (d, dff),
+               "whisper_down": (dff, d)}
+    xd = xc.d_model
+    xi = int(xd * xc.recurrent.proj_factor)
+    xlstm = {"xlstm_up": (xd, xi), "xlstm_qkv": (xi, xi),
+             "xlstm_out": (xi, xd), "xlstm_wx": (xd, 4 * xd),
+             "xlstm_slstm_out": (xd, xd)}
+    return whisper, xlstm
+
+
 def spectral_shapes():
     """(name, n_in, n_out, k) of every distinct batch-prefill projection
     of tinyllama-1.1b and the qwen models."""
@@ -720,7 +955,7 @@ def fused_projections(cfg):
             "tinyllama_fused_up_gate": (cfg.d_model, 2 * cfg.d_ff)}
 
 
-def check_spectral(cfg, gen, shapes=None):
+def check_spectral(cfg, gen, shapes=None, N=ROWS):
     """``spectral_matmul`` against its plain version at every batch-prefill
     shape (F = 65, N = 2048 rows), in both layouts: ``repro``'s contiguous
     one (``<name>_n2048``) and the views ``spectral_contract`` passes
@@ -728,12 +963,13 @@ def check_spectral(cfg, gen, shapes=None):
     replayed from a CUDA graph (the eager call's bits); the library time
     is one complex64 ``torch.matmul`` computing the same product; a hook
     case also times ``copies_ms``, the layout copies of its operands that
-    ``spectral_contract`` made on every call before it read views.  The
-    tolerance: 3xTF32 sums Q terms in another order than ``torch.bmm``,
-    ~1e-6 of the output scale; 1e-4 of it is allowed."""
+    ``spectral_contract`` made on every call before it read views.  ``N``
+    rows (default tinyllama's 2048).  The tolerance: 3xTF32 sums Q terms
+    in another order than ``torch.bmm``, ~1e-6 of the output scale; 1e-4
+    of it is allowed."""
     cases = []
     for name, n_in, n_out, k in shapes or spectral_shapes():
-        F_, N = k // 2 + 1, ROWS
+        F_ = k // 2 + 1
         Q, P = cc.num_blocks(n_in, k), cc.num_blocks(n_out, k)
         xr, xi = (torch.randn((F_, N, Q), generator=gen, device="cuda")
                   for _ in range(2))
@@ -769,6 +1005,7 @@ def check_spectral(cfg, gen, shapes=None):
                 lambda: [t.contiguous() for t in planes])} if suffix else {})
             cases.append({
                 "case": f"{name}_n{N}{suffix}", "shape": [F_, N, Q, P],
+                "launch_shape": sm.shape_key(F_, N, Q, P, layout),
                 "layout": sm.LAYOUT_NAMES[layout],
                 "plan": {**pl._asdict(), "grid": pl.grid, "block": pl.block,
                          "rows": pl.rows, "p_tile": pl.p_tile},
@@ -831,7 +1068,7 @@ def phase_lowering(cfg, gen):
     return rows
 
 
-def check_bc_experts(cfg, gen, C=4):
+def check_bc_experts(cfg, gen, C=4, prefix="llama4"):
     """An expert stack's projection as ``bc_expert_linear`` launches it at
     serve_moe's decode (every expert's dropless buffer of C = 4 rows at 4
     slots): the up/gate projection of all E = 128 experts, one launch on
@@ -897,8 +1134,9 @@ def check_bc_experts(cfg, gen, C=4):
         bound_ms, bound_by = bound(nbytes, flops, torch.float32)
         loop_t = kernel_times(loop)
         out[lane] = ([{
-            "case": f"llama4_experts_up_gate_e{E}_c{C}",
+            "case": f"{prefix}_experts_up_gate_e{E}_c{C}",
             "shape": [E, C, p, q, k],
+            "launch_shape": bc_fused.shape_key(E, C, p, q, k, lane),
             "launch_args": list(bc_fused.launch_args(C, p, q, k, lane, E)),
             "planes": str(pl[0].dtype).split(".")[-1],
             "loop_equal": loop_equal, "graph_equal": graph_equal,
@@ -978,6 +1216,20 @@ def phase_kernels(cfg):
                                batches=(4,)),
         # ... and all 128 of them in the one launch serve_moe makes
         lambda: check_bc_experts(moe, gen)]
+    whisper, xlstm = batch_arch_projections()
+    wk = get_config(WHISPER).compression.block_attn
+    checks += [
+        # the batch-only archs: flash at their masks and shapes, bc_fused
+        # at their decode projections (4 rows), mixtral's expert stack (8
+        # experts, top-2: 4 rows each at 4 rows), spectral_matmul at
+        # whisper's encoder rows (4 x 1,500)
+        lambda: check_batch_archs_attention(gen),
+        lambda: check_bc_fused(cfg, gen, {**whisper, **xlstm}, batches=(4,),
+                               lane_names=("bc_fused",)),
+        lambda: check_bc_experts(get_config(MIXTRAL), gen, prefix="mixtral"),
+        lambda: check_spectral(cfg, gen, [(n, *io, wk)
+                                          for n, io in whisper.items()],
+                               N=4 * 1500)]
     out = {}
     for check in checks:
         for lane, (cases, main_case) in check().items():
@@ -1037,6 +1289,12 @@ def path_counts():
     """Launches per plan path, by library (those that name their paths)."""
     return {lib.name: dict(lib.path_launches) for lib in LIBRARIES
             if lib.path_launches}
+
+
+def shape_counts():
+    """Launches per shape (the wrappers' ``shape_key``), by library."""
+    return {lib.name: dict(lib.shape_launches) for lib in LIBRARIES
+            if lib.shape_launches}
 
 
 def timed_run(engine, reqs):
@@ -1214,18 +1472,39 @@ def batch_summary(phase, cfg, results, reqs, st, launches, wall, peak):
 
 def projections_per_pass(cfg):
     """(projections the spectral-MAC hook can take, expert launches) in
-    one forward pass: q k v o up gate down of a dense layer; q k v o and
-    the shared expert's three of an MoE layer, plus one launch each for
-    up, gate and down over all the experts (``repro``'s expert FFN takes
-    no hook).  With projection fusion q/k/v are one projection and so are
-    up/gate (the shared expert's too; expert stacks never fuse)."""
+    one forward pass of a decoder LM: q k v o up gate down of a dense
+    layer; q k v o and the shared expert's three of an MoE layer (``moe``
+    or mixtral's ``moe_swa``), plus one launch each for up, gate and down
+    over all the experts (``repro``'s expert FFN takes no hook); up
+    up_gate q k v out of an mLSTM layer, wx out of an sLSTM one.  With
+    projection fusion q/k/v are one projection and so are up/gate (the
+    shared expert's too; expert stacks never fuse)."""
     kinds = layer_kinds(cfg)
-    n_moe = kinds.count("moe")
+    n_moe = sum(k in ("moe", "moe_swa") for k in kinds)
     fuse = cfg.compression.fuse_projections
     attn, mlp = (2, 2) if fuse else (4, 3)
     shared = mlp if cfg.moe.shared_expert else 0
-    return ((attn + mlp) * (len(kinds) - n_moe) + (attn + shared) * n_moe,
-            3 * n_moe)
+    per_kind = {"attn": attn + mlp, "moe": attn + shared,
+                "moe_swa": attn + shared, "mlstm": 6, "slstm": 2}
+    return sum(per_kind[k] for k in kinds), 3 * n_moe
+
+
+def batch_pass_counts(cfg):
+    """Launches of one batch-engine forward pass as (prefill, decode step)
+    pairs: ``projections`` the hook can take, ``experts`` (expert-stack
+    launches of the fused kernel), ``flash`` (attention layers).  An
+    encoder-decoder's prefill also runs the encoder (q k v o up down and
+    bidirectional attention a layer) and each decoder layer's cross K/V
+    once; its decoder pass is self q k v o, cross q o, up down, and two
+    attentions a layer."""
+    if cfg.is_encoder_decoder:
+        le, ld = cfg.encoder_layers, cfg.num_layers
+        return {"projections": (6 * le + 10 * ld, 8 * ld),
+                "experts": (0, 0), "flash": (le + 2 * ld, 2 * ld)}
+    plain, experts = projections_per_pass(cfg)
+    attn = sum(k in tfm.ATTN_KINDS for k in layer_kinds(cfg))
+    return {"projections": (plain, plain), "experts": (experts, experts),
+            "flash": (attn, attn)}
 
 
 def continuous_launches(cfg, st, lane="bc_fused"):
@@ -1241,18 +1520,19 @@ def continuous_launches(cfg, st, lane="bc_fused"):
 
 
 def batch_launches(cfg, st, lane="bc_fused", hooked=True):
-    """What one batch-engine run must launch: every projection of a
-    prefill but the experts' through ``spectral_matmul`` (float32 planes,
-    ``hooked``) or the fused kernel's lane, the experts' and every decode
-    projection through the fused kernel, the flash kernel once per layer
+    """What one batch-engine run must launch (``batch_pass_counts`` a
+    prefill and a decode step): every projection of a prefill but the
+    experts' through ``spectral_matmul`` (float32 planes, ``hooked``) or
+    the fused kernel's lane, the experts' and every decode projection
+    through the fused kernel, the flash kernel once per attention layer
     and forward pass."""
-    plain, experts = projections_per_pass(cfg)
+    c = batch_pass_counts(cfg)
+    (pp, ps), (ep, es), (fp, fs) = c["projections"], c["experts"], c["flash"]
     pre, steps = st["prefills"], st["decode_steps"]
-    want = {lane: (plain + experts) * steps
-            + (experts if hooked else plain + experts) * pre,
-            "flash_attention": cfg.num_layers * (pre + steps)}
+    want = {lane: (ps + es) * steps + (ep if hooked else pp + ep) * pre,
+            "flash_attention": fp * pre + fs * steps}
     if hooked:
-        want["spectral_matmul"] = plain * pre
+        want["spectral_matmul"] = pp * pre
     return want
 
 
@@ -1674,6 +1954,169 @@ def phase_serve_moe():
 
 
 # ---------------------------------------------------------------------------
+# serve_mixtral / serve_xlstm / serve_whisper: the archs only the batch
+# engine serves
+# ---------------------------------------------------------------------------
+def batch_paths(cfg, st):
+    """The plan path of every launch in a bf16 batch-engine run of a
+    batch-only arch: the fused kernel's expert stacks apart from its
+    single projections; flash prefills on the bf16 lane (whisper's
+    cross-attention reads the float32 cache: the float32 tensor-core
+    kernel, its 4 x 200 rows well above 16), one-row decodes on the float32
+    rows kernel."""
+    c = batch_pass_counts(cfg)
+    pre, steps = st["prefills"], st["decode_steps"]
+    (pp, ps), (ep, es) = c["projections"], c["experts"]
+    fused = {"experts": ep * pre + es * steps, "single": ps * steps}
+    if cfg.is_encoder_decoder:
+        le, ld = cfg.encoder_layers, cfg.num_layers
+        flash = {"bf16": (le + ld) * pre, "f32_mma": ld * pre,
+                 "f32_rows": 2 * ld * steps}
+    else:
+        fp, fs = c["flash"]
+        flash = {"bf16": fp * pre, "f32_rows": fs * steps}
+    drop = lambda d: {k: v for k, v in d.items() if v}  # noqa: E731
+    return {lib: drop(d) for lib, d in (("bc_fused", fused),
+                                        ("flash_attention", flash))
+            if drop(d)}
+
+
+def reduced_check(cfg, reduced, n):
+    """float32 prefill logits at the depth ``reduced`` (full width) on the
+    card against the CPU's plain path, the same weights and prompt (and,
+    for whisper, the same random frames): within 1e-4 of their scale.  A
+    decoder LM runs without a cache (mixtral's ring rule does not apply);
+    whisper's prefill fills its cache."""
+    rcfg = cfg.replace(dtype="float32", **reduced)
+    cpu = precompute_serving_params(
+        init_params(rcfg, seed=SEED + 5, device="cpu"), rcfg)
+    card = copy.deepcopy(cpu).to(DEVICE)
+    rng = np.random.RandomState(SEED + 5)
+    tokens = rng.randint(0, rcfg.vocab_size, size=(1, n))
+    frames = (rng.randn(1, rcfg.encoder_seq, rcfg.d_model).astype(np.float32)
+              if rcfg.is_encoder_decoder else None)
+    model = build_model(rcfg)
+
+    def logits(params, dev):
+        toks = torch.as_tensor(tokens, device=dev)
+        with torch.no_grad():
+            if frames is None:
+                out, _ = tfm.forward(params, toks, rcfg,
+                                     kernel_fn=kops.spectral_contract)
+            else:
+                cache = model.init_cache(1, n, dtype=torch.float32,
+                                         device=dev)
+                out, _ = model.prefill(
+                    params, {"tokens": toks, "frames": torch.as_tensor(
+                        frames, device=dev)}, cache,
+                    kernel_fn=kops.spectral_contract)
+        return out.float().cpu()
+
+    t0 = time.perf_counter()
+    want = logits(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    got = logits(card, DEVICE)
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    err = max_err(got, want)
+    if not err <= tol:
+        raise AssertionError(f"{cfg.name} at {reduced}: card logits differ "
+                             f"from the CPU's by {err} > {tol}")
+    del card
+    return {"reduced": reduced, "prompt_len": n, "max_abs_err": err,
+            "tol": tol, "cpu_s": cpu_s}
+
+
+def serve_batch_arch(arch, phase, *, lo, hi, new, max_seq, oracle_len,
+                     oracle_new, reduced, check_len):
+    """An arch only the batch engine serves, at its published widths and
+    depth, random weights from the seed: 4 requests of ``lo``-``hi``
+    prompt tokens and ``new`` new tokens through ``Engine`` after a
+    one-request warm-up, with exact launch counts per lane and per plan
+    path (``batch_paths``); then the B=1 float32 oracle (the engine's
+    tokens equal a hand-run ``batch_trace``; its launches counted apart),
+    then ``reduced_check``.  Returns the phase's line."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    warm, reqs = arch_requests(cfg, lo, hi, new)
+    Engine(cfg, params, max_batch=8, max_seq=max_seq,
+           device=DEVICE).generate(warm)
+    results, st, launches, wall, peak = timed_run(
+        Engine(cfg, params, max_batch=8, max_seq=max_seq, device=DEVICE),
+        reqs)
+    check_launches(launches, batch_launches(cfg, st))
+    paths = path_counts()
+    if paths != batch_paths(cfg, st):
+        raise AssertionError(f"{arch}: launches by plan path {paths}, "
+                             f"expected {batch_paths(cfg, st)}")
+    counts = batch_pass_counts(cfg)
+    pre, steps = st["prefills"], st["decode_steps"]
+    tokens = sum(r["decode_len"] for r in results)
+    runs = {"batch": {
+        "paths": paths, "shapes": shape_counts(),
+        "requests": len(results), "tokens": tokens,
+        "wall_s": wall, "tokens_per_s": tokens / wall,
+        "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+        "prefills": pre, "decode_steps": steps,
+        "ms_per_prefill": 1e3 * st["prefill_s"] / max(pre, 1),
+        "ms_per_step": 1e3 * st["decode_s"] / max(steps, 1),
+        "launches": launches, "peak_memory_bytes": peak,
+        "cache_bytes": st["cache_bytes"],
+        "padded_prompt_tokens": st["padded_prompt_tokens"]}}
+    prompt = np.random.RandomState(SEED + 4).randint(
+        0, cfg.vocab_size, size=oracle_len).astype(np.int32)
+    cfg32 = cfg.replace(dtype="float32")
+    for lib in LIBRARIES:
+        lib.reset_counts()
+    trace = batch_trace(cfg32, params, prompt, oracle_new)
+    got = generate_one(Engine(cfg32, params, max_batch=1,
+                              max_seq=oracle_len + oracle_new,
+                              device=DEVICE), prompt, oracle_new)
+    if got != trace[0]:
+        raise AssertionError(f"{arch}: the B=1 engine's {got} against its "
+                             f"hand-run path's {trace[0]}")
+    runs["oracle"] = {"launches": lane_counts(), "paths": path_counts(),
+                      "shapes": shape_counts(),
+                      "prompt_len": oracle_len, "new_tokens": oracle_new,
+                      "tokens": got}
+    flash = runs["oracle"]["paths"].get("flash_attention", {})
+    if counts["flash"][0] and not flash.get("f32_mma"):
+        raise AssertionError(f"{arch}: the float32 oracle's prefills did not "
+                             f"take the tensor-core kernel: {flash}")
+    del params
+    torch.cuda.empty_cache()
+    out = {"phase": phase, "arch": arch, "engine": "batch",
+           "layers": cfg.num_layers, "encoder_layers": cfg.encoder_layers,
+           "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size,
+           "prompt_lens": [len(r.prompt) for r in reqs],
+           "launches_per_pass": {
+               "prefill": {"projections": counts["projections"][0],
+                           "expert_stacks": counts["experts"][0],
+                           "flash_attention": counts["flash"][0]},
+               "decode_step": {"projections": counts["projections"][1],
+                               "expert_stacks": counts["experts"][1],
+                               "flash_attention": counts["flash"][1]}},
+           **runs, "oracle_b1_float32_equals_trace": True,
+           "card_vs_cpu": reduced_check(cfg, reduced, check_len),
+           "phase_wall_s": time.perf_counter() - t0,
+           "phase_peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    emit(out)
+    return out
+
+
+def phase_serve_batch_archs():
+    """mixtral-8x7b (every layer sliding-window attention over a ring
+    cache, then 8 experts top-2), xlstm-125m (mLSTM / sLSTM cells, no
+    attention) and whisper-large-v3 (32 + 32 layers, 1,500 zero frames,
+    cross-attention over the cached encoder K/V)."""
+    return {arch: serve_batch_arch(arch, f"serve_{arch.split('-')[0]}",
+                                   **BATCH_ARCH[arch])
+            for arch in (MIXTRAL, XLSTM, WHISPER)}
+
+
+# ---------------------------------------------------------------------------
 # serve_fused: projection fusion (q/k/v and up/gate as one bc_fused launch)
 # ---------------------------------------------------------------------------
 FUSED_PARITY = {ARCH: (48, 16), QWEN[0]: (48, 16), QWEN[1]: (48, 16),
@@ -1981,6 +2424,9 @@ def main() -> int:
     for arch, out in ((PHI3, phase_serve_phi3()), (MOE, phase_serve_moe())):
         for engine in ("continuous", "batch", "oracle"):
             runs[f"{arch}/{engine}"] = out[engine]
+    for arch, out in phase_serve_batch_archs().items():
+        for engine in ("batch", "oracle"):
+            runs[f"{arch}/{engine}"] = out[engine]
     runs.update(phase_serve_fused(cfg))
     phase_decode_graph(cfg)
     phase_lowering(cfg, kernel_gen())
@@ -1996,6 +2442,11 @@ def main() -> int:
             extra = {"lane_launches": launches, "path": SHAPE_PATHS[name]}
             launches = runs[run]["paths"].get(lib.name, {}).get(
                 SHAPE_PATHS[name], 0)
+        if "shapes" in runs[run]:        # the batch-only archs' runs
+            key = "path_launches" if name in SHAPE_PATHS else "lane_launches"
+            extra.update({key: launches, "launch_shape": c["launch_shape"]})
+            launches = runs[run]["shapes"].get(lib.name, {}).get(
+                c["launch_shape"], 0)
         if not launches:
             raise AssertionError(f"{name}: no launch in the {run} run")
         summary.append({

@@ -378,6 +378,7 @@ class FusedProjections:
     the projections then keep no planes of their own."""
     FUSED_CACHE: str = ""
     FUSED: Tuple[str, ...] = ()
+    may_fuse: bool = True         # False: never fused (cross-attention)
 
     def fused_linears(self):
         return [getattr(self, n) for n in self.FUSED]

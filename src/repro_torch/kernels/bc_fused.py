@@ -172,6 +172,12 @@ def launch_args(B: int, p: int, q: int, k: int, lane: str = "bc_fused",
 _PANELS: Dict[Tuple[int, str], torch.Tensor] = {}
 
 
+def shape_key(E: int, B: int, p: int, q: int, k: int, lane: str) -> str:
+    """A launch's shape (E experts of B rows, p x q blocks of k) and lane
+    as ``Kernel.shape_launches`` counts it."""
+    return f"{lane}/{E}x{B}x{p}x{q}x{k}"
+
+
 def dft_panel_t(k: int, device) -> torch.Tensor:
     """The transpose of ``dft_panel`` (ncols(k), k), built once: the
     iDFT's matrix where it runs on the CUDA cores."""
@@ -270,5 +276,6 @@ def bc_fused_matmul(xb: torch.Tensor, wr: torch.Tensor, ws1: torch.Tensor,
     KERNEL.launch(lane, device, ptr(xb), *planes, ptr(dft_panel(k, device)),
                   ptr(dft_panel_t(k, device)), ptr(y),
                   *launch_args(B, p, q, k, lane, E),
-                  path="experts" if stacked else "single")
+                  path="experts" if stacked else "single",
+                  shape=shape_key(E, B, p, q, k, lane))
     return y

@@ -16,7 +16,7 @@ Launch counts stay exact when launches are captured into a CUDA graph
 inside ``setup(record)`` a launch counts into ``Kernel.setup_launches``
 (warm-up and capture are counted apart), and the record keeps it, so each
 ``record.replayed()`` after a replay of the graph adds the captured
-launches to the kernels' counts, per lane and per plan path.
+launches to the kernels' counts, per lane, per plan path and per shape.
 """
 from __future__ import annotations
 
@@ -100,14 +100,16 @@ def build(names: Iterable[str] = KERNEL_NAMES) -> Dict[str, float]:
 
 class LaunchRecord:
     """The launches captured into one CUDA graph, by (kernel, exported
-    function, plan path).  ``replayed(n)`` adds them ``n`` times to the
-    kernels' counts: call it after each replay of the graph."""
+    function, plan path, shape).  ``replayed(n)`` adds them ``n`` times to
+    the kernels' counts: call it after each replay of the graph."""
 
     def __init__(self):
-        self.launches: Dict[Tuple["Kernel", str, Optional[str]], int] = {}
+        self.launches: Dict[Tuple["Kernel", str, Optional[str],
+                                  Optional[str]], int] = {}
 
-    def add(self, kernel: "Kernel", fn: str, path: Optional[str]) -> None:
-        key = (kernel, fn, path)
+    def add(self, kernel: "Kernel", fn: str, path: Optional[str],
+            shape: Optional[str] = None) -> None:
+        key = (kernel, fn, path, shape)
         self.launches[key] = self.launches.get(key, 0) + 1
 
     @property
@@ -115,8 +117,8 @@ class LaunchRecord:
         return sum(self.launches.values())
 
     def replayed(self, n: int = 1) -> None:
-        for (kernel, fn, path), count in self.launches.items():
-            kernel.count(fn, path, count * n)
+        for (kernel, fn, path, shape), count in self.launches.items():
+            kernel.count(fn, path, count * n, shape)
 
 
 _SETUP: List[Optional[LaunchRecord]] = []     # open ``setup`` contexts
@@ -143,7 +145,9 @@ class Kernel:
     returned an error, and otherwise adds one to ``launches``, to
     ``fn_launches[fn]`` (one count per exported function, i.e. per lane)
     and, where the wrapper names the kernel its plan chose (``path``), to
-    ``path_launches[path]``; inside ``setup`` it adds one to
+    ``path_launches[path]`` and, where it names the launch's shape
+    (``shape``, a string of the wrapper's own ``shape_key``), to
+    ``shape_launches[shape]``; inside ``setup`` it adds one to
     ``setup_launches`` instead (module docstring)."""
 
     def __init__(self, name: str, signatures: Dict[str, Sequence]):
@@ -156,13 +160,17 @@ class Kernel:
         self.launches = 0
         self.fn_launches = {fn: 0 for fn in self.signatures}
         self.path_launches: Dict[str, int] = {}
+        self.shape_launches: Dict[str, int] = {}
         self.setup_launches = 0
 
-    def count(self, fn: str, path: Optional[str] = None, n: int = 1) -> None:
+    def count(self, fn: str, path: Optional[str] = None, n: int = 1,
+              shape: Optional[str] = None) -> None:
         self.launches += n
         self.fn_launches[fn] += n
         if path is not None:
             self.path_launches[path] = self.path_launches.get(path, 0) + n
+        if shape is not None:
+            self.shape_launches[shape] = self.shape_launches.get(shape, 0) + n
 
     @property
     def source(self) -> Path:
@@ -181,7 +189,8 @@ class Kernel:
         return self._lib
 
     def launch(self, fn: str, device: torch.device, *args,
-               path: Optional[str] = None) -> None:
+               path: Optional[str] = None,
+               shape: Optional[str] = None) -> None:
         lib = self.lib()
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, fn)(*args, stream)
@@ -189,11 +198,11 @@ class Kernel:
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {err} "
                                f"({lib.error_string(err).decode()})")
         if not _SETUP:
-            self.count(fn, path)
+            self.count(fn, path, shape=shape)
             return
         self.setup_launches += 1
         if _SETUP[-1] is not None:
-            _SETUP[-1].add(self, fn, path)
+            _SETUP[-1].add(self, fn, path, shape)
 
 
 def check_cuda(name: str, tensors: Dict[str, torch.Tensor],

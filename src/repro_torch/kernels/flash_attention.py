@@ -103,6 +103,13 @@ def plan(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int,
                      "f32_rows", groups)
 
 
+def shape_key(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int, dtype,
+              *, causal: bool, window: int = 0, kv_offset: int = 0) -> str:
+    """A launch's shape and mask as ``Kernel.shape_launches`` counts it."""
+    return (f"{B}x{Hq}x{Hkv}x{Sq}x{Skv}x{D}/{str(dtype).split('.')[-1]}/"
+            f"{'causal' if causal else 'full'}/w{window}/off{kv_offset}")
+
+
 def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
                   scale=None, kv_offset=0):
     """Plain version: full-materialization softmax attention.
@@ -162,5 +169,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                   B, Hq, Hkv, Sq, Skv, D, float(scale), int(bool(causal)),
                   int(window), float(softcap), int(kv_offset),
                   DTYPE_CODES[q.dtype], pl.rows, pl.splits, pl.chunk,
-                  int(pl.path == "f32_mma"), path=pl.path)
+                  int(pl.path == "f32_mma"), path=pl.path,
+                  shape=shape_key(B, Hq, Hkv, Sq, Skv, D, q.dtype,
+                                  causal=bool(causal), window=int(window),
+                                  kv_offset=int(kv_offset)))
     return o

@@ -188,6 +188,11 @@ def layout_of(xr, xi, wr, ws1, ws2) -> int:
         f"bin-minor (x {want[BIN_MINOR][0]}, w {want[BIN_MINOR][1]})")
 
 
+def shape_key(F: int, N: int, Q: int, P: int, layout: int) -> str:
+    """A launch's shape and layout as ``Kernel.shape_launches`` counts it."""
+    return f"{F}x{N}x{Q}x{P}/{LAYOUT_NAMES[layout]}"
+
+
 def _outputs(layout: int, F: int, B: int, P: int, device):
     """(yr, yi), each (F, B, P) in X's layout."""
     if layout == BIN_MAJOR:
@@ -230,5 +235,6 @@ def spectral_matmul(xr, xi, wr, ws1, ws2) -> Tuple[torch.Tensor, torch.Tensor]:
     yr, yi = _outputs(layout, F, B, P, device)
     KERNEL.launch("spectral_matmul", device, ptr(xr), ptr(xi), ptr(wr),
                   ptr(ws1), ptr(ws2), ptr(yr), ptr(yi), F, B, Q, P, layout,
-                  pl.chunks, pl.fc, pl.rows, pl.stages, pl.jn, pl.splits)
+                  pl.chunks, pl.fc, pl.rows, pl.stages, pl.jn, pl.splits,
+                  shape=shape_key(F, B, Q, P, layout))
     return yr, yi

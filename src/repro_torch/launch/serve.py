@@ -12,7 +12,11 @@ KV pool, on the CUDA card unless ``--device`` names another.
 Weights are random, drawn from ``--seed`` (no checkpoint is loaded).
 Prompts are 16-31 random tokens; a ``vision_stub`` arch (phi-3-vision)
 gets ``num_patches`` more, the slots its zero patch embeddings replace, as
-an image-plus-text request would.
+an image-plus-text request would, and a sliding-window arch (mixtral) its
+window more, so that its ring cache's prefill can fill the ring.  An
+encoder-decoder (whisper) encodes zero frames.  mixtral, xlstm and whisper
+are served by the batch engine only: ``--engine continuous`` refuses them,
+as ``repro``'s launcher does.
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ import torch
 
 from ..configs.registry import ARCH_IDS, get_config, get_smoke_config
 from ..device import resolve_device
-from ..models.transformer import init_params
+from ..models.registry import init_params
+from ..models.transformer import layer_kinds, window_for
 from ..quant.codec import QuantPolicy
 from ..serve.engine import ContinuousEngine, Engine, Request
 from ..serve.kvcache import servable_reasons
@@ -87,8 +92,11 @@ def main(argv=None):
     device = resolve_device(args.device)
     params = init_params(cfg, seed=args.seed, device=device)
     quant = QuantPolicy(args.kv_dtype, args.quant_weights, args.weight_bits)
-    image = cfg.num_patches if cfg.frontend == "vision_stub" else 0
-    max_seq = image + 64 + args.new_tokens
+    # prompt slots ahead of the 16-31 text tokens: the patches, the window
+    extra = cfg.num_patches if cfg.frontend == "vision_stub" else 0
+    if not cfg.is_encoder_decoder:
+        extra += max(window_for(k, cfg) for k in layer_kinds(cfg))
+    max_seq = extra + 64 + args.new_tokens
     if args.engine == "continuous":
         engine = ContinuousEngine(cfg, params, max_slots=args.max_batch,
                                   max_seq=max_seq, page_size=args.page_size,
@@ -107,7 +115,7 @@ def main(argv=None):
                         seed=args.seed, bucket_prompts=not args.no_bucket,
                         quant=quant, device=device)
     rng = np.random.RandomState(args.seed)
-    reqs = [Request(prompt=rng.randint(0, cfg.vocab_size, size=image
+    reqs = [Request(prompt=rng.randint(0, cfg.vocab_size, size=extra
                                        + rng.randint(16, 32)).astype(
         np.int32), max_new_tokens=args.new_tokens, id=i)
         for i in range(args.requests)]

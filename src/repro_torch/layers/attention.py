@@ -35,18 +35,39 @@ the returned cache is the same storage that was passed in.
 ``kernel_fn`` (the spectral-MAC hook, ``core/circulant.py``) is passed to
 the four projections.
 
+* Sliding-window ring buffer (``window`` set and a cache of at most
+  ``window`` positions, ``init_kv_cache``; mixtral).  Prefill attends over
+  its own projections with the window mask and keeps the last ``Smax``
+  positions of k, v and ``pos`` in slots 0..Smax-1; a decode step writes
+  slot ``cache_pos % Smax``.  Those two rules are ``repro``'s, and they do
+  not agree on where a position lives: after a prefill of S positions,
+  decode position p overwrites position ``S - Smax + (p % Smax)``, which
+  is the oldest only when ``S % Smax == 0``.  So the ring can hold a
+  position the window excludes (and has lost one it includes).  ``repro``
+  reads the whole ring through its ``pos`` row (causal, windowed, -1 =
+  empty); the port keeps the slots that mask keeps (``ring_runs``: one or
+  two runs of slots) and attends over them through the flash kernel with
+  ``causal=False, window=0``.  The ring's ``pos`` row lives on the host:
+  every position written is a host int, so choosing the slots reads
+  nothing back from the card.
+* Cross-attention (``cross_kv=(k, v)``, whisper's decoder): q from ``x``,
+  k and v given (B, Senc, Hkv, D), no RoPE, no cache write, non-causal;
+  the query is cast to k's dtype and the output back.
+* Learned positions (``learned_pos``, whisper): no RoPE; the model adds
+  its position table to the embeddings.
+
 With projection fusion (``CompressionConfig.fuse_projections``) and
 block-circulant q/k/v, the three run as one call against the module's
 ``qkv_cache`` planes (``core/circulant.py:bc_matmul_fused``: one
 fused-kernel launch); the QKV bias is added after the split and qk-norm
-runs after it, as in ``repro``.
-
-Not ported yet: sliding-window ring buffers and cross-attention.
+runs after it, as in ``repro``.  Cross-attention never fuses
+(``Attention(cross=True)``), as in ``repro``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -63,13 +84,16 @@ _NEG = -1e30
 class Attention(FusedProjections, nn.Module):
     """q/k/v/o projections, qk-norm scales where the arch has them, and
     the fused q/k/v planes ``qkv_cache_*`` where projection fusion baked
-    them (``serve/params.py``)."""
+    them (``serve/params.py``).  A cross-attention block (``cross=True``)
+    never fuses."""
     FUSED_CACHE, FUSED = "qkv_cache", ("q", "k", "v")
 
     def __init__(self, cfg, d_model: int, comp=None, *,
                  device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 cross: bool = False):
         super().__init__()
+        self.may_fuse = not cross
         a = cfg.attention
         # q/k/v carry the (dense) QKV bias, o never does (repro :206-207)
         spec = LinearSpec.from_config(comp, "attn", bias=a.qkv_bias)
@@ -129,21 +153,51 @@ def masked_attention(q, k, v, rows, kv_positions, *, softcap=0.0,
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
 
 
+def ring_runs(pos: torch.Tensor, q_pos: int, window: int
+              ) -> List[Tuple[int, int]]:
+    """The runs ``[a, b)`` of ring slots that ``repro``'s mask keeps for
+    the query at ``q_pos``: written (``pos >= 0``), not after ``q_pos``,
+    inside the window.  ``pos`` is the ring's host row."""
+    p = pos.numpy()
+    keep = (p >= 0) & (p <= q_pos) & (p > q_pos - window)
+    edges = np.flatnonzero(np.diff(np.concatenate(
+        ([False], keep, [False])).astype(np.int8)))
+    return list(zip(edges[0::2].tolist(), edges[1::2].tolist()))
+
+
+def _ring_read(q, cache, runs, softcap):
+    """One query row (B, 1, Hq, D) over the ring slots ``runs``: gathered
+    into the kernel's (B, Hkv, n, D) layout in one copy (the same copy a
+    whole-ring read makes), then non-causal flash.  The query is cast to
+    the cache's dtype and the output back."""
+    kt, vt = cache["k"].transpose(1, 2), cache["v"].transpose(1, 2)
+    kr = torch.cat([kt[:, :, a:b] for a, b in runs], dim=2)
+    vr = torch.cat([vt[:, :, a:b] for a, b in runs], dim=2)
+    o = kops.flash_attention(q.to(kr.dtype).transpose(1, 2).contiguous(), kr,
+                             vr, causal=False, softcap=softcap)
+    return o.transpose(1, 2).to(q.dtype)
+
+
 def attention_block(attn: Attention, x: torch.Tensor, *, cfg, causal=True,
                     window=0, cache: Optional[Dict] = None, cache_pos=None,
-                    mode: str = "serve", block_table=None,
+                    cross_kv=None, mode: str = "serve", block_table=None,
                     paged_impl: str = "stream", kernel_fn=None
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (out, cache).  ``cache`` is a dense cache
     ``{"k": (B, Smax, Hkv, D), "v": ..., "pos": (Smax,)}`` with ``cache_pos``
-    the int position of the first new token, or, with ``block_table``
-    (B, maxp), a page pool with ``cache_pos`` a (B,) position vector.
-    ``paged_impl`` picks the paged lowering: "stream" or "gather".
-    ``kernel_fn`` is the projections' spectral-MAC hook."""
+    the int position of the first new token (a ring buffer where ``window``
+    is set and ``Smax <= window``), or, with ``block_table`` (B, maxp), a
+    page pool with ``cache_pos`` a (B,) position vector.  ``cross_kv`` is
+    cross-attention's given (k, v).  ``paged_impl`` picks the paged
+    lowering: "stream" or "gather".  ``kernel_fn`` is the projections'
+    spectral-MAC hook."""
     a = cfg.attention
     B, S, _ = x.shape
     H, Hkv, D = a.num_heads, a.num_kv_heads, a.head_dim
-    if (getattr(cfg.compression, "fuse_projections", False)
+    if cross_kv is not None:
+        q = attn.q(x, mode, kernel_fn)
+        k, v = cross_kv
+    elif (getattr(cfg.compression, "fuse_projections", False)
             and attn.q.spec.kind == "block_circulant"):
         q, k, v = attn.fused(x, mode, kernel_fn)
         if hasattr(attn.q, "b"):                         # qwen QKV bias
@@ -152,13 +206,14 @@ def attention_block(attn: Attention, x: torch.Tensor, *, cfg, causal=True,
     else:
         q, k, v = (m(x, mode, kernel_fn) for m in attn.fused_linears())
     q = q.reshape(B, S, H, D)
-    k = k.reshape(B, S, Hkv, D)
-    v = v.reshape(B, S, Hkv, D)
+    if cross_kv is None:
+        k = k.reshape(B, S, Hkv, D)
+        v = v.reshape(B, S, Hkv, D)
     if hasattr(attn, "qn"):                              # qwen3 qk-norm
         q = attn.qn(q)
         k = attn.kn(k)
 
-    paged = block_table is not None and cache is not None
+    paged = block_table is not None and cache is not None and cross_kv is None
     if paged:
         if S != 1:
             raise ValueError("the paged KV path is decode-only (S == 1)")
@@ -170,12 +225,14 @@ def attention_block(attn: Attention, x: torch.Tensor, *, cfg, causal=True,
     else:
         q_pos0 = 0 if cache_pos is None else int(cache_pos)
         positions = (q_pos0 + torch.arange(S, device=x.device)).expand(B, S)
-    if a.learned_pos:
-        raise NotImplementedError("learned positions are not ported yet")
-    q = apply_rope(q, positions, a.rope_theta)
-    k = apply_rope(k, positions, a.rope_theta)
+    if not a.learned_pos and cross_kv is None:
+        q = apply_rope(q, positions, a.rope_theta)
+        k = apply_rope(k, positions, a.rope_theta)
 
-    if paged:
+    if cross_kv is not None:
+        o = attend(q.to(k.dtype), k, v, causal=False,
+                   softcap=a.logit_softcap).to(q.dtype)
+    elif paged:
         if paged_impl not in ("stream", "gather"):
             raise ValueError(f"paged_impl {paged_impl!r}: expected 'stream' "
                              f"or 'gather'")
@@ -215,11 +272,27 @@ def attention_block(attn: Attention, x: torch.Tensor, *, cfg, causal=True,
                                        torch.full_like(idx, -1))
             o = masked_attention(q, kg, vg, positions, kv_positions,
                                  softcap=a.logit_softcap)
+    elif cache is not None and window and cache["k"].shape[1] <= window:
+        smax = cache["k"].shape[1]                       # ring buffer (SWA)
+        if S == 1:
+            slot = q_pos0 % smax
+            cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+            cache["pos"][slot] = q_pos0
+            o = _ring_read(q, cache, ring_runs(cache["pos"], q_pos0, window),
+                           a.logit_softcap)
+        else:
+            if S < smax:
+                raise ValueError(f"sliding-window prefill of {S} positions "
+                                 f"cannot fill a ring of {smax}")
+            cache["k"].copy_(k[:, -smax:])
+            cache["v"].copy_(v[:, -smax:])
+            cache["pos"].copy_(torch.arange(q_pos0 + S - smax, q_pos0 + S,
+                                            dtype=cache["pos"].dtype))
+            o = attend(q, k, v, causal=causal, window=window,
+                       softcap=a.logit_softcap, q_pos0=q_pos0)
     else:
         if cache is not None:
-            if window and cache["k"].shape[1] <= window:
-                raise NotImplementedError("sliding-window ring buffers are "
-                                          "not ported yet")
             end = q_pos0 + S
             if end > cache["k"].shape[1]:
                 raise ValueError(f"cache of {cache['k'].shape[1]} positions "
@@ -239,10 +312,17 @@ def attention_block(attn: Attention, x: torch.Tensor, *, cfg, causal=True,
 
 
 def init_kv_cache(batch: int, seq: int, cfg, *, device: torch.device,
-                  window: int = 0, dtype=torch.bfloat16) -> Dict:
+                  window: int = 0, dtype=torch.bfloat16,
+                  layers: Optional[int] = None) -> Dict:
+    """A linear cache of ``seq`` positions, or, with ``window``, a ring of
+    ``min(window, seq)`` whose ``pos`` row is on the host (``ring_runs``
+    reads it; the only place that puts it there).  ``layers`` stacks that
+    many: k/v (L, B, S, Hkv, D), pos (L, S)."""
     a = cfg.attention
     size = min(window, seq) if window else seq
-    shape = (batch, size, a.num_kv_heads, a.head_dim)
+    lead = () if layers is None else (layers,)
+    shape = (*lead, batch, size, a.num_kv_heads, a.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.full((size,), -1, dtype=torch.int32, device=device)}
+            "pos": torch.full((*lead, size), -1, dtype=torch.int32,
+                              device="cpu" if window else device)}

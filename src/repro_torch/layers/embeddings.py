@@ -1,4 +1,5 @@
-"""Token embeddings, the tied LM head, and rotary position embeddings.
+"""Token embeddings, the tied LM head, learned position tables and rotary
+position embeddings.
 
 As in ``repro``, the embedding gather and the tied logits product are
 plain tensor operations outside any kernel.
@@ -22,6 +23,19 @@ class Embedding(nn.Module):
                  * dim ** -0.5 if generator is not None
                  else torch.zeros((vocab, dim), device=device))
         self.table = nn.Parameter(table, requires_grad=False)
+
+
+class LearnedPos(nn.Module):
+    """A learned position table ``pos`` (max_pos, dim), drawn N(0, 0.02^2)
+    like ``repro``'s ``init_learned_pos`` (zeros without a generator)."""
+
+    def __init__(self, max_pos: int, dim: int, *, device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        pos = (torch.randn((max_pos, dim), generator=generator, device=device)
+               * 0.02 if generator is not None
+               else torch.zeros((max_pos, dim), device=device))
+        self.pos = nn.Parameter(pos, requires_grad=False)
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor,

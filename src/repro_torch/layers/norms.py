@@ -23,7 +23,34 @@ class RMSNorm(nn.Module):
         return rmsnorm(self.scale, x)
 
 
-def init_norm(kind: str, dim: int, *, device: torch.device) -> RMSNorm:
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
-    return RMSNorm(dim, device=device)
+def layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """``(x - mean) / std * scale + bias`` over the last axis, computed in
+    float32, returned in x.dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.pow(var + eps, -0.5)
+    return (y * scale + bias).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """Scale (ones) and bias (zeros), as ``repro``'s ``init_layernorm``."""
+
+    def __init__(self, dim: int, *, device: torch.device):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones((dim,), device=device),
+                                  requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros((dim,), device=device),
+                                 requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layernorm(self.scale, self.bias, x)
+
+
+def init_norm(kind: str, dim: int, *, device: torch.device) -> nn.Module:
+    """``RMSNorm`` for "rmsnorm", ``LayerNorm`` otherwise (``repro``'s
+    ``init_norm``)."""
+    if kind == "rmsnorm":
+        return RMSNorm(dim, device=device)
+    return LayerNorm(dim, device=device)

@@ -3,13 +3,21 @@
 ``from_jax_params(tree, cfg)`` takes ``repro``'s raw parameter tree with
 numpy leaves (the caller converts, e.g. ``jax.tree.map(np.asarray,
 params)``; this package never imports JAX) and returns the port's
-``Transformer``.  Each segment's scan axis is unstacked into per-layer
-modules.  Every leaf is carried by name, ``qwen``'s dense q/k/v biases
-(``b``) and per-head qk-norm scales (``qn`` / ``kn``) included.  Leaves are copied (``np.array``): ``np.asarray`` of a JAX array
-is read-only.
+``Transformer``, or for an encoder-decoder config its ``EncDec``.  Each
+segment's scan axis (an encoder-decoder's ``enc_blocks`` / ``dec_blocks``
+layer axis) is unstacked into per-layer modules.  Every leaf is carried by
+name, ``qwen``'s dense q/k/v biases (``b``) and per-head qk-norm scales
+(``qn`` / ``kn``) included; the one name that differs is a decoder
+block's self-attention, ``repro``'s ``self`` and the port's
+``self_attn``.  Leaves are copied (``np.array``): ``np.asarray`` of a JAX
+array is read-only.
 
 An MoE block's ``moe`` subtree is carried the same way: ``router``, the
-expert stacks ``experts/{up,gate,down}`` and the shared expert ``shared``.
+expert stacks ``experts/{up,gate,down}`` and the shared expert ``shared``;
+so is an xLSTM block's ``cell`` (the mLSTM's projections, ``ifg``,
+``ifg_b`` and ``onorm_scale``; the sLSTM's ``wx``, ``wh``, ``b`` and
+``out``), and an encoder-decoder's ``enc_pos`` / ``dec_pos`` tables and
+``enc_norm``.
 
 Baked planes (a projection's ``wc_cache``, an expert stack's
 ``{up,gate,down}_cache``, projection fusion's ``qkv_cache`` on an
@@ -29,10 +37,12 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.circulant import CACHE_KEYS
 from ..device import resolve_device
+from .encdec import EncDec
 from .transformer import Transformer, segments_for
 
 _PLANE_DICTS = ("wc_cache", "up_cache", "gate_cache", "down_cache",
                 "qkv_cache", "upgate_cache")
+_RENAMES = {"self": "self_attn"}          # repro's name -> the port's
 
 
 def _copy_into(module: torch.nn.Module, tree: Mapping[str, Any], index,
@@ -46,7 +56,8 @@ def _copy_into(module: torch.nn.Module, tree: Mapping[str, Any], index,
             _copy_planes(module, name, node, index, path)
             continue
         if isinstance(node, Mapping):
-            _copy_into(getattr(module, name), node, index, path)
+            _copy_into(getattr(module, _RENAMES.get(name, name)), node,
+                       index, path)
             continue
         target = getattr(module, name)
         arr = np.array(node if index is None else node[index],
@@ -72,8 +83,17 @@ def _copy_planes(module: torch.nn.Module, prefix: str,
 
 
 def from_jax_params(tree: Mapping[str, Any], cfg: ArchConfig,
-                    device=None) -> Transformer:
+                    device=None):
     device = resolve_device(device)
+    if cfg.is_encoder_decoder:
+        model = EncDec(cfg, device=device)
+        _copy_into(model, {k: tree[k] for k in ("embed", "enc_pos", "dec_pos",
+                                                "enc_norm", "final_norm")},
+                   None, "")
+        for name in ("enc_blocks", "dec_blocks"):
+            for i, block in enumerate(getattr(model, name)):
+                _copy_into(block, tree[name], i, f"{name}.{i}")
+        return model
     model = Transformer(cfg, device=device)
     _copy_into(model, {"embed": tree["embed"],
                        "final_norm": tree["final_norm"]}, None, "")

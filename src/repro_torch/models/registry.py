@@ -1,4 +1,5 @@
-"""Model API over the decoder LM (port of ``repro/models/registry.py:Model``).
+"""Model API over the decoder LM and the encoder-decoder (port of
+``repro/models/registry.py:Model``).
 
     init(seed, device)                                -> params (nn.Module)
     prefill(params, batch, cache, kernel_fn)          -> (logits, cache)
@@ -6,14 +7,17 @@
                                                       -> (logits, cache)
     init_cache(batch, max_seq, dtype, device)         -> cache
 
-``batch`` holds ``tokens`` and, for a ``vision_stub`` config, ``patches``
-(B, num_patches, d_model): the stub's precomputed patch embeddings, which
-replace the first token slots.  ``decode_step`` decodes against a dense
-cache (``pos`` an int, no table: the batch engine) or a page pool (``pos``
-a (B,) vector and a block table: the continuous engine).  ``kernel_fn`` is the projections'
+``batch`` holds ``tokens`` and the stub frontend's input: for a
+``vision_stub`` config ``patches`` (B, num_patches, d_model), which replace
+the first token slots; for an encoder-decoder (``audio_stub``) ``frames``
+(B, encoder_seq, d_model), which the encoder takes.  ``decode_step``
+decodes against a dense cache (``pos`` an int, no table: the batch engine)
+or a page pool (``pos`` a (B,) vector and a block table: the continuous
+engine; decoder LMs only).  An encoder-decoder's cache is ``{"self",
+"cross"}``: prefill encodes the frames and fills both, a decode step
+carries ``cross`` unchanged.  ``kernel_fn`` is the projections'
 spectral-MAC hook (``core/circulant.py``).  Caches are updated in place
-and returned.  Not ported yet: the encoder-decoder backbone and the
-training forward.
+and returned.  Not ported yet: the training forward.
 """
 from __future__ import annotations
 
@@ -22,24 +26,34 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ArchConfig
-from . import transformer
+from . import encdec, transformer
 
 
 class Model:
-    """Thin dispatch; the math lives in ``models/transformer.py``."""
+    """Thin dispatch; the math lives in ``models/transformer.py`` and
+    ``models/encdec.py``."""
 
     def __init__(self, cfg: ArchConfig):
-        if cfg.is_encoder_decoder:
-            raise NotImplementedError("encoder-decoder models are not ported "
-                                      "yet")
         self.cfg = cfg
 
-    def init(self, seed: int = 0, device=None) -> transformer.Transformer:
+    def init(self, seed: int = 0, device=None) -> torch.nn.Module:
+        if self.cfg.is_encoder_decoder:
+            return encdec.init_params(self.cfg, seed=seed, device=device)
         return transformer.init_params(self.cfg, seed=seed, device=device)
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], cache,
                 kernel_fn=None) -> Tuple[torch.Tensor, Any]:
-        return transformer.forward(params, batch["tokens"], self.cfg,
+        cfg = self.cfg
+        if cfg.is_encoder_decoder:
+            enc = encdec.encode(params, batch["frames"], cfg,
+                                kernel_fn=kernel_fn)
+            encdec.all_cross_kv(params, enc, cfg, cache["cross"],
+                                kernel_fn=kernel_fn)
+            logits = encdec.decode(params, batch["tokens"], cfg,
+                                   cross=cache["cross"], cache=cache["self"],
+                                   cache_pos=0, kernel_fn=kernel_fn)
+            return logits, cache
+        return transformer.forward(params, batch["tokens"], cfg,
                                    mode="serve", cache=cache, cache_pos=0,
                                    kernel_fn=kernel_fn,
                                    frontend_embeds=batch.get("patches"))
@@ -47,7 +61,14 @@ class Model:
     def decode_step(self, params, tokens: torch.Tensor, cache, cache_pos,
                     block_table: Optional[torch.Tensor] = None,
                     paged_impl: str = "stream") -> Tuple[torch.Tensor, Any]:
-        return transformer.forward(params, tokens, self.cfg, mode="serve",
+        cfg = self.cfg
+        if cfg.is_encoder_decoder:
+            if block_table is not None:
+                raise ValueError("paged decode is decoder-LM only")
+            logits = encdec.decode(params, tokens, cfg, cross=cache["cross"],
+                                   cache=cache["self"], cache_pos=cache_pos)
+            return logits, cache
+        return transformer.forward(params, tokens, cfg, mode="serve",
                                    cache=cache, cache_pos=cache_pos,
                                    block_table=block_table,
                                    paged_impl=paged_impl)
@@ -55,9 +76,16 @@ class Model:
     def init_cache(self, batch: int, max_seq: int, dtype=None, device=None):
         if dtype is None:
             dtype = getattr(torch, self.cfg.kv_cache_dtype)
-        return transformer.init_cache(self.cfg, batch, max_seq, device=device,
-                                      dtype=dtype)
+        init = (encdec.init_cache if self.cfg.is_encoder_decoder
+                else transformer.init_cache)
+        return init(self.cfg, batch, max_seq, device=device, dtype=dtype)
 
 
 def build_model(cfg: ArchConfig) -> Model:
     return Model(cfg)
+
+
+def init_params(cfg: ArchConfig, *, seed: int = 0, device=None
+                ) -> torch.nn.Module:
+    """Random serving weights for any ported arch (``Model.init``)."""
+    return build_model(cfg).init(seed=seed, device=device)

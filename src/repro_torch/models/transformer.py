@@ -1,28 +1,36 @@
-"""Decoder LM for the ``attn`` and ``moe`` block kinds (port of
-``repro/models/transformer.py``).
+"""Decoder LM for the ``attn``, ``moe``, ``moe_swa``, ``mlstm`` and
+``slstm`` block kinds (port of ``repro/models/transformer.py``).
 
 ``repro`` stacks each segment's block params over a scan axis; the port
 keeps one ``nn.Module`` per layer in a ``ModuleList`` and loops over them.
 The activation-sharding pins of ``repro/dist/ctx.py`` place nothing on one
 card and are dropped.
 
-Caches are stacked over layers: a dense cache is
-``{"k": (L, B, S, Hkv, D), "v": ..., "pos": (L, S)}`` and a paged pool
-``{"k": (L, P, page, Hkv, D), "v": ...}`` (plus ``k_scale`` / ``v_scale``
-(L, P, Hkv) for an int8 pool, ``serve/kvcache.py``); layer ``i`` reads and
-writes the views ``cache["k"][i]`` ... in place.
+Caches (``init_cache``).  Where every layer is an attention kind with one
+window, the cache is stacked over layers: ``{"k": (L, B, S, Hkv, D), "v":
+..., "pos": (L, S)}`` (a ring of ``S = min(window, max_seq)`` slots under a
+window, its ``pos`` rows on the host, ``layers/attention.py``), and a
+paged pool ``{"k": (L, P, page, Hkv, D), "v": ...}`` (plus ``k_scale`` /
+``v_scale`` (L, P, Hkv) for an int8 pool, ``serve/kvcache.py``); layer
+``i`` reads and writes the views ``cache["k"][i]`` ... in place.  Where
+the kinds mix (xlstm's mlstm, mlstm, slstm), the cache is a list with one
+entry a layer: a KV dict for an attention kind, the cell's state tuple
+(``layers/recurrent.py``) for a recurrent one, updated in place.
+``repro`` stacks per segment instead; the leaves are the same.
 
 The ``vision_stub`` frontend is ported: ``forward(..., frontend_embeds=)``
 replaces the first ``num_patches`` token slots with the given patch
 embeddings, exactly as ``repro`` concatenates them (a prompt shorter than
-``num_patches`` comes out ``num_patches`` long).
+``num_patches`` comes out ``num_patches`` long).  Encoder-decoder models
+(whisper) are ``models/encdec.py``.
 
-Not ported yet: the other block kinds (sliding-window, recurrent, xLSTM),
-learned positions, the audio frontend and encoder-decoder stacks.
+Not ported yet: the ``attn_local`` (gemma2) and ``rec`` (recurrentgemma)
+kinds, whose archs need the flash kernel at head dim 256, and learned
+positions in a decoder-only model.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -33,8 +41,10 @@ from ..layers import attention as attn_lib
 from ..layers import embeddings as emb_lib
 from ..layers import ffn as ffn_lib
 from ..layers import norms as norm_lib
+from ..layers import recurrent as rec_lib
 
-PORTED_KINDS = ("attn", "moe")
+ATTN_KINDS = ("attn", "attn_local", "moe", "moe_swa")
+PORTED_KINDS = ("attn", "moe", "moe_swa", "mlstm", "slstm")
 
 
 def segments_for(cfg: ArchConfig) -> List[Tuple[Tuple[str, ...], int]]:
@@ -72,10 +82,18 @@ def layer_kinds(cfg: ArchConfig) -> List[str]:
             for _ in range(n) for kind in pattern]
 
 
+def window_for(kind: str, cfg: ArchConfig) -> int:
+    """The sliding window of a block kind (0: global attention)."""
+    if kind in ("attn_local", "moe_swa"):
+        return cfg.attention.sliding_window
+    return 0
+
+
 class Block(nn.Module):
-    """``attn`` / ``moe`` block: rmsnorm → attention → residual → rmsnorm →
-    MLP (``attn``) or mixture of experts (``moe``, in ``self.moe``) →
-    residual."""
+    """An attention kind: norm → attention (windowed for ``moe_swa``) →
+    residual → norm → MLP (``attn``) or mixture of experts (``moe``,
+    ``moe_swa``; in ``self.moe``) → residual.  ``mlstm`` / ``slstm``: norm →
+    the cell (``self.cell``) → residual."""
 
     def __init__(self, kind: str, cfg: ArchConfig, *, device: torch.device,
                  generator: Optional[torch.Generator] = None):
@@ -83,24 +101,51 @@ class Block(nn.Module):
         if kind not in PORTED_KINDS:
             raise NotImplementedError(f"block kind {kind!r} of {cfg.name} is "
                                       f"not ported yet")
+        self.kind = kind
         d, comp = cfg.d_model, cfg.compression
         kw = dict(device=device, generator=generator)
         self.ln1 = norm_lib.init_norm(cfg.norm, d, device=device)
+        r = cfg.recurrent
+        if kind == "mlstm":
+            self.cell = rec_lib.MLSTMCell(d, r.mlstm_heads, r.proj_factor,
+                                          comp, **kw)
+            return
+        if kind == "slstm":
+            self.cell = rec_lib.SLSTMCell(d, comp, **kw)
+            return
         self.attn = attn_lib.Attention(cfg, d, comp, **kw)
         self.ln2 = norm_lib.init_norm(cfg.norm, d, device=device)
-        if kind == "moe":
+        if kind in ("moe", "moe_swa"):
             self.moe = ffn_lib.MoE(d, cfg.d_ff, cfg.moe, comp, **kw)
         else:
             self.mlp = ffn_lib.MLP(d, cfg.d_ff, comp, **kw)
 
 
+def _store(cache, state) -> None:
+    """Copy a cell's new state into the cache's tensors."""
+    for t, new in zip(cache, state):
+        t.copy_(new)
+
+
 def apply_block(block: Block, x, cfg: ArchConfig, *, mode: str, cache=None,
                 cache_pos=None, block_table=None, paged_impl: str = "stream",
                 kernel_fn=None):
-    """Returns (x, cache)."""
+    """Returns (x, cache); the cache is updated in place."""
     h = block.ln1(x)
+    if block.kind in ("mlstm", "slstm"):
+        if block.kind == "mlstm":
+            y, state = rec_lib.mlstm_block(
+                block.cell, h, heads=cfg.recurrent.mlstm_heads, mode=mode,
+                state=cache, chunk=cfg.mlstm_chunk, kernel_fn=kernel_fn)
+        else:
+            y, state = rec_lib.slstm_block(block.cell, h, mode=mode,
+                                           state=cache, kernel_fn=kernel_fn)
+        if cache is not None:
+            _store(cache, state)
+        return x + y, cache
     a, cache = attn_lib.attention_block(
-        block.attn, h, cfg=cfg, causal=True, window=0, cache=cache,
+        block.attn, h, cfg=cfg, causal=True,
+        window=window_for(block.kind, cfg), cache=cache,
         cache_pos=cache_pos, mode=mode, block_table=block_table,
         paged_impl=paged_impl, kernel_fn=kernel_fn)
     x = x + a
@@ -121,11 +166,13 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device: torch.device,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if (cfg.max_position or cfg.frontend not in ("none", "vision_stub")
-                or cfg.is_encoder_decoder):
-            raise NotImplementedError(f"{cfg.name}: learned positions, the "
-                                      f"audio frontend and encoder-decoder "
-                                      f"stacks are not ported yet")
+        if cfg.is_encoder_decoder:
+            raise NotImplementedError(f"{cfg.name} is an encoder-decoder "
+                                      f"model: models/encdec.py serves it")
+        if (cfg.max_position or cfg.frontend not in ("none", "vision_stub")):
+            raise NotImplementedError(f"{cfg.name}: learned positions and "
+                                      f"the audio frontend of a decoder-only "
+                                      f"model are not ported yet")
         if not cfg.tie_embeddings:
             raise NotImplementedError("untied LM heads are not ported yet")
         kw = dict(device=device, generator=generator)
@@ -146,28 +193,62 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> Transformer:
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, device=None,
-               dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
-    """Dense cache stacked over layers: k/v (L, B, max_seq, Hkv, D), pos
-    (L, max_seq) = -1."""
+               dtype=torch.bfloat16):
+    """Layer-stacked k/v (L, B, S, Hkv, D) and pos (L, S) = -1 where every
+    layer is an attention kind of one window; else a list, one entry a
+    layer: a KV dict or a cell's float32 state.  Either KV layout comes
+    from ``layers/attention.py:init_kv_cache`` (a ring where the window is
+    set)."""
     device = resolve_device(device)
-    a = cfg.attention
-    L = len(layer_kinds(cfg))
-    shape = (L, batch, max_seq, a.num_kv_heads, a.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.full((L, max_seq), -1, dtype=torch.int32,
-                              device=device)}
+    kinds = layer_kinds(cfg)
+    windows = {window_for(kind, cfg) for kind in kinds}
+    if all(kind in ATTN_KINDS for kind in kinds) and len(windows) == 1:
+        return attn_lib.init_kv_cache(batch, max_seq, cfg, device=device,
+                                      window=windows.pop(), dtype=dtype,
+                                      layers=len(kinds))
+    r = cfg.recurrent
+    out: List = []
+    for kind in kinds:
+        if kind in ATTN_KINDS:
+            out.append(attn_lib.init_kv_cache(batch, max_seq, cfg,
+                                              device=device,
+                                              window=window_for(kind, cfg),
+                                              dtype=dtype))
+        elif kind == "mlstm":
+            d_in = int(cfg.d_model * r.proj_factor)
+            out.append(rec_lib.init_mlstm_state(
+                batch, r.mlstm_heads, d_in // r.mlstm_heads, device=device))
+        elif kind == "slstm":
+            out.append(rec_lib.init_slstm_state(batch, cfg.d_model,
+                                                device=device))
+        else:
+            raise NotImplementedError(f"block kind {kind!r} of {cfg.name} is "
+                                      f"not ported yet")
+    return out
 
 
-def layer_cache(cache: Optional[Dict], i: int) -> Optional[Dict]:
-    """Layer ``i``'s views of a layer-stacked cache or pool."""
+def layer_cache(cache, i: int):
+    """Layer ``i``'s entry of a per-layer cache, or its views of a
+    layer-stacked cache or pool."""
     if cache is None:
         return None
+    if isinstance(cache, list):
+        return cache[i]
     return {key: t[i] for key, t in cache.items()}
 
 
+def cache_bytes(cache) -> int:
+    """Bytes of every tensor in a cache (any nesting of dicts, lists and
+    tuples)."""
+    if isinstance(cache, torch.Tensor):
+        return cache.numel() * cache.element_size()
+    if isinstance(cache, dict):
+        cache = cache.values()
+    return sum(cache_bytes(c) for c in cache)
+
+
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, *,
-            mode: str = "serve", cache: Optional[Dict] = None, cache_pos=None,
+            mode: str = "serve", cache=None, cache_pos=None,
             block_table=None, paged_impl: str = "stream", kernel_fn=None,
             frontend_embeds: Optional[torch.Tensor] = None):
     """tokens: (B, S) int.  Returns (logits (B, S', V), cache); ``cache`` is

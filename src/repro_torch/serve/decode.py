@@ -1,7 +1,9 @@
 """Serving step builders (port of ``repro/serve/decode.py``): the batch
 engine's prefill, single-token decode and multi-token decode loop over a
-dense cache, and the continuous engine's B=1 prefill-and-pack and paged
-decode loop.
+dense cache (whatever the model's cache holds: linear or ring KV,
+recurrent state, an encoder-decoder's ``{"self", "cross"}``; the steps
+pass it through), and the continuous engine's B=1 prefill-and-pack and
+paged decode loop.
 
 ``repro`` runs each decode loop as one device program
 (``lax.while_loop``).  Here the continuous engine's paged step runs over
@@ -98,8 +100,9 @@ def sample_tokens(logits: torch.Tensor, temperature: float, seed: int,
 # ---------------------------------------------------------------------------
 def make_prefill_step(cfg: ArchConfig, *, kernel_fn=None) -> Callable:
     """``prefill_step(params, batch, cache)`` -> (last-position logits
-    (B, 1, V), cache).  ``batch`` holds ``tokens`` and, for a vision-stub
-    config, the ``patches`` that replace the first token slots.  ``kernel_fn`` is the projections' spectral-MAC hook
+    (B, 1, V), cache).  ``batch`` holds ``tokens`` and the stub
+    frontend's ``patches`` or ``frames`` (``engine.py:frontend_inputs``).
+    ``kernel_fn`` is the projections' spectral-MAC hook
     (the batch engine passes ``kernels/ops.py:spectral_contract``)."""
     model = build_model(cfg)
 

@@ -57,7 +57,8 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device, synchronize
 from ..kernels import ops as kops
 from ..models.registry import build_model
-from ..models.transformer import layer_kinds
+from ..models.transformer import (PORTED_KINDS, cache_bytes, layer_kinds,
+                                  window_for)
 from ..obs.metrics import Registry
 from ..quant.codec import QuantPolicy
 from . import decode as dec
@@ -104,12 +105,17 @@ def _engine_device(params, device) -> torch.device:
 
 def frontend_inputs(cfg: ArchConfig, batch: int, device) -> Dict:
     """The stub frontend's inputs a prefill batch carries, as ``repro``'s
-    engines feed them: zero ``patches`` (batch, num_patches, d_model)
-    float32 for a ``vision_stub`` config, nothing otherwise."""
-    if cfg.frontend != "vision_stub":
-        return {}
-    return {"patches": torch.zeros((batch, cfg.num_patches, cfg.d_model),
-                                   dtype=torch.float32, device=device)}
+    engines feed them, float32 zeros: ``frames`` (batch, encoder_seq,
+    d_model) for an ``audio_stub`` config, ``patches`` (batch,
+    num_patches, d_model) for a ``vision_stub`` one, nothing otherwise."""
+    f32 = dict(dtype=torch.float32, device=device)
+    if cfg.frontend == "audio_stub":
+        return {"frames": torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                                      **f32)}
+    if cfg.frontend == "vision_stub":
+        return {"patches": torch.zeros((batch, cfg.num_patches, cfg.d_model),
+                                       **f32)}
+    return {}
 
 
 @dataclasses.dataclass
@@ -129,12 +135,17 @@ class Engine:
     ``decode_mode`` is "scan" (``make_decode_loop``: per-row lengths, EOS
     freeze, early exit) or "per_token" (one ``make_decode_step`` call per
     token, no freezing; the results are cut the same way).  Only the
-    weight half of ``quant`` applies: the cache stays float32.  An arch
-    with sliding-window, recurrent or other blocks than ``attn`` and
-    ``moe`` raises ``NotImplementedError`` (their caches are not ported).  ``stats()``
-    adds ``prefills`` and ``decode_steps`` (forward passes) to the shared
-    counters, ``cache_bytes`` (the largest dense cache it allocated) and
-    ``dispatch_kinds`` (the prefill and decode-loop shapes it served).
+    weight half of ``quant`` applies: the cache stays float32.  It serves
+    the ``attn`` / ``moe`` decoder LMs, mixtral's sliding-window ``moe_swa``
+    blocks (a ring cache: a batch's padded prompt must cover
+    ``min(window, S + steps - 1)`` positions, else ``ValueError``, as in
+    ``repro``), xlstm's ``mlstm`` / ``slstm`` blocks (recurrent state) and
+    the encoder-decoder whisper (zero ``frames``; the cache holds the
+    cross K/V); other block kinds raise ``NotImplementedError``.
+    ``stats()`` adds ``prefills`` and ``decode_steps`` (forward passes) to
+    the shared counters, ``cache_bytes`` (the largest cache it allocated:
+    KV, ring, cross K/V and recurrent state) and ``dispatch_kinds`` (the
+    prefill and decode-loop shapes it served).
     """
 
     def __init__(self, cfg: ArchConfig, params, *, max_batch: int = 8,
@@ -147,11 +158,16 @@ class Engine:
         if decode_mode not in ("scan", "per_token"):
             raise ValueError(f"decode_mode {decode_mode!r}: expected 'scan' "
                              f"or 'per_token'")
-        kinds = sorted(set(layer_kinds(cfg)) - {"attn", "moe"})
-        if kinds:
+        kinds = (set() if cfg.is_encoder_decoder
+                 else set(layer_kinds(cfg)))
+        if kinds - set(PORTED_KINDS):
             raise NotImplementedError(
-                f"{cfg.name}: block kinds {kinds} (sliding-window ring "
-                f"buffers, recurrent state) are not ported yet")
+                f"{cfg.name}: block kinds "
+                f"{sorted(kinds - set(PORTED_KINDS))} are not ported yet")
+        # the largest sliding window of any block: its ring's prefill keeps
+        # the window's tail, so a batch's prompts must cover it
+        self._swa_window = max((window_for(k, cfg) for k in kinds),
+                               default=0)
         self.device = _engine_device(params, device)
         self.cfg = cfg
         self.quant = quant or QuantPolicy()
@@ -229,12 +245,17 @@ class Engine:
         # the cache holds S + steps - 1 positions and the budget is clamped
         steps = max(r.max_new_tokens for r in reqs)
         steps = max(1, min(steps, self.max_seq - S + 1))
+        need = min(self._swa_window, S + steps - 1)
+        if self._swa_window and S < need:
+            raise ValueError(
+                f"batch prompt length {S} does not cover the sliding-window "
+                f"ring buffer ({need}): SWA prefill keeps the window tail, "
+                f"so prompts must be >= min(window, cache length)")
         with torch.no_grad():
             cache = self.model.init_cache(B, S + steps - 1,
                                           dtype=torch.float32,
                                           device=self.device)
-            self._cache_bytes = max(self._cache_bytes, sum(
-                t.numel() * t.element_size() for t in cache.values()))
+            self._cache_bytes = max(self._cache_bytes, cache_bytes(cache))
             self._kinds.add(dec.batch_prefill_kind(B, S))
             logits, cache = self._prefill(self.params, batch, cache)
             nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)

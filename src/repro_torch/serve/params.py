@@ -41,10 +41,11 @@ def _spectral_at_serve(comp, k: int) -> bool:
 
 def _fusable(comp, m: cc.FusedProjections) -> bool:
     """Whether the fused serve path shadows ``m``'s projections
-    (``repro``'s ``fusable``): fusion on, every projection
-    block-circulant with one input-block shape, served spectrally."""
+    (``repro``'s ``fusable``): fusion on, not cross-attention, every
+    projection block-circulant with one input-block shape, served
+    spectrally."""
     lins = m.fused_linears()
-    return (getattr(comp, "fuse_projections", False)
+    return (getattr(comp, "fuse_projections", False) and m.may_fuse
             and all(lin is not None and lin.spec.kind == "block_circulant"
                     for lin in lins)
             and len({tuple(lin.wc.shape[-2:]) for lin in lins}) == 1

@@ -335,6 +335,33 @@ def test_launch_record_counts_replays(monkeypatch):
     assert (k.launches, k.setup_launches, k.path_launches) == (0, 0, {})
 
 
+def test_launch_record_counts_shapes(monkeypatch):
+    """A launch that names its shape counts in ``shape_launches``, eager
+    and through a recorded graph's replays; one that names none does
+    not."""
+    k = tbuild.Kernel("fake", {"f": []})
+
+    class Lib:
+        f = staticmethod(lambda stream: 0)
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(k, "lib", lambda: Lib)
+    monkeypatch.setattr(tbuild.torch.cuda, "current_stream",
+                        lambda device=None: Stream)
+    k.launch("f", None, path="a", shape="4x8")
+    k.launch("f", None, path="a")
+    rec = tbuild.LaunchRecord()
+    with tbuild.setup(rec):
+        k.launch("f", None, path="a", shape="1x8")
+    rec.replayed(2)
+    assert k.path_launches == {"a": 4}
+    assert k.shape_launches == {"4x8": 1, "1x8": 2}
+    k.reset_counts()
+    assert k.shape_launches == {}
+
+
 # ---------------------------------------------------------------------------
 # on the card: replay against eager
 # ---------------------------------------------------------------------------
