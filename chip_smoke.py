@@ -70,16 +70,23 @@ itself.  Each phase prints one JSON line:
                 the same weights (llama4's re-baked in place): prefill
                 logits within 1e-4 of their scale, greedy tokens equal up to
                 the first near-tie
-  serve_mixtral, serve_xlstm, serve_whisper  the archs only the batch
+  serve_mixtral, serve_xlstm, serve_whisper, serve_gemma2,
+  serve_recurrentgemma  the archs only the batch
                 ``Engine`` serves, at their published widths and depth
                 after a one-request warm-up: mixtral-8x7b (32 layers of
                 sliding-window attention over a ring cache of 4,096 slots,
                 8 experts top-2; 4 requests of 4,096-4,200 + 8 tokens),
-                xlstm-125m (12 mLSTM / sLSTM cells; 4 of 17-200 + 16) and
+                xlstm-125m (12 mLSTM / sLSTM cells; 4 of 17-200 + 16),
                 whisper-large-v3 (32 encoder layers over 1,500 zero frames,
                 32 decoder layers with cross-attention over the cached
-                encoder K/V; 4 of 17-200 + 16): exact launch counts per lane
-                (the encoder and cross K/V once a prefill), tokens/s,
+                encoder K/V; 4 of 17-200 + 16), gemma2-9b (42 layers
+                alternating a window of 4,096 (ring) and global attention
+                (linear cache), head dim 256, softcaps 50 / 30, sandwich
+                norms; 4 of 4,096-4,200 + 8) and recurrentgemma-2b (26
+                layers, 18 RG-LRU and 8 windowed over a ring of 2,048, G =
+                10 at head dim 256; 4 of 2,048-2,150 + 16): exact launch
+                counts per lane (the encoder and cross K/V once a
+                prefill), tokens/s,
                 prefill and step times, cache and peak bytes; the B=1
                 float32 oracle equal to a hand-run ``batch_trace``; and at
                 one group of the layer pattern (full width) the card's
@@ -120,10 +127,16 @@ to the plain version one row at a time, and float32 at 1 x 4,100) and
 ring decode (4 rows over the 4,089 keys of the last step); ``bc_fused``
 at whisper's and xlstm's decode projections and mixtral's expert stack
 (8 experts of 4 rows, all three lanes); ``spectral_matmul`` at whisper's
-encoder rows (N = 6,000).  Their summary entries count the launches of
-that one shape (``Kernel.shape_launches``).
-Every flash case times ``F.scaled_dot_product_attention`` under each of
-its backends and takes the one ``SDPA_PINNED`` names as its library time;
+encoder rows (N = 6,000).  At head dim 256 every flash lane at the shapes
+serve_gemma2 and serve_recurrentgemma give it (``check_head_dim_256``),
+``bc_fused`` at their decode projections and ``spectral_matmul`` at their
+prefill rows (N = 16,800 and 8,600).  Their summary entries count the
+launches of that one shape (``Kernel.shape_launches``).
+Every flash case without a logit softcap times
+``F.scaled_dot_product_attention`` under each of its backends and takes
+the one ``SDPA_PINNED`` names as its library time; no SDPA call computes
+a softcap, so gemma2's cases time one compiled ``flex_attention`` call
+(``flex_library``);
 ``paged_attention`` also with one slot idle where none is (cases ending
 ``_idle``) and with every slot at the table's last column (``_full``).
 Each case carries its launch plan where the kernel has one, and
@@ -184,6 +197,7 @@ LIBRARIES = (bc_fused.KERNEL, fa.KERNEL, pa.KERNEL, pg.KERNEL, sm.KERNEL)
 QWEN = ("qwen2.5-3b", "qwen3-4b")
 PHI3, MOE = "phi-3-vision-4.2b", "llama4-maverick-400b-a17b"
 MIXTRAL, XLSTM, WHISPER = "mixtral-8x7b", "xlstm-125m", "whisper-large-v3"
+GEMMA2, RGEMMA = "gemma2-9b", "recurrentgemma-2b"
 ROWS = 8 * 256              # batch-prefill rows: 8 prompts padded to 256
 # serve_arch's requests and engine sizes for serve_phi3 / serve_moe (4
 # requests; ContinuousEngine with SLOTS slots and pages of PAGE).  The
@@ -195,11 +209,11 @@ SERVE_ARCH = {
               oracle_new=8)}
 SLOTS, PAGE = 4, 16
 # serve_batch_arch's requests and sizes for the archs only the batch engine
-# serves: 4 requests of lo-hi prompt tokens (mixtral's cover its window of
-# 4,096, as its ring cache requires) and ``new`` new tokens; the B=1
-# float32 oracle of oracle_len + oracle_new; the card-against-CPU check at
-# the depth ``reduced`` (one group of the layer pattern, full width) on a
-# prompt of check_len tokens
+# serves: 4 requests of lo-hi prompt tokens (mixtral's and gemma2's cover
+# their window of 4,096, recurrentgemma's its 2,048, as their ring caches
+# require) and ``new`` new tokens; the B=1 float32 oracle of oracle_len +
+# oracle_new; the card-against-CPU check at the depth ``reduced`` (one
+# group of the layer pattern, full width) on a prompt of check_len tokens
 BATCH_ARCH = {
     MIXTRAL: dict(lo=4096, hi=4200, new=8, max_seq=4224, oracle_len=4100,
                   oracle_new=8, reduced=dict(num_layers=2), check_len=64),
@@ -208,16 +222,20 @@ BATCH_ARCH = {
     WHISPER: dict(lo=17, hi=200, new=16, max_seq=256, oracle_len=48,
                   oracle_new=16, reduced=dict(num_layers=2,
                                               encoder_layers=2),
-                  check_len=48)}
+                  check_len=48),
+    GEMMA2: dict(lo=4096, hi=4200, new=8, max_seq=4224, oracle_len=4100,
+                 oracle_new=8, reduced=dict(num_layers=2), check_len=64),
+    RGEMMA: dict(lo=2048, hi=2150, new=16, max_seq=2176, oracle_len=2100,
+                 oracle_new=8, reduced=dict(num_layers=3), check_len=64)}
 
 
 def ring_decode_keys(S, steps, window):
-    """The keys mixtral's ring read hands the flash kernel at the last of
+    """The keys a ring read hands the flash kernel at the last of
     ``steps`` decode steps after a prefill of S positions: the ring's
     slot rules (``layers/attention.py``) replayed on a host ``pos`` row of
     min(window, S + steps) slots, then the slots ``ring_runs`` keeps.
     Each decode step overwrites a position the window still holds, so the
-    count falls by one a step (4,095 .. 4,089 at S = 4,200)."""
+    count falls by one a step (mixtral's 4,095 .. 4,089 at S = 4,200)."""
     smax = min(window, S + steps)
     pos = torch.arange(S - smax, S, dtype=torch.int32)
     for p in range(S, S + steps):
@@ -226,10 +244,39 @@ def ring_decode_keys(S, steps, window):
                                                     window))
 
 
-# serve_mixtral's keys at its last ring decode step
-RING_KEYS = ring_decode_keys(BATCH_ARCH[MIXTRAL]["hi"],
-                             BATCH_ARCH[MIXTRAL]["new"] - 1,
-                             get_config(MIXTRAL).attention.sliding_window)
+# the keys of each windowed batch-only arch's last ring decode step
+RING_KEYS = {arch: ring_decode_keys(
+    BATCH_ARCH[arch]["hi"], BATCH_ARCH[arch]["new"] - 1,
+    get_config(arch).attention.sliding_window)
+    for arch in (MIXTRAL, GEMMA2, RGEMMA)}
+# gemma2's global layers at its batch run's last decode step: one row over
+# the cache's first hi + new - 1 positions
+GLOBAL_KEYS = BATCH_ARCH[GEMMA2]["hi"] + BATCH_ARCH[GEMMA2]["new"] - 1
+# head dim 256 (serve_gemma2 / serve_recurrentgemma), each flash lane at
+# the shape its run launches it: gemma2's windowed (local) and global
+# layers with softcap 50, recurrentgemma's window of 2,048 at G = 10; the
+# batch runs' prefills (bf16) and last decode steps, the float32 oracles'
+# prefills.  (summary entry suffix, kernels-phase case, run, plan path)
+D256 = (
+    ("window_prefill", "gemma2_prefill_bfloat16_b4_s4200_w4096",
+     f"{GEMMA2}/batch", "bf16"),
+    ("prefill", "gemma2_prefill_bfloat16_b4_s4200", f"{GEMMA2}/batch",
+     "bf16"),
+    ("window_prefill_f32", "gemma2_prefill_float32_s4100_w4096",
+     f"{GEMMA2}/oracle", "f32_mma"),
+    ("prefill_f32", "gemma2_prefill_float32_s4100", f"{GEMMA2}/oracle",
+     "f32_mma"),
+    ("decode", f"gemma2_decode_float32_b4_skv{GLOBAL_KEYS}",
+     f"{GEMMA2}/batch", "f32_rows"),
+    ("ring_decode", f"gemma2_ring_decode_float32_b4_skv{RING_KEYS[GEMMA2]}",
+     f"{GEMMA2}/batch", "f32_rows"),
+    ("g10_window_prefill", "recurrentgemma_prefill_bfloat16_b4_s2150_w2048",
+     f"{RGEMMA}/batch", "bf16"),
+    ("g10_window_prefill_f32", "recurrentgemma_prefill_float32_s2100_w2048",
+     f"{RGEMMA}/oracle", "f32_mma"),
+    ("g10_ring_decode",
+     f"recurrentgemma_ring_decode_float32_b4_skv{RING_KEYS[RGEMMA]}",
+     f"{RGEMMA}/batch", "f32_rows"))
 # Every lane, one exported C function each: (library, the TPU kernel it
 # replaces, the kernel-check group and case its times come from, the phase
 # whose run gives its launch count).
@@ -336,7 +383,7 @@ NEW_SHAPES = {
     "flash_attention@ring_decode": (
         fa.KERNEL, "src/repro/kernels/flash_attention.py:75",
         "flash_attention",
-        f"mixtral_ring_decode_float32_b4_skv{RING_KEYS}",
+        f"mixtral_ring_decode_float32_b4_skv{RING_KEYS[MIXTRAL]}",
         f"{MIXTRAL}/batch"),
     "bc_fused@whisper": (bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48",
                          "bc_fused", "whisper_up_b4", f"{WHISPER}/batch"),
@@ -349,6 +396,24 @@ NEW_SHAPES = {
     "spectral_matmul@encoder": (
         sm.KERNEL, "src/repro/kernels/spectral_matmul.py:42",
         "spectral_matmul", "whisper_up_n6000_hook", f"{WHISPER}/batch"),
+    # head dim 256 (``D256``), counted at the case's shape
+    **{f"flash_attention@d256_{name}": (
+        fa.KERNEL, "src/repro/kernels/flash_attention.py:75",
+        "flash_attention", case, run) for name, case, run, _ in D256},
+    # their projections at the batch runs' decode (4 rows) and prefill
+    # (the hook's views, 4 x 4,200 and 4 x 2,150 rows)
+    "bc_fused@gemma2": (bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48",
+                        "bc_fused", "gemma2_up_gate_b4", f"{GEMMA2}/batch"),
+    "bc_fused@recurrentgemma": (
+        bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48", "bc_fused",
+        "recurrentgemma_q_o_b4", f"{RGEMMA}/batch"),
+    "spectral_matmul@gemma2": (
+        sm.KERNEL, "src/repro/kernels/spectral_matmul.py:42",
+        "spectral_matmul", "gemma2_up_gate_n16800_hook", f"{GEMMA2}/batch"),
+    "spectral_matmul@recurrentgemma": (
+        sm.KERNEL, "src/repro/kernels/spectral_matmul.py:42",
+        "spectral_matmul", "recurrentgemma_q_o_n8600_hook",
+        f"{RGEMMA}/batch"),
 }
 
 
@@ -366,7 +431,11 @@ SHAPE_PATHS = {"flash_attention@d96": "bf16", "bc_fused@expert": "single",
                "flash_attention@window_prefill_f32": "f32_mma",
                "flash_attention@ring_decode": "f32_rows",
                "bc_fused@whisper": "single", "bc_fused@xlstm": "single",
-               "bc_fused@experts_e8": "experts"}
+               "bc_fused@experts_e8": "experts",
+               **{f"flash_attention@d256_{name}": path
+                  for name, _, _, path in D256},
+               "bc_fused@gemma2": "single",
+               "bc_fused@recurrentgemma": "single"}
 
 T0 = time.perf_counter()
 _LAST = [T0]                # when the previous phase line was printed
@@ -796,22 +865,80 @@ def check_flash_decode(cfg, gen, prefix="", B=8, Skv=231):
     return {"flash_attention": ([case], None)}
 
 
+def flex_library(q, k, v, got, *, causal, window, kv_offset, softcap):
+    """The library time of a softcapped flash case: one call of
+    ``torch.compile(flex_attention)`` with ``score_mod`` cap * tanh(s / cap),
+    the case's causal and window mask as a block mask (built beforehand,
+    not timed) and GQA through ``enable_gqa``.  ``library_err`` holds its
+    output against the kernel's ``got``.  Where it does not compile or
+    launch, ``library_ms`` is None and ``library`` says why."""
+    import torch._dynamo
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    torch._dynamo.config.recompile_limit = max(
+        64, torch._dynamo.config.recompile_limit)
+    Sq, Skv = q.shape[2], k.shape[2]
+
+    def mask_mod(b, h, qi, ki):
+        r = qi + kv_offset
+        m = ki >= 0
+        if causal:
+            m = m & (ki <= r)
+        if window:
+            m = m & (ki > r - window)
+        return m
+
+    def score_mod(s, b, h, qi, ki):
+        return softcap * torch.tanh(s / softcap)
+
+    masks = " & ".join(m for m, on in (("causal", causal),
+                                        (f"window {window}", window)) if on)
+    what = (f"torch.compile(flex_attention)(score_mod={softcap:g} * "
+            f"tanh(s / {softcap:g}), block_mask={masks or None}, "
+            "enable_gqa=True)")
+    try:
+        block_mask = (create_block_mask(mask_mod, None, None, Sq, Skv,
+                                        device="cuda")
+                      if causal or window else None)
+        fn = torch.compile(flex_attention, dynamic=False)
+        call = lambda: fn(q, k, v, score_mod=score_mod,  # noqa: E731
+                          block_mask=block_mask, enable_gqa=True)
+        err = max_err(call(), got)
+        torch.cuda.synchronize()
+        return {"library_ms": time_ms(call, reps=5, inner=2, warmup=1),
+                "library": what, "library_err": err}
+    except Exception as e:                  # the yardstick only
+        torch.cuda.synchronize()
+        return {"library_ms": None,
+                "library": f"none: {what} failed: "
+                           + (str(e).strip().splitlines() or [repr(e)])[0][:200]}
+
+
 def check_attention(name, B, Hq, Hkv, Sq, Skv, D, dtype, gen, *,
-                    causal=False, window=0, kv_offset=0, sdpa_pinned=None,
-                    ref_rows=False):
-    """One flash case at a shape the three batch-only archs bring: random
+                    causal=False, window=0, kv_offset=0, softcap=0.0,
+                    sdpa_pinned=None, ref_rows=False, q_scale=1.0,
+                    library=True):
+    """One flash case at a shape the batch-only archs bring: random
     q (B, Hq, Sq, D) and k/v (B, Hkv, Skv, D) in ``dtype``, the kernel
     against ``attention_ref`` (tolerance as ``check_flash``), its bound
     from the (row, key) pairs the mask keeps, and SDPA on the same inputs
     (a window goes to SDPA as a boolean mask, which its flash backend does
-    not take: such a case pins ``sdpa_pinned``).  With ``ref_rows`` the
-    plain version runs one batch row at a time (its (Hq, Sq, Skv) float32
+    not take: such a case pins ``sdpa_pinned``; a logit ``softcap``, which
+    no SDPA call computes, takes ``flex_library`` instead).  With
+    ``ref_rows`` the plain version runs one batch row at a time (its (Hq, Sq, Skv) float32
     scores for all B rows at once would not fit beside the rest): the
-    error is the largest row's, ``plain_ms`` the time of the B calls."""
-    q = torch.randn((B, Hq, Sq, D), generator=gen, device="cuda").to(dtype)
+    error is the largest row's, ``plain_ms`` the time of the B calls.
+    With a ``softcap``, ``uncapped_err`` is the kernel's error when
+    launched without it (how far the case tells the cap's absence).
+    ``q_scale`` multiplies q, so that scores reach a softcap; a case
+    without ``library`` checks the kernel only and times no library
+    call."""
+    q = (q_scale * torch.randn((B, Hq, Sq, D), generator=gen,
+                               device="cuda")).to(dtype)
     k = torch.randn((B, Hkv, Skv, D), generator=gen, device="cuda").to(dtype)
     v = torch.randn((B, Hkv, Skv, D), generator=gen, device="cuda").to(dtype)
-    kw = dict(causal=causal, window=window, kv_offset=kv_offset)
+    kw = dict(causal=causal, window=window, kv_offset=kv_offset,
+              softcap=softcap)
     parts = ([slice(b, b + 1) for b in range(B)] if ref_rows
              else [slice(None)])
     plain = lambda: [fa.attention_ref(q[r], k[r], v[r], **kw)  # noqa: E731
@@ -822,6 +949,12 @@ def check_attention(name, B, Hq, Hkv, Sq, Skv, D, dtype, gen, *,
     scale = max(1.0, *(float(ref.float().abs().max()) for ref in refs))
     tol = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-4) * scale
     err = max(max_err(got[r], ref) for r, ref in zip(parts, refs))
+    uncapped = {}
+    if softcap:                 # how far a kernel that dropped the cap is
+        bare = fa.flash_attention(q, k, v, **{**kw, "softcap": 0.0})
+        uncapped["uncapped_err"] = max(max_err(bare[r], ref)
+                                       for r, ref in zip(parts, refs))
+        del bare
     del refs
     rows = torch.arange(Sq)[:, None] + kv_offset
     cols = torch.arange(Skv)[None, :]
@@ -838,19 +971,97 @@ def check_attention(name, B, Hq, Hkv, Sq, Skv, D, dtype, gen, *,
         lib_kw = {"attn_mask": mask.to("cuda")}
     else:
         lib_kw = {"is_causal": True} if causal else {}
+    if not library:
+        library = {"library_ms": None, "library": "not timed"}
+    elif softcap:
+        library = flex_library(q, k, v, got, **kw)
+    else:
+        library = sdpa_library(q, k, v, pinned=sdpa_pinned, **lib_kw)
     return {
         "case": name, "shape": [B, Hq, Hkv, Sq, Skv, D],
-        "launch_shape": fa.shape_key(B, Hq, Hkv, Sq, Skv, D, dtype, **kw),
+        "launch_shape": fa.shape_key(B, Hq, Hkv, Sq, Skv, D, dtype,
+                                     causal=causal, window=window,
+                                     kv_offset=kv_offset),
         "causal": causal, "window": window, "kv_offset": kv_offset,
-        "pairs": pairs, "ref_rows": ref_rows,
+        "softcap": softcap, "q_scale": q_scale, **uncapped, "pairs": pairs,
+        "ref_rows": ref_rows,
         "plan": {**fa.plan(B, Hq, Hkv, Sq, Skv, D, dtype)._asdict(),
                  "dtype": str(dtype).split(".")[-1]},
         "max_abs_err": err, "tol": tol,
         **kernel_times(lambda: fa.flash_attention(q, k, v, **kw)),
         "plain_ms": time_ms(plain, reps=5, inner=2, warmup=1),
-        **sdpa_library(q, k, v, pinned=sdpa_pinned, **lib_kw),
-        "bytes": nbytes, "flops": flops,
+        **library, "bytes": nbytes, "flops": flops,
         "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_head_dim_256(gen):
+    """The flash kernel at head dim 256, at the shapes serve_gemma2 and
+    serve_recurrentgemma give it.  gemma2 (16/8 heads, softcap 50, layers
+    alternating a window of 4,096 and global): the batch run's prefills
+    (bf16, 4 prompts padded to 4,200; the plain version a row at a time)
+    on both kinds of layer, the float32 oracle's (1 x 4,100), and the
+    batch run's last decode step (4 rows) over the global layers' linear
+    cache and over the local layers' ring.  recurrentgemma (10/1 heads:
+    G = 10; window 2,048, no softcap): the batch run's prefill (4 x
+    2,150), the oracle's (1 x 2,100) and the last ring decode step.  Every
+    kernel lane at D = 256; SDPA for recurrentgemma's (a window: the
+    memory-efficient backend), compiled ``flex_attention`` for gemma2's
+    (the softcap).  Scores of unit variance barely reach a cap of 50, so
+    each lane also runs a cap of 4 on q scaled by 8 (``_cap4``; no
+    library time), which fail unless the kernel launched uncapped misses
+    its tolerance more than tenfold."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    ga, ra = get_config(GEMMA2).attention, get_config(RGEMMA).attention
+    g, r = (ga.num_heads, ga.num_kv_heads), (ra.num_heads, ra.num_kv_heads)
+    gw, rw, cap, D = (ga.sliding_window, ra.sliding_window, ga.logit_softcap,
+                      ga.head_dim)
+    ghi, golen = BATCH_ARCH[GEMMA2]["hi"], BATCH_ARCH[GEMMA2]["oracle_len"]
+    rhi, rolen = BATCH_ARCH[RGEMMA]["hi"], BATCH_ARCH[RGEMMA]["oracle_len"]
+    eff = dict(sdpa_pinned="EFFICIENT_ATTENTION")
+    cases = [
+        check_attention(f"gemma2_prefill_bfloat16_b4_s{ghi}_w{gw}", 4, *g,
+                        ghi, ghi, D, bf16, gen, causal=True, window=gw,
+                        softcap=cap, ref_rows=True),
+        check_attention(f"gemma2_prefill_bfloat16_b4_s{ghi}", 4, *g, ghi,
+                        ghi, D, bf16, gen, causal=True, softcap=cap,
+                        ref_rows=True),
+        check_attention(f"gemma2_prefill_float32_s{golen}_w{gw}", 1, *g,
+                        golen, golen, D, f32, gen, causal=True, window=gw,
+                        softcap=cap),
+        check_attention(f"gemma2_prefill_float32_s{golen}", 1, *g, golen,
+                        golen, D, f32, gen, causal=True, softcap=cap),
+        check_attention(f"gemma2_decode_float32_b4_skv{GLOBAL_KEYS}", 4, *g,
+                        1, GLOBAL_KEYS, D, f32, gen, causal=True,
+                        kv_offset=GLOBAL_KEYS - 1, softcap=cap),
+        check_attention(
+            f"gemma2_ring_decode_float32_b4_skv{RING_KEYS[GEMMA2]}", 4, *g,
+            1, RING_KEYS[GEMMA2], D, f32, gen, softcap=cap),
+        check_attention(f"recurrentgemma_prefill_bfloat16_b4_s{rhi}_w{rw}",
+                        4, *r, rhi, rhi, D, bf16, gen, causal=True,
+                        window=rw, ref_rows=True, **eff),
+        check_attention(f"recurrentgemma_prefill_float32_s{rolen}_w{rw}", 1,
+                        *r, rolen, rolen, D, f32, gen, causal=True,
+                        window=rw),
+        check_attention(
+            f"recurrentgemma_ring_decode_float32_b4_skv{RING_KEYS[RGEMMA]}",
+            4, *r, 1, RING_KEYS[RGEMMA], D, f32, gen)]
+    bite = dict(softcap=4.0, q_scale=8.0, library=False)
+    cases += [
+        check_attention("gemma2_prefill_bfloat16_s1024_w512_cap4", 1, *g,
+                        1024, 1024, D, bf16, gen, causal=True, window=512,
+                        **bite),
+        check_attention("gemma2_prefill_float32_s512_cap4", 1, *g, 512, 512,
+                        D, f32, gen, causal=True, **bite),
+        check_attention("gemma2_decode_float32_b4_skv1500_cap4", 4, *g, 1,
+                        1500, D, f32, gen, causal=True, kv_offset=1499,
+                        **bite)]
+    blind = [c["case"] for c in cases[-3:]
+             if not c["uncapped_err"] > 10 * c["tol"]]
+    if blind:
+        raise AssertionError(f"a cap of 4 does not bite in {blind}")
+    from torch._inductor.async_compile import shutdown_compile_workers
+    shutdown_compile_workers()              # flex_library's compile pool
+    return {"flash_attention": (cases, None)}
 
 
 def check_batch_archs_attention(gen):
@@ -886,9 +1097,18 @@ def check_batch_archs_attention(gen):
         check_attention(f"mixtral_prefill_float32_s{olen}_w{W}", 1, *m,
                         olen, olen, ma.head_dim, f32, gen, causal=True,
                         window=W),
-        check_attention(f"mixtral_ring_decode_float32_b4_skv{RING_KEYS}", 4,
-                        *m, 1, RING_KEYS, ma.head_dim, f32, gen)]
+        check_attention(
+            f"mixtral_ring_decode_float32_b4_skv{RING_KEYS[MIXTRAL]}", 4, *m,
+            1, RING_KEYS[MIXTRAL], ma.head_dim, f32, gen)]
     return {"flash_attention": (cases, None)}
+
+
+def gemma_projections():
+    """(name -> (n_in, n_out)) of gemma2's and recurrentgemma's distinct
+    projections (the RG-LRU's in_x, in_gate, gate_r, gate_i and out share
+    recurrentgemma's q_o shape)."""
+    return {f"{arch.split('-')[0]}_{name}": io for arch in (GEMMA2, RGEMMA)
+            for name, io in projections(get_config(arch)).items()}
 
 
 def batch_arch_projections():
@@ -1230,6 +1450,21 @@ def phase_kernels(cfg):
         lambda: check_spectral(cfg, gen, [(n, *io, wk)
                                           for n, io in whisper.items()],
                                N=4 * 1500)]
+    gemma = gemma_projections()
+    checks += [
+        # head dim 256: every flash lane at gemma2's and recurrentgemma's
+        # shapes, bc_fused at their decode projections (4 rows),
+        # spectral_matmul at their batch prefills' rows
+        lambda: check_head_dim_256(gen),
+        lambda: check_bc_fused(cfg, gen, gemma, batches=(4,),
+                               lane_names=("bc_fused",))]
+    for arch in (GEMMA2, RGEMMA):
+        family = arch.split("-")[0]
+        bk = get_config(arch).compression.block_attn
+        checks.append(lambda family=family, bk=bk, arch=arch: check_spectral(
+            cfg, gen, [(n, *io, bk) for n, io in gemma.items()
+                       if n.startswith(family + "_")],
+            N=4 * BATCH_ARCH[arch]["hi"]))
     out = {}
     for check in checks:
         for lane, (cases, main_case) in check().items():
@@ -1475,8 +1710,10 @@ def projections_per_pass(cfg):
     one forward pass of a decoder LM: q k v o up gate down of a dense
     layer; q k v o and the shared expert's three of an MoE layer (``moe``
     or mixtral's ``moe_swa``), plus one launch each for up, gate and down
-    over all the experts (``repro``'s expert FFN takes no hook); up
-    up_gate q k v out of an mLSTM layer, wx out of an sLSTM one.  With
+    over all the experts (``repro``'s expert FFN takes no hook); a
+    windowed ``attn_local`` layer's as a dense one's; in_x in_gate gate_r
+    gate_i out of an RG-LRU and its MLP's three (``rec``); up up_gate q k
+    v out of an mLSTM layer, wx out of an sLSTM one.  With
     projection fusion q/k/v are one projection and so are up/gate (the
     shared expert's too; expert stacks never fuse)."""
     kinds = layer_kinds(cfg)
@@ -1484,8 +1721,9 @@ def projections_per_pass(cfg):
     fuse = cfg.compression.fuse_projections
     attn, mlp = (2, 2) if fuse else (4, 3)
     shared = mlp if cfg.moe.shared_expert else 0
-    per_kind = {"attn": attn + mlp, "moe": attn + shared,
-                "moe_swa": attn + shared, "mlstm": 6, "slstm": 2}
+    per_kind = {"attn": attn + mlp, "attn_local": attn + mlp,
+                "moe": attn + shared, "moe_swa": attn + shared,
+                "rec": 5 + mlp, "mlstm": 6, "slstm": 2}
     return sum(per_kind[k] for k in kinds), 3 * n_moe
 
 
@@ -2109,11 +2347,15 @@ def serve_batch_arch(arch, phase, *, lo, hi, new, max_seq, oracle_len,
 def phase_serve_batch_archs():
     """mixtral-8x7b (every layer sliding-window attention over a ring
     cache, then 8 experts top-2), xlstm-125m (mLSTM / sLSTM cells, no
-    attention) and whisper-large-v3 (32 + 32 layers, 1,500 zero frames,
-    cross-attention over the cached encoder K/V)."""
+    attention), whisper-large-v3 (32 + 32 layers, 1,500 zero frames,
+    cross-attention over the cached encoder K/V), gemma2-9b (42 layers
+    alternating a window of 4,096 over a ring cache and global attention
+    over a linear one, head dim 256, softcaps 50 and 30, sandwich norms)
+    and recurrentgemma-2b (26 layers: (RG-LRU, RG-LRU, window of 2,048) x
+    8 then two RG-LRU; 10 query heads on one KV head of 256)."""
     return {arch: serve_batch_arch(arch, f"serve_{arch.split('-')[0]}",
                                    **BATCH_ARCH[arch])
-            for arch in (MIXTRAL, XLSTM, WHISPER)}
+            for arch in (MIXTRAL, XLSTM, WHISPER, GEMMA2, RGEMMA)}
 
 
 # ---------------------------------------------------------------------------
@@ -2407,7 +2649,7 @@ def main() -> int:
                         for n in build.KERNEL_NAMES},
           "ptxas": {n: [ln for ln in build.library_path(n).with_suffix(".log")
                         .read_text().splitlines() if "registers" in ln
-                        or "spill" in ln]
+                        or "spill" in ln or "Compiling entry" in ln]
                     for n in build.KERNEL_NAMES}})
     cfg = get_config(ARCH)
     kernels = phase_kernels(cfg)

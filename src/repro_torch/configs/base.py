@@ -105,6 +105,7 @@ class ArchConfig:
     ffn_activation: str = "silu"   # 'silu'(swiglu) | 'gelu' | 'geglu'
     norm: str = "rmsnorm"          # 'rmsnorm' | 'layernorm'
     logit_softcap: float = 0.0     # gemma2 final-logit softcap (30.0)
+    sandwich_norm: bool = False    # gemma2: post-norms on each sublayer
     tie_embeddings: bool = True
     max_position: int = 0          # learned-pos table size (0 = rope/none)
     # numerics

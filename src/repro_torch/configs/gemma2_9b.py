@@ -18,6 +18,7 @@ def get_config(compress: bool = True) -> ArchConfig:
         vocab_size=256000,
         ffn_activation="gelu",
         logit_softcap=30.0,
+        sandwich_norm=True,
         attention=AttentionConfig(num_heads=16, num_kv_heads=8, head_dim=256,
                                   logit_softcap=50.0, sliding_window=4096,
                                   layout="alternating"),

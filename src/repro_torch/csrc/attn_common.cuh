@@ -104,14 +104,16 @@ __device__ __forceinline__ void row_tile_f32(
 }
 
 // Write one finished row: acc / max(l, 1e-30).  A row that never saw a
-// valid key has acc == 0 and comes out exactly 0.
-template <typename T>
+// valid key has acc == 0 and comes out exactly 0.  Lane d holds dims d,
+// d + 32, ... (N of them: kDPerLane, or D / 32 for flash_attention.cu's
+// head dim 256).
+template <typename T, int N>
 __device__ __forceinline__ void row_store(T* __restrict__ out, int D, float l,
-                                          const float (&acc)[kDPerLane]) {
+                                          const float (&acc)[N]) {
   const int lane = threadIdx.x & 31;
   const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
-  for (int e = 0; e < kDPerLane; ++e) {
+  for (int e = 0; e < N; ++e) {
     const int d = lane + 32 * e;
     if (d < D) out[d] = from_f32<T>(acc[e] / denom);
   }

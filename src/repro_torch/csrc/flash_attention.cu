@@ -12,7 +12,11 @@
 // 32 / 32 heads of 96) does 2.2 GFLOP, 33 us at the 67 TFLOP/s float32
 // rate of the CUDA cores: operations, unless they go to the tensor cores.
 // The float32 one-row decode is bytes: at serve_phi3's last step (4 rows,
-// 775 keys, 32 KV heads of 96) 76 MB of K/V, 22.8 us.
+// 775 keys, 32 KV heads of 96) 76 MB of K/V, 22.8 us.  At head dim 256
+// (gemma2, recurrentgemma) the same three kernels run as compile-time
+// instances; what bounds them is the same (operations for the prefills,
+// bytes for the one-row decode), and what limits the tensor-core kernels
+// there is registers (below).
 //
 // Design, three kernels:
 // - bf16 (flash_bf16_kernel): one block of 4 warps per (batch, query
@@ -27,14 +31,20 @@
 //   as the A operand of P V (FlashAttention-2), and the row sum l is
 //   taken from the float32 P.  Tiles wholly masked for a warp are
 //   skipped; tiles outside the block's causal / window extent are never
-//   loaded.  Head dims 64, 96 and 128 are compile-time instances: D / 16
-//   k-steps of Q K^T and D / 8 output tiles of P V, a row of shared
-//   memory padded to D + 8 values (144, 208 and 272 bytes: the 8 rows an
-//   ldmatrix reads land on 8 distinct groups of 4 banks), and
-//   2 x 5 x 64 x (D + 8) bytes of shared memory (Q plus two K/V buffers).
+//   loaded.  Head dims 64, 96, 128 and 256 are compile-time instances:
+//   D / 16 k-steps of Q K^T and D / 8 output tiles of P V, a row of shared
+//   memory padded to D + 8 values (144, 208, 272 and 528 bytes: the 8 rows
+//   an ldmatrix reads land on 8 distinct groups of 4 banks), and
+//   2 x 5 x 64 x (D + 8) bytes of shared memory (Q plus two K/V buffers;
+//   168,960 at D = 256, one block an SM).  At D <= 128 a warp keeps its Q
+//   fragments in registers for the whole key loop.  At D = 256 they would
+//   be 64 registers beside the 128 of the output accumulators and the 32
+//   of the score tile, over the 255 a thread may hold: so Q stays in
+//   shared memory and each k-step of Q K^T loads its fragment there with
+//   one ldmatrix (16 a tile, against the 64 that load K).
 // - float32 prefill (flash_f32_mma_kernel, G * Sq >= 16 packed rows, D =
-//   64, 96 or 128): the bf16 lane's FlashAttention-2 layout with the GQA
-//   packing of the rows kernel (packed row = position * G + head, so a
+//   64, 96, 128 or 256): the bf16 lane's FlashAttention-2 layout with the
+//   GQA packing of the rows kernel (packed row = position * G + head, so a
 //   K/V tile serves the G heads of its KV head): 64 packed rows a block,
 //   16 a warp, 32-key tiles double-buffered with cp.async (16-byte
 //   copies).  Q K^T and P V run on mma.sync m16n8k8 in TF32 with the
@@ -42,7 +52,10 @@
 //   hi*hi + lo*hi + hi*lo keeps float32 accuracy where one TF32 product
 //   keeps three digits.  The score tile's columns are ordered (key_of) so
 //   that its accumulator fragment is P's A fragment as it stands.  Row
-//   tiles are launched longest causal extent first.
+//   tiles are launched longest causal extent first.  Its Q fragments are
+//   read from shared memory at every k-step at any D, so at D = 256 a
+//   thread holds the 128 accumulators, the 16 scores and one k-step's
+//   fragments; shared memory 4 x (64 x 260 + 2 x 32 x 524) = 200,704 bytes.
 // - float32 rows kernel (flash_f32_kernel: the one-row decode, and head
 //   dims without a tensor-core instance), on the CUDA cores.  GQA packing
 //   up to 64 packed rows a block (fewer where that leaves SMs idle), keys
@@ -52,12 +65,14 @@
 //   decode) the warps of a row split every stage's keys among themselves
 //   (kw = 8 / rows groups, nk = 32 / kw keys each, kw lanes a key's dot)
 //   and merge their (m, l, acc) in warp order at the end, so no warp
-//   idles.  When the grid would still be small (decode: B * Hkv = 32
-//   blocks at tinyllama) the key range is split over blocks
-//   (flash-decoding): each split writes its partial (m, l, acc) to
-//   scratch the wrapper allocates, and flash_combine merges the splits in
-//   a fixed order in the same call.  A split, group or row that sees no
-//   valid key has m = -1e30, l = 0, acc = 0 and merges to exactly 0.
+//   idles.  Lane d accumulates dims d, d + 32, ...: 4 of them up to D =
+//   128, 8 at D = 256 (kNPL).  When the grid would still be small
+//   (decode: B * Hkv = 32 blocks at tinyllama) the key range is split
+//   over blocks (flash-decoding): each split writes its partial (m, l,
+//   acc) to scratch the wrapper allocates, and flash_combine merges the
+//   splits in a fixed order in the same call.  A split, group or row that
+//   sees no valid key has m = -1e30, l = 0, acc = 0 and merges to exactly
+//   0.
 // The plan (kernel, rows, splits, keys per split) is chosen in Python
 // (kernels/flash_attention.py:plan), a pure function of the shapes.
 #include "attn_common.cuh"
@@ -123,6 +138,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   int window, float softcap, int kv_offset) {
   constexpr int LD = D + 8;                  // padded row: no bank conflicts
   constexpr int CH = D / 8;                  // 16-byte chunks a row
+  constexpr bool kQRegs = D <= 128;          // Q fragments kept in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);        // (kBQ, LD)
   bf16* kvs = qs + kBQ * LD;                 // [buffer][K, V](kBK, LD)
@@ -167,7 +183,8 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < D / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) oacc[i][e] = 0.f;
-  uint32_t qf[D / 16][4];
+  uint32_t qf[kQRegs ? D / 16 : 1][4];
+  const bf16* qw = qs + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
   const int wr0 = r0 + warp * 16;
   const int rows[2] = {wr0 + g, wr0 + g + 8};
 
@@ -181,11 +198,11 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       asm volatile("cp.async.wait_group 0;" ::: "memory");
     }
     __syncthreads();
-    if (it == 0) {
+    if constexpr (kQRegs) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ldsm_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
-                            (lane >> 4) * 8);
+        for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qf[kk], qw + kk * 16);
+      }
     }
     const int wlast = min(wr0 + 15, Sq - 1);
     const bool skip = wr0 >= Sq || (causal && t0 > wlast + kv_offset) ||
@@ -200,13 +217,20 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t qa[4];
+        if constexpr (kQRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+        } else {
+          ldsm_x4(qa, qw + kk * 16);
+        }
 #pragma unroll
         for (int np = 0; np < kBK / 16; ++np) {
           uint32_t bf[4];
           ldsm_x4(bf, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
                           kk * 16 + ((lane >> 3) & 1) * 8);
-          mma_bf16(s[2 * np], qf[kk], bf[0], bf[1]);
-          mma_bf16(s[2 * np + 1], qf[kk], bf[2], bf[3]);
+          mma_bf16(s[2 * np], qa, bf[0], bf[1]);
+          mma_bf16(s[2 * np + 1], qa, bf[2], bf[3]);
         }
       }
       float mx[2] = {m[0], m[1]};
@@ -498,6 +522,12 @@ flash_f32_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 constexpr int kF32Warps = 8;
 constexpr int kF32MaxRows = 64;              // packed rows a block, at most
 constexpr int kF32RowsPerWarp = kF32MaxRows / kF32Warps;
+constexpr int kWideD = 256;                  // the one head dim above kMaxD
+
+// Output dims a lane accumulates: 4 up to attn::kMaxD (run-time D too),
+// 8 at kWideD.
+template <int DT>
+constexpr int kNPL = DT > attn::kMaxD ? DT / 32 : attn::kDPerLane;
 
 // Grid (row tiles, B * Hkv, splits), `rows` (a power of two) packed rows
 // a block, the split's keys in 32-key stages double-buffered with
@@ -578,13 +608,14 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (ntile > 0) load(0, lo);
   asm volatile("cp.async.commit_group;");
 
-  float m[kF32RowsPerWarp], l[kF32RowsPerWarp], acc[kF32RowsPerWarp][kDPerLane];
+  constexpr int NPL = kNPL<DT>;
+  float m[kF32RowsPerWarp], l[kF32RowsPerWarp], acc[kF32RowsPerWarp][NPL];
 #pragma unroll
   for (int rr = 0; rr < kF32RowsPerWarp; ++rr) {
     m[rr] = kNeg;
     l[rr] = 0.f;
 #pragma unroll
-    for (int e = 0; e < kDPerLane; ++e) acc[rr][e] = 0.f;
+    for (int e = 0; e < NPL; ++e) acc[rr][e] = 0.f;
   }
 
   for (int it = 0; it < ntile; ++it) {
@@ -642,12 +673,12 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       l[rr] = l[rr] * alpha + ps;
       m[rr] = m_new;
 #pragma unroll
-      for (int e = 0; e < kDPerLane; ++e) acc[rr][e] *= alpha;
+      for (int e = 0; e < NPL; ++e) acc[rr][e] *= alpha;
       const float* vrow = vs + grp * nk * Dn;
       for (int j = 0; j < nk; ++j) {
         const float pc = __shfl_sync(0xffffffffu, p, j * kw);
 #pragma unroll
-        for (int e = 0; e < kDPerLane; ++e) {
+        for (int e = 0; e < NPL; ++e) {
           const int d = lane + 32 * e;
           if (d < Dn) acc[rr][e] = fmaf(pc, vrow[j * Dn + d], acc[rr][e]);
         }
@@ -665,26 +696,28 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       slot[1] = l[0];
     }
 #pragma unroll
-    for (int e = 0; e < kDPerLane; ++e)
+    for (int e = 0; e < NPL; ++e)
       if (lane + 32 * e < Dn) slot[2 + lane + 32 * e] = acc[0][e];
     __syncthreads();
     if (grp != 0) return;
     float mx = kNeg;
     for (int j = 0; j < kw; ++j)
       mx = fmaxf(mx, tiles[(j * rows + r0) * (Dn + 2)]);
-    float ls = 0.f, a[kDPerLane] = {0.f, 0.f, 0.f, 0.f};
+    float ls = 0.f, a[NPL];
+#pragma unroll
+    for (int e = 0; e < NPL; ++e) a[e] = 0.f;
     for (int j = 0; j < kw; ++j) {
       const float* sl = tiles + (j * rows + r0) * (Dn + 2);
       const float cj = expf(sl[0] - mx);
       ls += sl[1] * cj;
 #pragma unroll
-      for (int e = 0; e < kDPerLane; ++e)
+      for (int e = 0; e < NPL; ++e)
         if (lane + 32 * e < Dn) a[e] += sl[2 + lane + 32 * e] * cj;
     }
     m[0] = mx;
     l[0] = ls;
 #pragma unroll
-    for (int e = 0; e < kDPerLane; ++e) acc[0][e] = a[e];
+    for (int e = 0; e < NPL; ++e) acc[0][e] = a[e];
   }
 
 #pragma unroll
@@ -703,12 +736,14 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     float* pa = part + (size_t)2 * splits * B * Hkv * NR + slot * Dn;
 #pragma unroll
-    for (int e = 0; e < kDPerLane; ++e)
+    for (int e = 0; e < NPL; ++e)
       if (lane + 32 * e < Dn) pa[lane + 32 * e] = acc[rr][e];
   }
 }
 
-// One warp per packed row: merge the splits' (m, l, acc) in split order.
+// One warp per packed row: merge the splits' (m, l, acc) in split order
+// (NPL dims a lane, as the rows kernel that wrote them).
+template <int NPL>
 __global__ void __launch_bounds__(256)
 flash_combine(const float* __restrict__ part, float* __restrict__ o, int B,
               int Hq, int Hkv, int Sq, int D, int splits) {
@@ -721,14 +756,16 @@ flash_combine(const float* __restrict__ part, float* __restrict__ o, int B,
   const size_t stride = (size_t)B * Hkv * NR;
   float mx = kNeg;
   for (int s = 0; s < splits; ++s) mx = fmaxf(mx, part[2 * (s * stride + w)]);
-  float l = 0.f, acc[kDPerLane] = {0.f, 0.f, 0.f, 0.f};
+  float l = 0.f, acc[NPL];
+#pragma unroll
+  for (int e = 0; e < NPL; ++e) acc[e] = 0.f;
   for (int s = 0; s < splits; ++s) {
     const size_t slot = s * stride + w;
     const float c = expf(part[2 * slot] - mx);
     l += part[2 * slot + 1] * c;
     const float* pa = part + 2 * splits * stride + slot * D;
 #pragma unroll
-    for (int e = 0; e < kDPerLane; ++e)
+    for (int e = 0; e < NPL; ++e)
       if (lane + 32 * e < D) acc[e] += pa[lane + 32 * e] * c;
   }
   row_store(o + (((size_t)b * Hq + hk * G + pr % G) * Sq + pr / G) * D, D, l,
@@ -778,8 +815,8 @@ cudaError_t launch_f32_rows(const float* q, const float* k, const float* v,
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
   const int n = B * Hkv * NR;
-  flash_combine<<<(n + 7) / 8, 256, 0, stream>>>(part, o, B, Hq, Hkv, Sq, D,
-                                                 splits);
+  flash_combine<kNPL<DT>><<<(n + 7) / 8, 256, 0, stream>>>(
+      part, o, B, Hq, Hkv, Sq, D, splits);
   return cudaGetLastError();
 }
 
@@ -816,6 +853,10 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
     if (D == 128)
       return launch_f32_mma<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
                                  causal, window, softcap, kv_offset, stream);
+    if (D == kWideD)
+      return launch_f32_mma<kWideD>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
+                                    causal, window, softcap, kv_offset,
+                                    stream);
     return cudaErrorInvalidValue;
   }
   const int NR = (Hq / Hkv) * Sq;
@@ -838,6 +879,11 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
     return launch_f32_rows<128>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D,
                                 scale, causal, window, softcap, kv_offset,
                                 rows, splits, chunk, stream);
+  if (D == kWideD)
+    return launch_f32_rows<kWideD>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D,
+                                   scale, causal, window, softcap,
+                                   kv_offset, rows, splits, chunk, stream);
+  if (D > attn::kMaxD) return cudaErrorInvalidValue;
   return launch_f32_rows<0>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D, scale,
                             causal, window, softcap, kv_offset, rows, splits,
                             chunk, stream);
@@ -847,12 +893,12 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
 
 // q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D); o: (B, Hq, Sq, D), all of one
 // dtype (0 = float32, 1 = bfloat16), contiguous.  bfloat16 takes D = 64,
-// 96 or 128 (the tensor-core tiles) and one split; it ignores `rows`.
-// float32 with mma = 1 is the tensor-core prefill: D = 64, 96 or 128,
-// rows = 64, one split.  float32 with mma = 0 is the rows kernel: D <= 128,
-// `rows` (a power of two <= 64) packed rows a block and `splits` key
-// ranges of `chunk` keys (a multiple of 32); with splits > 1 (only where
-// G * Sq <= rows) part is float32 scratch of
+// 96, 128 or 256 (the tensor-core tiles) and one split; it ignores `rows`.
+// float32 with mma = 1 is the tensor-core prefill: D = 64, 96, 128 or 256,
+// rows = 64, one split.  float32 with mma = 0 is the rows kernel: D <= 128
+// or D = 256, `rows` (a power of two <= 64) packed rows a block and
+// `splits` key ranges of `chunk` keys (a multiple of 32); with splits > 1
+// (only where G * Sq <= rows) part is float32 scratch of
 // splits * B * Hkv * G * Sq * (D + 2).  Returns a cudaError_t.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, void* part, int B, int Hq, int Hkv,
@@ -862,7 +908,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int splits, int chunk, int mma,
                                void* stream) {
   if (B <= 0 || Sq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 ||
-      D > attn::kMaxD || Skv < 0)
+      (D > attn::kMaxD && D != kWideD) || Skv < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -881,5 +927,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (D == 128)
     return (int)launch_bf16<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
                                  causal, window, softcap, kv_offset, s);
+  if (D == kWideD)
+    return (int)launch_bf16<kWideD>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
+                                    causal, window, softcap, kv_offset, s);
   return (int)cudaErrorInvalidValue;
 }

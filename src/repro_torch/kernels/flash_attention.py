@@ -7,13 +7,15 @@ on CUDA tensors it launches ``csrc/flash_attention.cu`` (or raises), on CPU
 tensors it runs ``attention_ref``.  Layout (B, H, S, D), as in ``repro``.
 
 Three kernels, one ``path`` each in the plan: ``bf16`` on the tensor cores
-(head dims 64, 96 and 128); ``f32_mma``, the float32 prefill (16 packed
-rows or more) on the tensor cores in 3xTF32 at the same head dims;
+(head dims 64, 96, 128 and 256); ``f32_mma``, the float32 prefill (16
+packed rows or more) on the tensor cores in 3xTF32 at the same head dims;
 ``f32_rows``, float32 on the CUDA cores (the one-row decode, other head
-dims), with the G query heads of a KV head packed into one block, the
-warps of a block splitting the keys where it holds fewer rows than warps,
-and, where the grid is small, the keys split over blocks and merged in the
-same call.  ``plan`` picks the kernel and the splits from the shapes alone.
+dims up to 128), with the G query heads of a KV head packed into one
+block, the warps of a block splitting the keys where it holds fewer rows
+than warps, and, where the grid is small, the keys split over blocks and
+merged in the same call.  ``plan`` picks the kernel and the splits from the shapes alone.
+Above 128 only D = 256 has kernels (compile-time instances of all three);
+another head dim above 128 raises.
 """
 from __future__ import annotations
 
@@ -30,12 +32,12 @@ KERNEL = Kernel("flash_attention", {
                                                _I, _I, _I]})
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
-BF16_HEAD_DIMS = (64, 96, 128)   # the bf16 lane's tensor-core tilings
+RUN_TIME_MAX_HEAD_DIM = 128  # csrc attn::kMaxD: the rows kernel's run-time D
+BF16_HEAD_DIMS = (64, 96, 128, 256)   # the bf16 lane's tensor-core tilings
 SMS = 132                    # streaming multiprocessors of an H100
 BF16_ROWS, F32_ROWS, KEY_TILE = 64, 64, 32   # csrc kBQ, kF32MaxRows, kTile
 F32_WARPS = 8                                # csrc kF32Warps
-F32_MMA_HEAD_DIMS = (64, 96, 128)            # the f32 tensor-core instances
+F32_MMA_HEAD_DIMS = (64, 96, 128, 256)       # the f32 tensor-core instances
 F32_MMA_ROWS, F32_MMA_KEYS = 64, 32          # csrc kFR, kFK
 F32_MMA_MIN_ROWS = 16                        # one m16 tile of packed rows
 
@@ -61,16 +63,18 @@ def plan(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int,
          dtype: torch.dtype) -> FlashPlan:
     """The launch plan, a pure function of the shapes.  bf16: one block
     per (batch, query head, 64 rows).  float32 with at least 16 packed
-    rows (G heads x Sq positions) at D = 64, 96 or 128: the tensor-core
-    prefill, one block per (batch, KV head, 64 packed rows).  Other
-    float32: the rows kernel, one block per (batch, KV head, tile of
-    packed rows); a tile holds up to 64 packed rows, a power of two no
-    wider than the rows there are (down to 1: the warps then split the
-    keys), halved down to 8 while the grid would not fill the SMs.  Where
-    all of a KV head's rows fit one tile and the grid still would not fill
-    them, the keys are split into ranges of a multiple of 32 keys, enough
-    ranges to reach about SMS blocks: each block keeps all its warps busy
-    (the key groups), so one block an SM fills the card."""
+    rows (G heads x Sq positions) at D = 64, 96, 128 or 256: the
+    tensor-core prefill, one block per (batch, KV head, 64 packed rows).
+    Other float32: the rows kernel, one block per (batch, KV head, tile of
+    packed rows); a tile holds up to 64 packed rows, the smallest power of
+    two that holds them all (down to 1: the warps then split the keys),
+    halved down to 8 while the rows overflow it and the grid would not
+    fill the SMs.  Where all of a KV head's rows fit one tile (G = 10 at
+    one position: a tile of 16) and the grid still would not fill the SMs,
+    the keys are split into ranges of a multiple of 32 keys, enough ranges
+    to reach about SMS blocks: each block keeps all its warps busy (the key
+    groups), so one block an SM fills the card.  A head dim above 128 but
+    256 raises."""
     if dtype == torch.bfloat16:
         if D not in BF16_HEAD_DIMS:
             raise ValueError(f"flash_attention: the bf16 lane tiles head "
@@ -79,6 +83,11 @@ def plan(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int,
         return FlashPlan(dtype, BF16_ROWS, 1, max(Skv, 1),
                          -(-Sq // BF16_ROWS) * Hq * B,
                          2 * 5 * BF16_ROWS * (D + 8), "bf16", 1)
+    if D > RUN_TIME_MAX_HEAD_DIM and D not in F32_MMA_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D}: above "
+                         f"{RUN_TIME_MAX_HEAD_DIM} only D = 256 has kernels; "
+                         f"other head dims above {RUN_TIME_MAX_HEAD_DIM} are "
+                         f"not ported")
     packed = (Hq // Hkv) * Sq
     if D in F32_MMA_HEAD_DIMS and packed >= F32_MMA_MIN_ROWS:
         return FlashPlan(dtype, F32_MMA_ROWS, 1, max(Skv, 1),
@@ -89,7 +98,8 @@ def plan(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int,
     rows = F32_ROWS
     while rows > 1 and rows // 2 >= packed:
         rows //= 2                          # no wider than the rows there are
-    while rows > F32_WARPS and -(-packed // rows) * B * Hkv < SMS:
+    while (rows > F32_WARPS and packed > rows
+           and -(-packed // rows) * B * Hkv < SMS):
         rows //= 2                          # more blocks
     groups = max(1, F32_WARPS // rows)
     base = -(-packed // rows) * B * Hkv
@@ -155,9 +165,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     if v.shape != k.shape or Bk != B or Dk != D or Hq % Hkv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
                          f"k/v {tuple(k.shape)}/{tuple(v.shape)}")
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM}")
-    pl = plan(B, Hq, Hkv, Sq, Skv, D, q.dtype)
+    pl = plan(B, Hq, Hkv, Sq, Skv, D, q.dtype)   # raises on an untiled D
     scale = scale if scale is not None else D ** -0.5
     o = torch.empty_like(q)
     part = None                       # the splits' (m, l) and acc

@@ -12,11 +12,12 @@ KV pool, on the CUDA card unless ``--device`` names another.
 Weights are random, drawn from ``--seed`` (no checkpoint is loaded).
 Prompts are 16-31 random tokens; a ``vision_stub`` arch (phi-3-vision)
 gets ``num_patches`` more, the slots its zero patch embeddings replace, as
-an image-plus-text request would, and a sliding-window arch (mixtral) its
-window more, so that its ring cache's prefill can fill the ring.  An
-encoder-decoder (whisper) encodes zero frames.  mixtral, xlstm and whisper
-are served by the batch engine only: ``--engine continuous`` refuses them,
-as ``repro``'s launcher does.
+an image-plus-text request would, and a sliding-window arch (mixtral,
+gemma2, recurrentgemma) its largest window more, so that its ring cache's
+prefill can fill the ring.  An encoder-decoder (whisper) encodes zero
+frames.  mixtral, gemma2, recurrentgemma, xlstm and whisper are served by
+the batch engine only: ``--engine continuous`` refuses them, as
+``repro``'s launcher does.
 """
 from __future__ import annotations
 

@@ -36,7 +36,8 @@ the returned cache is the same storage that was passed in.
 the four projections.
 
 * Sliding-window ring buffer (``window`` set and a cache of at most
-  ``window`` positions, ``init_kv_cache``; mixtral).  Prefill attends over
+  ``window`` positions, ``init_kv_cache``; mixtral, gemma2's and
+  recurrentgemma's ``attn_local`` layers).  Prefill attends over
   its own projections with the window mask and keeps the last ``Smax``
   positions of k, v and ``pos`` in slots 0..Smax-1; a decode step writes
   slot ``cache_pos % Smax``.  Those two rules are ``repro``'s, and they do

@@ -1,5 +1,12 @@
-"""xLSTM's recurrent cells, mLSTM and sLSTM (port of the xLSTM half of
-``repro/layers/recurrent.py``).
+"""Recurrent sequence-mixing cells: recurrentgemma's RG-LRU and xLSTM's
+mLSTM and sLSTM (port of ``repro/layers/recurrent.py``).
+
+The RG-LRU's sequence form is ``repro``'s associative scan over (log a,
+b) pairs, taken as a log2(S)-step doubling scan vectorised over (B, S,
+W) with the same combine; its step form is the same block at S == 1
+(the scan then has nothing to combine).  ``repro`` lowers that scan
+through XLA, not a Pallas kernel, so the port runs it as PyTorch tensor
+operations, on the CPU and on the card alike.
 
 Each cell has a sequence form (prefill) and a step form (decode, S == 1
 with a state): the mLSTM's sequence form is ``repro``'s stabilized
@@ -7,19 +14,18 @@ chunkwise recurrence with the same chunk, so the float32 sums are taken
 in the same order; the sLSTM's is a strictly sequential scan, here a host
 loop over the positions with the ``wh`` recurrence a plain matmul.
 
-The cells' projections (mLSTM: up / up_gate / q / k / v / out; sLSTM:
-wx / out) are block-circulant ``Linear``s, so at serve they run through
+The cells' projections (RG-LRU: in_x / in_gate / gate_r / gate_i / out;
+mLSTM: up / up_gate / q / k / v / out; sLSTM: wx / out) are
+block-circulant ``Linear``s, so at serve they run through
 the fused kernel, or through ``spectral_matmul`` under the batch
 prefill's ``kernel_fn`` hook.  The gate products (the mLSTM's ``ifg``,
 the sLSTM's ``wh``) are plain dense matmuls, as in ``repro``.
 
-States are ``repro``'s tuples, float32: the mLSTM's ``(C, n, m)``
+States are float32 tuples: the RG-LRU's ``(h, conv)`` ((B, W), (B, cw -
+1, W); ``repro``'s dict ``{"h", "conv"}``), the mLSTM's ``(C, n, m)``
 ((B, H, dh, dh), (B, H, dh), (B, H)), the sLSTM's ``(c, n, h, m)``
 ((B, d) each).  The block functions return the new state; the model
 copies it into the cache's tensors.
-
-Not ported yet: the RG-LRU (recurrentgemma, whose attention layers need
-the flash kernel at head dim 256).
 """
 from __future__ import annotations
 
@@ -32,6 +38,100 @@ from torch import nn
 from ..core.circulant import Linear, LinearSpec
 
 _NEG = -1e30
+_C = 8.0   # Griffin's fixed recurrence sharpness constant
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (Griffin): h_t = a_t h_{t-1} + sqrt(1 - a_t^2) (i_t x_t)
+# ---------------------------------------------------------------------------
+class RGLRU(nn.Module):
+    """``repro``'s ``init_rglru``: in_x / in_gate (d_model -> W), out (W
+    -> d_model), gate_r / gate_i (W -> W), the depthwise causal conv's
+    ``conv_w`` (cw, W) and ``conv_b`` (W,), and ``lam`` (W,), the
+    recurrence parameter, set so that a = exp(-8 softplus(lam)) runs over
+    linspace(0.9, 0.999, W)."""
+
+    def __init__(self, d_model: int, width: int, comp=None,
+                 conv_width: int = 4, *, device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        spec = LinearSpec.from_config(comp, "ffn")
+        kw = dict(device=device, generator=generator)
+        self.in_x = Linear(d_model, width, spec, **kw)
+        self.in_gate = Linear(d_model, width, spec, **kw)
+        self.out = Linear(width, d_model, spec, **kw)
+        conv_w = (torch.randn((conv_width, width), generator=generator,
+                              device=device) * 0.1
+                  if generator is not None
+                  else torch.zeros((conv_width, width), device=device))
+        self.conv_w = nn.Parameter(conv_w, requires_grad=False)
+        self.conv_b = nn.Parameter(torch.zeros(width, device=device),
+                                   requires_grad=False)
+        a = torch.linspace(0.9, 0.999, width, dtype=torch.float64)
+        lam = torch.log(torch.expm1(-torch.log(a) / _C))  # inverse softplus
+        self.lam = nn.Parameter(lam.float().to(device), requires_grad=False)
+        self.gate_r = Linear(width, width, spec, **kw)
+        self.gate_i = Linear(width, width, spec, **kw)
+
+
+def causal_conv1d(x, w, b, state=None):
+    """Depthwise causal conv.  x: (B, S, W); w: (cw, W); state: (B, cw - 1,
+    W), the inputs before x (zeros without one).  Returns (out in x.dtype,
+    the new state: the last cw - 1 rows of the padded input, in x.dtype)."""
+    cw, S = w.shape[0], x.shape[1]
+    if state is None:
+        xp = F.pad(x, (0, 0, cw - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    out = sum(xp[:, i:i + S] * w[i] for i in range(cw)) + b
+    return out.to(x.dtype), (xp[:, -(cw - 1):] if cw > 1 else None)
+
+
+def rglru_scan(log_a, b):
+    """h_t = exp(log_a_t) h_{t-1} + b_t from h_{-1} = 0, over axis 1: an
+    inclusive doubling scan of (log a, b) pairs combined as ``repro``'s
+    associative scan combines them, (la1 + la2, exp(la2) b1 + b2), in
+    ceil(log2 S) steps over the whole (B, S, W) tensor."""
+    la, h = log_a, b
+    d, S = 1, log_a.shape[1]
+    while d < S:
+        h = torch.cat([h[:, :d], torch.exp(la[:, d:]) * h[:, :-d]
+                       + h[:, d:]], dim=1)
+        la = torch.cat([la[:, :d], la[:, :-d] + la[:, d:]], dim=1)
+        d *= 2
+    return h
+
+
+def rglru_block(cell: RGLRU, x: torch.Tensor, *, mode: str = "serve",
+                state=None, kernel_fn=None):
+    """The RG-LRU temporal block, x: (B, S, d) -> ((B, S, d), (h, conv)),
+    term for term as ``repro``'s: the input branch through the causal
+    conv, the gates in float32, the gated input scaled by sqrt(1 - a^2),
+    a carried-in ``h`` folded into step 0, the scan, then ``out`` of h
+    times the gelu gate branch."""
+    xb = cell.in_x(x, mode, kernel_fn)
+    gate = F.gelu(cell.in_gate(x, mode, kernel_fn), approximate="tanh")
+    xb, conv_state = causal_conv1d(xb, cell.conv_w, cell.conv_b,
+                                   None if state is None else state[1])
+    r = torch.sigmoid(cell.gate_r(xb, mode, kernel_fn).float())
+    i = torch.sigmoid(cell.gate_i(xb, mode, kernel_fn).float())
+    softplus = torch.logaddexp(cell.lam, torch.zeros_like(cell.lam))
+    log_a = -_C * softplus * r                               # (B, S, W)
+    gated = torch.sqrt(torch.clamp(1 - torch.exp(2 * log_a), min=1e-9)) * (
+        i * xb.float())
+    if state is not None:
+        # fold the carried state into the first step: b_0 += a_0 h_prev
+        gated[:, 0] = gated[:, 0] + torch.exp(log_a[:, 0]) * state[0].float()
+    h = rglru_scan(log_a, gated)
+    out = cell.out(h.to(x.dtype) * gate, mode, kernel_fn)
+    return out, (h[:, -1], conv_state)
+
+
+def init_rglru_state(batch: int, width: int, conv_width: int = 4, *,
+                     device: torch.device) -> Tuple[torch.Tensor, ...]:
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.zeros((batch, width), **f32),
+            torch.zeros((batch, conv_width - 1, width), **f32))
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,12 @@ An MoE block's ``moe`` subtree is carried the same way: ``router``, the
 expert stacks ``experts/{up,gate,down}`` and the shared expert ``shared``;
 so is an xLSTM block's ``cell`` (the mLSTM's projections, ``ifg``,
 ``ifg_b`` and ``onorm_scale``; the sLSTM's ``wx``, ``wh``, ``b`` and
-``out``), and an encoder-decoder's ``enc_pos`` / ``dec_pos`` tables and
-``enc_norm``.
+``out``), a ``rec`` block's RG-LRU ``rec`` (``in_x``, ``in_gate``,
+``out``, ``gate_r``, ``gate_i``, ``conv_w``, ``conv_b``, ``lam``),
+gemma2's sandwich norms ``ln1_post`` / ``ln2_post``, and an
+encoder-decoder's ``enc_pos`` / ``dec_pos`` tables and ``enc_norm``.
+A segment plan's remainder segment (recurrentgemma's 26 layers: 8 x
+(rec, rec, attn_local), then (rec, rec)) is walked like any other.
 
 Baked planes (a projection's ``wc_cache``, an expert stack's
 ``{up,gate,down}_cache``, projection fusion's ``qkv_cache`` on an

@@ -1,5 +1,6 @@
-"""Decoder LM for the ``attn``, ``moe``, ``moe_swa``, ``mlstm`` and
-``slstm`` block kinds (port of ``repro/models/transformer.py``).
+"""Decoder LM for every block kind of ``repro/models/transformer.py``:
+``attn``, ``attn_local`` (gemma2's windowed layers), ``moe``, ``moe_swa``,
+``rec`` (recurrentgemma's RG-LRU), ``mlstm`` and ``slstm`` (its port).
 
 ``repro`` stacks each segment's block params over a scan axis; the port
 keeps one ``nn.Module`` per layer in a ``ModuleList`` and loops over them.
@@ -13,10 +14,16 @@ window, its ``pos`` rows on the host, ``layers/attention.py``), and a
 paged pool ``{"k": (L, P, page, Hkv, D), "v": ...}`` (plus ``k_scale`` /
 ``v_scale`` (L, P, Hkv) for an int8 pool, ``serve/kvcache.py``); layer
 ``i`` reads and writes the views ``cache["k"][i]`` ... in place.  Where
-the kinds mix (xlstm's mlstm, mlstm, slstm), the cache is a list with one
-entry a layer: a KV dict for an attention kind, the cell's state tuple
-(``layers/recurrent.py``) for a recurrent one, updated in place.
-``repro`` stacks per segment instead; the leaves are the same.
+the kinds or the windows mix (xlstm's mlstm, mlstm, slstm; gemma2's
+attn_local, attn; recurrentgemma's rec, rec, attn_local), the cache is a
+list with one entry a layer: a KV dict for an attention kind (a ring under
+a window, linear without), the cell's state tuple (``layers/recurrent.py``)
+for a recurrent one, updated in place.  ``repro`` stacks per segment
+instead; the leaves are the same.
+
+gemma2's sandwich norms (``ln1_post`` / ``ln2_post``, where the config
+sets ``sandwich_norm``) normalise the attention and MLP outputs before
+each residual, as ``repro``'s do.
 
 The ``vision_stub`` frontend is ported: ``forward(..., frontend_embeds=)``
 replaces the first ``num_patches`` token slots with the given patch
@@ -24,9 +31,7 @@ embeddings, exactly as ``repro`` concatenates them (a prompt shorter than
 ``num_patches`` comes out ``num_patches`` long).  Encoder-decoder models
 (whisper) are ``models/encdec.py``.
 
-Not ported yet: the ``attn_local`` (gemma2) and ``rec`` (recurrentgemma)
-kinds, whose archs need the flash kernel at head dim 256, and learned
-positions in a decoder-only model.
+Not ported yet: learned positions in a decoder-only model.
 """
 from __future__ import annotations
 
@@ -44,7 +49,6 @@ from ..layers import norms as norm_lib
 from ..layers import recurrent as rec_lib
 
 ATTN_KINDS = ("attn", "attn_local", "moe", "moe_swa")
-PORTED_KINDS = ("attn", "moe", "moe_swa", "mlstm", "slstm")
 
 
 def segments_for(cfg: ArchConfig) -> List[Tuple[Tuple[str, ...], int]]:
@@ -90,17 +94,19 @@ def window_for(kind: str, cfg: ArchConfig) -> int:
 
 
 class Block(nn.Module):
-    """An attention kind: norm → attention (windowed for ``moe_swa``) →
-    residual → norm → MLP (``attn``) or mixture of experts (``moe``,
-    ``moe_swa``; in ``self.moe``) → residual.  ``mlstm`` / ``slstm``: norm →
-    the cell (``self.cell``) → residual."""
+    """An attention kind: norm → attention (windowed for ``attn_local`` and
+    ``moe_swa``) → [post-norm] → residual → norm → MLP (``attn``,
+    ``attn_local``) or mixture of experts (``moe``, ``moe_swa``; in
+    ``self.moe``) → [post-norm] → residual; the post-norms are gemma2's
+    sandwich norms.  ``rec``: norm → RG-LRU (``self.rec``) → residual →
+    norm → MLP → residual.  ``mlstm`` / ``slstm``: norm → the cell
+    (``self.cell``) → residual."""
 
     def __init__(self, kind: str, cfg: ArchConfig, *, device: torch.device,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if kind not in PORTED_KINDS:
-            raise NotImplementedError(f"block kind {kind!r} of {cfg.name} is "
-                                      f"not ported yet")
+        if kind not in (*ATTN_KINDS, "rec", "mlstm", "slstm"):
+            raise ValueError(f"block kind {kind!r}")
         self.kind = kind
         d, comp = cfg.d_model, cfg.compression
         kw = dict(device=device, generator=generator)
@@ -113,12 +119,20 @@ class Block(nn.Module):
         if kind == "slstm":
             self.cell = rec_lib.SLSTMCell(d, comp, **kw)
             return
-        self.attn = attn_lib.Attention(cfg, d, comp, **kw)
         self.ln2 = norm_lib.init_norm(cfg.norm, d, device=device)
+        if kind == "rec":
+            self.rec = rec_lib.RGLRU(d, r.lru_width or d, comp,
+                                     r.conv1d_width, **kw)
+            self.mlp = ffn_lib.MLP(d, cfg.d_ff, comp, **kw)
+            return
+        self.attn = attn_lib.Attention(cfg, d, comp, **kw)
         if kind in ("moe", "moe_swa"):
             self.moe = ffn_lib.MoE(d, cfg.d_ff, cfg.moe, comp, **kw)
         else:
             self.mlp = ffn_lib.MLP(d, cfg.d_ff, comp, **kw)
+        if cfg.sandwich_norm:
+            self.ln1_post = norm_lib.init_norm(cfg.norm, d, device=device)
+            self.ln2_post = norm_lib.init_norm(cfg.norm, d, device=device)
 
 
 def _store(cache, state) -> None:
@@ -143,11 +157,19 @@ def apply_block(block: Block, x, cfg: ArchConfig, *, mode: str, cache=None,
         if cache is not None:
             _store(cache, state)
         return x + y, cache
-    a, cache = attn_lib.attention_block(
-        block.attn, h, cfg=cfg, causal=True,
-        window=window_for(block.kind, cfg), cache=cache,
-        cache_pos=cache_pos, mode=mode, block_table=block_table,
-        paged_impl=paged_impl, kernel_fn=kernel_fn)
+    if block.kind == "rec":
+        a, state = rec_lib.rglru_block(block.rec, h, mode=mode, state=cache,
+                                       kernel_fn=kernel_fn)
+        if cache is not None:
+            _store(cache, state)
+    else:
+        a, cache = attn_lib.attention_block(
+            block.attn, h, cfg=cfg, causal=True,
+            window=window_for(block.kind, cfg), cache=cache,
+            cache_pos=cache_pos, mode=mode, block_table=block_table,
+            paged_impl=paged_impl, kernel_fn=kernel_fn)
+    if hasattr(block, "ln1_post"):
+        a = block.ln1_post(a)
     x = x + a
     h = block.ln2(x)
     if hasattr(block, "moe"):
@@ -157,6 +179,8 @@ def apply_block(block: Block, x, cfg: ArchConfig, *, mode: str, cache=None,
     else:
         f = ffn_lib.mlp(block.mlp, h, activation=cfg.ffn_activation,
                         mode=mode, kernel_fn=kernel_fn, comp=cfg.compression)
+    if hasattr(block, "ln2_post"):
+        f = block.ln2_post(f)
     return x + f, cache
 
 
@@ -196,9 +220,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, device=None,
                dtype=torch.bfloat16):
     """Layer-stacked k/v (L, B, S, Hkv, D) and pos (L, S) = -1 where every
     layer is an attention kind of one window; else a list, one entry a
-    layer: a KV dict or a cell's float32 state.  Either KV layout comes
-    from ``layers/attention.py:init_kv_cache`` (a ring where the window is
-    set)."""
+    layer: a KV dict (a ring of min(window, max_seq) slots for a windowed
+    layer, linear for a global one) or a cell's float32 state.  Either KV
+    layout comes from ``layers/attention.py:init_kv_cache``."""
     device = resolve_device(device)
     kinds = layer_kinds(cfg)
     windows = {window_for(kind, cfg) for kind in kinds}
@@ -221,9 +245,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, device=None,
         elif kind == "slstm":
             out.append(rec_lib.init_slstm_state(batch, cfg.d_model,
                                                 device=device))
-        else:
-            raise NotImplementedError(f"block kind {kind!r} of {cfg.name} is "
-                                      f"not ported yet")
+        else:                                           # rec
+            out.append(rec_lib.init_rglru_state(
+                batch, r.lru_width or cfg.d_model, r.conv1d_width,
+                device=device))
     return out
 
 

@@ -57,8 +57,7 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device, synchronize
 from ..kernels import ops as kops
 from ..models.registry import build_model
-from ..models.transformer import (PORTED_KINDS, cache_bytes, layer_kinds,
-                                  window_for)
+from ..models.transformer import cache_bytes, layer_kinds, window_for
 from ..obs.metrics import Registry
 from ..quant.codec import QuantPolicy
 from . import decode as dec
@@ -136,12 +135,13 @@ class Engine:
     freeze, early exit) or "per_token" (one ``make_decode_step`` call per
     token, no freezing; the results are cut the same way).  Only the
     weight half of ``quant`` applies: the cache stays float32.  It serves
-    the ``attn`` / ``moe`` decoder LMs, mixtral's sliding-window ``moe_swa``
-    blocks (a ring cache: a batch's padded prompt must cover
-    ``min(window, S + steps - 1)`` positions, else ``ValueError``, as in
-    ``repro``), xlstm's ``mlstm`` / ``slstm`` blocks (recurrent state) and
-    the encoder-decoder whisper (zero ``frames``; the cache holds the
-    cross K/V); other block kinds raise ``NotImplementedError``.
+    every block kind: the ``attn`` / ``moe`` decoder LMs, the
+    sliding-window ``attn_local`` (gemma2, recurrentgemma) and ``moe_swa``
+    (mixtral) blocks over a ring cache (a batch's padded prompt must cover
+    ``min(window, S + steps - 1)`` positions for the largest window, else
+    ``ValueError``, as in ``repro``), recurrentgemma's ``rec`` and xlstm's
+    ``mlstm`` / ``slstm`` blocks (recurrent state) and the encoder-decoder
+    whisper (zero ``frames``; the cache holds the cross K/V).
     ``stats()`` adds ``prefills`` and ``decode_steps`` (forward passes) to
     the shared counters, ``cache_bytes`` (the largest cache it allocated:
     KV, ring, cross K/V and recurrent state) and ``dispatch_kinds`` (the
@@ -160,10 +160,6 @@ class Engine:
                              f"or 'per_token'")
         kinds = (set() if cfg.is_encoder_decoder
                  else set(layer_kinds(cfg)))
-        if kinds - set(PORTED_KINDS):
-            raise NotImplementedError(
-                f"{cfg.name}: block kinds "
-                f"{sorted(kinds - set(PORTED_KINDS))} are not ported yet")
         # the largest sliding window of any block: its ring's prefill keeps
         # the window's tail, so a batch's prompts must cover it
         self._swa_window = max((window_for(k, cfg) for k in kinds),

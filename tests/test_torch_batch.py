@@ -33,6 +33,7 @@ from repro_torch.configs.registry import get_smoke_config as tget  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import spectral_matmul as tsm  # noqa: E402
 from repro_torch.models.convert import from_jax_params  # noqa: E402
+from repro_torch.models.registry import init_params  # noqa: E402
 from repro_torch.quant import codec as tq  # noqa: E402
 from repro_torch.serve import decode as tdec  # noqa: E402
 from repro_torch.serve import engine as teng  # noqa: E402
@@ -199,9 +200,14 @@ def test_quantized_planes_match_repro(setup, bits):
 
 
 def test_engine_refuses_unported_blocks_and_modes(setup, model):
+    """Every block kind is ported: gemma2's engine builds (its kinds are
+    attn_local and attn); an unknown decode mode and weights on another
+    device are refused."""
     _, tcfg, _ = setup
-    with pytest.raises(NotImplementedError, match="attn_local"):
-        teng.Engine(tget("gemma2-9b"), model, device="cpu")
+    gcfg = tget("gemma2-9b")
+    eng = teng.Engine(gcfg, init_params(gcfg, seed=0, device="cpu"),
+                      device="cpu")
+    assert eng._swa_window == gcfg.attention.sliding_window
     with pytest.raises(ValueError, match="decode_mode"):
         teng.Engine(tcfg, model, device="cpu", decode_mode="loop")
     with pytest.raises(ValueError, match="params are on"):

@@ -11,6 +11,7 @@ the same int8 / int4 codes and scales as their plain versions, so they are
 held at 1e-4 too; the gather is a copy and is held exactly.
 """
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -405,6 +406,66 @@ def test_flash_f32_tensor_core_prefill(cuda, S, D, opts):
             assert bool(dead.any()) and (got[dead] == 0).all()
 
 
+# head dim 256 (gemma2, recurrentgemma): (B, Hq, Hkv, Sq, Skv), dtype,
+# options, the kernel the plan must take.  Unit-variance scores barely
+# reach a cap of 50; the last case of each lane caps at 4 with q scaled by
+# 8 (``Q_SCALE``), where an uncapped kernel misses the tolerance by far.
+Q_SCALE = 8.0
+CAP4 = dict(softcap=4.0, q_scale=Q_SCALE)
+HEAD_DIM_256 = [
+    ((1, 4, 2, 4200, 4200), torch.bfloat16,
+     dict(window=4096, softcap=50.0), "bf16"),
+    ((2, 10, 1, 300, 300), torch.bfloat16, dict(softcap=50.0), "bf16"),
+    ((1, 4, 2, 37, 37), torch.bfloat16, dict(causal=False), "bf16"),
+    ((1, 16, 8, 700, 700), torch.bfloat16, dict(window=512, **CAP4), "bf16"),
+    ((1, 4, 2, 4200, 4200), torch.float32,
+     dict(window=4096, softcap=50.0), "f32_mma"),
+    ((1, 10, 1, 300, 300), torch.float32, dict(window=100), "f32_mma"),
+    ((1, 16, 8, 8, 8), torch.float32, dict(softcap=50.0), "f32_mma"),
+    ((1, 10, 1, 300, 300), torch.float32, dict(window=100, **CAP4),
+     "f32_mma"),
+    ((1, 16, 8, 7, 500), torch.float32, dict(kv_offset=493), "f32_rows"),
+    ((4, 10, 1, 1, 2100), torch.float32, dict(kv_offset=2099, window=2048),
+     "f32_rows"),
+    ((4, 10, 1, 1, 2033), torch.float32, dict(causal=False), "f32_rows"),
+    ((4, 16, 8, 1, 4207), torch.float32, dict(kv_offset=4206, softcap=50.0),
+     "f32_rows"),
+    ((4, 16, 8, 1, 4089), torch.float32, dict(causal=False, softcap=50.0),
+     "f32_rows"),
+    ((2, 4, 4, 1, 300), torch.float32, dict(kv_offset=299, window=70),
+     "f32_rows"),
+    ((4, 10, 1, 1, 2100), torch.float32, dict(kv_offset=2099, **CAP4),
+     "f32_rows")]
+
+
+@pytest.mark.parametrize("shape,dtype,opts,path", HEAD_DIM_256)
+def test_flash_kernel_head_dim_256(cuda, shape, dtype, opts, path):
+    """Every lane at D = 256 against ``attention_ref``: the bf16 prefill
+    and the float32 tensor-core prefill with gemma2's window of 4,096 and
+    softcap 50 at 4,200 positions, at G = 10 (recurrentgemma) and ragged;
+    the rows kernel at 14 packed rows, at G = 10 over 2,100 keys with a
+    window of 2,048 and over a ring's 2,033 (not causal), gemma2's G = 2
+    decode over 4,207 keys and its ring's 4,089, and G = 1 (8 key
+    groups); on each lane a cap of 4 that bites."""
+    B, Hq, Hkv, Sq, Skv = shape
+    opts = dict(opts)
+    q = opts.pop("q_scale", 1.0) * torch.randn((B, Hq, Sq, 256),
+                                               generator=cuda, device="cuda")
+    k = torch.randn((B, Hkv, Skv, 256), generator=cuda, device="cuda")
+    v = torch.randn(k.shape, generator=cuda, device="cuda")
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    assert fa.plan(B, Hq, Hkv, Sq, Skv, 256, dtype).path == path
+    before = fa.KERNEL.path_launches.get(path, 0)
+    got = fa.flash_attention(q, k, v, **opts)
+    assert fa.KERNEL.path_launches[path] == before + 1
+    ref = fa.attention_ref(q, k, v, **opts)
+    _close(got, ref, dtype == torch.bfloat16)
+    if opts.get("softcap") == CAP4["softcap"]:      # the cap bites here
+        bare = fa.flash_attention(q, k, v, **{**opts, "softcap": 0.0})
+        with pytest.raises(AssertionError):
+            _close(bare, ref, dtype == torch.bfloat16)
+
+
 @pytest.mark.parametrize("q_dtype,kv_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
     (torch.bfloat16, torch.bfloat16)])
@@ -534,4 +595,32 @@ def test_moe_and_vision_engines_on_card_match_cpu(cuda, arch):
         batch = Engine(cfg, model, max_batch=2, max_seq=32, device=dev)
         out[dev] = [[r["tokens"] for r in eng.generate(reqs)]
                     for eng in (cont, batch)]
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "recurrentgemma-2b"])
+def test_gemma_engines_on_card_match_cpu(cuda, arch):
+    """gemma2 and recurrentgemma (smoke widths, head dim 256, float32)
+    through the batch engine on the card against the CPU's plain path:
+    the same greedy tokens, the prefills on the float32 tensor-core
+    kernel, the decode steps on the rows kernel."""
+    c0 = get_smoke_config(arch)
+    cfg = c0.replace(dtype="float32", attention=dataclasses.replace(
+        c0.attention, head_dim=256))
+    rng = np.random.RandomState(0)
+    reqs = [Request(prompt=rng.randint(1, 500, size=s).astype(np.int32),
+                    max_new_tokens=n, id=i)
+            for i, (s, n) in enumerate([(20, 9), (17, 6)])]
+    base = precompute_serving_params(init_params(cfg, seed=0, device="cpu"),
+                                     cfg)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(cfg, copy.deepcopy(base).to(dev), max_batch=2,
+                     max_seq=32, device=dev)
+        before = dict(fa.KERNEL.path_launches)
+        out[dev] = [r["tokens"] for r in eng.generate(reqs)]
+    after = fa.KERNEL.path_launches
+    grew = {p: after.get(p, 0) - before.get(p, 0)
+            for p in ("f32_mma", "f32_rows")}
+    assert all(n > 0 for n in grew.values()), grew
     assert out["cuda"] == out["cpu"]

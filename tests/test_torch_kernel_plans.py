@@ -10,10 +10,13 @@ the kernels rely on, checked on the CPU (no card needed).
   output row and block exactly once, computes each row's DFT exactly once,
   fits the H100's shared memory and a portable cluster, and at B = 8
   launches a full cluster of 8 blocks per row.
+  gemma2-9b's and recurrentgemma-2b's projections at B = 4 and 16,800.
 - ``flash_attention``: the same properties of its plan at one query row
-  (G in {1, 4, 8}) and at prefill; the bf16 lane's head dims (64, 96 and
-  128) and their shared memory; the float32 kernel each shape takes
-  (tensor cores from 16 packed rows at D = 64, 96, 128); at the one-row
+  (G in {1, 4, 8, 10}) and at prefill; the bf16 lane's head dims (64, 96,
+  128 and 256) and their shared memory; the float32 kernel each shape
+  takes (tensor cores from 16 packed rows at D = 64, 96, 128, 256); each
+  lane at gemma2's and recurrentgemma's head dim 256, and D = 192
+  refused; at the one-row
   decode, the key groups (every warp of a block busy, each key of a split
   scored by exactly one warp) and their warp-order merge, emulated in
   plain PyTorch against ``attention_ref``; one Q K^T / P V tile in
@@ -27,8 +30,9 @@ the kernels rely on, checked on the CPU (no card needed).
   positions; the page-range split and its in-order merge, emulated in
   plain PyTorch, against ``paged_attention_stream`` over f32 and int8
   pools.
-- ``spectral_matmul``: its plan at the 11 batch-prefill shapes and the card
-  test's ragged ones, in both layouts, writes every output exactly once,
+- ``spectral_matmul``: its plan at the 11 batch-prefill shapes, the card
+  test's ragged ones and those gemma2 and recurrentgemma add, in both
+  layouts, writes every output exactly once,
   fits shared memory and the grid, pads Q and P to multiples of 8, and
   refuses a Q that fits nothing; the 3xTF32 Gauss MAC at Q = 86, emulated
   in numpy, keeps float32 accuracy.
@@ -75,6 +79,10 @@ def _block_shapes(archs):
 
 
 SHAPES = _block_shapes(ARCHS + NEW_ARCHS)
+# head dim 256: gemma2 (GQA 16 / 8) and recurrentgemma (MQA 10 / 1, whose
+# RG-LRU projections share the (20, 20) of its q and o)
+GEMMA_ARCHS = ("gemma2-9b", "recurrentgemma-2b")
+GEMMA_SHAPES = _block_shapes(GEMMA_ARCHS)
 
 
 def _bc_coverage(pl, B, p, q, k):
@@ -157,6 +165,28 @@ def test_bc_fused_plan(arch, proj, p, q, k, B):
         assert pl.blocks == 64 and pl.rows == 1 and pl.cluster == 8
 
 
+@pytest.mark.parametrize("B", [1, 4, 16800])
+@pytest.mark.parametrize("arch,proj,p,q,k", GEMMA_SHAPES,
+                         ids=[f"{s[0]}-{s[1]}" for s in GEMMA_SHAPES])
+def test_bc_fused_plan_gemma_shapes(arch, proj, p, q, k, B):
+    """gemma2's (32, 28) (16, 28) (28, 32) (112, 28) (28, 112) and
+    recurrentgemma's (20, 20) (2, 20) (60, 20) (20, 60) at the oracle's
+    one row and a decode's 4 rows: the same properties; at 4 x 4,200 rows
+    a plan that fits (its coverage, replayed on the host, would take
+    minutes here)."""
+    assert {(p_, q_) for _, _, p_, q_, _ in GEMMA_SHAPES} == {
+        (32, 28), (16, 28), (28, 32), (112, 28), (28, 112), (20, 20),
+        (2, 20), (60, 20), (20, 60)}
+    if B <= max(BATCHES):
+        test_bc_fused_plan(arch, proj, p, q, k, B)
+        return
+    pl = bcf.plan(B, p, q, k)
+    assert pl.smem_bytes <= bcf.MAX_SMEM
+    assert pl.smem_bytes == bcf.smem_bytes(p, q, k, pl.rows, pl.cluster,
+                                           pl.mode, pl.share, pl.qchunk)
+    assert pl.blocks == -(-B // pl.rows) * pl.cluster
+
+
 @pytest.mark.parametrize("p,q,k", [(3, 5, 7), (3, 5, 0), (0, 4, 16)])
 def test_bc_fused_plan_refuses(p, q, k):
     with pytest.raises(ValueError):
@@ -220,7 +250,14 @@ FLASH_CASES = (
        (1, 32, 32, 16, 16, 96, torch.float32),
        (1, 32, 32, 17, 17, 96, torch.float32),
        (1, 8, 2, 3, 300, 128, torch.float32),
-       (3, 8, 4, 1, 100, 64, torch.float32)])
+       (3, 8, 4, 1, 100, 64, torch.float32)]
+    # head dim 256: gemma2's global and ring decode (G = 2), its batch
+    # prefill; recurrentgemma's ring decode (G = 10) and oracle prefill
+    + [(4, 16, 8, 1, 4207, 256, torch.float32),
+       (4, 16, 8, 1, 4090, 256, torch.float32),
+       (4, 16, 8, 4200, 4200, 256, torch.bfloat16),
+       (4, 10, 1, 1, 2048, 256, torch.float32),
+       (1, 10, 1, 2100, 2100, 256, torch.float32)])
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,dtype", FLASH_CASES)
@@ -359,17 +396,60 @@ def test_key_group_merge_matches_attention_ref(opts):
     assert float((got - ref).abs().max()) <= 1e-5 * scale
 
 
+# (B, Hq, Hkv, Sq, Skv, dtype) at D = 256 -> (path, rows, key groups,
+# shared memory)
+HEAD_DIM_256 = [
+    ((4, 16, 8, 4200, 4200, torch.bfloat16), ("bf16", 64, 1, 168960)),
+    ((1, 16, 8, 4100, 4100, torch.float32), ("f32_mma", 64, 1, 200704)),
+    ((1, 10, 1, 2100, 2100, torch.float32), ("f32_mma", 64, 1, 200704)),
+    ((1, 16, 8, 8, 8, torch.float32), ("f32_mma", 64, 1, 200704)),
+    ((1, 16, 8, 7, 7, torch.float32), ("f32_rows", 16, 1, 148480)),
+    ((4, 10, 1, 1, 2048, torch.float32), ("f32_rows", 16, 1, 148480)),
+    ((4, 16, 8, 1, 4207, torch.float32), ("f32_rows", 2, 4, 137216)),
+    ((4, 16, 16, 1, 4090, torch.float32), ("f32_rows", 1, 8, 140288))]
+
+
+@pytest.mark.parametrize("shape,want", HEAD_DIM_256,
+                         ids=[f"{s[3]}x{s[4]}-g{s[1] // s[2]}-"
+                              f"{str(s[5]).split('.')[-1]}"
+                              for s, _ in HEAD_DIM_256])
+def test_flash_plan_head_dim_256(shape, want):
+    """All three kernels at D = 256: bf16 2 x 5 x 64 x 264 bytes; the
+    float32 tensor-core prefill from 16 packed rows, 4 x (64 x 260 + 2 x
+    32 x 524) bytes; the rows kernel below 16, 4 x (rows x 256 + 2 x 32 x
+    (512 + 4 key groups)) bytes (197,632 at its most, 64 rows; 140,288 at
+    one row and 8 key groups).  recurrentgemma's G = 10 one-row decode
+    packs its 10 rows into one tile of 16 and splits the keys instead of
+    halving the tile."""
+    B, Hq, Hkv, Sq, Skv, dtype = shape
+    pl = fa.plan(B, Hq, Hkv, Sq, Skv, 256, dtype)
+    assert (pl.path, pl.rows, pl.key_groups, pl.smem_bytes) == want
+    assert pl.smem_bytes <= 4 * (64 * 256 + 2 * 32 * 516) == 197632 \
+        or pl.path != "f32_rows"
+    assert max(168960, 200704, 197632) <= bcf.MAX_SMEM
+    if (Hq // Hkv, Sq) == (10, 1):
+        assert pl.splits > 1 and pl.blocks >= 128
+
+
+def test_flash_plan_refuses_float32_head_dim_192():
+    """Above 128 only D = 256 has kernels: the float32 lanes refuse 192
+    (the bf16 lane's refusal is ``test_flash_plan_bf16_head_dims``)."""
+    with pytest.raises(ValueError, match="head dim 192"):
+        fa.plan(1, 8, 2, 16, 16, 192, torch.float32)
+
+
 def test_flash_plan_refuses_untiled_bf16_head_dim():
     with pytest.raises(ValueError, match="tensor cores"):
         fa.plan(1, 8, 2, 16, 16, 80, torch.bfloat16)
 
 
 @pytest.mark.parametrize("D,smem", [(64, 46080), (96, 66560), (128, 87040),
-                                    (192, None), (256, None)])
+                                    (192, None), (256, 168960)])
 def test_flash_plan_bf16_head_dims(D, smem):
-    """The bf16 lane tiles D = 64, 96 and 128 with Q and two K/V buffers of
-    64 rows padded to D + 8 values (2 x 5 x 64 x (D + 8) bytes); 192 and
-    256 are not ported yet and raise."""
+    """The bf16 lane tiles D = 64, 96, 128 and 256 with Q and two K/V
+    buffers of 64 rows padded to D + 8 values (2 x 5 x 64 x (D + 8) bytes;
+    at 256 within the 232,448 a block may use, one block an SM); 192 is
+    not ported and raises."""
     if smem is None:
         with pytest.raises(ValueError, match="tensor cores"):
             fa.plan(1, 32, 32, 768, 768, D, torch.bfloat16)
@@ -694,6 +774,18 @@ def test_spectral_plan(F, N, Q, P, layout):
         assert smm.pad8(n) % 8 == 0 and n <= smm.pad8(n) < n + 8
     out = _spectral_coverage(pl, F, N, P)
     assert bool((out == 1).all()), "an output is written 0 or 2+ times"
+
+
+GEMMA_SPECTRAL = sorted({(q, p) for _, _, p, q, _ in GEMMA_SHAPES})
+
+
+@pytest.mark.parametrize("layout", [smm.BIN_MAJOR, smm.BIN_MINOR],
+                         ids=["bin_major", "bin_minor"])
+@pytest.mark.parametrize("Q,P", GEMMA_SPECTRAL)
+def test_spectral_plan_gemma_shapes(Q, P, layout):
+    """The batch-prefill shapes gemma2 and recurrentgemma bring (Q = 28 or
+    20 input blocks; P up to 112), at 3,040 rows: the same properties."""
+    test_spectral_plan(65, 3040, Q, P, layout)
 
 
 @pytest.mark.parametrize("layout", [smm.BIN_MAJOR, smm.BIN_MINOR])

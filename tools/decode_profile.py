@@ -14,8 +14,8 @@ builds that tree's decode loop at the arch's published widths and depth
 float32 pool of pages of 16, 8 slots filled by B=1 prefills of 17-200
 tokens (``make_prefill_pack_step``, as the engine does; 4 slots for
 phi-3-vision, whose prompts are 600-760 tokens long, and the other
-archs; a sliding-window arch's prompts are window to window + 104 tokens
-long, so that they cover its ring cache), every
+archs; an arch with windowed layers has prompts of its largest window to
+window + 104 tokens, so that they cover its ring caches), every
 slot with a budget that outlasts the run; 2 warm-up dispatches of 8 steps
 (a tree that captures its step does so in the first), 6 timed, 2
 profiled.  ``--engine dense`` (the batch engine's ``make_decode_loop``):
@@ -60,6 +60,7 @@ try:                        # any arch, the encoder-decoder too
     from repro_torch.models.registry import init_params
 except ImportError:         # trees that serve decoder LMs only
     from repro_torch.models.transformer import init_params
+from repro_torch.models.transformer import layer_kinds, window_for
 from repro_torch.serve import decode as dec
 from repro_torch.serve import kvcache as kvc
 from repro_torch.serve.engine import frontend_inputs
@@ -165,9 +166,9 @@ engine = sys.argv[2]
 for arch in sys.argv[1].split(","):
     cfg = get_config(arch)
     slots = 8 if arch == "tinyllama-1.1b" else 4
-    window = (cfg.attention.sliding_window
-              if cfg.attention.layout == "sliding" else 0)
-    # a sliding-window arch's prompts cover its window (the ring rule)
+    # an arch with windowed layers (mixtral, gemma2, recurrentgemma): its
+    # prompts cover the largest window (the ring rule)
+    window = max(window_for(k, cfg) for k in layer_kinds(cfg))
     lo, hi = ((600, 760) if cfg.frontend == "vision_stub"
               else (window, window + 104) if window else (17, 200))
     params = precompute_serving_params(
