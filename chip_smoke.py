@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving and training paths on one CUDA card
+and check them.
 
     python3 chip_smoke.py
 
@@ -99,6 +100,23 @@ itself.  Each phase prints one JSON line:
                 (but the trash page's) and launch counts equal; capture count and seconds; a step
                 that reads the card inside fails to capture and raises
 
+  train         tinyllama-1.1b at full width and depth through
+                ``repro_torch.launch.train --full``: 8 AdamW steps of 8 x
+                1,024 tokens, bf16 activations, remat, random weights from
+                the seed; every loss finite, no step skipped, ms per step
+                (the median of steps 3-8), tokens/s, peak memory, and the
+                ``bc_fused`` / ``bc_grad_w`` launches a step by shape equal
+                to those derived from the model (the forward twice under
+                remat, then one adjoint and one weight gradient a
+                projection; no other kernel)
+  train_parity  the same at 2 layers in float32: the card's loss and every
+                parameter's gradient against the CPU's plain path on the
+                same weights and batch; then the ``Trainer`` on the card,
+                one step, a checkpoint, a restore and step 2, equal bit for
+                bit to two uninterrupted steps
+  train_dense   ``--no-compress`` at the same shape and depth, 4 steps: ms
+                per step and peak memory beside the circulant run's
+
 Every ``ContinuousEngine`` above decodes by replaying the CUDA graph of its
 step, captured when the engine is built (``serve/decode.py``); its launch
 counts are the replays' (warm-up and capture are counted apart).
@@ -137,6 +155,11 @@ Every flash case without a logit softcap times
 the one ``SDPA_PINNED`` names as its library time; no SDPA call computes
 a softcap, so gemma2's cases time one compiled ``flex_attention`` call
 (``flex_library``);
+The training kernels: ``bc_grad_w`` at each of tinyllama's training
+shapes (q/o, k/v, up/gate, down and the fused q/k/v and up/gate, N = 8 x
+1,024 rows) against its plain version, two calls bit-equal, its library
+time one complex64 ``torch.bmm`` over the bins (the contraction alone);
+``bc_fused`` at the training rows at every forward and adjoint shape.
 ``paged_attention`` also with one slot idle where none is (cases ending
 ``_idle``) and with every slot at the table's last column (``_full``).
 Each case carries its launch plan where the kernel has one, and
@@ -153,9 +176,12 @@ from __future__ import annotations
 import copy
 import ctypes
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -168,23 +194,30 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import circulant as cc  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.kernels import bc_fused, build  # noqa: E402
+from repro_torch.kernels import bc_grad_w as bgw  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import paged as pg  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import spectral_matmul as sm  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.layers import attention as attn_lib  # noqa: E402
 from repro_torch.layers import ffn  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.registry import build_model, init_params  # noqa: E402
 from repro_torch.models.transformer import layer_kinds  # noqa: E402
+from repro_torch.optim import adamw, schedule  # noqa: E402
 from repro_torch.quant import codec  # noqa: E402
 from repro_torch.serve import decode as dec  # noqa: E402
 from repro_torch.serve import kvcache as kvc  # noqa: E402
 from repro_torch.serve.engine import (ContinuousEngine, Engine,  # noqa: E402
                                       Request, frontend_inputs)
 from repro_torch.serve.params import precompute_serving_params  # noqa: E402
+from repro_torch.train import checkpoint as tckpt  # noqa: E402
+from repro_torch.train import train_step as ts  # noqa: E402
+from repro_torch.train.trainer import Trainer  # noqa: E402
 
 ARCH = "tinyllama-1.1b"
 SEED = 0
@@ -194,6 +227,12 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 LIBRARIES = (bc_fused.KERNEL, fa.KERNEL, pa.KERNEL, pg.KERNEL, sm.KERNEL)
+# the training phases count bc_grad_w too (the serving phases' launch
+# fields stay as they were)
+TRAIN_LIBRARIES = LIBRARIES + (bgw.KERNEL,)
+# train: tinyllama-1.1b at full width and depth, 8 x 1,024 tokens a step
+TRAIN = dict(batch=8, seq=1024, steps=8, dense_steps=4)
+TRAIN_ROWS = TRAIN["batch"] * TRAIN["seq"]
 QWEN = ("qwen2.5-3b", "qwen3-4b")
 PHI3, MOE = "phi-3-vision-4.2b", "llama4-maverick-400b-a17b"
 MIXTRAL, XLSTM, WHISPER = "mixtral-8x7b", "xlstm-125m", "whisper-large-v3"
@@ -302,6 +341,11 @@ LANES = {
                         "src/repro/kernels/spectral_matmul.py:42",
                         "spectral_matmul", "tinyllama_q_o_n2048",
                         "serve_batch"),
+    # no Pallas kernel: the weight-gradient half of repro's hand-derived
+    # block-circulant backward, which repro leaves to XLA
+    "bc_grad_w": (bgw.KERNEL,
+                  "src/repro/core/circulant.py:247 (_bc_fft_bwd, XLA)",
+                  "bc_grad_w", f"tinyllama_up_gate_n{TRAIN_ROWS}", "train"),
 }
 # The lanes again at the shapes phi-3-vision and llama4 bring (head dim
 # 96, G = 1, expert blocks), named ``<lane>@<shape>``; launches from that
@@ -414,6 +458,14 @@ NEW_SHAPES = {
         sm.KERNEL, "src/repro/kernels/spectral_matmul.py:42",
         "spectral_matmul", "recurrentgemma_q_o_n8600_hook",
         f"{RGEMMA}/batch"),
+    # training (phase train, N = 8,192 rows): up/gate's forward shape (44,
+    # 16), which down's adjoint shares; k/v's adjoint (16, 2), launched by
+    # the input gradient alone; counted at the case's shape
+    "bc_fused@train": (bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48",
+                       "bc_fused", f"train_up_gate_b{TRAIN_ROWS}", "train"),
+    "bc_fused@train_adjoint": (
+        bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48", "bc_fused",
+        f"train_k_v_adjoint_b{TRAIN_ROWS}", "train"),
 }
 
 
@@ -471,10 +523,11 @@ def time_ms(fn, reps: int = 15, inner: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def graph_ms(fn, inner: int = 10) -> float:
+def graph_ms(fn, inner: int = 10, reps: int = 15) -> float:
     """Device time of one call: ``inner`` calls captured in a CUDA graph,
-    replayed and timed as ``time_ms`` times a call, so the host's work in
-    the wrapper (checks, allocation, the ctypes call) is left out."""
+    replayed and timed as ``time_ms`` times a call (``reps`` timings of
+    ``inner`` replays), so the host's work in the wrapper (checks,
+    allocation, the ctypes call) is left out."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -484,17 +537,22 @@ def graph_ms(fn, inner: int = 10) -> float:
     with torch.cuda.graph(graph):
         for _ in range(inner):
             fn()
-    return time_ms(graph.replay) / inner
+    return time_ms(graph.replay, reps=reps, inner=inner) / inner
 
 
-def kernel_times(fn):
+# timings of the millisecond-scale training cases: fewer calls, the same
+# medians
+LONG = dict(reps=5, inner=2)
+
+
+def kernel_times(fn, reps: int = 15, inner: int = 10):
     """``kernel_ms``: a wrapper call back to back (host enqueue included,
     the time a caller sees); ``device_ms``: the same call replayed from a
     CUDA graph (the kernel alone).  A capture that fails leaves
     ``device_ms`` None with the reason."""
-    out = {"kernel_ms": time_ms(fn)}
+    out = {"kernel_ms": time_ms(fn, reps=reps, inner=inner)}
     try:
-        out["device_ms"] = graph_ms(fn)
+        out["device_ms"] = graph_ms(fn, inner=inner, reps=reps)
     except RuntimeError as e:               # measurement only
         torch.cuda.synchronize()
         out["device_ms"], out["device_ms_error"] = None, str(e)[:300]
@@ -508,6 +566,13 @@ def bound(nbytes: float, flops: float, dtype: torch.dtype):
     t_ops = flops / PEAK_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def rfft_flops(rows: int, k: int) -> float:
+    """Operations of ``rows`` real FFTs of length ``k`` (or their inverses):
+    2.5 k log2 k each, half a complex FFT's 5 k log2 k.  The least a
+    transform needs; the kernels multiply by dense DFT panels instead."""
+    return 2.5 * rows * k * math.log2(k)
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -548,11 +613,14 @@ def new_projections(cfg):
 
 
 def check_bc_fused(cfg, gen, shapes=None, batches=(8, 256),
-                   lane_names=("bc_fused", "bc_fused_i8", "bc_fused_i4")):
+                   lane_names=("bc_fused", "bc_fused_i8", "bc_fused_i4"),
+                   timing=None):
     """The float32 lane and the int8 / int4 lanes, on the same weights and
     inputs at every projection, at B = 8 (decode slots) and 256 (prefill
     rows).  The quantized lanes get the same codes and scales as their plain
-    version, so both sides contract identical values in float32."""
+    version, so both sides contract identical values in float32.
+    ``timing`` (``time_ms``'s reps and inner) for long calls."""
+    timing = timing or {}
     k = cfg.compression.block_attn
     kf = k // 2 + 1
     lanes = {lane: [] for lane in lane_names}
@@ -574,7 +642,7 @@ def check_bc_fused(cfg, gen, shapes=None, batches=(8, 256),
         for B in batches:                    # decode slots, prefill rows
             xb = torch.randn((B, q, k), generator=gen, device="cuda")
             x2 = xb.reshape(B, q * k)[:, :n_in]
-            library_ms = time_ms(lambda: x2 @ w_t)
+            library_ms = time_ms(lambda: x2 @ w_t, **timing)
             for lane, (pl, scales, row_bytes) in variants.items():
                 got = bc_fused.bc_fused_matmul(xb, *pl, k, scales)
                 ref = bc_fused.bc_fused_matmul_plain(xb, *pl, k, scales)
@@ -587,8 +655,8 @@ def check_bc_fused(cfg, gen, shapes=None, batches=(8, 256),
                 nbytes = (4 * (B * q * k + 4 * k * kf + B * p * k)
                           + 3 * p * q * row_bytes
                           + (0 if scales is None else 3 * 4 * p))
-                flops = (4 * B * q * k * kf + 6 * B * p * q * kf
-                         + B * q * kf + 2 * B * p * kf + 4 * B * p * kf * k
+                flops = (rfft_flops(B * q, k) + 6 * B * p * q * kf
+                         + B * q * kf + 2 * B * p * kf + rfft_flops(B * p, k)
                          + (0 if scales is None else 3 * B * p * kf))
                 bound_ms, bound_by = bound(nbytes, flops, torch.float32)
                 lanes[lane].append({
@@ -598,10 +666,10 @@ def check_bc_fused(cfg, gen, shapes=None, batches=(8, 256),
                     "planes": str(pl[0].dtype).split(".")[-1],
                     "max_abs_err": err, "tol": tol,
                     **kernel_times(lambda: bc_fused.bc_fused_matmul(
-                        xb, *pl, k, scales)),
+                        xb, *pl, k, scales), **timing),
                     "plain_ms": time_ms(
                         lambda: bc_fused.bc_fused_matmul_plain(
-                            xb, *pl, k, scales)),
+                            xb, *pl, k, scales), **timing),
                     "library_ms": library_ms,
                     "library": "torch.matmul against the dense W (float32)",
                     "bytes": nbytes, "flops": flops,
@@ -1242,6 +1310,272 @@ def check_spectral(cfg, gen, shapes=None, N=ROWS):
     return {"spectral_matmul": (cases, "tinyllama_q_o_n2048")}
 
 
+# ---------------------------------------------------------------------------
+# training: bc_grad_w and bc_fused at the training shapes, then the trainer
+# ---------------------------------------------------------------------------
+def train_projections(cfg):
+    """name -> (n_in, n_out) of each of a layer's seven projections."""
+    a = cfg.attention
+    d, dff = cfg.d_model, cfg.d_ff
+    hq, hkv = a.num_heads * a.head_dim, a.num_kv_heads * a.head_dim
+    return {"q": (d, hq), "k": (d, hkv), "v": (d, hkv), "o": (hq, d),
+            "up": (d, dff), "gate": (d, dff), "down": (dff, d)}
+
+
+def train_shape_counts(cfg, N):
+    """The launches one training step makes, by shape, derived from the
+    model: every projection's forward (twice under remat: the backward
+    runs each layer's forward again) and its adjoint (the input gradient:
+    the fused kernel at (p, q) swapped) through ``bc_fused``, and its
+    weight gradient through ``bc_grad_w``, once a layer."""
+    k = cfg.compression.block_attn
+    fwd = 2 if cfg.remat == "full" else 1
+    fused, grads = {}, {}
+    for n_in, n_out in train_projections(cfg).values():
+        p, q = cc.num_blocks(n_out, k), cc.num_blocks(n_in, k)
+        for key, n in ((bc_fused.shape_key(1, N, p, q, k, "bc_fused"), fwd),
+                       (bc_fused.shape_key(1, N, q, p, k, "bc_fused"), 1)):
+            fused[key] = fused.get(key, 0) + n * cfg.num_layers
+        key = bgw.shape_key(N, p, q, k)
+        grads[key] = grads.get(key, 0) + cfg.num_layers
+    return fused, grads
+
+
+def train_kernel_shapes(cfg):
+    """bc_fused at the training rows: each distinct (p, q) of the forward
+    and the adjoint (the adjoint of up/gate is down's shape, of down
+    up/gate's, of q/o q/o's; k/v's is its own)."""
+    a = cfg.attention
+    d, dff = cfg.d_model, cfg.d_ff
+    hkv = a.num_kv_heads * a.head_dim
+    return {"train_q_o": (d, a.num_heads * a.head_dim),
+            "train_k_v": (d, hkv), "train_k_v_adjoint": (hkv, d),
+            "train_up_gate": (d, dff), "train_down": (dff, d)}
+
+
+def check_bc_grad_w(cfg, gen, N=TRAIN_ROWS):
+    """``bc_grad_w`` at every training shape of tinyllama-1.1b (N = 8 x
+    1,024 rows; the fused q/k/v and up/gate too) against its plain version
+    on the same inputs, and a second call bit-equal to the first.  The
+    library time is one complex64 ``torch.bmm`` over the bins (p x N by N
+    x q per bin): the contraction alone, without the two DFTs and the
+    iDFT."""
+    k = cfg.compression.block_attn
+    kf = k // 2 + 1
+    shapes = {f"tinyllama_{name}": io for name, io in projections(cfg).items()}
+    shapes.update(fused_projections(cfg))
+    cases = []
+    for name, (n_in, n_out) in shapes.items():
+        p, q = cc.num_blocks(n_out, k), cc.num_blocks(n_in, k)
+        gy = torch.randn((N, p, k), generator=gen, device="cuda")
+        xb = torch.randn((N, q, k), generator=gen, device="cuda")
+        got = bgw.bc_grad_w(gy, xb, k)
+        again = bgw.bc_grad_w(gy, xb, k)
+        ref = bgw.bc_grad_w_plain(gy, xb, k)
+        torch.cuda.synchronize()
+        # float32 sums over N rows in another order: measured ~2e-6 of the
+        # output's scale, held at 1e-4
+        tol = 1e-4 * max(1.0, float(ref.abs().max()))
+        gr, gi = cc.rfft_planes(gy, k)
+        xr, xi = cc.rfft_planes(xb, k)
+        gc = torch.complex(gr, gi).permute(2, 1, 0).contiguous()
+        xc = torch.complex(xr, -xi).permute(2, 0, 1).contiguous()
+        nbytes = 4 * (N * p * k + N * q * k + p * q * k)
+        # the two input FFTs, the Gauss MAC (3 products and 3 sums a row,
+        # pair and bin, as bc_fused counts it) with its operand sums, its
+        # two output sums, then the inverse FFTs
+        flops = (rfft_flops(N * p, k) + rfft_flops(N * q, k)
+                 + 6 * N * p * q * kf + N * p * kf + 2 * N * q * kf
+                 + 2 * p * q * kf + rfft_flops(p * q, k))
+        bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+        cases.append({
+            "case": f"{name}_n{N}", "shape": [N, p, q, k],
+            "launch_shape": bgw.shape_key(N, p, q, k),
+            "plan": bgw.plan(N, p, q, k)._asdict(),
+            "max_abs_err": max_err(got, ref), "tol": tol,
+            "bit_equal": bool(torch.equal(got, again)),
+            **kernel_times(lambda: bgw.bc_grad_w(gy, xb, k), **LONG),
+            "plain_ms": time_ms(lambda: bgw.bc_grad_w_plain(gy, xb, k),
+                                **LONG),
+            "library_ms": time_ms(lambda: torch.bmm(gc, xc), **LONG),
+            "library": "torch.bmm, complex64, the contraction over the "
+                       "rows alone (no DFT, no iDFT)",
+            "bytes": nbytes, "flops": flops,
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        if not cases[-1]["bit_equal"]:
+            raise AssertionError(f"bc_grad_w {name}: two calls differ")
+    return {"bc_grad_w": (cases, f"tinyllama_up_gate_n{N}")}
+
+
+def train_steps_summary(history, first=2):
+    """ms per step: the median over the steps from ``first`` (0-based)."""
+    ms = [1e3 * h["step_s"] for h in history]
+    return ms, statistics.median(ms[first:])
+
+
+def phase_train(cfg):
+    """tinyllama-1.1b at full width and depth through the launcher
+    (``repro_torch.launch.train --full``): B = 8 x S = 1,024, bf16
+    activations, remat, AdamW from the seed.  Every loss finite, no step
+    skipped, and the launches a step makes equal to those the model calls
+    for, shape by shape (``train_shape_counts``), with no other kernel."""
+    steps = TRAIN["steps"]
+    out, wall, peak = launch_train_run(
+        ["--arch", ARCH, "--full", "--steps", str(steps)])
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    if len(hist) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"train: losses {losses}")
+    if int(out["state"]["skipped"]) or any(h["ok"] != 1 for h in hist):
+        raise AssertionError(f"train: {int(out['state']['skipped'])} "
+                             f"skipped steps")
+    ms, ms_step = train_steps_summary(hist)
+    N = TRAIN["batch"] * TRAIN["seq"]
+    want_fused, want_grads = train_shape_counts(cfg, N)
+    shapes = shape_counts(TRAIN_LIBRARIES)
+    got_fused = {s: n / steps for s, n in shapes.get("bc_fused", {}).items()}
+    got_grads = {s: n / steps
+                 for s, n in shapes.get("bc_grad_w", {}).items()}
+    if got_fused != want_fused or got_grads != want_grads:
+        raise AssertionError(f"train: launches a step {got_fused}, "
+                             f"{got_grads}; expected {want_fused}, "
+                             f"{want_grads}")
+    launches = lane_counts(TRAIN_LIBRARIES)
+    check_launches(launches, {"bc_fused": steps * sum(want_fused.values()),
+                              "bc_grad_w": steps * sum(want_grads.values())})
+    emit({"phase": "train", "arch": ARCH, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype, "remat": cfg.remat,
+          "batch": TRAIN["batch"], "seq": TRAIN["seq"], "steps": steps,
+          "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+          "skipped": int(out["state"]["skipped"]), "step_ms": ms,
+          "ms_per_step": ms_step, "tokens_per_s": 1e3 * N / ms_step,
+          "wall_s": wall, "peak_memory_bytes": peak,
+          "params": sum(p.numel() for p in out["state"]["model"].parameters()),
+          "launches": launches,
+          "bc_fused_per_step": sum(want_fused.values()),
+          "bc_grad_w_per_step": sum(want_grads.values()),
+          "launches_per_step_by_shape": {**got_fused, **got_grads}})
+    return {"launches": launches, "paths": path_counts(TRAIN_LIBRARIES),
+            "shapes": shapes, "ms_per_step": ms_step, "peak": peak}
+
+
+def launch_train_run(args):
+    """``launch.train.main`` with every launch count set to 0 just before
+    (in a temporary workdir, removed after): (its result, wall seconds,
+    peak device memory)."""
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        for lib in TRAIN_LIBRARIES:
+            lib.reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = launch_train.main(
+            [*args, "--batch", str(TRAIN["batch"]), "--seq",
+             str(TRAIN["seq"]), "--log-every", "1",
+             "--workdir", workdir])
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def phase_train_parity(cfg):
+    """Full width, 2 layers, float32: the card's loss and every parameter's
+    gradient against the CPU's plain path on the same weights and batch
+    (loss within 1e-5 of its scale, each gradient within 1e-4 of its own:
+    float32 sums in other orders).  Then the trainer on the card: 2 steps
+    in one run against 1 step, a checkpoint, a new trainer that restores
+    it and takes step 2: every tensor of the two states equal."""
+    pcfg = cfg.replace(num_layers=2, dtype="float32")
+    opt = adamw.AdamWConfig(lr=1e-3)
+    data = SyntheticLM(pcfg, batch=2, seq=64, seed=SEED)
+    batch = data(0)
+    step = ts.make_train_step(pcfg, opt)
+    cpu = ts.init_state(pcfg, opt, seed=SEED, device="cpu")
+    card = ts.init_state(pcfg, opt,
+                         model=copy.deepcopy(cpu["model"]).to(DEVICE))
+    loss_c, _, grads_c = step.grads(cpu, batch)
+    loss_g, _, grads_g = step.grads(card, {k: v.to(DEVICE)
+                                           for k, v in batch.items()})
+    loss_err = abs(float(loss_g) - float(loss_c))
+    if not loss_err <= 1e-5 * max(1.0, abs(float(loss_c))):
+        raise AssertionError(f"train_parity: loss {float(loss_g)} vs "
+                             f"{float(loss_c)}")
+    worst = {}
+    for leaf, gc, gg in zip(ts.param_leaves(cpu["model"], pcfg), grads_c,
+                            grads_g):
+        for i, (a, b) in enumerate(zip(gc, gg)):
+            scale = float(a.abs().max())
+            worst[f"{leaf.name}/{i}"] = max_err(b.cpu(), a) / max(scale,
+                                                                  1e-30)
+    bad = {n: e for n, e in worst.items() if not e <= 1e-4}
+    if bad:
+        raise AssertionError(f"train_parity: grads over 1e-4 of their "
+                             f"scale: {bad}")
+
+    def trainer(workdir, steps):
+        return Trainer(pcfg, opt, workdir=workdir, data_fn=data,
+                       total_steps=steps, ckpt_every=1, log_every=1,
+                       lr_schedule=lambda s: schedule.constant(
+                           s, peak_lr=opt.lr), device=DEVICE, seed=SEED)
+
+    dirs = [tempfile.mkdtemp(prefix="chip_smoke_resume_") for _ in range(2)]
+    try:
+        whole = trainer(dirs[0], 2).run()
+        trainer(dirs[1], 1).run()
+        resumed = trainer(dirs[1], 2)
+        if int(resumed.init_or_restore()["step"]) != 1:
+            raise AssertionError("train_parity: resume did not find step 1")
+        again = resumed.run()
+    finally:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    diffs = {n: max_err(a.detach(), b.detach()) for (n, a), (_, b) in zip(
+        tckpt.named_tensors(whole), tckpt.named_tensors(again))
+        if a.is_floating_point()}
+    equal = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        tckpt.named_tensors(whole), tckpt.named_tensors(again)))
+    emit({"phase": "train_parity", "arch": ARCH, "layers": 2,
+          "d_model": pcfg.d_model, "batch": 2, "seq": 64,
+          "loss_card": float(loss_g), "loss_cpu": float(loss_c),
+          "loss_abs_err": loss_err,
+          "grad_worst_rel_err": max(worst.values()),
+          "grad_worst": max(worst, key=worst.get), "grad_tol_rel": 1e-4,
+          "resume_equal": equal,
+          "resume_max_abs_diff": max(diffs.values()),
+          "resumed_step": int(again["step"])})
+    if not equal:
+        raise AssertionError(f"train_parity: resumed state differs "
+                             f"({max(diffs.values())})")
+
+
+def phase_train_dense(cfg, circulant):
+    """The same training at the same shape and depth with ``--no-compress``
+    (dense projections, bf16 matmuls): ms per step and peak memory beside
+    the circulant run's.  No checkpoints: a dense state's 13 GB would take
+    most of the phase to write."""
+    steps = TRAIN["dense_steps"]
+    out, wall, peak = launch_train_run(
+        ["--arch", ARCH, "--full", "--no-compress", "--steps", str(steps),
+         "--ckpt-every", "0"])
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    if len(hist) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"train_dense: losses {losses}")
+    ms, ms_step = train_steps_summary(hist, first=1)
+    N = TRAIN["batch"] * TRAIN["seq"]
+    emit({"phase": "train_dense", "arch": ARCH, "steps": steps,
+          "losses": losses, "step_ms": ms, "ms_per_step": ms_step,
+          "tokens_per_s": 1e3 * N / ms_step, "wall_s": wall,
+          "peak_memory_bytes": peak,
+          "params": sum(p.numel() for p in out["state"]["model"].parameters()),
+          "launches": lane_counts(TRAIN_LIBRARIES),
+          "circulant_ms_per_step": circulant["ms_per_step"],
+          "circulant_over_dense_time": circulant["ms_per_step"] / ms_step,
+          "circulant_peak_memory_bytes": circulant["peak"]})
+
+
 def phase_lowering(cfg, gen):
     """One projection at N = 2048 rows (tinyllama-1.1b's batch prefill),
     device times (CUDA-graph replay) of three lowerings: the hook path (DFT
@@ -1348,8 +1682,8 @@ def check_bc_experts(cfg, gen, C=4, prefix="llama4"):
         nbytes = (4 * (E * C * q * k + 4 * k * kf + E * C * p * k)
                   + 3 * E * p * q * row_bytes
                   + (0 if scales is None else 3 * 4 * E * p))
-        flops = E * (4 * C * q * k * kf + 6 * C * p * q * kf + C * q * kf
-                     + 2 * C * p * kf + 4 * C * p * kf * k
+        flops = E * (rfft_flops(C * q, k) + 6 * C * p * q * kf + C * q * kf
+                     + 2 * C * p * kf + rfft_flops(C * p, k)
                      + (0 if scales is None else 3 * C * p * kf))
         bound_ms, bound_by = bound(nbytes, flops, torch.float32)
         loop_t = kernel_times(loop)
@@ -1465,6 +1799,13 @@ def phase_kernels(cfg):
             cfg, gen, [(n, *io, bk) for n, io in gemma.items()
                        if n.startswith(family + "_")],
             N=4 * BATCH_ARCH[arch]["hi"]))
+    checks += [
+        # training (phase train): bc_grad_w at each projection's shape,
+        # bc_fused at the forward and adjoint shapes, N = 8 x 1,024 rows
+        lambda: check_bc_grad_w(cfg, gen),
+        lambda: check_bc_fused(cfg, gen, train_kernel_shapes(cfg),
+                               batches=(TRAIN_ROWS,),
+                               lane_names=("bc_fused",), timing=LONG)]
     out = {}
     for check in checks:
         for lane, (cases, main_case) in check().items():
@@ -1516,19 +1857,19 @@ def decode_shapes(arch):
             "rows": len(reqs), "keys": max(lens) + s["new"] - 1}
 
 
-def lane_counts():
-    return {fn: n for lib in LIBRARIES for fn, n in lib.fn_launches.items()}
+def lane_counts(libs=LIBRARIES):
+    return {fn: n for lib in libs for fn, n in lib.fn_launches.items()}
 
 
-def path_counts():
+def path_counts(libs=LIBRARIES):
     """Launches per plan path, by library (those that name their paths)."""
-    return {lib.name: dict(lib.path_launches) for lib in LIBRARIES
+    return {lib.name: dict(lib.path_launches) for lib in libs
             if lib.path_launches}
 
 
-def shape_counts():
+def shape_counts(libs=LIBRARIES):
     """Launches per shape (the wrappers' ``shape_key``), by library."""
-    return {lib.name: dict(lib.shape_launches) for lib in LIBRARIES
+    return {lib.name: dict(lib.shape_launches) for lib in libs
             if lib.shape_launches}
 
 
@@ -2671,6 +3012,9 @@ def main() -> int:
             runs[f"{arch}/{engine}"] = out[engine]
     runs.update(phase_serve_fused(cfg))
     phase_decode_graph(cfg)
+    runs["train"] = phase_train(cfg)
+    phase_train_parity(cfg)
+    phase_train_dense(cfg, runs["train"])
     phase_lowering(cfg, kernel_gen())
     summary = []
     for name, (lib, replaces, group, main_case, run) in (

@@ -1,4 +1,4 @@
-"""Block-circulant linear algebra, serve half (port of ``repro/core/circulant.py``).
+"""Block-circulant linear algebra (port of ``repro/core/circulant.py``).
 
 A weight ``W ∈ R^{m×n}`` is held as generators ``w ∈ R^{p×q×k}``
 (``p = m/k``, ``q = n/k``); block ``(i, j)`` of ``W`` is the circulant matrix
@@ -39,9 +39,19 @@ concatenated on the output-block axis (``fused_spectral_cache``), so one
 input DFT and one fused-kernel launch serve all of them; the output is
 split at the projections' offsets, as ``repro`` does.
 
-Not ported yet (it raises ``NotImplementedError``): the training path
-(``bc_matmul_fft`` and its hand-derived backward, and so the fused
-projections' training lowering).
+Training (``mode="train"``) runs the ``fft`` lowering with ``repro``'s
+hand-derived backward (``_bc_fft_bwd``, the paper's Eqns. 2-3) as a
+``torch.autograd.Function``, ``BCMatmulFFT``: it saves the primals
+``(xb, w)``, not their spectra.  The forward derives the planes of ``w``
+per call and runs the fused kernel; the backward's input gradient is the
+same kernel on the adjoint planes and its weight gradient the
+``bc_grad_w`` kernel (``kernels/ops.py``: the plain versions on the CPU).
+Baked planes are never read in train mode, so a trained model is re-baked
+before it serves (``serve/params.py``).  Fused projections train through
+the same Function on their generators concatenated on the output-block
+axis; the gradient flows back through ``torch.cat``.  A ``spectral`` path
+in train mode takes the ``fft`` lowering too (the same math, with a
+backward).
 """
 from __future__ import annotations
 
@@ -81,6 +91,15 @@ def set_planes(module: nn.Module, prefix: str,
                cache: Dict[str, torch.Tensor]) -> None:
     for key, t in cache.items():
         setattr(module, f"{prefix}_{key}", t)
+
+
+def drop_planes(model: nn.Module) -> None:
+    """Forget every baked cache in ``model`` (each module's
+    ``plane_caches()``): its planes go stale once the generators change,
+    and the next bake derives them anew."""
+    for m in model.modules():
+        for prefix, cache in getattr(m, "plane_caches", dict)().items():
+            set_planes(m, prefix, {key: None for key in cache})
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +170,7 @@ def rfft_planes(x: torch.Tensor, k: int):
     """rfft of a real (..., k) array as two real planes (..., kf)."""
     if k <= _DFT_MATMUL_MAX:
         Cr, Ci, _, _ = dft_mats(k, x.device)
-        return x @ Cr, x @ Ci
+        return x @ Cr.to(x.dtype), x @ Ci.to(x.dtype)
     xf = torch.fft.rfft(x, dim=-1)
     return xf.real, xf.imag
 
@@ -160,7 +179,7 @@ def irfft_planes(yr: torch.Tensor, yi: torch.Tensor, k: int):
     """irfft from real planes (..., kf) -> (..., k)."""
     if k <= _DFT_MATMUL_MAX:
         _, _, Dr, Di = dft_mats(k, yr.device)
-        return yr @ Dr + yi @ Di
+        return yr @ Dr.to(yr.dtype) + yi @ Di.to(yr.dtype)
     return torch.fft.irfft(torch.complex(yr, yi), n=k, dim=-1)
 
 
@@ -171,8 +190,10 @@ def spectral_cache(w: torch.Tensor, gauss: bool = True) -> Dict[str, torch.Tenso
     """rfft(w) as real planes (..., p, q, kf), plus the Gauss combinations
     ``ws1 = wi - wr`` and ``ws2 = wr + wi`` that make the MAC 3 products.
     Leading axes pass through: an MoE's (E, p, q, k) expert stack gives
-    (E, p, q, kf) planes."""
-    wr, wi = rfft_planes(w.float(), w.shape[-1])
+    (E, p, q, kf) planes.  Float32, as ``repro``'s; float64 generators
+    stay float64 (the plain training path's ``gradcheck``)."""
+    wr, wi = rfft_planes(w if w.dtype == torch.float64 else w.float(),
+                         w.shape[-1])
     out = {"wr": wr, "wi": wi}
     if gauss:
         out["ws1"] = wi - wr
@@ -233,9 +254,46 @@ def bc_matmul_direct(x: torch.Tensor, w: torch.Tensor, n_out: int) -> torch.Tens
     return y[..., :n_out]
 
 
-def bc_matmul_fft(*args, **kwargs):
-    raise NotImplementedError("the training path (bc_matmul_fft and its "
-                              "hand-derived backward) is not ported yet")
+class BCMatmulFFT(torch.autograd.Function):
+    """``y (N, p, k) = Σ_j circ(w[:, j]) xb[:, j]`` with the paper's
+    backward (``repro``'s ``_bc_fft_core`` and ``_bc_fft_bwd``):
+
+      dL/dxb_j  = Σ_i C_ij^T g_i  : the fused kernel on W^H's planes
+      dL/dw_ij  = Σ_n g_i ⋆ x_j   : ``bc_grad_w``
+
+    xb (N, q, k) and w (p, q, k) are float32; the primals are saved and
+    the spectra recomputed in the backward."""
+
+    @staticmethod
+    def forward(ctx, xb, w, gauss):
+        from ..kernels import ops as kops   # kernels import this module
+        ctx.save_for_backward(xb, w)
+        ctx.gauss = gauss
+        return kops.bc_forward(xb, w, gauss)
+
+    @staticmethod
+    def backward(ctx, gy):
+        from ..kernels import ops as kops
+        xb, w = ctx.saved_tensors
+        gy = gy.to(xb.dtype).contiguous()
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = kops.bc_adjoint(gy, w, ctx.gauss)
+        if ctx.needs_input_grad[1]:
+            gw = kops.bc_grad_w(gy, xb, w.shape[-1])
+        return gx, gw, None
+
+
+def bc_matmul_fft(x: torch.Tensor, w: torch.Tensor, n_out: int,
+                  gauss: bool = True) -> torch.Tensor:
+    """Training path: (..., n_in) -> (..., n_out) through ``BCMatmulFFT``.
+    Casts to float32 before blockifying and back to ``x.dtype`` after, as
+    ``repro`` does."""
+    p, q, k = w.shape
+    lead = x.shape[:-1]
+    xb = _blockify(x, q, k).float().reshape(-1, q, k).contiguous()
+    y = BCMatmulFFT.apply(xb, w.float(), gauss)
+    return y.reshape(*lead, p * k)[..., :n_out].to(x.dtype)
 
 
 def bc_matmul_spectral(x: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -283,14 +341,17 @@ def bc_matmul_fused(x: torch.Tensor, ws, n_outs, mode: str = "serve",
     when absent.  The contraction runs as one projection of Σp_i·k outputs
     (``_spectral_linear``: one fused-kernel launch, or the ``kernel_fn``
     hook's MAC for float32 planes), then the output is split at the
-    offsets p_i·k, as ``repro`` does.  Serve lowering only."""
-    if mode == "train":                  # raises: training is not ported
-        return bc_matmul_fft(x, ws, n_outs, gauss=gauss)
+    offsets p_i·k, as ``repro`` does.  In train mode the generators are
+    concatenated instead and run through ``bc_matmul_fft`` (``cache`` is
+    not read)."""
     ps = [w.shape[-3] for w in ws]
     k = ws[0].shape[-1]
-    if cache is None:
-        cache = fused_spectral_cache(ws, gauss)
-    y = _spectral_linear(x, cache, k, gauss, sum(ps) * k, kernel_fn)
+    if mode == "train":
+        y = bc_matmul_fft(x, torch.cat(list(ws), dim=-3), sum(ps) * k, gauss)
+    else:
+        if cache is None:
+            cache = fused_spectral_cache(ws, gauss)
+        y = _spectral_linear(x, cache, k, gauss, sum(ps) * k, kernel_fn)
     outs, off = [], 0
     for p_i, n_out in zip(ps, n_outs):
         outs.append(y[..., off:off + n_out])
@@ -349,7 +410,8 @@ def apply_linear(params: Dict[str, torch.Tensor], x: torch.Tensor,
     Outside train mode, baked planes (``params["wc_cache"]``) go straight to
     the fused spectral kernel; so do planes derived on the fly for the
     ``spectral`` path.  With ``kernel_fn`` set, float32 planes go through
-    ``bc_matmul_spectral`` with the hook instead (module docstring)."""
+    ``bc_matmul_spectral`` with the hook instead (module docstring).  In
+    train mode the ``fft`` and ``spectral`` paths run ``bc_matmul_fft``."""
     if spec.kind == "dense":
         y = x @ params["w"].to(x.dtype)
     else:
@@ -359,7 +421,7 @@ def apply_linear(params: Dict[str, torch.Tensor], x: torch.Tensor,
                                  spec.gauss, n_out, kernel_fn)
         elif path == "direct":
             y = bc_matmul_direct(x, params["wc"], n_out)
-        elif path == "spectral":
+        elif path == "spectral" and mode != "train":
             y = _spectral_linear(x, spectral_cache(params["wc"], spec.gauss),
                                  spec.block_size, spec.gauss, n_out,
                                  kernel_fn)
@@ -395,8 +457,9 @@ class FusedProjections:
     def bake_fused(self, gauss: bool = True) -> None:
         """Store ``fused_spectral_cache`` of the projections (idempotent)."""
         if self.fused_cache is None:
-            set_planes(self, self.FUSED_CACHE, fused_spectral_cache(
-                [m.wc for m in self.fused_linears()], gauss))
+            with torch.no_grad():
+                set_planes(self, self.FUSED_CACHE, fused_spectral_cache(
+                    [m.wc for m in self.fused_linears()], gauss))
 
     def fused(self, x: torch.Tensor, mode: str = "serve", kernel_fn=None):
         """The projections of ``x`` as one call (``bc_matmul_fused``), each
@@ -457,7 +520,8 @@ class Linear(nn.Module):
     def bake_spectral(self, gauss: bool = True) -> None:
         """Store ``spectral_cache(wc)`` next to the generators (idempotent)."""
         if self.wc_cache is None:
-            set_planes(self, "wc_cache", spectral_cache(self.wc, gauss))
+            with torch.no_grad():
+                set_planes(self, "wc_cache", spectral_cache(self.wc, gauss))
 
     def params(self) -> Dict[str, torch.Tensor]:
         out = {}

@@ -36,8 +36,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_NAMES = ("bc_fused", "flash_attention", "paged_attention",
-                "paged_gather", "spectral_matmul")
+KERNEL_NAMES = ("bc_fused", "bc_grad_w", "flash_attention",
+                "paged_attention", "paged_gather", "spectral_matmul")
 
 
 def nvcc_path() -> str:

@@ -9,6 +9,13 @@ A cache of fused projections (``qkv_cache``, ``upgate_cache``: the planes
 of q/k/v or up/gate concatenated on the output-block axis) is one more
 (p, q, kf) cache to ``bc_linear`` and ``spectral_contract``: both read it
 as it stands, with no copy of its planes.
+
+Training (``core/circulant.py:BCMatmulFFT``, the paper's backward):
+``bc_forward`` is the forward of a block-circulant projection from its
+generators (planes derived per call), ``bc_adjoint`` its input gradient
+(the same fused kernel on the adjoint planes) and ``bc_grad_w`` its weight
+gradient (``kernels/bc_grad_w.py``).  Their CPU versions are the plain
+ones; on the card they launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -17,13 +24,15 @@ from typing import Dict
 import torch
 
 from ..core import circulant as cc
-from .bc_fused import bc_fused_matmul
+from .bc_fused import bc_fused_matmul, bc_fused_matmul_plain
+from .bc_grad_w import bc_grad_w
 from .flash_attention import flash_attention
 from .paged import paged_gather
 from .paged_attention import paged_attention
 from .spectral_matmul import spectral_matmul
 
-__all__ = ["bc_expert_linear", "bc_linear", "flash_attention",
+__all__ = ["bc_adjoint", "bc_expert_linear", "bc_forward", "bc_grad_w",
+           "bc_linear", "flash_attention",
            "paged_attention", "paged_gather", "spectral_contract",
            "spectral_matmul"]
 
@@ -101,3 +110,55 @@ def spectral_contract(xr: torch.Tensor, xi: torch.Tensor,
     ws = [cache[n].permute(2, 1, 0) for n in ("wr", "ws1", "ws2")]
     yr, yi = spectral_matmul(*xs, *ws)
     return tuple(t.permute(1, 2, 0).view(*lead, p, kf) for t in (yr, yi))
+
+
+def adjoint_planes(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The planes of W^H from W's (p, q, kf): conj(W) has planes (wr, -wi),
+    so ``wr' = wr^T`` and the Gauss planes ``ws1' = (-wi - wr)^T =
+    -ws2^T``, ``ws2' = (wr - wi)^T = -ws1^T`` (or, without them, ``wi' =
+    -wi^T``), each (q, p, kf) and contiguous (a copy of p q kf floats a
+    plane).  Contracting with them equals ``repro``'s ``_cplx_contract(gr,
+    gi, wr, -wi, ...)`` term by term."""
+    t = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
+    if "ws1" in cache:
+        return {"wr": t(cache["wr"]), "ws1": t(-cache["ws2"]),
+                "ws2": t(-cache["ws1"])}
+    return {"wr": t(cache["wr"]), "wi": t(-cache["wi"])}
+
+
+def _contract(xb: torch.Tensor, cache: Dict[str, torch.Tensor], k: int,
+              gauss: bool) -> torch.Tensor:
+    """xb (N, q, k) against a float32 cache (p, q, kf) -> (N, p, k): the
+    fused kernel on the Gauss planes, or on the CPU its plain version (the
+    4-product form where ``gauss`` is off, as ``repro``'s
+    ``_cplx_contract``)."""
+    if gauss:
+        if xb.device.type == "cpu":
+            return bc_fused_matmul_plain(xb, cache["wr"], cache["ws1"],
+                                         cache["ws2"], k)
+        return bc_fused_matmul(xb.contiguous(), cache["wr"], cache["ws1"],
+                               cache["ws2"], k)
+    if xb.device.type != "cpu":
+        raise NotImplementedError("the fused kernel runs the Gauss planes "
+                                  "(gauss_trick=True) only")
+    xr, xi = cc.rfft_planes(xb, k)
+    yr, yi = cc._naive_complex_contract(xr, xi, cache, "bqf,pqf->bpf")
+    return cc.irfft_planes(yr, yi, k)
+
+
+def bc_forward(xb: torch.Tensor, w: torch.Tensor, gauss: bool = True
+               ) -> torch.Tensor:
+    """y (N, p, k) of xb (N, q, k) float32 against generators w (p, q, k):
+    ``spectral_cache(w)`` per call, then the fused kernel."""
+    with torch.no_grad():
+        cache = cc.spectral_cache(w, gauss)
+    return _contract(xb, cache, w.shape[-1], gauss)
+
+
+def bc_adjoint(gy: torch.Tensor, w: torch.Tensor, gauss: bool = True
+               ) -> torch.Tensor:
+    """The input gradient gx (N, q, k) of gy (N, p, k): W^H gy, the fused
+    kernel on ``adjoint_planes`` (``repro``'s ``_bc_fft_bwd`` gx)."""
+    with torch.no_grad():
+        cache = adjoint_planes(cc.spectral_cache(w, gauss))
+    return _contract(gy, cache, w.shape[-1], gauss)

@@ -28,6 +28,13 @@ of ``repro/layers/attention.py``).
   softmax.  An int8 pool (``k_scale`` / ``v_scale`` in the cache) is
   written through ``quant/codec.py:page_scatter`` (requantize on grow).
 
+* Training (``mode="train"``, no cache, causal, no window): attention
+  over the block's own projections through ``masked_attention`` with the
+  query and key positions both ``0..S-1``: ``repro``'s ``chunked_attention``
+  (which ``repro`` trains through) in plain, differentiable PyTorch, in
+  one chunk (no online softmax: the S x S scores of one layer are held at
+  once); never the flash kernel, which has no backward.
+
 Unlike ``repro``, whose arrays are immutable, the port writes the new K/V
 into the cache and the pool IN PLACE (``index_put_`` / slice assignment):
 the returned cache is the same storage that was passed in.
@@ -131,10 +138,11 @@ def masked_attention(q, k, v, rows, kv_positions, *, softcap=0.0,
     ``0 <= kv_positions[c] <= r``; a row that sees no key comes out exactly
     zero.  Returns (B, Sq, Hq, D) in q.dtype.
 
-    This is ``repro``'s ``chunked_attention`` as the gather path calls it.
-    That is XLA in ``repro``, not a Pallas kernel, so the port computes it
-    with plain PyTorch operations here, on the CPU and on the card alike;
-    the kernel of the gather path is the gather itself."""
+    This is ``repro``'s ``chunked_attention`` as the gather path and the
+    train mode call it.  That is XLA in ``repro``, not a Pallas kernel, so
+    the port computes it with plain, differentiable PyTorch operations
+    here, on the CPU and on the card alike; the kernel of the gather path
+    is the gather itself."""
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
@@ -146,7 +154,9 @@ def masked_attention(q, k, v, rows, kv_positions, *, softcap=0.0,
     c = kv_positions[:, None, None, None, :]
     msk = (c <= rows[:, None, None, :, None]) & (c >= 0)
     s = torch.where(msk, s, torch.full_like(s, _NEG))
-    m = torch.clamp(s.amax(-1), min=_NEG)
+    # the output does not depend on the shift: held out of the graph, its
+    # gradient terms (which cancel) are not computed
+    m = torch.clamp(s.amax(-1), min=_NEG).detach()
     p = torch.where(msk, torch.exp(s - m[..., None]), torch.zeros_like(s))
     l = p.sum(-1)
     o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
@@ -230,7 +240,14 @@ def attention_block(attn: Attention, x: torch.Tensor, *, cfg, causal=True,
         q = apply_rope(q, positions, a.rope_theta)
         k = apply_rope(k, positions, a.rope_theta)
 
-    if cross_kv is not None:
+    if mode == "train":
+        if cache is not None or cross_kv is not None or window or not causal:
+            raise NotImplementedError("train mode attends causally over its "
+                                      "own projections (no cache, no cross "
+                                      "K/V, no window: ROADMAP A.14b)")
+        o = masked_attention(q, k, v, positions, positions,
+                             softcap=a.logit_softcap)
+    elif cross_kv is not None:
         o = attend(q.to(k.dtype), k, v, causal=False,
                    softcap=a.logit_softcap).to(q.dtype)
     elif paged:

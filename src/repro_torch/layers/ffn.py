@@ -120,8 +120,9 @@ class Experts(nn.Module):
         """Store ``spectral_cache`` of each stack (idempotent)."""
         for name in EXPERT_PROJECTIONS:
             if self.cache(name) is None:
-                cc.set_planes(self, f"{name}_cache",
-                              cc.spectral_cache(getattr(self, name), gauss))
+                with torch.no_grad():
+                    cc.set_planes(self, f"{name}_cache", cc.spectral_cache(
+                        getattr(self, name), gauss))
 
 
 class MoE(nn.Module):
@@ -164,7 +165,9 @@ def _expert_ffn(ex: Experts, xe: torch.Tensor, activation: str, d_ff: int,
         h = _act(activation, gate) * up
         return torch.einsum("ecf,efd->ecd", h, ex.down.to(xe.dtype))
     if mode == "train":
-        raise NotImplementedError("MoE training is not ported yet")
+        raise NotImplementedError("MoE training (the load-balancing "
+                                  "auxiliary loss) is not ported yet "
+                                  "(ROADMAP A.14b)")
 
     def proj(name, x, n_out):
         cache = ex.cache(name)

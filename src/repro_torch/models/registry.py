@@ -2,6 +2,7 @@
 ``repro/models/registry.py:Model``).
 
     init(seed, device)                                -> params (nn.Module)
+    forward_train(params, batch)                      -> (logits, aux)
     prefill(params, batch, cache, kernel_fn)          -> (logits, cache)
     decode_step(params, tokens, cache, pos, table, paged_impl)
                                                       -> (logits, cache)
@@ -17,7 +18,9 @@ engine; decoder LMs only).  An encoder-decoder's cache is ``{"self",
 "cross"}``: prefill encodes the frames and fills both, a decode step
 carries ``cross`` unchanged.  ``kernel_fn`` is the projections'
 spectral-MAC hook (``core/circulant.py``).  Caches are updated in place
-and returned.  Not ported yet: the training forward.
+and returned.  ``forward_train`` runs the decoder LM in train mode
+(``models/transformer.py``; ``aux["moe_aux"]`` is 0, as no MoE trains
+yet); an encoder-decoder raises (ROADMAP A.14b).
 """
 from __future__ import annotations
 
@@ -40,6 +43,18 @@ class Model:
         if self.cfg.is_encoder_decoder:
             return encdec.init_params(self.cfg, seed=seed, device=device)
         return transformer.init_params(self.cfg, seed=seed, device=device)
+
+    def forward_train(self, params, batch: Dict[str, torch.Tensor]
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        cfg = self.cfg
+        if cfg.is_encoder_decoder:
+            raise NotImplementedError(f"{cfg.name}: training an "
+                                      f"encoder-decoder is not ported yet "
+                                      f"(ROADMAP A.14b)")
+        logits, _ = transformer.forward(params, batch["tokens"], cfg,
+                                        mode="train",
+                                        frontend_embeds=batch.get("patches"))
+        return logits, {"moe_aux": torch.zeros((), device=logits.device)}
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], cache,
                 kernel_fn=None) -> Tuple[torch.Tensor, Any]:

@@ -31,6 +31,14 @@ embeddings, exactly as ``repro`` concatenates them (a prompt shorter than
 ``num_patches`` comes out ``num_patches`` long).  Encoder-decoder models
 (whisper) are ``models/encdec.py``.
 
+Training (``forward(..., mode="train")``, no cache) runs where every layer
+is an ``attn`` block (tinyllama, qwen2.5, qwen3, phi-3-vision): each
+repeat of the segment pattern (a layer) under ``torch.utils.checkpoint``
+where ``cfg.remat == "full"``, as ``repro`` checkpoints its scan's group
+function, so the backward runs each layer's forward again.  The other
+kinds raise ``NotImplementedError`` in train mode (ROADMAP A.14b: the MoE
+load-balancing loss, windowed attention, the recurrent cells).
+
 Not ported yet: learned positions in a decoder-only model.
 """
 from __future__ import annotations
@@ -39,6 +47,7 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
@@ -49,6 +58,7 @@ from ..layers import norms as norm_lib
 from ..layers import recurrent as rec_lib
 
 ATTN_KINDS = ("attn", "attn_local", "moe", "moe_swa")
+TRAIN_KINDS = ("attn",)         # the block kinds train mode runs
 
 
 def segments_for(cfg: ArchConfig) -> List[Tuple[Tuple[str, ...], int]]:
@@ -145,6 +155,9 @@ def apply_block(block: Block, x, cfg: ArchConfig, *, mode: str, cache=None,
                 cache_pos=None, block_table=None, paged_impl: str = "stream",
                 kernel_fn=None):
     """Returns (x, cache); the cache is updated in place."""
+    if mode == "train" and block.kind not in TRAIN_KINDS:
+        raise NotImplementedError(f"training a {block.kind!r} block is not "
+                                  f"ported yet (ROADMAP A.14b)")
     h = block.ln1(x)
     if block.kind in ("mlstm", "slstm"):
         if block.kind == "mlstm":
@@ -290,7 +303,11 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, *,
     if frontend_embeds is not None:
         n = frontend_embeds.shape[1]
         x = torch.cat([frontend_embeds.to(dtype), x[:, n:]], dim=1)
-    for i, block in enumerate(params.blocks):
+    if mode == "train":
+        if cache is not None:
+            raise ValueError("train mode takes no cache")
+        x = _train_blocks(params, x, cfg)
+    for i, block in enumerate(params.blocks if mode != "train" else ()):
         x, _ = apply_block(block, x, cfg, mode=mode,
                            cache=layer_cache(cache, i), cache_pos=cache_pos,
                            block_table=block_table, paged_impl=paged_impl,
@@ -298,3 +315,25 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, *,
     x = params.final_norm(x)
     logits = emb_lib.logits(params.embed.table, x, softcap=cfg.logit_softcap)
     return logits, cache
+
+
+def _train_blocks(params: Transformer, x: torch.Tensor, cfg: ArchConfig
+                  ) -> torch.Tensor:
+    """The blocks in train mode, one group (a repeat of its segment's
+    pattern) at a time, each under ``checkpoint`` where ``cfg.remat ==
+    "full"``."""
+    def group(x, blocks):
+        for block in blocks:
+            x, _ = apply_block(block, x, cfg, mode="train")
+        return x
+
+    layer = 0
+    for pattern, n in segments_for(cfg):
+        for _ in range(n):
+            blocks = list(params.blocks[layer:layer + len(pattern)])
+            layer += len(pattern)
+            if cfg.remat == "full":
+                x = checkpoint(group, x, blocks, use_reentrant=False)
+            else:
+                x = group(x, blocks)
+    return x

@@ -1,0 +1,238 @@
+"""Training step: loss, gradient accumulation, non-finite guard, AdamW
+(port of ``repro/train/train_step.py``).
+
+``make_train_step(cfg, opt_cfg, ...)`` returns a ``TrainStep``: calling it
+with ``(state, batch)`` takes one step and returns ``(state, metrics)``.
+``state`` is ``{"model", "opt", "step", "skipped"}`` (plus ``"ef"`` with
+gradient compression and ``"rho"`` in Bayesian mode), built by
+``init_state``.  The port updates the model's parameters and the state in
+place (``repro`` returns a new tree).
+
+* Gradients are taken with ``torch.autograd.grad`` over ``param_leaves``:
+  ``repro``'s parameter leaves (a segment's leaf stacks its layers), each
+  the list of the port's per-layer tensors, so AdamW, int8 moments and
+  gradient compression act on ``repro``'s leaves (``optim/adamw.py``).
+* ``accum`` microbatches: the batch's rows split ``accum`` ways, gradients
+  and metrics summed, then scaled by ``1 / accum``.
+* The non-finite guard: a step whose gradient norm or loss is not finite
+  keeps the old parameters, moments (and error feedback) and adds one to
+  ``state["skipped"]``; both are selects on the device, with no host read.
+* Bayesian mode (``core/bayesian.py``): the weights are sampled per step
+  from a generator seeded with the step (the one host read of that mode)
+  and the loss adds KL / num_examples.
+* Baked spectral planes go stale when the generators change: a step drops
+  them (``core/circulant.py:drop_planes``), and serving bakes them again.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..configs.base import ArchConfig
+from ..core import bayesian
+from ..core.circulant import drop_planes
+from ..models.registry import Model, build_model
+from ..models.transformer import segments_for
+from ..optim import adamw, grad_compression
+from ..optim.adamw import Leaf
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  zloss: float = 0.0) -> torch.Tensor:
+    """Mean token NLL in float32, plus ``zloss`` times the mean squared
+    log-partition (``repro``'s z-loss).  The label's logit is gathered
+    (``repro`` contracts a one-hot: the same value)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = (lse - ll).mean()
+    if zloss:
+        nll = nll + zloss * torch.square(lse).mean()
+    return nll
+
+
+def param_leaves(model: nn.Module, cfg: ArchConfig) -> List[Leaf]:
+    """``repro``'s parameter leaves in the port's modules: ``embed/table``
+    and ``final_norm/*`` (one tensor each, their own rank), then each
+    segment's leaves ``segments/<si>/<bi>/<path>`` (pattern position bi),
+    the tensor of every repeat of the pattern, of rank one more than a
+    layer's (the scan axis)."""
+    leaves = [Leaf(f"{name.replace('.', '/')}", [p], p.dim())
+              for name, p in model.named_parameters()
+              if not name.startswith("blocks.")]
+    layer = 0
+    for si, (pattern, n) in enumerate(segments_for(cfg)):
+        for bi in range(len(pattern)):
+            first = model.blocks[layer + bi]
+            for name, p in first.named_parameters():
+                tensors = [model.blocks[layer + g * len(pattern) + bi]
+                           .get_parameter(name) for g in range(n)]
+                leaves.append(Leaf(f"segments/{si}/{bi}/"
+                                   f"{name.replace('.', '/')}",
+                                   tensors, p.dim() + 1))
+        layer += n * len(pattern)
+    return leaves
+
+
+def state_leaves(state: Dict, cfg: ArchConfig) -> List[Leaf]:
+    """The leaves the optimizer steps: ``param_leaves``, and in Bayesian
+    mode each as ``<leaf>/mu`` then ``<leaf>/rho`` (``repro``'s
+    ``{"mu", "rho"}`` leaf dicts)."""
+    leaves = param_leaves(state["model"], cfg)
+    if "rho" not in state:
+        return leaves
+    names = {id(p): n for n, p in state["model"].named_parameters()}
+    out = []
+    for leaf in leaves:
+        out.append(leaf._replace(name=f"{leaf.name}/mu"))
+        out.append(Leaf(f"{leaf.name}/rho",
+                        [state["rho"][names[id(t)]] for t in leaf.tensors],
+                        leaf.rank))
+    return out
+
+
+def init_state(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
+               seed: int = 0, device=None, model: Optional[nn.Module] = None,
+               compress_grads: bool = False,
+               bayesian_mode: bool = False) -> Dict:
+    """Random weights from ``seed`` (or ``model``), with grads turned on
+    for its parameters, zero moments and counters on its device."""
+    if model is None:
+        model = build_model(cfg).init(seed=seed, device=device)
+    model.requires_grad_(True)
+    dev = next(model.parameters()).device
+    state = {"model": model,
+             "step": torch.zeros((), dtype=torch.int64, device=dev),
+             "skipped": torch.zeros((), dtype=torch.int32, device=dev)}
+    if bayesian_mode:
+        rho = bayesian.init_bayesian(dict(model.named_parameters()))
+        state["rho"] = {n: leaf["rho"].requires_grad_(True)
+                        for n, leaf in rho.items()}
+    leaves = state_leaves(state, cfg)
+    state["opt"] = adamw.init(leaves, opt_cfg)
+    if compress_grads:
+        state["ef"] = grad_compression.init_error_feedback(leaves)
+    return state
+
+
+class _Loss(nn.Module):
+    """A loss function of a model as a module's forward, so that
+    ``torch.func.functional_call`` can run it on sampled weights."""
+
+    def __init__(self, loss_fn: Callable, model: nn.Module):
+        super().__init__()
+        self.loss_fn, self.model = loss_fn, model
+
+    def forward(self, batch):
+        return self.loss_fn(self.model, batch)
+
+
+class TrainStep:
+    """One optimizer step (module docstring); ``grads`` alone gives the
+    loss, metrics and per-leaf gradients of a batch."""
+
+    def __init__(self, cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
+                 accum: int = 1, moe_aux_coef: float = 0.01,
+                 lr_schedule: Optional[Callable] = None,
+                 compress_grads: bool = False, bayesian_mode: bool = False,
+                 num_examples: int = 1_000_000):
+        self.cfg, self.opt_cfg = cfg, opt_cfg
+        self.base_loss = make_loss_fn(cfg, build_model(cfg), moe_aux_coef)
+        self.accum = accum
+        self.lr_schedule = lr_schedule
+        self.compress_grads = compress_grads
+        self.bayesian_mode = bayesian_mode
+        self.num_examples = num_examples
+
+    def loss(self, state: Dict, batch: Dict
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        model = state["model"]
+        if not self.bayesian_mode:
+            return self.base_loss(model, batch)
+        gen = torch.Generator(device=state["step"].device)
+        gen.manual_seed(int(state["step"]))
+        bparams = {n: {"mu": p, "rho": state["rho"][n]}
+                   for n, p in model.named_parameters()}
+        on_weights = _Loss(self.base_loss, model)
+        return bayesian.elbo_loss(
+            gen, bparams,
+            lambda w: torch.func.functional_call(
+                on_weights, {f"model.{n}": t for n, t in w.items()},
+                (batch,)),
+            self.num_examples)
+
+    def grads(self, state: Dict, batch: Dict):
+        """(loss, metrics, gradients per leaf of ``state_leaves``), the
+        mean over ``accum`` microbatches."""
+        leaves = state_leaves(state, self.cfg)
+        flat = [t for leaf in leaves for t in leaf.tensors]
+        n = self.accum
+        if n <= 1:
+            micro = [batch]
+        else:
+            micro = [{k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
+                      for k, v in batch.items()} for i in range(n)]
+        total, metrics = None, None
+        for mb in micro:
+            loss, m = self.loss(state, mb)
+            gs = torch.autograd.grad(loss, flat)
+            total = list(gs) if total is None else [
+                a + b for a, b in zip(total, gs)]
+            metrics = dict(m) if metrics is None else {
+                k: metrics[k] + m[k] for k in m}
+        if n > 1:
+            total = [g / n for g in total]
+            metrics = {k: v / n for k, v in metrics.items()}
+        grads, i = [], 0
+        for leaf in leaves:
+            grads.append(total[i:i + len(leaf.tensors)])
+            i += len(leaf.tensors)
+        return metrics["loss"].detach(), {
+            k: v.detach() for k, v in metrics.items()}, grads
+
+    def __call__(self, state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
+        leaves = state_leaves(state, self.cfg)
+        loss, metrics, grads = self.grads(state, batch)
+        if self.compress_grads:
+            grads, new_ef = grad_compression.compress_decompress(
+                grads, state["ef"])
+        gnorm = adamw.global_norm(grads)
+        ok = torch.isfinite(gnorm) & torch.isfinite(loss)
+        lr = (self.lr_schedule(state["step"]) if self.lr_schedule is not None
+              else self.opt_cfg.lr)
+        new_params, new_opt = adamw.update(grads, state["opt"], leaves,
+                                           self.opt_cfg, lr)
+        with torch.no_grad():
+            for leaf, ps in zip(leaves, new_params):
+                for t, new in zip(leaf.tensors, ps):
+                    t.copy_(torch.where(ok, new, t))
+        state["opt"] = adamw.select(ok, new_opt, state["opt"])
+        if self.compress_grads:
+            state["ef"] = adamw.select(ok, new_ef, state["ef"])
+        state["step"] = state["step"] + 1
+        state["skipped"] = state["skipped"] + (~ok).to(torch.int32)
+        drop_planes(state["model"])
+        lr = torch.as_tensor(lr, dtype=torch.float32, device=gnorm.device)
+        metrics.update(grad_norm=gnorm, lr=lr, ok=ok.to(torch.int32))
+        return state, metrics
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
+                    **kw) -> TrainStep:
+    return TrainStep(cfg, opt_cfg, **kw)
+
+
+def make_loss_fn(cfg: ArchConfig, model: Optional[Model] = None,
+                 moe_aux_coef: float = 0.01) -> Callable:
+    """``loss_fn(params, batch) -> (loss, metrics)`` of a model's train
+    forward (``repro``'s ``make_loss_fn``)."""
+    api = model or build_model(cfg)
+
+    def loss_fn(params, batch):
+        logits, aux = api.forward_train(params, batch)
+        nll = cross_entropy(logits, batch["labels"], cfg.zloss)
+        loss = nll + moe_aux_coef * aux["moe_aux"]
+        return loss, {"loss": loss, "nll": nll, "moe_aux": aux["moe_aux"]}
+    return loss_fn

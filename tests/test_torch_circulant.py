@@ -127,8 +127,18 @@ def test_apply_linear_bf16_casts_like_repro():
 
 
 def test_training_path_raises():
+    """The training path is ported (it raised before): train mode runs the
+    fft lowering with a backward, on the same values as the serve
+    lowering (1e-5 of the output's scale), and ignores baked planes."""
     spec = tcc.LinearSpec("block_circulant", 16)
     w, x = _case(16, 32, 32, lead=(2,))
-    with pytest.raises(NotImplementedError):
-        tcc.apply_linear({"wc": torch.from_numpy(w)}, torch.from_numpy(x),
-                         spec, 32, mode="train")
+    wt = torch.from_numpy(w).requires_grad_()
+    params = {"wc": wt, "wc_cache": {n: torch.zeros_like(t) for n, t in
+                                     tcc.spectral_cache(wt.detach()).items()}}
+    got = tcc.apply_linear(params, torch.from_numpy(x), spec, 32,
+                           mode="train")
+    assert got.grad_fn is not None
+    ref = tcc.apply_linear({"wc": wt.detach()}, torch.from_numpy(x), spec,
+                           32, mode="serve")
+    np.testing.assert_allclose(got.detach().numpy(), ref.numpy(), rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))

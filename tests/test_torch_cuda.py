@@ -624,3 +624,87 @@ def test_gemma_engines_on_card_match_cpu(cuda, arch):
             for p in ("f32_mma", "f32_rows")}
     assert all(n > 0 for n in grew.values()), grew
     assert out["cuda"] == out["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# training: bc_grad_w, the autograd Function, one train step
+# ---------------------------------------------------------------------------
+# tinyllama-1.1b's training shapes (q/o, k/v, up/gate, down, the fused
+# q/k/v and up/gate) at fewer rows, and a ragged small shape
+GRAD_W_SHAPES = [(1024, 16, 16, 128), (1024, 2, 16, 128),
+                 (1024, 44, 16, 128), (1024, 16, 44, 128),
+                 (1024, 20, 16, 128), (1024, 88, 16, 128), (37, 3, 5, 16)]
+
+
+@pytest.mark.parametrize("N,p,q,k", GRAD_W_SHAPES)
+def test_bc_grad_w_kernel(cuda, N, p, q, k):
+    """The kernel against its plain version (float32 sums over N rows in
+    another order: 1e-4 of the output's scale), and two calls bit-equal
+    (the row splits are summed in a fixed order)."""
+    from repro_torch.kernels import bc_grad_w as bgw
+    gy = torch.randn((N, p, k), generator=cuda, device="cuda")
+    xb = torch.randn((N, q, k), generator=cuda, device="cuda")
+    before = bgw.KERNEL.launches
+    got = bgw.bc_grad_w(gy, xb, k)
+    again = bgw.bc_grad_w(gy, xb, k)
+    assert bgw.KERNEL.launches == before + 2
+    assert torch.equal(got, again)
+    _close(got, bgw.bc_grad_w_plain(gy, xb, k))
+
+
+@pytest.mark.parametrize("gauss", [True, False])
+def test_bc_matmul_fft_grads_on_card(cuda, gauss):
+    """The Function's output and both grads on the card (bc_fused forward
+    and adjoint, bc_grad_w) against the plain versions on the CPU.  The
+    non-Gauss form has no kernel and raises on the card."""
+    from repro_torch.kernels import bc_grad_w as bgw
+    k, n_in, n_out = 16, 72, 40
+    w = torch.randn((3, 5, k), generator=cuda, device="cuda") / n_in ** .5
+    x = torch.randn((4, 6, n_in), generator=cuda, device="cuda")
+    g = torch.randn((4, 6, n_out), generator=cuda, device="cuda")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        wd = w.detach().to(dev).requires_grad_()
+        xd = x.detach().to(dev).requires_grad_()
+        if dev == "cuda" and not gauss:
+            with pytest.raises(NotImplementedError):
+                cc.bc_matmul_fft(xd, wd, n_out, gauss)
+            return
+        fused, grads = bcf.KERNEL.launches, bgw.KERNEL.launches
+        y = cc.bc_matmul_fft(xd, wd, n_out, gauss)
+        y.backward(g.to(dev))
+        if dev == "cuda":   # forward and adjoint, then the weight grad
+            assert bcf.KERNEL.launches == fused + 2
+            assert bgw.KERNEL.launches == grads + 1
+        out[dev] = [t.detach().cpu() for t in (y, xd.grad, wd.grad)]
+    for got, ref in zip(out["cuda"], out["cpu"]):
+        _close(got, ref)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One AdamW step of the tinyllama smoke config in float32 on the card
+    (the kernels) and on the CPU (the plain versions), from the same
+    weights and batch: the loss within 1e-5 of its scale, every grad and
+    every updated parameter within 1e-4 of its scale."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as ts
+    cfg = get_smoke_config("tinyllama-1.1b").replace(dtype="float32")
+    batch = SyntheticLM(cfg, batch=2, seq=16, seed=0)(0)
+    opt = adamw.AdamWConfig(lr=1e-3)
+    res = {}
+    base = ts.init_state(cfg, opt, seed=0, device="cpu")["model"]
+    for dev in ("cpu", "cuda"):
+        state = ts.init_state(cfg, opt, model=copy.deepcopy(base).to(dev))
+        step = ts.make_train_step(cfg, opt)
+        on_dev = {k: v.to(dev) for k, v in batch.items()}
+        _, _, grads = step.grads(state, on_dev)
+        state, metrics = step(state, on_dev)
+        res[dev] = (float(metrics["loss"]),
+                    [g.cpu() for gs in grads for g in gs],
+                    [p.detach().cpu() for p in state["model"].parameters()])
+    assert abs(res["cuda"][0] - res["cpu"][0]) <= 1e-5 * max(
+        1.0, abs(res["cpu"][0]))
+    for got, ref in zip(res["cuda"][1] + res["cuda"][2],
+                        res["cpu"][1] + res["cpu"][2]):
+        _close(got, ref)
