@@ -11,82 +11,224 @@ Pallas kernel computes it, and this is a kernel of the port's own.
 ``bc_grad_w`` is the wrapper: on CUDA tensors it launches the kernel (or
 raises), on CPU tensors it runs ``bc_grad_w_plain``, ``repro``'s math in
 plain PyTorch (DFT products against ``dft_mats``, then ``einsum`` over the
-rows).  ``plan`` (tile shape and row splits) is a pure function of the
-shapes, checked by the CPU tests.
+rows).  ``plan`` (row chunks, DFT column tiles, output tiles, row splits)
+is a pure function of the shapes, checked by the CPU tests, which also
+run the kernel's decomposition in plain PyTorch against ``repro``.
+
+The kernel works on packed spectra: bins 0 and k/2 are real, so they
+share slot 0 (its two columns), and bin f in 1 .. k/2 - 1 takes slot f.
+``packed_panel_t`` is the (k, k) matrix of that transform, rows in slot
+order, and its transpose is the inverse's (each column weighted by 1/k or
+2/k).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..core import circulant as cc
-from .bc_fused import dft_panel, dft_panel_t, ncols
 from .build import Kernel, check_cuda, ptr
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-# gy, xb, panel, panel_t, part, gw; N, p, q, k, pt, qt, splits, rows
-KERNEL = Kernel("bc_grad_w", {"bc_grad_w": [_VP] * 6 + [_I] * 8})
+# gy, xb, folded panel, panel, spec, part, gw; N, p, q, k; chunk,
+# dft_stages, dft_blocks, mt, nt, splits, mac_stages
+KERNEL = Kernel("bc_grad_w", {"bc_grad_w": [_VP] * 7 + [_I] * 11})
 
 # Launch-plan limits, as csrc/bc_grad_w.cu checks them.
 MAX_SMEM = 232448          # bytes of shared memory a block can use (H100)
-MAX_PAIRS = 64             # (output block, input block) pairs a block
-ROWS = 4                   # rows of N a chunk (csrc kRows)
-SMS = 132                  # one block an SM: the row splits fill one wave
+SM_SMEM = 233472           # bytes of shared memory an SM has (H100)
+BLOCK_RESERVED = 1024      # bytes the runtime keeps for each block
+SMS = 132
+ROWS = 64                  # rows of N a contraction stage
+CHUNK_ROWS = 128           # a chunk's rows are padded to this (csrc)
+DFT_ROWS = 64              # rows of N a DFT tile (csrc: kDftRows)
+MAX_UNITS = 8              # 16 x 8 output tiles a contraction warp holds
+NT_CHOICES = (1, 2, 4, 8)  # 8-column tiles an output tile spans (csrc)
+MAX_BINS = 132             # k / 2 + 1 at most: k up to 256
+MAX_GRID_Y = 65535         # a CUDA grid's y: the contraction's output tiles
+CHUNK_BYTES = 256 << 20    # the spectra scratch of one row chunk, at most
 
 
 class Plan(NamedTuple):
-    """Tiles of ``pt`` output x ``qt`` input blocks; the N rows cut into
-    ``splits`` ranges of ``rows``; ``blocks`` of the first launch and its
-    shared memory a block."""
-    pt: int
-    qt: int
+    """How one call is cut up.  The rows go through in ``chunks`` of
+    ``chunk`` rows: the DFT kernel writes a chunk's packed spectra to a
+    scratch of ``spec_floats``, and the contraction kernel reads them
+    back.  DFT: ``dft_blocks`` persistent blocks over the chunk's tiles of
+    ``DFT_ROWS`` rows, ``dft_stages`` tiles in flight.
+    Contraction: one block per (slot, output tile, split), an output tile
+    ``mt`` 16-row tiles of output blocks by ``nt`` 8-column tiles of input
+    blocks (``p_tiles`` x ``q_tiles`` of them), the chunk's rows cut into
+    ``splits`` ranges whose partial sums (``part_floats``) are carried from
+    chunk to chunk and added in split order by the iDFT kernel."""
+    chunk: int
+    chunks: int
+    dft_stages: int
+    dft_blocks: int
+    dft_smem: int
+    mt: int
+    nt: int
+    p_tiles: int
+    q_tiles: int
     splits: int
-    rows: int
-    blocks: int
-    smem_bytes: int
+    mac_stages: int
+    mac_blocks: int
+    mac_smem: int
+    spec_floats: int
+    part_floats: int
 
 
-def smem_bytes(k: int, pt: int, qt: int) -> int:
-    """The panel, a chunk's raw rows (stride k + 4) and their spectra
-    (csrc/bc_grad_w.cu:layout)."""
-    rows = ROWS * (pt + qt)
-    return 4 * (k * ncols(k) + rows * (k + 4) + rows * ncols(k))
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
-def plan(N: int, p: int, q: int, k: int) -> Plan:
-    """The tile whose DFT rows over the grid, ``ceil(q/qt) p + ceil(p/pt)
-    q`` per row of N, are fewest (then the fewest tiles), and as many row
-    splits as make one block an SM."""
+def fold_len(k: int) -> int:
+    """Positions of each of the four folded groups of a row: k/4 rounded
+    up to 8 (the mma's k)."""
+    return cdiv(k // 4, 8) * 8
+
+
+def fold_rows(k: int) -> int:
+    """Rows of each of the four folded sub-panels: k/4 rounded up to 16
+    (the mma's m)."""
+    return cdiv(k // 4, 16) * 16
+
+
+def dft_smem(k: int, stages: int) -> int:
+    """The four folded sub-panels (rows of fold_len + 4 floats) and
+    ``stages`` tiles of ``DFT_ROWS`` rows, each folded in place (rows of
+    max(k, 4 fold_len) + 4 floats) (csrc/bc_grad_w.cu:dft_kernel): at most
+    202,752 bytes, at k = 256 and two stages."""
+    L = fold_len(k)
+    return 4 * (4 * fold_rows(k) * (L + 4)
+                + stages * DFT_ROWS * (max(k, 4 * L) + 4))
+
+
+def mac_smem(p_rows: int, q_rows: int, stages: int, units: int) -> int:
+    """``stages`` stages of the output tile's spectra rows (both planes,
+    ROWS + 4 floats a row), or the warps' partial sums at the end, whichever
+    is larger (csrc/bc_grad_w.cu:mac_kernel)."""
+    return 4 * max(stages * 2 * (p_rows + q_rows) * (ROWS + 4),
+                   8 * units * 32 * 8)
+
+
+def per_sm(smem: int) -> int:
+    """Blocks of ``smem`` bytes that share an SM (at most 2: the launch
+    bounds)."""
+    return max(1, min(2, SM_SMEM // (smem + BLOCK_RESERVED)))
+
+
+def output_tiles(p: int, q: int) -> Tuple[int, int, int, int]:
+    """(mt, nt, p_tiles, q_tiles): the output tile whose spectra rows read
+    over all tiles, ``q_tiles p + p_tiles q``, are fewest, then the least
+    padding, then the narrowest."""
+    best = None
+    for nt in NT_CHOICES:
+        mt_max = MAX_UNITS // nt
+        mts, nts = cdiv(p, 16), cdiv(q, 8)
+        p_tiles = cdiv(mts, mt_max)
+        mt = cdiv(mts, p_tiles)
+        q_tiles = cdiv(nts, nt)
+        key = (q_tiles * p + p_tiles * q, p_tiles * q_tiles * mt * nt, nt)
+        if best is None or key < best[0]:
+            best = (key, (mt, nt, p_tiles, q_tiles))
+    return best[1]
+
+
+def plan(N: int, p: int, q: int, k: int,
+         chunk: Optional[int] = None) -> Plan:
+    """The launch plan of one call, a pure function of the shapes.
+    ``chunk`` (rows a chunk, rounded up to 128) replaces the plan's own
+    row chunks, which are as long as a scratch of ``CHUNK_BYTES`` allows
+    (``tools/grad_w_sweep.py --chunks`` times other lengths)."""
     if k < 8 or k % 8:
         raise ValueError(f"bc_grad_w: block size {k} is not a multiple of 8")
     if min(N, p, q) < 1:
         raise ValueError(f"bc_grad_w: empty shape N={N}, p={p}, q={q}")
-    if k // 2 + 1 > 4 * 33:
-        raise ValueError(f"bc_grad_w: block size {k} has more bins than "
-                         f"the kernel's registers hold")
-    best = None
-    for pt in range(1, min(p, MAX_PAIRS) + 1):
-        qt = min(q, MAX_PAIRS // pt)
-        tp, tq = -(-p // pt), -(-q // qt)
-        key = (tq * p + tp * q, tp * tq, pt)
-        if best is None or key < best[0]:
-            best = (key, pt, qt, tp * tq)
-    _, pt, qt, tiles = best
-    smem = smem_bytes(k, pt, qt)
-    if smem > MAX_SMEM:
-        raise ValueError(f"bc_grad_w: block size {k} needs {smem} bytes of "
-                         f"shared memory ({MAX_SMEM} a block)")
-    splits = max(1, min(-(-SMS // tiles), -(-N // ROWS)))
-    rows = -(-(-(-N // splits)) // ROWS) * ROWS
-    splits = -(-N // rows)
-    return Plan(pt, qt, splits, rows, tiles * splits, smem)
+    if k // 2 + 1 > MAX_BINS:
+        raise ValueError(f"bc_grad_w: block size {k} has {k // 2 + 1} bins, "
+                         f"more than the kernel's {MAX_BINS}")
+    mt, nt, p_tiles, q_tiles = output_tiles(p, q)
+    if p_tiles * q_tiles > MAX_GRID_Y:
+        raise ValueError(f"bc_grad_w: {p} x {q} blocks make {p_tiles} x "
+                         f"{q_tiles} output tiles, more than a grid's "
+                         f"{MAX_GRID_Y}")
+    # the deepest ring that keeps as many blocks an SM as two stages do
+    stages = max(s for s in (2, 3, 4) if dft_smem(k, s) <= MAX_SMEM
+                 and per_sm(dft_smem(k, s)) == per_sm(dft_smem(k, 2)))
+    d_smem = dft_smem(k, stages)
+    fam = p + q
+    if chunk is None:
+        per_chunk = max(1, CHUNK_BYTES // (4 * k * fam * CHUNK_ROWS))
+        chunk = cdiv(N, cdiv(N, CHUNK_ROWS * per_chunk))
+    chunk = cdiv(chunk, CHUNK_ROWS) * CHUNK_ROWS
+    p_rows, q_rows = min(16 * mt, p), min(8 * nt, q)
+    units = mt * nt
+    m_stages = 3 if per_sm(mac_smem(p_rows, q_rows, 3, units)) == 2 else 2
+    m_smem = mac_smem(p_rows, q_rows, m_stages, units)
+    slots = k // 2
+    wave = SMS * per_sm(m_smem) // (slots * p_tiles * q_tiles)
+    per = cdiv(chunk // ROWS, max(1, wave))
+    splits = cdiv(chunk // ROWS, per)
+    return Plan(chunk=chunk, chunks=cdiv(N, chunk), dft_stages=stages,
+                dft_blocks=SMS * per_sm(d_smem), dft_smem=d_smem, mt=mt,
+                nt=nt, p_tiles=p_tiles, q_tiles=q_tiles, splits=splits,
+                mac_stages=m_stages,
+                mac_blocks=slots * p_tiles * q_tiles * splits,
+                mac_smem=m_smem, spec_floats=k * fam * chunk,
+                part_floats=splits * slots * p * q * 2)
 
 
 def shape_key(N: int, p: int, q: int, k: int) -> str:
     """A launch's shape as ``Kernel.shape_launches`` counts it."""
     return f"bc_grad_w/{N}x{p}x{q}x{k}"
+
+
+def packed_panel_t(k: int, device) -> torch.Tensor:
+    """The packed real DFT P (k, k) float32 on ``device``, built once, rows
+    in slot order: Cr's bin 0 and bin k/2 columns, then Cr and Ci of each
+    bin 1 .. k/2 - 1.  The inverse of packed spectra u (..., k) is
+    ``(u * w) @ P`` with w = 1/k on columns 0 and 1 (bins 0 and k/2), 2/k
+    on the others."""
+    return _packed_panel_t(k, str(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_panel_t(k: int, device: str) -> torch.Tensor:
+    cr, ci, _, _ = cc.dft_mats(k, "cpu")
+    rows = [cr[:, 0], cr[:, k // 2]]
+    for f in range(1, k // 2):
+        rows += [cr[:, f], ci[:, f]]
+    return torch.stack(rows).contiguous().to(device)
+
+
+def dft_panel(k: int, device) -> torch.Tensor:
+    """The folded DFT sub-panels (4, fold_rows(k), fold_len(k)) float32 on
+    ``device``, built once.  With h = k/2, s_t = x_t + x_{k-t} and d_t =
+    x_t - x_{k-t} (s_0 = x_0, s_h = x_h), row f of each multiplies one
+    group of a row's folded values (csrc/bc_grad_w.cu, "Folding"):
+    0: Cr[t, f] over s_t, t = 0, 2, .. h - 2;  1: Cr[t, f] over s_t, t
+    odd;  2: Ci[t, f] over d_t, t = 2, 4, .. h - 2;  3: Ci[t, f] over d_t,
+    t odd, for f < h/2 (rows 2 and 3 from f = 1), and row 0 of sub-panel
+    3 is Ci[t, h/2] (bin h/2's sine part)."""
+    return _dft_panel(k, str(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _dft_panel(k: int, device: str) -> torch.Tensor:
+    cr, ci, _, _ = cc.dft_mats(k, "cpu")
+    h, hh = k // 2, k // 4
+    f_ = torch.zeros((4, fold_rows(k), fold_len(k)), dtype=torch.float32)
+    for f in range(hh):
+        f_[0, f, :hh] = cr[0:h:2, f]
+        f_[1, f, :hh] = cr[1:h:2, f]
+        if f:
+            f_[2, f, :hh - 1] = ci[2:h:2, f]
+            f_[3, f, :hh] = ci[1:h:2, f]
+    f_[3, 0, :hh] = ci[1:h:2, hh]
+    return f_.contiguous().to(device)
 
 
 def bc_grad_w_plain(gy: torch.Tensor, xb: torch.Tensor, k: int
@@ -102,8 +244,10 @@ def bc_grad_w_plain(gy: torch.Tensor, xb: torch.Tensor, k: int
     return cc.irfft_planes(ur, ui, k)
 
 
-def bc_grad_w(gy: torch.Tensor, xb: torch.Tensor, k: int) -> torch.Tensor:
-    """gy (N, p, k), xb (N, q, k) float32 -> gw (p, q, k) float32."""
+def bc_grad_w(gy: torch.Tensor, xb: torch.Tensor, k: int,
+              chunk: Optional[int] = None) -> torch.Tensor:
+    """gy (N, p, k), xb (N, q, k) float32 -> gw (p, q, k) float32;
+    ``chunk`` as ``plan`` takes it."""
     if gy.device.type == "cpu":
         return bc_grad_w_plain(gy, xb, k)
     device = check_cuda("bc_grad_w", {"gy": gy, "xb": xb},
@@ -117,12 +261,13 @@ def bc_grad_w(gy: torch.Tensor, xb: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError("bc_grad_w: gy and xb must start 16-byte aligned")
     N, p, _ = gy.shape
     q = xb.shape[1]
-    pl = plan(N, p, q, k)
-    part = torch.empty((pl.splits, p, q, k + 2), device=device,
-                       dtype=torch.float32)
+    pl = plan(N, p, q, k, chunk)
+    spec = torch.empty(pl.spec_floats, device=device, dtype=torch.float32)
+    part = torch.empty(pl.part_floats, device=device, dtype=torch.float32)
     gw = torch.empty((p, q, k), device=device, dtype=torch.float32)
     KERNEL.launch("bc_grad_w", device, ptr(gy), ptr(xb),
-                  ptr(dft_panel(k, device)), ptr(dft_panel_t(k, device)),
-                  ptr(part), ptr(gw), N, p, q, k, pl.pt, pl.qt, pl.splits,
-                  pl.rows, shape=shape_key(N, p, q, k))
+                  ptr(dft_panel(k, device)), ptr(packed_panel_t(k, device)),
+                  ptr(spec), ptr(part), ptr(gw), N, p, q, k, pl.chunk,
+                  pl.dft_stages, pl.dft_blocks, pl.mt, pl.nt, pl.splits,
+                  pl.mac_stages, shape=shape_key(N, p, q, k))
     return gw

@@ -630,10 +630,21 @@ def test_gemma_engines_on_card_match_cpu(cuda, arch):
 # training: bc_grad_w, the autograd Function, one train step
 # ---------------------------------------------------------------------------
 # tinyllama-1.1b's training shapes (q/o, k/v, up/gate, down, the fused
-# q/k/v and up/gate) at fewer rows, and a ragged small shape
+# q/k/v and up/gate) at fewer rows, a ragged small shape, and the plan's
+# edges (kernels/bc_grad_w.py:plan): N not a multiple of the 64-row tile,
+# k with a ragged last folded group (k = 200: k/4 = 50 of 56 positions,
+# 64 bins a sub-panel, one DFT block an SM), k/4 odd (k = 24), 1,408
+# pairs as 2 output tiles along q and as 11 along p, the latter in 2
+# chunks (the scratch past 256 MiB), the last one short; and qwen3-4b's
+# up/gate and down and phi-3-vision-4.2b's up/gate at N = 8 x 1,024
+# (1,520 and 1,536 pairs: 3 output tiles along p or q, 2 chunks)
 GRAD_W_SHAPES = [(1024, 16, 16, 128), (1024, 2, 16, 128),
                  (1024, 44, 16, 128), (1024, 16, 44, 128),
-                 (1024, 20, 16, 128), (1024, 88, 16, 128), (37, 3, 5, 16)]
+                 (1024, 20, 16, 128), (1024, 88, 16, 128), (37, 3, 5, 16),
+                 (1000, 44, 16, 128), (300, 3, 5, 200), (100, 5, 3, 24),
+                 (300, 16, 88, 128), (3000, 1408, 1, 16),
+                 (8192, 76, 20, 128), (8192, 20, 76, 128),
+                 (8192, 64, 24, 128)]
 
 
 @pytest.mark.parametrize("N,p,q,k", GRAD_W_SHAPES)
