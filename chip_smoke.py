@@ -116,6 +116,23 @@ itself.  Each phase prints one JSON line:
                 bit to two uninterrupted steps
   train_dense   ``--no-compress`` at the same shape and depth, 4 steps: ms
                 per step and peak memory beside the circulant run's
+  train_mixtral, train_llama4, train_gemma2, train_recurrentgemma,
+  train_xlstm, train_whisper  the other six archs through the launcher
+                at their published widths (``TRAIN_ARCHS``): mixtral (32
+                layers, 2 x 4,608 tokens, past its window of 4,096),
+                llama4 cut to 8 layers (four attn / moe groups; 8 x 1,024),
+                gemma2 (42 layers, 2 x 4,608), recurrentgemma (26, 2 x
+                2,560, past its 2,048), xlstm (12, 8 x 1,024), whisper (32
+                + 32, 8 x 448 decoder tokens over 1,500 frames); 3 AdamW
+                steps each, bf16, remat, no checkpoints: losses (and the
+                MoE aux) finite, no step skipped, ms a step, tokens/s, peak
+                memory, and the launches a step by lane, path and shape
+                equal to those the model calls for (``train_expected``:
+                each expert stack one ``bc_fused`` launch a projection and
+                pass and one ``bc_grad_w`` call a projection)
+  train_parity  (again, one line per arch above) 2 layers (whisper 2 + 2)
+                at published widths, float32, 2 x 64 tokens: the card's
+                loss, aux and every gradient against the CPU's plain path
 
 Every ``ContinuousEngine`` above decodes by replaying the CUDA graph of its
 step, captured when the engine is built (``serve/decode.py``); its launch
@@ -162,6 +179,12 @@ time one complex64 ``torch.bmm`` over the bins (the contraction alone),
 and the whole function as three library calls (``torch.fft.rfft`` of
 both inputs, that ``torch.bmm``, ``torch.fft.irfft``: ``library_whole_ms``);
 ``bc_fused`` at the training rows at every forward and adjoint shape.
+The expert stacks of the MoE train phases (``check_train_stacks``):
+``bc_grad_w``'s stack lane at mixtral's (8 experts of 2,880 rows) and
+llama4's (128 of 80) up/gate and down, and ``bc_fused``'s stack forward
+and adjoint at their up/gate, each expert equal bit for bit to the
+single call on its rows, with the library times of row 6 (complex64
+``torch.bmm`` over E x kf bins; rfft, bmm, irfft) and of a dense bmm.
 ``paged_attention`` also with one slot idle where none is (cases ending
 ``_idle``) and with every slot at the table's last column (``_full``).
 Each case carries its launch plan where the kernel has one, and
@@ -177,6 +200,7 @@ from __future__ import annotations
 
 import copy
 import ctypes
+import gc
 import json
 import math
 import shutil
@@ -268,6 +292,20 @@ BATCH_ARCH = {
                  oracle_new=8, reduced=dict(num_layers=2), check_len=64),
     RGEMMA: dict(lo=2048, hi=2150, new=16, max_seq=2176, oracle_len=2100,
                  oracle_new=8, reduced=dict(num_layers=3), check_len=64)}
+# the train phases of the archs past attn blocks: the launcher at the
+# published widths, ``batch`` x ``seq`` tokens a step (mixtral's and
+# gemma2's past their window of 4,096, recurrentgemma's past its 2,048),
+# ``steps`` AdamW steps, bf16, remat; ``layers`` cuts the depth (llama4 at
+# full depth is ~4.15 B float32 parameters: embedding 1.03 B, 24 expert
+# stacks of 126 M; its parameters, gradients and moments alone would
+# take ~66 GB); whisper's ``seq`` is its decoder tokens over 1,500 frames
+TRAIN_ARCHS = {
+    MIXTRAL: dict(phase="train_mixtral", batch=2, seq=4608, steps=3),
+    MOE: dict(phase="train_llama4", batch=8, seq=1024, steps=3, layers=8),
+    GEMMA2: dict(phase="train_gemma2", batch=2, seq=4608, steps=3),
+    RGEMMA: dict(phase="train_recurrentgemma", batch=2, seq=2560, steps=3),
+    XLSTM: dict(phase="train_xlstm", batch=8, seq=1024, steps=3),
+    WHISPER: dict(phase="train_whisper", batch=8, seq=448, steps=3)}
 
 
 def ring_decode_keys(S, steps, window):
@@ -468,6 +506,25 @@ NEW_SHAPES = {
     "bc_fused@train_adjoint": (
         bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48", "bc_fused",
         f"train_k_v_adjoint_b{TRAIN_ROWS}", "train"),
+    # training an expert stack (train_mixtral, train_llama4): bc_fused's
+    # stack forward at mixtral's up/gate (down's adjoint shares the
+    # shape) and its adjoint at up/gate's (down's forward shape), and the
+    # bc_grad_w stack lane at both archs' up/gate; counted at the case's
+    # shape on the experts path
+    "bc_fused@experts_train": (
+        bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48", "bc_fused",
+        "train_mixtral_up_gate_e8_c2880", "train_mixtral"),
+    "bc_fused@experts_train_adjoint": (
+        bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48", "bc_fused",
+        "train_mixtral_up_gate_adjoint_e8_c2880", "train_mixtral"),
+    "bc_grad_w@experts_mixtral": (
+        bgw.KERNEL, "src/repro/layers/ffn.py:106-111 (jax.vmap of "
+        "bc_matmul_fft; _bc_fft_bwd's gw, XLA)", "bc_grad_w",
+        "mixtral_up_gate_e8_c2880", "train_mixtral"),
+    "bc_grad_w@experts_llama4": (
+        bgw.KERNEL, "src/repro/layers/ffn.py:106-111 (jax.vmap of "
+        "bc_matmul_fft; _bc_fft_bwd's gw, XLA)", "bc_grad_w",
+        "llama4_up_gate_e128_c80", "train_llama4"),
 }
 
 
@@ -489,7 +546,11 @@ SHAPE_PATHS = {"flash_attention@d96": "bf16", "bc_fused@expert": "single",
                **{f"flash_attention@d256_{name}": path
                   for name, _, _, path in D256},
                "bc_fused@gemma2": "single",
-               "bc_fused@recurrentgemma": "single"}
+               "bc_fused@recurrentgemma": "single",
+               "bc_fused@experts_train": "experts",
+               "bc_fused@experts_train_adjoint": "experts",
+               "bc_grad_w@experts_mixtral": "experts",
+               "bc_grad_w@experts_llama4": "experts"}
 
 T0 = time.perf_counter()
 _LAST = [T0]                # when the previous phase line was printed
@@ -1355,6 +1416,20 @@ def train_kernel_shapes(cfg):
             "train_up_gate": (d, dff), "train_down": (dff, d)}
 
 
+def grad_w_work(E, C, p, q, k):
+    """(bytes, operations) of ``bc_grad_w`` over E experts of C rows (E =
+    1: one projection): each input read once and the output written once;
+    the two input FFTs, the Gauss MAC (3 products and 3 sums a row, pair
+    and bin, as bc_fused counts it) with its operand sums, its two output
+    sums, then the inverse FFTs."""
+    kf = k // 2 + 1
+    nbytes = 4 * E * (C * p * k + C * q * k + p * q * k)
+    flops = E * (rfft_flops(C * p, k) + rfft_flops(C * q, k)
+                 + 6 * C * p * q * kf + C * p * kf + 2 * C * q * kf
+                 + 2 * p * q * kf + rfft_flops(p * q, k))
+    return nbytes, flops
+
+
 def check_bc_grad_w(cfg, gen, N=TRAIN_ROWS):
     """``bc_grad_w`` at every training shape of tinyllama-1.1b (N = 8 x
     1,024 rows; the fused q/k/v and up/gate too) against its plain version
@@ -1366,7 +1441,6 @@ def check_bc_grad_w(cfg, gen, N=TRAIN_ROWS):
     of both inputs, that ``torch.bmm``, ``torch.fft.irfft``), its error
     against the plain version beside it."""
     k = cfg.compression.block_attn
-    kf = k // 2 + 1
     shapes = {f"tinyllama_{name}": io for name, io in projections(cfg).items()}
     shapes.update(fused_projections(cfg))
     cases = []
@@ -1392,13 +1466,7 @@ def check_bc_grad_w(cfg, gen, N=TRAIN_ROWS):
             return torch.fft.irfft(torch.bmm(gf, xf).permute(1, 2, 0),
                                    n=k, dim=-1)
         whole_err = max_err(whole(), ref)
-        nbytes = 4 * (N * p * k + N * q * k + p * q * k)
-        # the two input FFTs, the Gauss MAC (3 products and 3 sums a row,
-        # pair and bin, as bc_fused counts it) with its operand sums, its
-        # two output sums, then the inverse FFTs
-        flops = (rfft_flops(N * p, k) + rfft_flops(N * q, k)
-                 + 6 * N * p * q * kf + N * p * kf + 2 * N * q * kf
-                 + 2 * p * q * kf + rfft_flops(p * q, k))
+        nbytes, flops = grad_w_work(1, N, p, q, k)
         bound_ms, bound_by = bound(nbytes, flops, torch.float32)
         cases.append({
             "case": f"{name}_n{N}", "shape": [N, p, q, k],
@@ -1421,6 +1489,167 @@ def check_bc_grad_w(cfg, gen, N=TRAIN_ROWS):
         if not cases[-1]["bit_equal"]:
             raise AssertionError(f"bc_grad_w {name}: two calls differ")
     return {"bc_grad_w": (cases, f"tinyllama_up_gate_n{N}")}
+
+
+def moe_capacity(cfg, T):
+    """(G, cap) of a train step's MoE over T tokens (``layers/ffn.py:moe``):
+    G routing groups of g = gcd(min(router_group_size, T), T) tokens, each
+    expert's buffer ``cap`` rows a group."""
+    m = cfg.moe
+    g = math.gcd(min(m.router_group_size, T), T)
+    cap = max(1, int(math.ceil(g * m.top_k / m.num_experts
+                               * m.capacity_factor)))
+    return T // g, min(cap, g)
+
+
+def train_stack_shapes():
+    """(E, C, p, q, k) of the expert projections the MoE train phases
+    launch, by name: up/gate and down of mixtral (2 x 4,608 tokens: G =
+    18, cap = 160, C = 2,880) and llama4 (8 x 1,024: cap = 5, C = 80)."""
+    out = {}
+    for arch, fam in ((MIXTRAL, "mixtral"), (MOE, "llama4")):
+        cfg, t = get_config(arch), TRAIN_ARCHS[arch]
+        G, cap = moe_capacity(cfg, t["batch"] * t["seq"])
+        k = cfg.compression.block_for("expert")
+        p, q = cc.num_blocks(cfg.d_ff, k), cc.num_blocks(cfg.d_model, k)
+        E = cfg.moe.num_experts
+        out[f"{fam}_up_gate"] = (E, G * cap, p, q, k)
+        out[f"{fam}_down"] = (E, G * cap, q, p, k)
+    return out
+
+
+def check_train_stacks(gen):
+    """The expert-stack lanes at the MoE train phases' shapes
+    (``train_stack_shapes``): ``bc_grad_w`` over the stack (one call) and
+    ``bc_fused``'s stack forward and adjoint (one launch each), each
+    against its plain version expert by expert (float32 sums in another
+    order: 1e-4 of the output's scale), and every expert equal bit for
+    bit to the single call on its rows.  Library times: for bc_grad_w one
+    complex64 ``torch.bmm`` over E x kf bins (the contraction alone) and
+    the whole function as three calls (``torch.fft.rfft``, that
+    ``torch.bmm``, ``torch.fft.irfft``); for bc_fused one ``torch.bmm``
+    against the dense (E, n_in, n_out) float32 stack, built and freed
+    here."""
+    grad_cases, fused_cases = [], []
+    for name, (E, C, p, q, k) in train_stack_shapes().items():
+        kf = k // 2 + 1
+        gy = torch.randn((E, C, p, k), generator=gen, device="cuda")
+        xb = torch.randn((E, C, q, k), generator=gen, device="cuda")
+        before = bgw.KERNEL.path_launches.get("experts", 0)
+        got = bgw.bc_grad_w(gy, xb, k)
+        if bgw.KERNEL.path_launches["experts"] != before + 1:
+            raise AssertionError(f"bc_grad_w {name}: not one call")
+        equal = all(torch.equal(got[e], bgw.bc_grad_w(gy[e], xb[e], k))
+                    for e in range(E))
+        ref = torch.stack([bgw.bc_grad_w_plain(gy[e], xb[e], k)
+                           for e in range(E)])
+        torch.cuda.synchronize()
+        gr, gi = cc.rfft_planes(gy, k)
+        xr, xi = cc.rfft_planes(xb, k)
+        gc = torch.complex(gr, gi).permute(0, 3, 2, 1).reshape(
+            E * kf, p, C).contiguous()
+        xc = torch.complex(xr, -xi).permute(0, 3, 1, 2).reshape(
+            E * kf, C, q).contiguous()
+        del gr, gi, xr, xi
+
+        def whole():
+            gf = torch.fft.rfft(gy, dim=-1).permute(0, 3, 2, 1).reshape(
+                E * kf, p, C)
+            xf = torch.fft.rfft(xb, dim=-1).conj().permute(0, 3, 1, 2) \
+                .reshape(E * kf, C, q)
+            u = torch.bmm(gf, xf).reshape(E, kf, p, q).permute(0, 2, 3, 1)
+            return torch.fft.irfft(u, n=k, dim=-1)
+        nbytes, flops = grad_w_work(E, C, p, q, k)
+        bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+        pl = bgw.plan(C, p, q, k)
+        grad_cases.append({
+            "case": f"{name}_e{E}_c{C}", "shape": [E, C, p, q, k],
+            "launch_shape": bgw.shape_key(C, p, q, k, E),
+            "plan": pl._asdict(), "group": bgw.stack_group(E, pl),
+            "max_abs_err": max_err(got, ref),
+            "tol": 1e-4 * max(1.0, float(ref.abs().max())),
+            "expert_equal": equal,
+            **kernel_times(lambda: bgw.bc_grad_w(gy, xb, k), **LONG),
+            "plain_ms": time_ms(lambda: torch.stack([
+                bgw.bc_grad_w_plain(gy[e], xb[e], k) for e in range(E)]),
+                reps=3, inner=1, warmup=1),
+            "plain": "bc_grad_w_plain expert by expert",
+            "library_ms": time_ms(lambda: torch.bmm(gc, xc), **LONG),
+            "library": "torch.bmm, complex64, over E x kf bins: the "
+                       "contraction alone (no DFT, no iDFT)",
+            "library_whole_ms": time_ms(whole, **LONG),
+            "library_whole": "torch.fft.rfft of gy and xb, complex64 "
+                             "torch.bmm, torch.fft.irfft",
+            "library_whole_err": max_err(whole(), ref),
+            "bytes": nbytes, "flops": flops,
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        del gc, xc, got, ref
+        if not equal:
+            raise AssertionError(f"bc_grad_w {name}: an expert differs from "
+                                 f"the single call")
+        if name.endswith("_up_gate"):        # bc_fused: forward, adjoint
+            n_in, n_out = q * k, p * k
+            w = torch.randn((E, p, q, k), generator=gen,
+                            device="cuda") / math.sqrt(n_in)
+            planes = cc.spectral_cache(w)
+            adj = kops.adjoint_planes(planes)
+            dense = torch.empty((E, n_in, n_out), device="cuda")
+            for e in range(E):
+                dense[e] = cc.materialize_dense(w[e], n_out, n_in).T
+            x2, g2 = xb.reshape(E, C, n_in), gy.reshape(E, C, n_out)
+            for tag, pl_, x, lib in (
+                    ("", planes, xb, lambda: torch.bmm(x2, dense)),
+                    ("_adjoint", adj, gy,
+                     lambda: torch.bmm(g2, dense.transpose(1, 2)))):
+                args = (pl_["wr"], pl_["ws1"], pl_["ws2"], k)
+                pp, qq = pl_["wr"].shape[1:3]
+                before = bc_fused.KERNEL.path_launches.get("experts", 0)
+                got = bc_fused.bc_fused_matmul(x, *args)
+                if bc_fused.KERNEL.path_launches["experts"] != before + 1:
+                    raise AssertionError(f"bc_fused {name}{tag}: not one "
+                                         f"launch")
+                equal = all(torch.equal(got[e], bc_fused.bc_fused_matmul(
+                    x[e], *(t[e] for t in args[:3]), k)) for e in range(E))
+                ref = torch.stack([bc_fused.bc_fused_matmul_plain(
+                    x[e], *(t[e] for t in args[:3]), k) for e in range(E)])
+                torch.cuda.synchronize()
+                nbytes = (4 * (E * C * qq * k + 4 * k * kf + E * C * pp * k)
+                          + 3 * 4 * E * pp * qq * kf)
+                flops = E * (rfft_flops(C * qq, k) + 6 * C * pp * qq * kf
+                             + C * qq * kf + 2 * C * pp * kf
+                             + rfft_flops(C * pp, k))
+                bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+                fused_cases.append({
+                    "case": f"train_{name}{tag}_e{E}_c{C}",
+                    "shape": [E, C, pp, qq, k],
+                    "launch_shape": bc_fused.shape_key(E, C, pp, qq, k,
+                                                       "bc_fused"),
+                    "launch_args": list(bc_fused.launch_args(
+                        C, pp, qq, k, "bc_fused", E)),
+                    "max_abs_err": max_err(got, ref),
+                    "tol": 1e-4 * max(1.0, float(ref.abs().max())),
+                    "expert_equal": equal,
+                    **kernel_times(lambda: bc_fused.bc_fused_matmul(
+                        x, *args), **LONG),
+                    "plain_ms": time_ms(lambda: torch.stack([
+                        bc_fused.bc_fused_matmul_plain(
+                            x[e], *(t[e] for t in args[:3]), k)
+                        for e in range(E)]), reps=3, inner=1, warmup=1),
+                    "plain": "bc_fused_matmul_plain expert by expert",
+                    "library_ms": time_ms(lib, **LONG),
+                    "library": "torch.bmm against the dense (E, n_in, "
+                               "n_out) float32 stack",
+                    "bytes": nbytes, "flops": flops,
+                    "bound_ms": bound_ms, "bound_by": bound_by})
+                del got, ref
+                if not equal:
+                    raise AssertionError(f"bc_fused {name}{tag}: an expert "
+                                         f"differs from the single call")
+            del dense, w, planes, adj
+        del gy, xb
+        torch.cuda.empty_cache()
+    return {"bc_grad_w": (grad_cases, "mixtral_up_gate_e8_c2880"),
+            "bc_fused": (fused_cases, "train_mixtral_up_gate_e8_c2880")}
 
 
 def train_steps_summary(history, first=2):
@@ -1475,21 +1704,24 @@ def phase_train(cfg):
             "shapes": shapes, "ms_per_step": ms_step, "peak": peak}
 
 
-def launch_train_run(args):
+def launch_train_run(args, batch=TRAIN["batch"], seq=TRAIN["seq"]):
     """``launch.train.main`` with every launch count set to 0 just before
     (in a temporary workdir, removed after): (its result, wall seconds,
-    peak device memory)."""
+    peak device memory).  What earlier phases left is collected first, so
+    the peak is the run's own (above the few hundred MB the kernels' DFT
+    panels and the CUDA context keep)."""
     workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         for lib in TRAIN_LIBRARIES:
             lib.reset_counts()
+        gc.collect()
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = launch_train.main(
-            [*args, "--batch", str(TRAIN["batch"]), "--seq",
-             str(TRAIN["seq"]), "--log-every", "1",
-             "--workdir", workdir])
+            [*args, "--batch", str(batch), "--seq", str(seq),
+             "--log-every", "1", "--workdir", workdir])
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
     finally:
@@ -1590,6 +1822,162 @@ def phase_train_dense(cfg, circulant):
           "circulant_ms_per_step": circulant["ms_per_step"],
           "circulant_over_dense_time": circulant["ms_per_step"] / ms_step,
           "circulant_peak_memory_bytes": circulant["peak"]})
+
+
+def train_expected(cfg, model):
+    """The launches one training step makes, derived from the model: every
+    block-circulant projection's forward (twice under remat: each group's
+    forward runs again in the backward; once for whisper's cross K/V,
+    computed outside the checkpoint from the encoder output, as ``repro``
+    does) and its adjoint through ``bc_fused``, its weight gradient through
+    ``bc_grad_w``; an expert stack the same, each of its three projections
+    one launch or call for all E experts (the ``experts`` path).  Returns
+    ({lane: launches}, {lane: experts-path launches})."""
+    fwd = 2 if cfg.remat == "full" else 1
+    fused = grads = stacks = 0
+    for name, mod in model.named_modules():
+        if isinstance(mod, cc.Linear) and mod.spec.kind == "block_circulant":
+            once = ".cross.k" in name or ".cross.v" in name
+            fused += (1 if once else fwd) + 1
+            grads += 1
+        elif isinstance(mod, ffn.Experts) and mod.block_size:
+            stacks += len(ffn.EXPERT_PROJECTIONS)
+    return ({"bc_fused": fused + stacks * (fwd + 1),
+             "bc_grad_w": grads + stacks},
+            {"bc_fused": stacks * (fwd + 1), "bc_grad_w": stacks})
+
+
+def phase_train_arch(arch):
+    """One arch past ``attn`` blocks through the launcher (``--full``,
+    llama4 with ``--layers``), ``TRAIN_ARCHS``' tokens and steps, bf16,
+    remat, AdamW from the seed, no checkpoints: every loss finite, no step
+    skipped, ms a step (the median after the first), tokens/s, peak
+    memory, and the launches a step by lane, path and shape.  They must
+    equal ``train_expected``'s (no other kernel: attention trains through
+    the plain masked softmax); an MoE's expert stacks take one ``bc_fused``
+    launch a projection and pass and one ``bc_grad_w`` call a projection,
+    at the shapes ``train_stack_shapes`` names."""
+    t = TRAIN_ARCHS[arch]
+    steps = t["steps"]
+    args = ["--arch", arch, "--full", "--steps", str(steps),
+            "--ckpt-every", "0"]
+    if "layers" in t:
+        args += ["--layers", str(t["layers"])]
+    out, wall, peak = launch_train_run(args, t["batch"], t["seq"])
+    cfg = get_config(arch)
+    if "layers" in t:
+        cfg = cfg.replace(num_layers=t["layers"])
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    if len(hist) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"{t['phase']}: losses {losses}")
+    if int(out["state"]["skipped"]) or any(h["ok"] != 1 for h in hist):
+        raise AssertionError(f"{t['phase']}: skipped steps")
+    ms, ms_step = train_steps_summary(hist, first=1)
+    want, want_experts = train_expected(cfg, out["state"]["model"])
+    launches = lane_counts(TRAIN_LIBRARIES)
+    check_launches(launches, {lane: steps * n for lane, n in want.items()})
+    paths = path_counts(TRAIN_LIBRARIES)
+    got_experts = {lane: paths.get(lane, {}).get("experts", 0) / steps
+                   for lane in want_experts}
+    if got_experts != want_experts:
+        raise AssertionError(f"{t['phase']}: expert-stack launches a step "
+                             f"{got_experts}, expected {want_experts}")
+    shapes = shape_counts(TRAIN_LIBRARIES)
+    by_shape = {f"{lib}:{key}": n / steps for lib, per in shapes.items()
+                for key, n in per.items()}
+    tokens = t["batch"] * t["seq"]
+    stack_shapes = {}
+    if cfg.moe.num_experts:
+        G, cap = moe_capacity(cfg, tokens)
+        fam = "llama4" if arch == MOE else "mixtral"
+        moe_layers = want_experts["bc_grad_w"] // 3
+        fwd = 2 if cfg.remat == "full" else 1
+        for name, (E, C, p, q, k) in train_stack_shapes().items():
+            if not name.startswith(fam):
+                continue
+            # bc_fused: each projection's forward (fwd times) at (p, q)
+            # and its adjoint at (q, p); up/gate's adjoint shares down's
+            # forward shape and down's adjoint up/gate's
+            per = {"bc_grad_w": shapes["bc_grad_w"].get(
+                bgw.shape_key(C, p, q, k, E), 0) / steps,
+                "bc_fused": shapes["bc_fused"].get(bc_fused.shape_key(
+                    E, C, p, q, k, "bc_fused"), 0) / steps}
+            mult = 2 if name.endswith("up_gate") else 1
+            wanted = {"bc_grad_w": mult * moe_layers,
+                      "bc_fused": moe_layers * (mult * fwd + 3 - mult)}
+            if per != wanted:
+                raise AssertionError(f"{t['phase']}: {name} launches a "
+                                     f"step {per}, expected {wanted}")
+            stack_shapes[name] = {"E": E, "C": C, "G": G, "cap": cap, **per}
+    emit({"phase": t["phase"], "arch": arch, "layers": cfg.num_layers,
+          "encoder_layers": cfg.encoder_layers or None,
+          "reduced": ({"num_layers": [get_config(arch).num_layers,
+                                      cfg.num_layers]}
+                      if "layers" in t else None),
+          "d_model": cfg.d_model, "dtype": cfg.dtype, "remat": cfg.remat,
+          "batch": t["batch"], "seq": t["seq"], "tokens_per_step": tokens,
+          "window": cfg.attention.sliding_window or None, "steps": steps,
+          "losses": losses, "moe_aux": [h.get("moe_aux") for h in hist],
+          "grad_norms": [h["grad_norm"] for h in hist],
+          "skipped": int(out["state"]["skipped"]), "step_ms": ms,
+          "ms_per_step": ms_step, "tokens_per_s": 1e3 * tokens / ms_step,
+          "wall_s": wall, "peak_memory_bytes": peak,
+          "params": sum(p.numel() for p in out["state"]["model"].parameters()),
+          "launches": launches, "launches_per_step": want,
+          "expert_stack_launches_per_step": want_experts,
+          "expert_stacks": stack_shapes,
+          "launches_per_step_by_shape": by_shape})
+    del out
+    torch.cuda.empty_cache()
+    return {"launches": launches, "paths": paths, "shapes": shapes,
+            "ms_per_step": ms_step, "peak": peak}
+
+
+def phase_train_parity_arch(arch):
+    """``phase_train_parity``'s gradient check for an arch past ``attn``
+    blocks: 2 layers (whisper 2 + 2) at the published widths, float32,
+    2 x 64 tokens (whisper's over its 1,500 frames), the card's loss,
+    aux and every parameter's gradient against the CPU's plain path on
+    the same weights and batch (loss and aux within 1e-5 of their scale,
+    each gradient within 1e-4 of its own: float32 sums in other
+    orders)."""
+    pcfg = get_config(arch).replace(num_layers=2, dtype="float32")
+    if pcfg.is_encoder_decoder:
+        pcfg = pcfg.replace(encoder_layers=2)
+    opt = adamw.AdamWConfig(lr=1e-3)
+    batch = SyntheticLM(pcfg, batch=2, seq=64, seed=SEED)(0)
+    step = ts.make_train_step(pcfg, opt)
+    cpu = ts.init_state(pcfg, opt, seed=SEED, device="cpu")
+    card = ts.init_state(pcfg, opt,
+                         model=copy.deepcopy(cpu["model"]).to(DEVICE))
+    loss_c, m_c, grads_c = step.grads(cpu, batch)
+    loss_g, m_g, grads_g = step.grads(card, {k: v.to(DEVICE)
+                                             for k, v in batch.items()})
+    errs = {key: abs(float(m_g[key]) - float(m_c[key]))
+            / max(1.0, abs(float(m_c[key]))) for key in ("loss", "moe_aux")}
+    tol = 1e-4
+    worst = {}
+    for leaf, gc, gg in zip(ts.param_leaves(cpu["model"], pcfg), grads_c,
+                            grads_g):
+        for i, (a, b) in enumerate(zip(gc, gg)):
+            worst[f"{leaf.name}/{i}"] = max_err(b.cpu(), a) / max(
+                float(a.abs().max()), 1e-30)
+    name = max(worst, key=worst.get)
+    emit({"phase": "train_parity", "arch": arch, "layers": 2,
+          "encoder_layers": pcfg.encoder_layers or None,
+          "d_model": pcfg.d_model, "batch": 2, "seq": 64,
+          "loss_card": float(loss_g), "loss_cpu": float(loss_c),
+          "moe_aux_card": float(m_g["moe_aux"]),
+          "moe_aux_cpu": float(m_c["moe_aux"]), "rel_errs": errs,
+          "grad_worst_rel_err": worst[name], "grad_worst": name,
+          "grad_tol_rel": tol, "leaves": len(worst)})
+    bad = {n: e for n, e in worst.items() if not e <= tol}
+    if bad or not all(e <= 1e-5 for e in errs.values()):
+        raise AssertionError(f"train_parity {arch}: loss/aux {errs}, grads "
+                             f"over {tol} of their scale: {bad}")
+    del cpu, card, grads_c, grads_g
+    torch.cuda.empty_cache()
 
 
 def phase_lowering(cfg, gen):
@@ -1821,7 +2209,10 @@ def phase_kernels(cfg):
         lambda: check_bc_grad_w(cfg, gen),
         lambda: check_bc_fused(cfg, gen, train_kernel_shapes(cfg),
                                batches=(TRAIN_ROWS,),
-                               lane_names=("bc_fused",), timing=LONG)]
+                               lane_names=("bc_fused",), timing=LONG),
+        # training an expert stack (train_mixtral, train_llama4): the
+        # bc_grad_w stack lane, bc_fused's stack forward and adjoint
+        lambda: check_train_stacks(gen)]
     out = {}
     for check in checks:
         for lane, (cases, main_case) in check().items():
@@ -3031,6 +3422,10 @@ def main() -> int:
     runs["train"] = phase_train(cfg)
     phase_train_parity(cfg)
     phase_train_dense(cfg, runs["train"])
+    for arch, t in TRAIN_ARCHS.items():
+        runs[t["phase"]] = phase_train_arch(arch)
+    for arch in TRAIN_ARCHS:
+        phase_train_parity_arch(arch)
     phase_lowering(cfg, kernel_gen())
     summary = []
     for name, (lib, replaces, group, main_case, run) in (

@@ -49,7 +49,11 @@ same kernel on the adjoint planes and its weight gradient the
 Baked planes are never read in train mode, so a trained model is re-baked
 before it serves (``serve/params.py``).  Fused projections train through
 the same Function on their generators concatenated on the output-block
-axis; the gradient flows back through ``torch.cat``.  A ``spectral`` path
+axis; the gradient flows back through ``torch.cat``.  An MoE expert stack
+trains through it too, with a leading expert axis (xb (E, C, q, k), w (E,
+p, q, k): ``repro``'s ``jax.vmap(bc_matmul_fft)``): on the card its
+forward and its input gradient are one fused-kernel launch each for the
+whole stack and its weight gradient one ``bc_grad_w`` call.  A ``spectral`` path
 in train mode takes the ``fft`` lowering too (the same math, with a
 backward).
 """
@@ -261,8 +265,10 @@ class BCMatmulFFT(torch.autograd.Function):
       dL/dxb_j  = Σ_i C_ij^T g_i  : the fused kernel on W^H's planes
       dL/dw_ij  = Σ_n g_i ⋆ x_j   : ``bc_grad_w``
 
-    xb (N, q, k) and w (p, q, k) are float32; the primals are saved and
-    the spectra recomputed in the backward."""
+    xb (N, q, k) and w (p, q, k) are float32, or an expert stack's xb (E,
+    C, q, k) and w (E, p, q, k) (each expert's rows against its own
+    generators); the primals are saved and the spectra recomputed in the
+    backward."""
 
     @staticmethod
     def forward(ctx, xb, w, gauss):
@@ -286,12 +292,13 @@ class BCMatmulFFT(torch.autograd.Function):
 
 def bc_matmul_fft(x: torch.Tensor, w: torch.Tensor, n_out: int,
                   gauss: bool = True) -> torch.Tensor:
-    """Training path: (..., n_in) -> (..., n_out) through ``BCMatmulFFT``.
+    """Training path: (..., n_in) -> (..., n_out) through ``BCMatmulFFT``;
+    an expert stack w (E, p, q, k) takes x (E, C, n_in) -> (E, C, n_out).
     Casts to float32 before blockifying and back to ``x.dtype`` after, as
     ``repro`` does."""
-    p, q, k = w.shape
+    *experts, p, q, k = w.shape
     lead = x.shape[:-1]
-    xb = _blockify(x, q, k).float().reshape(-1, q, k).contiguous()
+    xb = _blockify(x, q, k).float().reshape(*experts, -1, q, k).contiguous()
     y = BCMatmulFFT.apply(xb, w.float(), gauss)
     return y.reshape(*lead, p * k)[..., :n_out].to(x.dtype)
 

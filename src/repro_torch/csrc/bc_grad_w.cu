@@ -69,6 +69,19 @@
 // rows go through in chunks, the DFT and the contraction once a chunk,
 // the partial sums carried over.
 //
+// An MoE expert stack (gy (E, C, p, k), xb (E, C, q, k) -> gw (E, p, q, k))
+// is one call: each expert runs one expert's plan (the single call's at N
+// = C), with the expert index on the grid of all three kernels (the DFT's
+// tiles, the contraction's z beside the row splits, the iDFT's y), so
+// every expert's result equals the single call on its rows bit for bit.
+// The experts go through in groups of `group` whose spectra and partial
+// sums each stay within the 256 MiB a single call's scratch may take
+// (kernels/bc_grad_w.py:stack_group): per group, the chunks' DFT and
+// contraction launches, then one iDFT.  Each expert's rows are padded to
+// 128 on their own (experts are not packed into one tile), so at C = 80
+// the padded rows are 48 of 128 and the DFT and contraction work on them
+// is spent on zeros (their rows are not read: the DFT writes zeros).
+//
 // Why two passes and not one.  A single pass (a cluster of bin-tile blocks
 // sharing a row tile through distributed shared memory, each contracting
 // its bins) needs a row tile's raw rows, the tile's spectra of the
@@ -101,6 +114,7 @@ constexpr int kMaxUnits = 8;      // 16 x 8 output tiles a MAC warp holds
 constexpr int kPairsBlock = 4;    // (i, j) pairs an iDFT block
 constexpr int kIdftPanel = 16384; // floats of P an iDFT block stages
 constexpr int kMaxGridY = 65535;  // the contraction's output tiles
+constexpr int kMaxGridZ = 65535;  // its row splits times a group's experts
 constexpr int kMaxSmem = 232448;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -141,11 +155,12 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
 // DFT: the packed spectra of a chunk's rows, spec[c][nb][b][64]
 // ---------------------------------------------------------------------------
 struct DftArgs {
-  const float* gy;       // the chunk's first row: (nc, p, k)
-  const float* xb;       // (nc, q, k)
+  const float* gy;       // the chunk's first row: (nc, p, k) an expert
+  const float* xb;       // (nc, q, k) an expert
   const float* panel;    // the folded sub-panels (4, M16, L)
-  float* spec;           // (k, np / 64, p + q, 64)
-  int nc, np, p, q, k, stages;
+  float* spec;           // (k, np / 64, p + q, 64) an expert
+  int nc, np, p, q, k, stages, experts;
+  size_t gy_stride, xb_stride, spec_stride;  // between experts
 };
 
 // spec's element (packed column c, block b, row n of the chunk)
@@ -162,7 +177,9 @@ __global__ void __launch_bounds__(kThreads, 2) dft_kernel(DftArgs a) {
   const int nbk = a.np / 64;
   float* pan = smem;                         // (4, M16, ldp)
   float* raw = pan + 4 * M16 * ldp;          // stages x (kDftRows, ld)
-  const int rtiles = a.np / kDftRows, tiles = fam * rtiles;
+  // a tile: (expert, block b, 64 rows), over the launch's experts
+  const int rtiles = a.np / kDftRows, per_e = fam * rtiles;
+  const int tiles = per_e * a.experts;
   const int mine = (int)blockIdx.x < tiles
                        ? (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
                        : 0;
@@ -177,11 +194,12 @@ __global__ void __launch_bounds__(kThreads, 2) dft_kernel(DftArgs a) {
   const int rstep = kThreads / k4, r0 = tid / k4, v = tid % k4;
   const bool copier = r0 < rstep;
   auto load = [&](int it) {
-    const int tile = blockIdx.x + it * gridDim.x;
-    const int b = tile / rtiles, n0 = (tile % rtiles) * kDftRows;
+    const int tile = blockIdx.x + it * gridDim.x, ex = tile / per_e;
+    const int b = tile % per_e / rtiles, n0 = (tile % rtiles) * kDftRows;
     const bool from_gy = b < a.p;
     const float* src =
-        (from_gy ? a.gy + (size_t)b * k : a.xb + (size_t)(b - a.p) * k) +
+        (from_gy ? a.gy + ex * a.gy_stride + (size_t)b * k
+                 : a.xb + ex * a.xb_stride + (size_t)(b - a.p) * k) +
         4 * v;
     const size_t stride = (size_t)(from_gy ? a.p : a.q) * k;
     float* dst = raw + (it % a.stages) * kDftRows * ld + 4 * v;
@@ -209,8 +227,9 @@ __global__ void __launch_bounds__(kThreads, 2) dft_kernel(DftArgs a) {
     if (it + a.stages - 1 < mine) load(it + a.stages - 1);
     cp_async_commit();
     float* const fold = raw + (it % a.stages) * kDftRows * ld;
-    const int tile = blockIdx.x + it * gridDim.x;
-    const int b = tile / rtiles, n0 = (tile % rtiles) * kDftRows;
+    const int tile = blockIdx.x + it * gridDim.x, ex = tile / per_e;
+    const int b = tile % per_e / rtiles, n0 = (tile % rtiles) * kDftRows;
+    float* const spec = a.spec + ex * a.spec_stride;
     // fold each row in place (tpr threads a row, per positions each):
     // s_t = x_t + x_{k-t}, d_t = x_t - x_{k-t}, sorted into the groups
     // [s even | s odd | d even | d odd] of L positions (zeros past their
@@ -250,7 +269,7 @@ __global__ void __launch_bounds__(kThreads, 2) dft_kernel(DftArgs a) {
       }
       for (int o = 1; o < tpr; o <<= 1)      // the row's lanes, in order
         half += __shfl_xor_sync(0xffffffffu, half, o);
-      if (fq == 0) a.spec[spec_at(h, b, n0 + r, nbk, fam)] = half;
+      if (fq == 0) spec[spec_at(h, b, n0 + r, nbk, fam)] = half;
     }
     __syncthreads();
     // a unit: one pair of m-tiles (E over an even group, O over the odd
@@ -312,15 +331,13 @@ __global__ void __launch_bounds__(kThreads, 2) dft_kernel(DftArgs a) {
             if (!sine) e[y] = fmaf(sgn, fold[(nl + y) * ld + 4 * L], e[y]);
           }
           const int n = n0 + nl;
-          *reinterpret_cast<float2*>(a.spec + spec_at(c1, b, n, nbk, fam)) =
+          *reinterpret_cast<float2*>(spec + spec_at(c1, b, n, nbk, fam)) =
               make_float2(e[0] + o[0], e[1] + o[1]);
           if (!sine)
-            *reinterpret_cast<float2*>(a.spec +
-                                       spec_at(c2, b, n, nbk, fam)) =
+            *reinterpret_cast<float2*>(spec + spec_at(c2, b, n, nbk, fam)) =
                 make_float2(e[0] - o[0], e[1] - o[1]);
           else if (f)
-            *reinterpret_cast<float2*>(a.spec +
-                                       spec_at(c2, b, n, nbk, fam)) =
+            *reinterpret_cast<float2*>(spec + spec_at(c2, b, n, nbk, fam)) =
                 make_float2(o[0] - e[0], o[1] - e[1]);
         }
       }
@@ -333,9 +350,10 @@ __global__ void __launch_bounds__(kThreads, 2) dft_kernel(DftArgs a) {
 // MAC: the partial spectra of one slot, output tile and row split
 // ---------------------------------------------------------------------------
 struct MacArgs {
-  const float* spec;     // (k, np / 64, p + q, 64)
-  float* part;           // (splits, k / 2, p q, 2)
-  int np, p, q, k, mt, per, stages, accumulate;
+  const float* spec;     // (k, np / 64, p + q, 64) an expert
+  float* part;           // (splits, k / 2, p q, 2) an expert
+  int np, p, q, k, mt, per, stages, accumulate, splits;
+  size_t spec_stride, part_stride;  // between experts
 };
 
 // the 3xTF32 A fragment of rows r0, r0 + 8 (of n valid) and columns kk + t,
@@ -363,7 +381,9 @@ __global__ void __launch_bounds__(kThreads, 2) mac_kernel(MacArgs a) {
   const int R = np_ + nq_;                   // staged rows a plane
   const int plane = R * kLdm, stage = 2 * plane;
   const int total = a.np / kRows;            // the chunk's stages
-  const int st0 = blockIdx.z * a.per;
+  const int ex = blockIdx.z / a.splits, z = blockIdx.z % a.splits;
+  const int st0 = z * a.per;
+  const float* const spec = a.spec + ex * a.spec_stride;
   const int mine = max(0, min(a.per, total - st0));
   const int tid = threadIdx.x;
   // a thread copies piece v (of 16) of staged rows r0, r0 + 16, ...: row
@@ -372,8 +392,8 @@ __global__ void __launch_bounds__(kThreads, 2) mac_kernel(MacArgs a) {
   auto load = [&](int it) {
     float* dst = smem + (it % a.stages) * stage + 4 * v;
     // spec (k, total, fam, 64): stage st0 + it of column 2 s + ri
-    const float* src = a.spec + ((size_t)2 * s * total + st0 + it) * fam *
-                                    kRows + 4 * v;
+    const float* src = spec + ((size_t)2 * s * total + st0 + it) * fam *
+                                  kRows + 4 * v;
     for (int row = r0; row < 2 * R; row += kThreads / 16) {
       const int ri = row >= R, r = row - ri * R;
       const int b = r < np_ ? i0 + r : a.p + j0 + r - np_;
@@ -452,7 +472,8 @@ __global__ void __launch_bounds__(kThreads, 2) mac_kernel(MacArgs a) {
   }
   __syncthreads();
   const int pq = a.p * a.q;
-  float* out = a.part + ((size_t)blockIdx.z * slots + s) * pq * 2;
+  float* out =
+      a.part + ex * a.part_stride + ((size_t)z * slots + s) * pq * 2;
   for (int e = tid; e < units * 32; e += kThreads) {
     const int u = e / 32, ln = e % 32;
     float v[8];
@@ -487,10 +508,11 @@ __global__ void __launch_bounds__(kThreads, 2) mac_kernel(MacArgs a) {
 // iDFT: the splits summed in order, weighted, times P (slot order)
 // ---------------------------------------------------------------------------
 struct IdftArgs {
-  const float* part;
+  const float* part;     // an expert's at part_stride
   const float* panel;    // P (k, k): row c the packed column c's basis
-  float* gw;             // (p, q, k)
+  float* gw;             // (p, q, k) an expert, at pq k
   int pq, k, splits;
+  size_t part_stride;
 };
 
 __global__ void __launch_bounds__(kThreads) idft_kernel(IdftArgs a) {
@@ -501,12 +523,14 @@ __global__ void __launch_bounds__(kThreads) idft_kernel(IdftArgs a) {
   const int pr0 = blockIdx.x * kPairsBlock;
   const int npr = min(kPairsBlock, a.pq - pr0);
   const size_t zstride = (size_t)slots * a.pq * 2;
+  const float* const part = a.part + blockIdx.y * a.part_stride;
+  float* const gw = a.gw + (size_t)blockIdx.y * a.pq * k;
   for (int e = threadIdx.x; e < slots * 2 * kPairsBlock; e += kThreads) {
     const int s = e / (2 * kPairsBlock), pr = e / 2 % kPairsBlock,
               r = e % 2;
     float v = 0.f;
     if (pr < npr) {
-      const float* src = a.part + ((size_t)s * a.pq + pr0 + pr) * 2 + r;
+      const float* src = part + ((size_t)s * a.pq + pr0 + pr) * 2 + r;
 #pragma unroll 8
       for (int z = 0; z < a.splits; ++z) v += __ldg(src + z * zstride);
     }
@@ -541,7 +565,7 @@ __global__ void __launch_bounds__(kThreads) idft_kernel(IdftArgs a) {
 #pragma unroll
     for (int i = 0; i < kPairsBlock; ++i) {
       const int pr = grp + i * groups;
-      if (pr < npr) a.gw[(size_t)(pr0 + pr) * k + t] = y[i];
+      if (pr < npr) gw[(size_t)(pr0 + pr) * k + t] = y[i];
     }
 }
 
@@ -571,30 +595,34 @@ extern "C" const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// gy: (N, p, k); xb: (N, q, k); fold: the folded DFT sub-panels (4, M16,
-// L), M16 = k/4 rounded up to 16, L = k/4 rounded up to 8
+// gy: (E, N, p, k); xb: (E, N, q, k); fold: the folded DFT sub-panels (4,
+// M16, L), M16 = k/4 rounded up to 16, L = k/4 rounded up to 8
 // (kernels/bc_grad_w.py:dft_panel); panel: P (k, k), the packed real DFT,
-// rows in slot order; spec: scratch of k (p + q) chunk floats; part:
-// scratch of splits (k / 2) p q 2 floats; gw: (p, q, k).  All float32,
-// contiguous, 16-byte aligned.  The plan (kernels/bc_grad_w.py:plan): rows
-// in chunks of `chunk` (a multiple of 128); the DFT in tiles of 64 rows,
-// `dft_stages` (2 to 4) tiles in flight, `dft_blocks` persistent blocks;
-// the MAC's output tile mt x nt (16-row by 8-column tiles, mt nt <= 8, nt
-// in 1, 2, 4, 8; at most 65,535 output tiles), each chunk's rows cut into
-// `splits` ranges, `mac_stages` (2 or 3).  2 chunks + 1 launches on
-// `stream`.  Returns a cudaError_t (cudaErrorInvalidValue for a plan it
-// cannot run).
+// rows in slot order; spec: scratch of group k (p + q) chunk floats; part:
+// scratch of group splits (k / 2) p q 2 floats; gw: (E, p, q, k).  All
+// float32, contiguous, 16-byte aligned; E = 1 is one projection.  The plan
+// (kernels/bc_grad_w.py:plan, one expert's): rows in chunks of `chunk` (a
+// multiple of 128); the DFT in tiles of 64 rows, `dft_stages` (2 to 4)
+// tiles in flight, `dft_blocks` persistent blocks; the MAC's output tile
+// mt x nt (16-row by 8-column tiles, mt nt <= 8, nt in 1, 2, 4, 8; at most
+// 65,535 output tiles), each chunk's rows cut into `splits` ranges,
+// `mac_stages` (2 or 3); the experts in groups of `group`
+// (kernels/bc_grad_w.py:stack_group).  groups x (2 chunks + 1) launches
+// on `stream`.  Returns a cudaError_t (cudaErrorInvalidValue for a plan
+// it cannot run).
 extern "C" int bc_grad_w(const void* gy, const void* xb, const void* fold,
                          const void* panel, void* spec, void* part, void* gw,
                          int N, int p, int q, int k, int chunk,
                          int dft_stages, int dft_blocks, int mt, int nt,
-                         int splits, int mac_stages, void* stream) {
+                         int splits, int mac_stages, int E, int group,
+                         void* stream) {
   const int fam = p + q, L = cdiv(k / 4, 8) * 8, M16 = cdiv(k / 4, 16) * 16;
   if (N <= 0 || p <= 0 || q <= 0 || k < 8 || k % 8 != 0 || k > 256 ||
       chunk < kChunkRows || chunk % kChunkRows != 0 || dft_stages < 2 ||
       dft_stages > 4 || dft_blocks < 1 || mt < 1 ||
       (nt != 1 && nt != 2 && nt != 4 && nt != 8) || mt * nt > kMaxUnits ||
-      splits < 1 || mac_stages < 2 || mac_stages > 3 ||
+      splits < 1 || mac_stages < 2 || mac_stages > 3 || E < 1 ||
+      group < 1 || group > E || (long long)splits * group > kMaxGridZ ||
       (reinterpret_cast<uintptr_t>(gy) | reinterpret_cast<uintptr_t>(xb) |
        reinterpret_cast<uintptr_t>(fold) |
        reinterpret_cast<uintptr_t>(panel) |
@@ -617,32 +645,44 @@ extern "C" int bc_grad_w(const void* gy, const void* xb, const void* fold,
   cudaError_t e = opt_in(dft_kernel, dsmem, dft_opted);
   if (e != cudaSuccess) return (int)e;
   const int per = cdiv(chunk / kRows, splits);
-  const dim3 mgrid(k / 2, cdiv(p, 16 * mt) * cdiv(q, 8 * nt), splits);
-  for (int n0 = 0; n0 < N; n0 += chunk) {
-    const int nc = min(chunk, N - n0), np = cdiv(nc, kChunkRows) * kChunkRows;
-    DftArgs d{static_cast<const float*>(gy) + (size_t)n0 * p * k,
-              static_cast<const float*>(xb) + (size_t)n0 * q * k,
-              static_cast<const float*>(fold), static_cast<float*>(spec),
-              nc, np, p, q, k, dft_stages};
-    const int tiles = fam * (np / kDftRows);
-    dft_kernel<<<min(dft_blocks, tiles), kThreads, dsmem, s>>>(d);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    MacArgs m{static_cast<const float*>(spec), static_cast<float*>(part),
-              np, p, q, k, mt, per, mac_stages, n0 > 0};
-    switch (nt) {
-      case 1: e = launch_mac<1>(m, mgrid, msmem, s); break;
-      case 2: e = launch_mac<2>(m, mgrid, msmem, s); break;
-      case 4: e = launch_mac<4>(m, mgrid, msmem, s); break;
-      default: e = launch_mac<8>(m, mgrid, msmem, s); break;
-    }
-    if (e != cudaSuccess) return (int)e;
-  }
-  IdftArgs r{static_cast<const float*>(part), static_cast<const float*>(panel),
-             static_cast<float*>(gw), p * q, k, splits};
+  const size_t gy_e = (size_t)N * p * k, xb_e = (size_t)N * q * k;
+  const size_t spec_e = (size_t)k * fam * chunk;
+  const size_t part_e = (size_t)splits * (k / 2) * p * q * 2;
   const size_t ismem = sizeof(float) * (kPairsBlock * k + kIdftPanel);
   static bool idft_opted = false;
   if ((e = opt_in(idft_kernel, ismem, idft_opted)) != cudaSuccess)
     return (int)e;
-  idft_kernel<<<cdiv(p * q, kPairsBlock), kThreads, ismem, s>>>(r);
-  return (int)cudaGetLastError();
+  for (int e0 = 0; e0 < E; e0 += group) {
+    const int ge = min(group, E - e0);
+    const dim3 mgrid(k / 2, cdiv(p, 16 * mt) * cdiv(q, 8 * nt), splits * ge);
+    for (int n0 = 0; n0 < N; n0 += chunk) {
+      const int nc = min(chunk, N - n0);
+      const int np = cdiv(nc, kChunkRows) * kChunkRows;
+      DftArgs d{static_cast<const float*>(gy) + e0 * gy_e + (size_t)n0 * p * k,
+                static_cast<const float*>(xb) + e0 * xb_e + (size_t)n0 * q * k,
+                static_cast<const float*>(fold), static_cast<float*>(spec),
+                nc, np, p, q, k, dft_stages, ge, gy_e, xb_e, spec_e};
+      const int tiles = ge * fam * (np / kDftRows);
+      dft_kernel<<<min(dft_blocks, tiles), kThreads, dsmem, s>>>(d);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+      MacArgs m{static_cast<const float*>(spec), static_cast<float*>(part),
+                np, p, q, k, mt, per, mac_stages, n0 > 0, splits,
+                spec_e, part_e};
+      switch (nt) {
+        case 1: e = launch_mac<1>(m, mgrid, msmem, s); break;
+        case 2: e = launch_mac<2>(m, mgrid, msmem, s); break;
+        case 4: e = launch_mac<4>(m, mgrid, msmem, s); break;
+        default: e = launch_mac<8>(m, mgrid, msmem, s); break;
+      }
+      if (e != cudaSuccess) return (int)e;
+    }
+    IdftArgs r{static_cast<const float*>(part),
+               static_cast<const float*>(panel),
+               static_cast<float*>(gw) + (size_t)e0 * p * q * k, p * q, k,
+               splits, part_e};
+    idft_kernel<<<dim3(cdiv(p * q, kPairsBlock), ge), kThreads, ismem, s>>>(
+        r);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
 }

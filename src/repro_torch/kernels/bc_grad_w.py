@@ -15,6 +15,14 @@ rows).  ``plan`` (row chunks, DFT column tiles, output tiles, row splits)
 is a pure function of the shapes, checked by the CPU tests, which also
 run the kernel's decomposition in plain PyTorch against ``repro``.
 
+An MoE expert stack, gy (E, C, p, k) and xb (E, C, q, k) -> gw (E, p, q,
+k), is one call (``repro``'s ``jax.vmap`` of the same ``gw``): every
+expert runs the single call's plan at N = C, the expert index on the
+kernels' grids, so expert e's result equals ``bc_grad_w(gy[e], xb[e])``
+bit for bit; the experts go through in groups (``stack_group``) that keep
+the scratch within ``CHUNK_BYTES``.  Its plain version is
+``bc_grad_w_plain`` expert by expert.
+
 The kernel works on packed spectra: bins 0 and k/2 are real, so they
 share slot 0 (its two columns), and bin f in 1 .. k/2 - 1 takes slot f.
 ``packed_panel_t`` is the (k, k) matrix of that transform, rows in slot
@@ -34,8 +42,8 @@ from .build import Kernel, check_cuda, ptr
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 # gy, xb, folded panel, panel, spec, part, gw; N, p, q, k; chunk,
-# dft_stages, dft_blocks, mt, nt, splits, mac_stages
-KERNEL = Kernel("bc_grad_w", {"bc_grad_w": [_VP] * 7 + [_I] * 11})
+# dft_stages, dft_blocks, mt, nt, splits, mac_stages; E, group
+KERNEL = Kernel("bc_grad_w", {"bc_grad_w": [_VP] * 7 + [_I] * 13})
 
 # Launch-plan limits, as csrc/bc_grad_w.cu checks them.
 MAX_SMEM = 232448          # bytes of shared memory a block can use (H100)
@@ -49,6 +57,7 @@ MAX_UNITS = 8              # 16 x 8 output tiles a contraction warp holds
 NT_CHOICES = (1, 2, 4, 8)  # 8-column tiles an output tile spans (csrc)
 MAX_BINS = 132             # k / 2 + 1 at most: k up to 256
 MAX_GRID_Y = 65535         # a CUDA grid's y: the contraction's output tiles
+MAX_GRID_Z = 65535         # and its z: row splits times a group's experts
 CHUNK_BYTES = 256 << 20    # the spectra scratch of one row chunk, at most
 
 
@@ -181,9 +190,24 @@ def plan(N: int, p: int, q: int, k: int,
                 part_floats=splits * slots * p * q * 2)
 
 
-def shape_key(N: int, p: int, q: int, k: int) -> str:
-    """A launch's shape as ``Kernel.shape_launches`` counts it."""
-    return f"bc_grad_w/{N}x{p}x{q}x{k}"
+def stack_group(E: int, pl: Plan) -> int:
+    """Experts a group of an E-expert stack's call takes at once, each on
+    ``pl`` (one expert's plan): as many as keep the group's spectra and
+    partial sums within ``CHUNK_BYTES`` each and its contraction grid's z
+    (splits x experts) within ``MAX_GRID_Z``, at least one, evened out
+    over the groups.  At llama4's experts (E = 128, C = 80 rows, up/gate
+    p = 64, q = 40, k = 128: 6.8 MB of spectra an expert) four groups of
+    32."""
+    most = CHUNK_BYTES // (4 * max(pl.spec_floats, pl.part_floats))
+    most = max(1, min(E, most, MAX_GRID_Z // pl.splits))
+    return cdiv(E, cdiv(E, most))
+
+
+def shape_key(N: int, p: int, q: int, k: int, E: int = 1) -> str:
+    """A launch's shape as ``Kernel.shape_launches`` counts it: one
+    projection's N x p x q x k, an expert stack's E x C x p x q x k."""
+    lead = f"{E}x" if E > 1 else ""
+    return f"bc_grad_w/{lead}{N}x{p}x{q}x{k}"
 
 
 def packed_panel_t(k: int, device) -> torch.Tensor:
@@ -246,28 +270,42 @@ def bc_grad_w_plain(gy: torch.Tensor, xb: torch.Tensor, k: int
 
 def bc_grad_w(gy: torch.Tensor, xb: torch.Tensor, k: int,
               chunk: Optional[int] = None) -> torch.Tensor:
-    """gy (N, p, k), xb (N, q, k) float32 -> gw (p, q, k) float32;
-    ``chunk`` as ``plan`` takes it."""
+    """gy (N, p, k), xb (N, q, k) float32 -> gw (p, q, k) float32, or an
+    expert stack gy (E, C, p, k), xb (E, C, q, k) -> gw (E, p, q, k) in
+    one call; ``chunk`` as ``plan`` takes it."""
+    stacked = gy.dim() == 4
     if gy.device.type == "cpu":
+        if stacked:
+            return torch.stack([bc_grad_w_plain(gy[e], xb[e], k)
+                                for e in range(gy.shape[0])])
         return bc_grad_w_plain(gy, xb, k)
     device = check_cuda("bc_grad_w", {"gy": gy, "xb": xb},
                         {"gy": (torch.float32,), "xb": (torch.float32,)})
-    if gy.dim() != 3 or xb.dim() != 3 or gy.shape[0] != xb.shape[0] or (
-            gy.shape[2] != k or xb.shape[2] != k):
+    rank = 3 + stacked
+    if gy.dim() != rank or xb.dim() != rank or (
+            gy.shape[:-2] != xb.shape[:-2]) or (
+            gy.shape[-1] != k or xb.shape[-1] != k):
         raise ValueError(f"bc_grad_w: gy {tuple(gy.shape)} and xb "
-                         f"{tuple(xb.shape)} are not (N, p, {k}) and "
-                         f"(N, q, {k})")
+                         f"{tuple(xb.shape)} are not ([E,] N, p, {k}) and "
+                         f"([E,] N, q, {k})")
     if (gy.data_ptr() | xb.data_ptr()) % 16:
         raise ValueError("bc_grad_w: gy and xb must start 16-byte aligned")
-    N, p, _ = gy.shape
-    q = xb.shape[1]
+    E = gy.shape[0] if stacked else 1
+    N, p, _ = gy.shape[-3:]
+    q = xb.shape[-2]
     pl = plan(N, p, q, k, chunk)
-    spec = torch.empty(pl.spec_floats, device=device, dtype=torch.float32)
-    part = torch.empty(pl.part_floats, device=device, dtype=torch.float32)
-    gw = torch.empty((p, q, k), device=device, dtype=torch.float32)
+    group = stack_group(E, pl)
+    spec = torch.empty(group * pl.spec_floats, device=device,
+                       dtype=torch.float32)
+    part = torch.empty(group * pl.part_floats, device=device,
+                       dtype=torch.float32)
+    gw = torch.empty((*gy.shape[:-3], p, q, k), device=device,
+                     dtype=torch.float32)
     KERNEL.launch("bc_grad_w", device, ptr(gy), ptr(xb),
                   ptr(dft_panel(k, device)), ptr(packed_panel_t(k, device)),
                   ptr(spec), ptr(part), ptr(gw), N, p, q, k, pl.chunk,
                   pl.dft_stages, pl.dft_blocks, pl.mt, pl.nt, pl.splits,
-                  pl.mac_stages, shape=shape_key(N, p, q, k))
+                  pl.mac_stages, E, group,
+                  path="experts" if stacked else "single",
+                  shape=shape_key(N, p, q, k, E))
     return gw

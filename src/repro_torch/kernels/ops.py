@@ -14,8 +14,13 @@ Training (``core/circulant.py:BCMatmulFFT``, the paper's backward):
 ``bc_forward`` is the forward of a block-circulant projection from its
 generators (planes derived per call), ``bc_adjoint`` its input gradient
 (the same fused kernel on the adjoint planes) and ``bc_grad_w`` its weight
-gradient (``kernels/bc_grad_w.py``).  Their CPU versions are the plain
-ones; on the card they launch the kernels or raise.
+gradient (``kernels/bc_grad_w.py``).  Each takes one projection (xb (N,
+q, k), w (p, q, k)) or an MoE expert stack (xb (E, C, q, k), w (E, p, q,
+k)): ``bc_forward`` on a stack is ``bc_expert_linear``'s training twin,
+planes made from ``w`` per call, and on the card each of the three is one
+call for the whole stack (one ``bc_fused`` launch, one ``bc_grad_w``
+call).  Their CPU versions are the plain ones, expert by expert; on the
+card they launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from typing import Dict
 import torch
 
 from ..core import circulant as cc
-from .bc_fused import bc_fused_matmul, bc_fused_matmul_plain
+from .bc_fused import bc_fused_matmul
 from .bc_grad_w import bc_grad_w
 from .flash_attention import flash_attention
 from .paged import paged_gather
@@ -117,9 +122,11 @@ def adjoint_planes(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     so ``wr' = wr^T`` and the Gauss planes ``ws1' = (-wi - wr)^T =
     -ws2^T``, ``ws2' = (wr - wi)^T = -ws1^T`` (or, without them, ``wi' =
     -wi^T``), each (q, p, kf) and contiguous (a copy of p q kf floats a
-    plane).  Contracting with them equals ``repro``'s ``_cplx_contract(gr,
-    gi, wr, -wi, ...)`` term by term."""
-    t = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
+    plane).  An expert stack's (E, p, q, kf) planes give (E, q, p, kf):
+    the block axes are transposed, not the expert axis.  Contracting with
+    them equals ``repro``'s ``_cplx_contract(gr, gi, wr, -wi, ...)`` term
+    by term."""
+    t = lambda a: a.transpose(-3, -2).contiguous()  # noqa: E731
     if "ws1" in cache:
         return {"wr": t(cache["wr"]), "ws1": t(-cache["ws2"]),
                 "ws2": t(-cache["ws1"])}
@@ -128,28 +135,28 @@ def adjoint_planes(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 def _contract(xb: torch.Tensor, cache: Dict[str, torch.Tensor], k: int,
               gauss: bool) -> torch.Tensor:
-    """xb (N, q, k) against a float32 cache (p, q, kf) -> (N, p, k): the
-    fused kernel on the Gauss planes, or on the CPU its plain version (the
-    4-product form where ``gauss`` is off, as ``repro``'s
-    ``_cplx_contract``)."""
+    """xb (N, q, k) against a float32 cache (p, q, kf) -> (N, p, k), or an
+    expert stack xb (E, C, q, k) against (E, p, q, kf) -> (E, C, p, k):
+    the fused kernel on the Gauss planes (one launch for a stack), or on
+    the CPU its plain version (the 4-product form where ``gauss`` is off,
+    as ``repro``'s ``_cplx_contract``)."""
     if gauss:
-        if xb.device.type == "cpu":
-            return bc_fused_matmul_plain(xb, cache["wr"], cache["ws1"],
-                                         cache["ws2"], k)
         return bc_fused_matmul(xb.contiguous(), cache["wr"], cache["ws1"],
                                cache["ws2"], k)
     if xb.device.type != "cpu":
         raise NotImplementedError("the fused kernel runs the Gauss planes "
                                   "(gauss_trick=True) only")
     xr, xi = cc.rfft_planes(xb, k)
-    yr, yi = cc._naive_complex_contract(xr, xi, cache, "bqf,pqf->bpf")
+    yr, yi = cc._naive_complex_contract(xr, xi, cache,
+                                        "...bqf,...pqf->...bpf")
     return cc.irfft_planes(yr, yi, k)
 
 
 def bc_forward(xb: torch.Tensor, w: torch.Tensor, gauss: bool = True
                ) -> torch.Tensor:
-    """y (N, p, k) of xb (N, q, k) float32 against generators w (p, q, k):
-    ``spectral_cache(w)`` per call, then the fused kernel."""
+    """y (N, p, k) of xb (N, q, k) float32 against generators w (p, q, k),
+    or of an expert stack xb (E, C, q, k) against w (E, p, q, k) -> (E, C,
+    p, k): ``spectral_cache(w)`` per call, then the fused kernel."""
     with torch.no_grad():
         cache = cc.spectral_cache(w, gauss)
     return _contract(xb, cache, w.shape[-1], gauss)
@@ -158,7 +165,8 @@ def bc_forward(xb: torch.Tensor, w: torch.Tensor, gauss: bool = True
 def bc_adjoint(gy: torch.Tensor, w: torch.Tensor, gauss: bool = True
                ) -> torch.Tensor:
     """The input gradient gx (N, q, k) of gy (N, p, k): W^H gy, the fused
-    kernel on ``adjoint_planes`` (``repro``'s ``_bc_fft_bwd`` gx)."""
+    kernel on ``adjoint_planes`` (``repro``'s ``_bc_fft_bwd`` gx); an
+    expert stack's gy (E, C, p, k) gives (E, C, q, k)."""
     with torch.no_grad():
         cache = adjoint_planes(cc.spectral_cache(w, gauss))
     return _contract(gy, cache, w.shape[-1], gauss)

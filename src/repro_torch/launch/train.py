@@ -1,16 +1,20 @@
 """Training launcher (port of ``repro/launch/train.py``): ``--arch`` picks
 the architecture, ``--full`` its published config (else the reduced smoke
-config of the same family).  It runs on the CUDA card unless ``--device
-cpu`` is given (the plain versions of the kernels).
+config of the same family), ``--layers`` cuts its depth.  It runs on the
+CUDA card unless ``--device cpu`` is given (the plain versions of the
+kernels).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --full --steps 8 --batch 8 --seq 1024
-  PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
-      --device cpu --steps 2 --batch 2 --seq 16
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \\
+      --device cpu --steps 2 --batch 2 --seq 24
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch llama4-maverick-400b-a17b --full --layers 8 --steps 3 \\
+      --batch 8 --seq 1024
 
-Train mode runs the archs whose layers are all ``attn`` blocks
-(tinyllama-1.1b, qwen2.5-3b, qwen3-4b, phi-3-vision-4.2b); the others
-raise (ROADMAP A.14b).  ``--metrics-out`` (the JSONL emitter) raises
+Every arch trains: the MoE archs with their load-balancing loss, the
+windowed, recurrent and xLSTM blocks, and whisper's encoder-decoder on the
+data's stub frames.  ``--metrics-out`` (the JSONL emitter) raises
 (ROADMAP A.12).
 """
 from __future__ import annotations
@@ -32,6 +36,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--full", action="store_true",
                     help="the published config")
     ap.add_argument("--no-compress", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many (decoder) layers")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -58,6 +64,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     getter = get_config if args.full else get_smoke_config
     cfg = getter(args.arch, compress=not args.no_compress)
+    if args.layers is not None:
+        cfg = cfg.replace(num_layers=args.layers)
     data = SyntheticLM(cfg, batch=args.batch, seq=args.seq, seed=0)
     trainer = Trainer(
         cfg,

@@ -28,12 +28,17 @@ of ``repro/layers/attention.py``).
   softmax.  An int8 pool (``k_scale`` / ``v_scale`` in the cache) is
   written through ``quant/codec.py:page_scatter`` (requantize on grow).
 
-* Training (``mode="train"``, no cache, causal, no window): attention
-  over the block's own projections through ``masked_attention`` with the
-  query and key positions both ``0..S-1``: ``repro``'s ``chunked_attention``
-  (which ``repro`` trains through) in plain, differentiable PyTorch, in
-  one chunk (no online softmax: the S x S scores of one layer are held at
-  once); never the flash kernel, which has no backward.
+* Training (``mode="train"``, no cache): attention through
+  ``masked_attention`` with the query positions ``0..S-1``: causal or not
+  (whisper's encoder), under the block's window (mixtral, gemma2's and
+  recurrentgemma's ``attn_local`` layers), over the block's own
+  projections or over cross K/V computed from the encoder output (their
+  gradient flows back into the encoder).  That is ``repro``'s
+  ``chunked_attention`` (which ``repro`` trains through) in plain,
+  differentiable PyTorch, in one chunk (no online softmax: the Sq x Skv
+  scores of one layer are held at once, so results agree with ``repro``'s
+  query and key chunks up to summation order); never the flash kernel,
+  which has no backward.
 
 Unlike ``repro``, whose arrays are immutable, the port writes the new K/V
 into the cache and the pool IN PLACE (``index_put_`` / slice assignment):
@@ -128,15 +133,19 @@ def attend(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None,
     return o.transpose(1, 2)
 
 
-def masked_attention(q, k, v, rows, kv_positions, *, softcap=0.0,
-                     scale=None):
-    """Decode attention over a gathered KV view, in plain PyTorch.
+def masked_attention(q, k, v, rows, kv_positions, *, causal=True, window=0,
+                     softcap=0.0, scale=None):
+    """Attention over a KV view with ``repro``'s mask, in plain PyTorch
+    (the paged gather path's decode and train mode).
 
     q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) in any float dtype; rows:
     (B, Sq) absolute query positions; kv_positions: (B, Skv), -1 for a key
     that is not there.  Key ``c`` is visible to query row ``r`` iff
-    ``0 <= kv_positions[c] <= r``; a row that sees no key comes out exactly
-    zero.  Returns (B, Sq, Hq, D) in q.dtype.
+    ``kv_positions[c] >= 0``, and ``kv_positions[c] <= r`` where
+    ``causal``, and ``kv_positions[c] > r - window`` where ``window``
+    (``repro``'s ``_mask``); a row that sees no key comes out exactly
+    zero.  The softcap applies before the mask.  Returns (B, Sq, Hq, D) in
+    q.dtype.
 
     This is ``repro``'s ``chunked_attention`` as the gather path and the
     train mode call it.  That is XLA in ``repro``, not a Pallas kernel, so
@@ -152,12 +161,19 @@ def masked_attention(q, k, v, rows, kv_positions, *, softcap=0.0,
     if softcap:
         s = softcap * torch.tanh(s / softcap)
     c = kv_positions[:, None, None, None, :]
-    msk = (c <= rows[:, None, None, :, None]) & (c >= 0)
-    s = torch.where(msk, s, torch.full_like(s, _NEG))
+    r = rows[:, None, None, :, None]
+    msk = c >= 0
+    if causal:
+        msk = msk & (c <= r)
+    if window:
+        msk = msk & (c > r - window)
+    # masked_fill keeps the mask at its broadcast shape (B, 1, 1, Sq, Skv)
+    # for the backward, not a full-size tensor of fill values
+    s = s.masked_fill(~msk, _NEG)
     # the output does not depend on the shift: held out of the graph, its
     # gradient terms (which cancel) are not computed
     m = torch.clamp(s.amax(-1), min=_NEG).detach()
-    p = torch.where(msk, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    p = torch.exp(s - m[..., None]).masked_fill(~msk, 0.0)
     l = p.sum(-1)
     o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
     o = o / torch.clamp(l, min=1e-30)[..., None]
@@ -241,12 +257,13 @@ def attention_block(attn: Attention, x: torch.Tensor, *, cfg, causal=True,
         k = apply_rope(k, positions, a.rope_theta)
 
     if mode == "train":
-        if cache is not None or cross_kv is not None or window or not causal:
-            raise NotImplementedError("train mode attends causally over its "
-                                      "own projections (no cache, no cross "
-                                      "K/V, no window: ROADMAP A.14b)")
-        o = masked_attention(q, k, v, positions, positions,
-                             softcap=a.logit_softcap)
+        if cache is not None:
+            raise ValueError("train mode takes no cache")
+        kv_positions = torch.arange(k.shape[1], device=x.device).expand(
+            B, k.shape[1])
+        o = masked_attention(q, k, v, positions, kv_positions,
+                             causal=causal and cross_kv is None,
+                             window=window, softcap=a.logit_softcap)
     elif cross_kv is not None:
         o = attend(q.to(k.dtype), k, v, causal=False,
                    softcap=a.logit_softcap).to(q.dtype)

@@ -13,11 +13,13 @@ Expert weights are ``(E, ...)`` stacks (``Experts``): per-expert
 block-circulant generators (E, p, q, k) when the config sets
 ``block_expert``, dense (E, d_in, d_out) otherwise.  At serve the
 circulant stacks run against their baked (E, p, q, kf) planes through
-``kernels/ops.py:bc_expert_linear`` (one fused-kernel launch per expert
-and projection on the card).
-
-Not ported yet: the MoE's load-balancing auxiliary loss (``repro`` returns
-it for training; serving discards it).
+``kernels/ops.py:bc_expert_linear`` (one fused-kernel launch per
+projection for all E experts on the card).  In train mode they run through
+``core/circulant.py:bc_matmul_fft`` on the whole stack (``repro``'s
+``jax.vmap(bc_matmul_fft)``): on the card one fused-kernel launch a
+projection forward, one for its input gradient and one ``bc_grad_w`` call
+for its weight gradient; baked planes are not read.  Train mode also
+returns ``repro``'s Switch-style load-balancing loss (``load_balance``).
 """
 from __future__ import annotations
 
@@ -155,8 +157,9 @@ class MoE(nn.Module):
 def _expert_ffn(ex: Experts, xe: torch.Tensor, activation: str, d_ff: int,
                 d_model: int, gauss: bool, mode: str) -> torch.Tensor:
     """xe: (E, cap, d_model) -> (E, cap, d_model), each expert's rows
-    through its own weights.  Circulant stacks take their baked planes
-    (derived on the fly where none are baked); ``repro`` takes no
+    through its own weights.  Circulant stacks take their baked planes at
+    serve (derived on the fly where none are baked) and their generators
+    through ``bc_matmul_fft`` in train mode; ``repro`` takes no
     spectral-MAC hook here, so neither does the port."""
     k = ex.block_size
     if not k:
@@ -164,12 +167,10 @@ def _expert_ffn(ex: Experts, xe: torch.Tensor, activation: str, d_ff: int,
         gate = torch.einsum("ecd,edf->ecf", xe, ex.gate.to(xe.dtype))
         h = _act(activation, gate) * up
         return torch.einsum("ecf,efd->ecd", h, ex.down.to(xe.dtype))
-    if mode == "train":
-        raise NotImplementedError("MoE training (the load-balancing "
-                                  "auxiliary loss) is not ported yet "
-                                  "(ROADMAP A.14b)")
 
     def proj(name, x, n_out):
+        if mode == "train":
+            return cc.bc_matmul_fft(x, getattr(ex, name), n_out, gauss)
         cache = ex.cache(name)
         if cache is None:
             cache = cc.spectral_cache(getattr(ex, name), gauss)
@@ -207,6 +208,19 @@ def route(router: torch.Tensor, xt: torch.Tensor, E: int, topk: int,
     return disp.sum(2), comb.sum(2), gate_idx, logits
 
 
+def load_balance(gate_idx: torch.Tensor, logits: torch.Tensor, E: int
+                 ) -> torch.Tensor:
+    """``repro``'s Switch-style auxiliary loss: the fraction of each
+    group's ``g * topk`` choices that picked expert e (dropped choices
+    included) times its mean router probability, summed over e, averaged
+    over the groups, times E.  The gradient reaches the router through
+    the probabilities."""
+    G, g, topk = gate_idx.shape
+    density = F.one_hot(gate_idx, E).reshape(G, g * topk, E).float().mean(1)
+    router_prob = torch.softmax(logits, dim=-1).mean(1)
+    return (density * router_prob).sum(-1).mean() * E
+
+
 def top2_gap(logits: torch.Tensor) -> torch.Tensor:
     """The smallest gap between a token's two largest router logits: a
     token whose gap is under the logits' rounding error may route
@@ -217,21 +231,25 @@ def top2_gap(logits: torch.Tensor) -> torch.Tensor:
 
 def moe(m: MoE, x: torch.Tensor, *, d_ff: int, moe_cfg, comp=None,
         activation: str = "silu", mode: str = "serve",
-        kernel_fn=None) -> torch.Tensor:
-    """Grouped top-k token-choice MoE, x: (B, S, d) -> (B, S, d).
+        kernel_fn=None):
+    """Grouped top-k token-choice MoE, x: (B, S, d) -> (B, S, d); in train
+    mode ((B, S, d), aux), aux the float32 ``load_balance`` loss.
 
     Routing groups of ``g = gcd(min(router_group_size, T), T)`` tokens
     (T = B * S); each expert's buffer holds ``cap = min(ceil(g * topk / E
     * capacity_factor), g)`` tokens a group, and decode at serve (S == 1)
     is dropless, ``cap = g``.  Pad tokens route and take capacity like any
     other, as in ``repro``.  ``kernel_fn`` (the spectral-MAC hook) reaches
-    the shared expert only.  The load-balancing loss of ``repro``'s
-    ``moe`` is a training output and is not computed.  Where
-    ``m.logit_gap`` is a tensor, each call folds its ``top2_gap`` into it
-    in place (a running minimum on the device, read by the caller after
-    the dispatch): no host read happens in the call, so it runs inside a
-    captured decode step, whose replays update the tensor that was there
-    at capture."""
+    the shared expert only.  The router's gradient flows through the
+    renormalised gate values (the combine weights) and through aux, as in
+    ``repro``; a choice past ``cap`` is dropped from the dispatch and the
+    combine (it carries no gradient) and still counts in aux's density.
+    Where ``m.logit_gap`` is a tensor, each serving call folds its
+    ``top2_gap`` into it in place (a running minimum on the device, read
+    by the caller after the dispatch): no host read happens in the call,
+    so it runs inside a captured decode step, whose replays update the
+    tensor that was there at capture.  Train mode never updates it (under
+    ``checkpoint`` the recompute would fold it twice)."""
     B, S, d = x.shape
     E, topk = moe_cfg.num_experts, moe_cfg.top_k
     T = B * S
@@ -244,8 +262,9 @@ def moe(m: MoE, x: torch.Tensor, *, d_ff: int, moe_cfg, comp=None,
     gauss = comp.gauss_trick if comp is not None else True
 
     xt = x.reshape(G, g, d)
-    disp, comb, _, logits = route(m.router, xt, E, topk, cap)  # (G,g,E,cap)
-    if m.logit_gap is not None:
+    disp, comb, gate_idx, logits = route(m.router, xt, E, topk,
+                                         cap)                  # (G,g,E,cap)
+    if m.logit_gap is not None and mode != "train":
         torch.minimum(m.logit_gap, top2_gap(logits), out=m.logit_gap)
     xe = torch.einsum("gtd,gtec->gecd", xt, disp)             # (G,E,cap,d)
     xe = xe.transpose(0, 1).reshape(E, G * cap, d)
@@ -255,4 +274,7 @@ def moe(m: MoE, x: torch.Tensor, *, d_ff: int, moe_cfg, comp=None,
     if m.shared is not None:
         out = out + mlp(m.shared, xt, activation=activation, mode=mode,
                         kernel_fn=kernel_fn, comp=comp)
-    return out.reshape(B, S, d)
+    out = out.reshape(B, S, d)
+    if mode == "train":
+        return out, load_balance(gate_idx, logits, E)
+    return out

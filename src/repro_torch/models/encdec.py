@@ -19,7 +19,17 @@ writes its position of ``self`` and reads ``cross``.
 
 ``repro`` names a decoder block's self-attention ``self``; the port's
 ``DecoderBlock`` calls it ``self_attn`` (``models/convert.py`` maps the
-name).  Not ported: the training forward.
+name).
+
+The training forward (``forward_train``, ``repro``'s ``forward`` in train
+mode) encodes the frames, computes every decoder layer's cross (k, v)
+from the encoder output (outside any checkpoint, as ``repro`` vmaps
+``_cross_kv`` before its decoder scan), then decodes the tokens with
+causal self-attention and cross-attention over them, with no cache.
+Every encoder and decoder layer runs under ``torch.utils.checkpoint``
+where ``cfg.remat == "full"``, as ``repro`` checkpoints its scans'
+bodies; the cross K/V are a checkpointed layer's inputs, so their
+gradient, and through it the encoder's, flows back.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
@@ -98,18 +109,31 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> EncDec:
     return EncDec(cfg, device=device, generator=gen)
 
 
+def _layer(cfg: ArchConfig, mode: str, fn, *args):
+    """``fn(*args)``, under ``checkpoint`` in train mode where
+    ``cfg.remat == "full"``."""
+    if mode == "train" and cfg.remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def encode(params: EncDec, frames: torch.Tensor, cfg: ArchConfig, *,
            mode: str = "serve", kernel_fn=None) -> torch.Tensor:
     """frames (B, encoder_seq, d_model) -> encoder states, same shape."""
     dtype = _dtype(cfg)
     x = frames.to(dtype) + params.enc_pos.pos.to(dtype)[None]
-    for bp in params.enc_blocks:
+
+    def block(x, bp):
         a, _ = attn_lib.attention_block(bp.attn, bp.ln1(x), cfg=cfg,
                                         causal=False, mode=mode,
                                         kernel_fn=kernel_fn)
         x = x + a
-        x = x + ffn_lib.mlp(bp.mlp, bp.ln2(x), activation="gelu", mode=mode,
-                            kernel_fn=kernel_fn, comp=cfg.compression)
+        return x + ffn_lib.mlp(bp.mlp, bp.ln2(x), activation="gelu",
+                               mode=mode, kernel_fn=kernel_fn,
+                               comp=cfg.compression)
+
+    for bp in params.enc_blocks:
+        x = _layer(cfg, mode, block, x, bp)
     return params.enc_norm(x)
 
 
@@ -137,30 +161,43 @@ def all_cross_kv(params: EncDec, enc_out: torch.Tensor, cfg: ArchConfig,
 def decode(params: EncDec, tokens: torch.Tensor, cfg: ArchConfig, *,
            cross, mode: str = "serve", cache: Optional[Dict] = None,
            cache_pos=None, kernel_fn=None) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, V).  ``cross`` is the stacked (k, v);
-    ``cache`` the stacked self-attention cache, written in place at
-    ``cache_pos``."""
+    """tokens (B, S) -> logits (B, S, V).  ``cross`` is the (k, v) pair of
+    layer-indexed stacks (or sequences); ``cache`` the stacked
+    self-attention cache, written in place at ``cache_pos``."""
     dtype = _dtype(cfg)
     B, S = tokens.shape
     x = emb_lib.embed(params.embed.table, tokens).to(dtype)
     pos0 = 0 if cache_pos is None else int(cache_pos)
     x = x + params.dec_pos.pos[pos0:pos0 + S].to(dtype)[None]
-    for i, bp in enumerate(params.dec_blocks):
+
+    def block(x, ck, cv, bp, c_in):
         a, _ = attn_lib.attention_block(bp.self_attn, bp.ln1(x), cfg=cfg,
-                                        causal=True,
-                                        cache=layer_cache(cache, i),
+                                        causal=True, cache=c_in,
                                         cache_pos=cache_pos, mode=mode,
                                         kernel_fn=kernel_fn)
         x = x + a
         a, _ = attn_lib.attention_block(bp.cross, bp.ln_x(x), cfg=cfg,
-                                        causal=False,
-                                        cross_kv=(cross[0][i], cross[1][i]),
+                                        causal=False, cross_kv=(ck, cv),
                                         mode=mode, kernel_fn=kernel_fn)
         x = x + a
-        x = x + ffn_lib.mlp(bp.mlp, bp.ln2(x), activation="gelu", mode=mode,
-                            kernel_fn=kernel_fn, comp=cfg.compression)
+        return x + ffn_lib.mlp(bp.mlp, bp.ln2(x), activation="gelu",
+                               mode=mode, kernel_fn=kernel_fn,
+                               comp=cfg.compression)
+
+    for i, bp in enumerate(params.dec_blocks):
+        x = _layer(cfg, mode, block, x, cross[0][i], cross[1][i], bp,
+                   layer_cache(cache, i))
     x = params.final_norm(x)
     return emb_lib.logits(params.embed.table, x)
+
+
+def forward_train(params: EncDec, tokens: torch.Tensor,
+                  frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The training forward (module docstring): tokens (B, S) and frames
+    (B, encoder_seq, d_model) -> logits (B, S, V)."""
+    enc = encode(params, frames, cfg, mode="train")
+    kv = [cross_kv(bp, enc, cfg, "train") for bp in params.dec_blocks]
+    return decode(params, tokens, cfg, cross=tuple(zip(*kv)), mode="train")
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, device=None,

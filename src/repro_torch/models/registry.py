@@ -18,9 +18,11 @@ engine; decoder LMs only).  An encoder-decoder's cache is ``{"self",
 "cross"}``: prefill encodes the frames and fills both, a decode step
 carries ``cross`` unchanged.  ``kernel_fn`` is the projections'
 spectral-MAC hook (``core/circulant.py``).  Caches are updated in place
-and returned.  ``forward_train`` runs the decoder LM in train mode
-(``models/transformer.py``; ``aux["moe_aux"]`` is 0, as no MoE trains
-yet); an encoder-decoder raises (ROADMAP A.14b).
+and returned.  ``forward_train`` runs any arch in train mode: the decoder
+LM (``models/transformer.py``; ``aux["moe_aux"]`` the sum of its MoE
+blocks' load-balancing losses, 0 without any) or the encoder-decoder on
+``batch["frames"]`` (``models/encdec.py:forward_train``; ``moe_aux`` 0,
+as in ``repro``).
 """
 from __future__ import annotations
 
@@ -48,13 +50,13 @@ class Model:
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg = self.cfg
         if cfg.is_encoder_decoder:
-            raise NotImplementedError(f"{cfg.name}: training an "
-                                      f"encoder-decoder is not ported yet "
-                                      f"(ROADMAP A.14b)")
-        logits, _ = transformer.forward(params, batch["tokens"], cfg,
-                                        mode="train",
-                                        frontend_embeds=batch.get("patches"))
-        return logits, {"moe_aux": torch.zeros((), device=logits.device)}
+            logits = encdec.forward_train(params, batch["tokens"],
+                                          batch["frames"], cfg)
+            return logits, {"moe_aux": torch.zeros((), device=logits.device)}
+        logits, aux = transformer.forward(
+            params, batch["tokens"], cfg, mode="train",
+            frontend_embeds=batch.get("patches"))
+        return logits, {"moe_aux": aux}
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], cache,
                 kernel_fn=None) -> Tuple[torch.Tensor, Any]:

@@ -31,13 +31,17 @@ embeddings, exactly as ``repro`` concatenates them (a prompt shorter than
 ``num_patches`` comes out ``num_patches`` long).  Encoder-decoder models
 (whisper) are ``models/encdec.py``.
 
-Training (``forward(..., mode="train")``, no cache) runs where every layer
-is an ``attn`` block (tinyllama, qwen2.5, qwen3, phi-3-vision): each
-repeat of the segment pattern (a layer) under ``torch.utils.checkpoint``
-where ``cfg.remat == "full"``, as ``repro`` checkpoints its scan's group
-function, so the backward runs each layer's forward again.  The other
-kinds raise ``NotImplementedError`` in train mode (ROADMAP A.14b: the MoE
-load-balancing loss, windowed attention, the recurrent cells).
+Training (``forward(..., mode="train")``, no cache) runs every block
+kind: each repeat of the segment pattern (a group) under
+``torch.utils.checkpoint`` where ``cfg.remat == "full"``, as ``repro``
+checkpoints its scan's group function, so the backward runs each group's
+forward again.  A group returns ``(x, aux)``, ``aux`` the sum of its MoE
+blocks' load-balancing losses (``layers/ffn.py:moe``), summed over the
+groups as ``repro``'s group function carries it; ``forward`` returns it
+in the cache's place in train mode.  Nothing in train mode writes state in
+place, so the recompute cannot apply an update twice: no cache is taken
+(the recurrent cells start from zeros and return their state unused) and
+``MoE.logit_gap`` is not updated.
 
 Not ported yet: learned positions in a decoder-only model.
 """
@@ -58,7 +62,6 @@ from ..layers import norms as norm_lib
 from ..layers import recurrent as rec_lib
 
 ATTN_KINDS = ("attn", "attn_local", "moe", "moe_swa")
-TRAIN_KINDS = ("attn",)         # the block kinds train mode runs
 
 
 def segments_for(cfg: ArchConfig) -> List[Tuple[Tuple[str, ...], int]]:
@@ -154,10 +157,9 @@ def _store(cache, state) -> None:
 def apply_block(block: Block, x, cfg: ArchConfig, *, mode: str, cache=None,
                 cache_pos=None, block_table=None, paged_impl: str = "stream",
                 kernel_fn=None):
-    """Returns (x, cache); the cache is updated in place."""
-    if mode == "train" and block.kind not in TRAIN_KINDS:
-        raise NotImplementedError(f"training a {block.kind!r} block is not "
-                                  f"ported yet (ROADMAP A.14b)")
+    """Returns (x, cache, aux); the cache is updated in place.  ``aux`` is
+    an MoE block's load-balancing loss in train mode, else None."""
+    aux = None
     h = block.ln1(x)
     if block.kind in ("mlstm", "slstm"):
         if block.kind == "mlstm":
@@ -169,7 +171,7 @@ def apply_block(block: Block, x, cfg: ArchConfig, *, mode: str, cache=None,
                                            state=cache, kernel_fn=kernel_fn)
         if cache is not None:
             _store(cache, state)
-        return x + y, cache
+        return x + y, cache, aux
     if block.kind == "rec":
         a, state = rec_lib.rglru_block(block.rec, h, mode=mode, state=cache,
                                        kernel_fn=kernel_fn)
@@ -189,12 +191,14 @@ def apply_block(block: Block, x, cfg: ArchConfig, *, mode: str, cache=None,
         f = ffn_lib.moe(block.moe, h, d_ff=cfg.d_ff, moe_cfg=cfg.moe,
                         comp=cfg.compression, activation=cfg.ffn_activation,
                         mode=mode, kernel_fn=kernel_fn)
+        if mode == "train":
+            f, aux = f
     else:
         f = ffn_lib.mlp(block.mlp, h, activation=cfg.ffn_activation,
                         mode=mode, kernel_fn=kernel_fn, comp=cfg.compression)
     if hasattr(block, "ln2_post"):
         f = block.ln2_post(f)
-    return x + f, cache
+    return x + f, cache, aux
 
 
 class Transformer(nn.Module):
@@ -295,7 +299,9 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, *,
     ``kernel_fn`` is every projection's spectral-MAC hook
     (``core/circulant.py``).  ``frontend_embeds`` (B, num_patches, d_model)
     replace the first ``num_patches`` token slots, so ``S' = max(S,
-    num_patches)``."""
+    num_patches)``.  Train mode returns (logits, aux) instead: ``aux`` the
+    float32 sum of the MoE blocks' load-balancing losses (0 without
+    any)."""
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     x = emb_lib.embed(params.embed.table, tokens,
                       scale_by_dim=cfg.name.startswith(("gemma", "recurrent")))
@@ -303,37 +309,42 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, *,
     if frontend_embeds is not None:
         n = frontend_embeds.shape[1]
         x = torch.cat([frontend_embeds.to(dtype), x[:, n:]], dim=1)
+    aux = None
     if mode == "train":
         if cache is not None:
             raise ValueError("train mode takes no cache")
-        x = _train_blocks(params, x, cfg)
+        x, aux = _train_blocks(params, x, cfg)
     for i, block in enumerate(params.blocks if mode != "train" else ()):
-        x, _ = apply_block(block, x, cfg, mode=mode,
-                           cache=layer_cache(cache, i), cache_pos=cache_pos,
-                           block_table=block_table, paged_impl=paged_impl,
-                           kernel_fn=kernel_fn)
+        x, _, _ = apply_block(block, x, cfg, mode=mode,
+                              cache=layer_cache(cache, i),
+                              cache_pos=cache_pos, block_table=block_table,
+                              paged_impl=paged_impl, kernel_fn=kernel_fn)
     x = params.final_norm(x)
     logits = emb_lib.logits(params.embed.table, x, softcap=cfg.logit_softcap)
-    return logits, cache
+    return logits, (aux if mode == "train" else cache)
 
 
 def _train_blocks(params: Transformer, x: torch.Tensor, cfg: ArchConfig
-                  ) -> torch.Tensor:
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The blocks in train mode, one group (a repeat of its segment's
     pattern) at a time, each under ``checkpoint`` where ``cfg.remat ==
-    "full"``."""
-    def group(x, blocks):
+    "full"``: (x, the float32 sum of the MoE blocks' aux losses)."""
+    def group(x, aux, blocks):
         for block in blocks:
-            x, _ = apply_block(block, x, cfg, mode="train")
-        return x
+            x, _, a = apply_block(block, x, cfg, mode="train")
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layer = 0
     for pattern, n in segments_for(cfg):
         for _ in range(n):
             blocks = list(params.blocks[layer:layer + len(pattern)])
             layer += len(pattern)
             if cfg.remat == "full":
-                x = checkpoint(group, x, blocks, use_reentrant=False)
+                x, aux = checkpoint(group, x, aux, blocks,
+                                    use_reentrant=False)
             else:
-                x = group(x, blocks)
-    return x
+                x, aux = group(x, aux, blocks)
+    return x, aux

@@ -29,6 +29,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core import bayesian
@@ -39,39 +40,89 @@ from ..optim import adamw, grad_compression
 from ..optim.adamw import Leaf
 
 
+CE_CHUNK_FLOATS = 1 << 28     # float32 logits of one cross-entropy chunk
+
+
+def _ce_sums(logits: torch.Tensor, labels: torch.Tensor):
+    """Sums over rows of (-log p(label), lse^2) in float32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - ll).sum(), torch.square(lse).sum()
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   zloss: float = 0.0) -> torch.Tensor:
     """Mean token NLL in float32, plus ``zloss`` times the mean squared
     log-partition (``repro``'s z-loss).  The label's logit is gathered
-    (``repro`` contracts a one-hot: the same value)."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
-    nll = (lse - ll).mean()
+    (``repro`` contracts a one-hot: the same value).  Past
+    ``CE_CHUNK_FLOATS`` float32 logits the rows go through in chunks of
+    at most that many, each under ``checkpoint`` where the logits take a
+    gradient: the backward keeps the logits in their own dtype and makes
+    one chunk's float32 copy at a time (at gemma2-9b's 9,216 x 256,000
+    logits, 1 GB instead of ~28 GB of float32 copies and their
+    gradients)."""
+    V = logits.shape[-1]
+    flat, lab = logits.reshape(-1, V), labels.reshape(-1)
+    rows = max(1, CE_CHUNK_FLOATS // V)
+    remat = (torch.is_grad_enabled() and logits.requires_grad
+             and flat.shape[0] > rows)
+    nll = zsq = 0.0
+    for r0 in range(0, flat.shape[0], rows):
+        part = (flat[r0:r0 + rows], lab[r0:r0 + rows])
+        a, b = (checkpoint(_ce_sums, *part, use_reentrant=False) if remat
+                else _ce_sums(*part))
+        nll, zsq = nll + a, zsq + b
+    nll = nll / flat.shape[0]
     if zloss:
-        nll = nll + zloss * torch.square(lse).mean()
+        nll = nll + zloss * (zsq / flat.shape[0])
     return nll
 
 
+def _path(name: str) -> str:
+    """A port parameter name as ``repro``'s tree path (``models/convert.py``
+    maps the one name that differs, a decoder block's ``self``)."""
+    return "/".join("self" if part == "self_attn" else part
+                    for part in name.split("."))
+
+
+def _stacked(blocks: nn.ModuleList, first: int, stride: int, n: int,
+             prefix: str) -> List[Leaf]:
+    """The leaves of the layers ``first``, ``first + stride``, ... (``n``
+    of them) stacked on a scan axis: each of their parameters as one leaf
+    ``<prefix>/<path>`` of rank one more than a layer's."""
+    return [Leaf(f"{prefix}/{_path(name)}",
+                 [blocks[first + g * stride].get_parameter(name)
+                  for g in range(n)], p.dim() + 1)
+            for name, p in blocks[first].named_parameters()]
+
+
 def param_leaves(model: nn.Module, cfg: ArchConfig) -> List[Leaf]:
-    """``repro``'s parameter leaves in the port's modules: ``embed/table``
-    and ``final_norm/*`` (one tensor each, their own rank), then each
-    segment's leaves ``segments/<si>/<bi>/<path>`` (pattern position bi),
-    the tensor of every repeat of the pattern, of rank one more than a
-    layer's (the scan axis)."""
-    leaves = [Leaf(f"{name.replace('.', '/')}", [p], p.dim())
+    """``repro``'s parameter leaves in the port's modules, by ``repro``'s
+    tree paths: the unstacked parameters (``embed/table``,
+    ``final_norm/*``; an encoder-decoder's ``enc_pos/pos``,
+    ``dec_pos/pos`` and ``enc_norm/*`` too), one tensor each of their own
+    rank; then the stacked ones, the tensor of every layer of a scan, of
+    rank one more than a layer's (the scan axis): each segment's
+    ``segments/<si>/<bi>/<path>`` (pattern position bi; the expert stacks,
+    router and shared expert of an MoE block, the RG-LRU's and the
+    xLSTM cells' leaves, gemma2's sandwich norms among them), or an
+    encoder-decoder's ``enc_blocks/<path>`` and ``dec_blocks/<path>``."""
+    stacks = ("enc_blocks", "dec_blocks") if cfg.is_encoder_decoder \
+        else ("blocks",)
+    leaves = [Leaf(_path(name), [p], p.dim())
               for name, p in model.named_parameters()
-              if not name.startswith("blocks.")]
+              if name.split(".")[0] not in stacks]
+    if cfg.is_encoder_decoder:
+        for name in stacks:
+            blocks = getattr(model, name)
+            leaves += _stacked(blocks, 0, 1, len(blocks), name)
+        return leaves
     layer = 0
     for si, (pattern, n) in enumerate(segments_for(cfg)):
         for bi in range(len(pattern)):
-            first = model.blocks[layer + bi]
-            for name, p in first.named_parameters():
-                tensors = [model.blocks[layer + g * len(pattern) + bi]
-                           .get_parameter(name) for g in range(n)]
-                leaves.append(Leaf(f"segments/{si}/{bi}/"
-                                   f"{name.replace('.', '/')}",
-                                   tensors, p.dim() + 1))
+            leaves += _stacked(model.blocks, layer + bi, len(pattern), n,
+                               f"segments/{si}/{bi}")
         layer += n * len(pattern)
     return leaves
 

@@ -64,9 +64,10 @@ class Trainer:
         self._g_gnorm = reg.gauge("train.grad_norm")
         self._g_tps = reg.gauge("train.tokens_per_s")
         os.makedirs(workdir, exist_ok=True)
+        peak_lr = self.opt_cfg.lr           # not self: no reference cycle
         lr_fn = lr_schedule or (
             lambda step: schedule.warmup_cosine(
-                step, peak_lr=self.opt_cfg.lr,
+                step, peak_lr=peak_lr,
                 warmup_steps=max(total_steps // 20, 1),
                 total_steps=total_steps))
         self.step_fn = ts.make_train_step(cfg, self.opt_cfg, accum=accum,
@@ -100,12 +101,14 @@ class Trainer:
         return time.time() - hb["time"]
 
     def _install_preemption_handler(self):
+        """Install the SIGTERM handler; returns the one it replaced (None
+        off the main thread, where none is installed)."""
         def handler(signum, frame):
             self._preempted = True          # checkpoint at next step boundary
         try:
-            signal.signal(signal.SIGTERM, handler)
+            return signal.signal(signal.SIGTERM, handler)
         except ValueError:
-            pass                            # not the main thread (tests)
+            return None                     # not the main thread (tests)
 
     # -- the loop -----------------------------------------------------------
     def init_or_restore(self) -> Dict:
@@ -123,7 +126,17 @@ class Trainer:
         return state
 
     def run(self) -> Dict:
-        self._install_preemption_handler()
+        """Train to ``total_steps``; the SIGTERM handler is installed for
+        the run and the previous one restored after it (so a finished
+        trainer, and its state, is not kept alive by the handler)."""
+        previous = self._install_preemption_handler()
+        try:
+            return self._run()
+        finally:
+            if previous is not None:
+                signal.signal(signal.SIGTERM, previous)
+
+    def _run(self) -> Dict:
         if self._state is None:
             self.init_or_restore()
         state = self._state

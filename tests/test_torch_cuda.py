@@ -719,3 +719,100 @@ def test_train_step_on_card_matches_cpu(cuda):
     for got, ref in zip(res["cuda"][1] + res["cuda"][2],
                         res["cpu"][1] + res["cpu"][2]):
         _close(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# training an expert stack: the bc_grad_w stack lane, bc_fused's stack
+# forward and adjoint, the six other archs' train steps
+# ---------------------------------------------------------------------------
+# (E, C, p, q, k): mixtral's up/gate and down at train_mixtral (2 x 4,608
+# tokens: 18 groups of 512, cap 160, so C = 2,880 rows an expert), llama4's
+# at train_llama4 (8 x 1,024 tokens, cap 5: C = 80, four groups of 32
+# experts), and ragged row counts (C not a multiple of the 64-row DFT tile)
+STACK_SHAPES = [(8, 2880, 112, 32, 128), (8, 2880, 32, 112, 128),
+                (128, 80, 64, 40, 128), (128, 80, 40, 64, 128),
+                (5, 37, 3, 5, 16), (3, 200, 44, 16, 128)]
+
+
+@pytest.mark.parametrize("E,C,p,q,k", STACK_SHAPES)
+def test_bc_grad_w_stack_lane(cuda, E, C, p, q, k):
+    """One ``bc_grad_w`` call (one count, on the ``experts`` path) over an
+    expert stack: each expert's result equal to the single call on its
+    rows bit for bit, and within 1e-4 of the plain version's scale."""
+    from repro_torch.kernels import bc_grad_w as bgw
+    gy = torch.randn((E, C, p, k), generator=cuda, device="cuda")
+    xb = torch.randn((E, C, q, k), generator=cuda, device="cuda")
+    before = bgw.KERNEL.path_launches.get("experts", 0)
+    got = bgw.bc_grad_w(gy, xb, k)
+    assert bgw.KERNEL.path_launches["experts"] == before + 1
+    for e in range(E):
+        assert torch.equal(got[e], bgw.bc_grad_w(gy[e], xb[e], k)), e
+    ref = torch.stack([bgw.bc_grad_w_plain(gy[e], xb[e], k)
+                       for e in range(E)])
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("E,C,p,q,k", STACK_SHAPES)
+def test_bc_fused_stack_forward_and_adjoint(cuda, E, C, p, q, k):
+    """``bc_forward`` and ``bc_adjoint`` over an expert stack: one
+    ``bc_fused`` launch each, every expert equal bit for bit to the single
+    call on its rows and its views of the same planes (planes derived
+    from one expert's generators alone may differ in their last bits: the
+    DFT product takes another shape), within 1e-4 of the plain version's
+    scale."""
+    w = torch.randn((E, p, q, k), generator=cuda, device="cuda") / (q * k) ** .5
+    xb = torch.randn((E, C, q, k), generator=cuda, device="cuda")
+    gy = torch.randn((E, C, p, k), generator=cuda, device="cuda")
+    planes = cc.spectral_cache(w)
+    for fn, arg, cache in ((kops.bc_forward, xb, planes),
+                           (kops.bc_adjoint, gy,
+                            kops.adjoint_planes(planes))):
+        pl = (cache["wr"], cache["ws1"], cache["ws2"])
+        before = bcf.KERNEL.path_launches.get("experts", 0)
+        got = fn(arg, w)
+        assert bcf.KERNEL.path_launches["experts"] == before + 1
+        assert torch.equal(got, bcf.bc_fused_matmul(arg, *pl, k))
+        for e in range(E):
+            one = bcf.bc_fused_matmul(arg[e], *(t[e] for t in pl), k)
+            assert torch.equal(got[e], one), (fn.__name__, e)
+        _close(got, torch.stack([bcf.bc_fused_matmul_plain(
+            arg[e], *(t[e] for t in pl), k) for e in range(E)]))
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-maverick-400b-a17b",
+                                  "gemma2-9b", "recurrentgemma-2b",
+                                  "xlstm-125m", "whisper-large-v3"])
+def test_other_archs_train_on_card_match_cpu(cuda, arch):
+    """The smoke config of each arch that trains past ``attn`` blocks, in
+    float32, 2 x 24 tokens, remat: the loss, aux and every grad on the
+    card against the CPU's plain path (1e-5 of the loss, 1e-4 of each
+    grad's scale; xlstm's 1e-3, its gradients' conditioning:
+    tests/test_torch_train_cells.py:GRAD_TOL).  An MoE arch's expert
+    stacks take one ``bc_grad_w`` call a projection and layer."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import bc_grad_w as bgw
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as ts
+    cfg = get_smoke_config(arch).replace(dtype="float32", remat="full")
+    batch = SyntheticLM(cfg, batch=2, seq=24, seed=0)(0)
+    opt = adamw.AdamWConfig(lr=1e-3)
+    base = ts.init_state(cfg, opt, seed=0, device="cpu")["model"]
+    res = {}
+    for dev in ("cpu", "cuda"):
+        state = ts.init_state(cfg, opt, model=copy.deepcopy(base).to(dev))
+        before = bgw.KERNEL.path_launches.get("experts", 0)
+        _, m, grads = ts.make_train_step(cfg, opt).grads(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        res[dev] = (m, [g.cpu() for gs in grads for g in gs])
+        if dev == "cuda" and cfg.moe.num_experts:
+            moe_layers = sum(1 for mod in state["model"].modules()
+                             if type(mod).__name__ == "MoE")
+            assert bgw.KERNEL.path_launches["experts"] - before == \
+                3 * moe_layers
+    for key in ("loss", "moe_aux"):
+        a, b = float(res["cuda"][0][key]), float(res["cpu"][0][key])
+        assert abs(a - b) <= 1e-5 * max(1.0, abs(b)), key
+    tol = 1e-3 if arch == "xlstm-125m" else 1e-4
+    for got, ref in zip(res["cuda"][1], res["cpu"][1]):
+        scale = max(1.0, float(ref.abs().max()))
+        assert float((got - ref).abs().max()) <= tol * scale

@@ -163,13 +163,6 @@ def test_moe_records_the_smallest_router_logit_gap():
                                atol=1e-6)
 
 
-def test_moe_training_is_refused():
-    _, _, tm, tc, _, m = _layer(1, 16, 8.0)
-    x = torch.zeros(1, 8, D_MODEL)
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        tffn.moe(m, x, d_ff=D_FF, moe_cfg=tm, comp=tc, mode="train")
-
-
 def test_expert_planes_and_codes_match_repro():
     _, _, _, _, params, m = _layer(1, 16, 8.0)
     m.experts.bake_spectral()

@@ -16,7 +16,10 @@
   that differs in its last float32 bits); ``accum=2`` against ``accum=1``;
 * the non-finite guard, ``kl_to_prior``, ``SyntheticLM``'s contract and the
   Bayesian sample's, checkpoints (round trip, resume, ``keep``), the
-  launcher on the CPU, and what train mode refuses.
+  launcher on the CPU.
+
+The other block kinds and the encoder-decoder train in
+``tests/test_torch_train_kinds.py`` and ``tests/test_torch_train_cells.py``.
 """
 import functools
 
@@ -41,7 +44,6 @@ from repro_torch.core import circulant as tcc  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.models.convert import from_jax_params  # noqa: E402
-from repro_torch.models.registry import build_model as tbuild  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serve.params import precompute_serving_params  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
@@ -446,17 +448,3 @@ def test_trained_model_is_rebaked():
             for key, t in m.wc_cache.items():
                 assert torch.equal(t, want[key])
     assert not torch.equal(model.blocks[0].attn.q.wc_cache["wr"], old)
-
-
-@pytest.mark.parametrize("arch", ["gemma2-9b", "mixtral-8x7b",
-                                  "recurrentgemma-2b", "xlstm-125m",
-                                  "whisper-large-v3"])
-def test_other_kinds_refuse_train_mode(arch):
-    """attn_local, moe / moe_swa, rec, mlstm / slstm and the
-    encoder-decoder raise in train mode, naming ROADMAP A.14b."""
-    cfg = tget(arch)
-    model = tbuild(cfg).init(seed=0, device="cpu")
-    batch = SyntheticLM(cfg, batch=1, seq=cfg.attention.sliding_window or 8,
-                        seed=0)(0)
-    with pytest.raises(NotImplementedError, match="A.14b"):
-        tbuild(cfg).forward_train(model, batch)

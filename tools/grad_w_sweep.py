@@ -2,7 +2,10 @@
 
 At k = 128: tinyllama-1.1b's q/o, k/v, up/gate, down and fused q/k/v and
 up/gate (as ``chip_smoke.py:check_bc_grad_w``), qwen3-4b's up/gate and
-down, phi-3-vision-4.2b's up/gate and down.  Each shape runs under the
+down, phi-3-vision-4.2b's up/gate and down; and the expert stacks of the
+MoE train phases (``chip_smoke.py:train_stack_shapes``: mixtral's 8
+experts of 2,880 rows, llama4's 128 of 80; each stack one call, held
+against the plain version expert by expert).  Each shape runs under the
 kernel's own plan and, on a tree whose ``plan`` takes ``chunk``, under
 other row chunks (``--chunks``; 0 is all N rows in one chunk), each
 result held against ``bc_grad_w_plain`` (1e-4 of the output's scale) and
@@ -34,6 +37,11 @@ SHAPES = {"q_o": (16, 16), "k_v": (2, 16), "up_gate": (44, 16),
           "down": (16, 44), "fused_qkv": (20, 16), "fused_up_gate": (88, 16),
           "qwen3_up_gate": (76, 20), "qwen3_down": (20, 76),
           "phi3_up_gate": (64, 24), "phi3_down": (24, 64)}
+# name -> (E, C, p, q): expert stacks of E experts of C rows
+STACKS = {"mixtral_up_gate": (8, 2880, 112, 32),
+          "mixtral_down": (8, 2880, 32, 112),
+          "llama4_up_gate": (128, 80, 64, 40),
+          "llama4_down": (128, 80, 40, 64)}
 
 
 def event_ms(fn, reps: int = 5, inner: int = 4) -> float:
@@ -82,7 +90,8 @@ def main() -> int:
     ap.add_argument("--tree", default=str(ROOT))
     ap.add_argument("--chunks", default="")
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--shapes", default=",".join(SHAPES))
+    ap.add_argument("--shapes", default=",".join(SHAPES),
+                    help=f"of {', '.join([*SHAPES, *STACKS])}")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -92,14 +101,18 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     chunks = [int(c) for c in args.chunks.split(",") if c]
     for name in args.shapes.split(","):
-        p, q = SHAPES[name]
-        gy = torch.randn((N, p, K), generator=gen, device="cuda")
-        xb = torch.randn((N, q, K), generator=gen, device="cuda")
-        ref = bgw.bc_grad_w_plain(gy, xb, K)
+        E, rows, p, q = STACKS[name] if name in STACKS else (1, N,
+                                                             *SHAPES[name])
+        lead = (E,) if name in STACKS else ()
+        gy = torch.randn((*lead, rows, p, K), generator=gen, device="cuda")
+        xb = torch.randn((*lead, rows, q, K), generator=gen, device="cuda")
+        ref = (torch.stack([bgw.bc_grad_w_plain(gy[e], xb[e], K)
+                            for e in range(E)]) if lead
+               else bgw.bc_grad_w_plain(gy, xb, K))
         tol = 1e-4 * max(1.0, float(ref.abs().max()))
         variants = [("plan", lambda: bgw.bc_grad_w(gy, xb, K),
-                     bgw.plan(N, p, q, K))]
-        if "chunk" in inspect.signature(bgw.plan).parameters:
+                     bgw.plan(rows, p, q, K))]
+        if not lead and "chunk" in inspect.signature(bgw.plan).parameters:
             for c in chunks:
                 pl = bgw.plan(N, p, q, K, c or N)
                 variants.append((f"chunk{pl.chunk}",
@@ -108,7 +121,7 @@ def main() -> int:
         for label, fn, pl in variants:
             got, again = fn(), fn()
             torch.cuda.synchronize()
-            line = {"shape": name, "N": N, "p": p, "q": q, "k": K,
+            line = {"shape": name, "E": E, "N": rows, "p": p, "q": q, "k": K,
                     "tree": args.tree, "variant": label,
                     "plan": pl._asdict(),
                     "max_abs_err": float((got - ref).abs().max()),
