@@ -93,6 +93,19 @@ itself.  Each phase prints one JSON line:
                 one group of the layer pattern (full width) the card's
                 float32 prefill logits within 1e-4 of their scale of the
                 CPU's plain path
+  serve_obs     tinyllama-1.1b through ``ContinuousEngine`` with the
+                telemetry plane on (``repro_torch.obs``): int8 planes and
+                pool, a JSONL file, the stock SLO rules, a Chrome trace and
+                the shadow oracle on every finished request (4 requests of
+                17-200 + 16): both files valid under the port's
+                validators, the health histograms non-empty and finite,
+                the shadow agreement, each dispatch kind's roofline
+                fraction on the ``h100`` spec in (0, 1], greedy tokens
+                equal with obs off; then the plane's cost, tokens/s of
+                obs disabled / ``capture=False`` / on over 8 requests of
+                17-200 + 32 in ``OBS_ROUNDS`` paired rounds (``serve_batch``
+                also checks its fractions; ``train`` validates its
+                ``--metrics-out`` file)
   decode_graph  the continuous engine's decode loop replayed from its CUDA
                 graph against the same loop run eagerly, on the f32 and
                 bf16 pools (stream), the gather path and the int8 pool,
@@ -234,8 +247,15 @@ from repro_torch.layers import ffn  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.registry import build_model, init_params  # noqa: E402
 from repro_torch.models.transformer import layer_kinds  # noqa: E402
+from repro_torch.obs import Obs  # noqa: E402
+from repro_torch.obs.chrometrace import validate_trace, write_trace  # noqa: E402
+from repro_torch.obs.emit import last_snapshot, validate_jsonl  # noqa: E402
+from repro_torch.obs.slo import SloWatchdog, default_rules  # noqa: E402
 from repro_torch.optim import adamw, schedule  # noqa: E402
 from repro_torch.quant import codec  # noqa: E402
+# the peak rates of one H100 SXM (NVIDIA data sheet, 700 W) and the least
+# time for a kernel's work on them
+from repro_torch.roofline.analysis import H100, bound, rfft_flops  # noqa: E402,E501
 from repro_torch.serve import decode as dec  # noqa: E402
 from repro_torch.serve import kvcache as kvc  # noqa: E402
 from repro_torch.serve.engine import (ContinuousEngine, Engine,  # noqa: E402
@@ -248,10 +268,6 @@ from repro_torch.train.trainer import Trainer  # noqa: E402
 ARCH = "tinyllama-1.1b"
 SEED = 0
 DEVICE = "cuda"
-# Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
-# device memory rate, float32 on the CUDA cores, bf16 on the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 LIBRARIES = (bc_fused.KERNEL, fa.KERNEL, pa.KERNEL, pg.KERNEL, sm.KERNEL)
 # the training phases count bc_grad_w too (the serving phases' launch
 # fields stay as they were)
@@ -620,22 +636,6 @@ def kernel_times(fn, reps: int = 15, inner: int = 10):
         torch.cuda.synchronize()
         out["device_ms"], out["device_ms_error"] = None, str(e)[:300]
     return out
-
-
-def bound(nbytes: float, flops: float, dtype: torch.dtype):
-    """Least time for the work: the larger of bytes over the memory rate
-    and operations over the peak rate of the operands' type."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def rfft_flops(rows: int, k: int) -> float:
-    """Operations of ``rows`` real FFTs of length ``k`` (or their inverses):
-    2.5 k log2 k each, half a complex FFT's 5 k log2 k.  The least a
-    transform needs; the kernels multiply by dense DFT panels instead."""
-    return 2.5 * rows * k * math.log2(k)
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1665,8 +1665,21 @@ def phase_train(cfg):
     skipped, and the launches a step makes equal to those the model calls
     for, shape by shape (``train_shape_counts``), with no other kernel."""
     steps = TRAIN["steps"]
-    out, wall, peak = launch_train_run(
-        ["--arch", ARCH, "--full", "--steps", str(steps)])
+    mdir = Path(tempfile.mkdtemp(prefix="chip_smoke_metrics_"))
+    try:
+        metrics = str(mdir / "train.jsonl")
+        out, wall, peak = launch_train_run(
+            ["--arch", ARCH, "--full", "--steps", str(steps),
+             "--metrics-out", metrics, "--metrics-every", "1"])
+        lines = validate_jsonl(metrics)
+        last = last_snapshot(metrics)
+    finally:
+        shutil.rmtree(mdir, ignore_errors=True)
+    if (lines["snapshot"] != steps + 1
+            or last["counters"]["train.steps"] != steps
+            or not np.isfinite(last["gauges"]["train.loss"])):
+        raise AssertionError(f"train: metrics {lines}, last snapshot "
+                             f"{last['counters']}")
     hist = out["history"]
     losses = [h["loss"] for h in hist]
     if len(hist) != steps or not all(np.isfinite(losses)):
@@ -1696,7 +1709,8 @@ def phase_train(cfg):
           "ms_per_step": ms_step, "tokens_per_s": 1e3 * N / ms_step,
           "wall_s": wall, "peak_memory_bytes": peak,
           "params": sum(p.numel() for p in out["state"]["model"].parameters()),
-          "launches": launches,
+          "launches": launches, "metrics_lines": lines,
+          "metrics_train_loss": last["gauges"]["train.loss"],
           "bc_fused_per_step": sum(want_fused.values()),
           "bc_grad_w_per_step": sum(want_grads.values()),
           "launches_per_step_by_shape": {**got_fused, **got_grads}})
@@ -2522,6 +2536,31 @@ def batch_launches(cfg, st, lane="bc_fused", hooked=True):
     return want
 
 
+def roofline_fractions(phase, st):
+    """The run's per-kind roofline summary on the ``h100`` spec; every
+    fraction (least time over measured time) must lie in (0, 1]: a
+    reading above 1 means the profiler's counts exceed the work."""
+    if st["hardware"] != H100.name:
+        raise AssertionError(f"{phase}: priced against {st['hardware']}")
+    out = {}
+    for kind, r in st["roofline"].items():
+        if not r["dispatches"]:
+            continue
+        lo, hi = r["roofline_frac"], r["roofline_frac_max"]
+        if not 0 < lo <= hi <= 1:
+            raise AssertionError(f"{phase}: {kind} roofline fraction "
+                                 f"{lo} (max {hi}) outside (0, 1]")
+        out[kind] = {"dispatches": r["dispatches"], "roofline_frac": lo,
+                     "roofline_frac_max": hi, "bound": r["bound"],
+                     "flops": r["flops"],
+                     "bytes_accessed": r["bytes_accessed"],
+                     "achieved_flops_per_s": r["achieved_flops_per_s"],
+                     "achieved_bytes_per_s": r["achieved_bytes_per_s"]}
+    if not out:
+        raise AssertionError(f"{phase}: no profiled dispatch")
+    return out
+
+
 def phase_serve_batch(cfg):
     reqs, results, st, launches, wall, peak = batch_run(cfg, 16)
     if (st["prefills"], st["decode_steps"]) != (2, 62):
@@ -2537,6 +2576,7 @@ def phase_serve_batch(cfg):
                              f"(308, 9548, 1408)")
     out = batch_summary("serve_batch", cfg, results, reqs, st, launches,
                         wall, peak)
+    out["roofline"] = roofline_fractions("serve_batch", st)
     emit(out)
     return out
 
@@ -3239,6 +3279,169 @@ def phase_serve_fused(cfg):
 # ---------------------------------------------------------------------------
 # decode_graph: the continuous engine's step replayed against it eagerly
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# serve_obs: the telemetry plane on the card
+# ---------------------------------------------------------------------------
+OBS_ROUNDS = 8          # paired rounds of the three-arm overhead
+
+
+def obs_engine(cfg, params, obs, **kw):
+    return ContinuousEngine(cfg, params, max_slots=8, max_seq=256,
+                            page_size=16, decode_chunk=8, device=DEVICE,
+                            quant=codec.QuantPolicy("int8",
+                                                    quant_weights=True),
+                            obs=obs, **kw)
+
+
+def finite_snapshot(snap):
+    """Every counter, gauge and histogram field of a snapshot finite."""
+    vals = list(snap["counters"].values()) + list(snap["gauges"].values())
+    for name, h in snap["histograms"].items():
+        vals += [h["sum"]] + [h[k] for k in ("min", "max", "p50", "p99")
+                              if h[k] is not None]
+    return all(np.isfinite(v) for v in vals)
+
+
+def phase_serve_obs(cfg):
+    """tinyllama-1.1b at full width and depth through ``ContinuousEngine``
+    with int8 planes and an int8 pool (so the quant telemetry runs), an
+    ``Obs`` with a JSONL file, the stock SLO rules and a Chrome trace, and
+    the shadow oracle replaying every finished request (``shadow_sample``
+    1.0; 4 requests of 17-200 + 16 tokens: each replay decodes eagerly
+    twice a step): the JSONL and the trace valid under the port's
+    validators, the
+    health histograms non-empty and finite, the shadow agreement, every
+    dispatch kind's roofline fraction on the ``h100`` spec in (0, 1], and
+    greedy tokens bit-equal with obs off.  Then the plane's cost as
+    ``repro`` measures it (``obs_overhead``): tokens/s of three engines on
+    the same weights (obs disabled, ``capture=False``, fully on; no
+    emitter, no shadow) over 8 requests of 17-200 + 32 tokens in
+    ``OBS_ROUNDS`` paired rounds, the arms' order
+    rotated each round, the overheads the median per-round time ratios.
+    Every engine captured its decode step once (the capture's warm-up
+    runs with synchronizing calls made errors: no host read inside)."""
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    rng = np.random.RandomState(SEED)
+    warm = make_requests(cfg, 2, 17, 40, 4, rng)
+    reqs = make_requests(cfg, 8, 17, 200, 32, rng)
+    shadowed = make_requests(cfg, 4, 17, 200, 16, rng)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_obs_"))
+    try:
+        path, tpath = str(tmp / "m.jsonl"), str(tmp / "t.json")
+        watchdog = SloWatchdog(default_rules())
+        obs = Obs(emit_path=path, emit_every=4, slo=watchdog)
+        eng = obs_engine(cfg, params, obs, shadow_sample=1.0)
+        decode_graphs(eng.stats())
+        for lib in LIBRARIES:
+            lib.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = eng.generate(shadowed)
+        wall = time.perf_counter() - t0
+        launches = lane_counts()
+        st = eng.stats()
+        eng.drain()                          # flush and close the emitter
+        lines = validate_jsonl(path)
+        if lines["trace"] != len(shadowed):
+            raise AssertionError(f"serve_obs: {lines} for {len(shadowed)} "
+                                 f"requests")
+        trace = write_trace(obs, tpath, extra_meta={"arch": ARCH})
+        with open(tpath) as f:
+            validate_trace(json.load(f))
+        lanes = {(ev.get("pid"), ev.get("tid"))
+                 for ev in trace["traceEvents"]
+                 if ev.get("cat") == "request" and ev.get("ph") == "X"}
+        if len(lanes) < len(shadowed):
+            raise AssertionError(f"serve_obs: {len(lanes)} request lanes")
+        last = last_snapshot(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    hists = last["histograms"]
+    health = {n: h["count"] for n, h in hists.items()
+              if n.startswith("health.")}
+    for name in ("health.logit_absmax{phase=prefill}",
+                 "health.logit_absmax{phase=decode}",
+                 "health.logit_entropy{phase=decode}",
+                 "health.top1_margin{phase=decode}",
+                 "health.act_absmax{phase=prefill}",
+                 "health.shadow_agreement", "quant.k_scale"):
+        if not hists.get(name, {}).get("count"):
+            raise AssertionError(f"serve_obs: {name} is empty")
+    if not finite_snapshot(last) or st["health"]["nonfinite_dispatches"]:
+        raise AssertionError(f"serve_obs: a non-finite value, health "
+                             f"{st['health']}")
+    sh = st["shadow_oracle"]
+    if sh["replays"] != len(shadowed) or sh["greedy_agreement"] is None:
+        raise AssertionError(f"serve_obs: shadow oracle {sh}")
+    roof = roofline_fractions("serve_obs", st)
+    # obs off, a fresh engine as the obs-on one was: the same tokens
+    off = obs_engine(cfg, params, Obs(enabled=False))
+    toks = [r["tokens"] for r in off.generate(shadowed)]
+    if toks != [r["tokens"] for r in results]:
+        raise AssertionError("serve_obs: tokens differ with obs off")
+    if any(r["status"] != "FINISHED_BUDGET" for r in results):
+        raise AssertionError("serve_obs: a request did not finish")
+    # the three-arm overhead, on three fresh engines
+    del eng, off
+    arms = {"disabled": obs_engine(cfg, params, Obs(enabled=False)),
+            "no_capture": obs_engine(cfg, params, Obs(), capture=False),
+            "enabled": obs_engine(cfg, params, Obs())}
+    if (arms["enabled"]._health is None or arms["no_capture"]._health
+            is not None or arms["disabled"]._health is not None):
+        raise AssertionError("serve_obs: an arm's capture is not its own")
+    for e in arms.values():
+        decode_graphs(e.stats())
+        e.generate(warm)
+    # an int8 page recycled from an earlier request keeps its grown scale
+    # (as in repro), so tokens are compared between arms at equal history:
+    # each engine has its own pool and has served the same requests
+    order, secs, tokens = list(arms), {a: [] for a in arms}, {}
+    for r in range(OBS_ROUNDS):
+        got = {}
+        for arm in order[r % 3:] + order[:r % 3]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = arms[arm].generate(reqs)
+            torch.cuda.synchronize()
+            secs[arm].append(time.perf_counter() - t0)
+            tokens[arm] = sum(x["decode_len"] for x in res)
+            got[arm] = [x["tokens"] for x in res]
+        if got["enabled"] != got["disabled"] or got["no_capture"] != got[
+                "disabled"]:
+            raise AssertionError(f"serve_obs: round {r}: the arms' tokens "
+                                 f"differ")
+    ratio = statistics.median(e / d for e, d in zip(secs["enabled"],
+                                                    secs["disabled"]))
+    hratio = statistics.median(e / n for e, n in zip(secs["enabled"],
+                                                     secs["no_capture"]))
+    overhead = {arm: {"tokens_per_s_best": tokens[arm] / min(secs[arm]),
+                      "tokens_per_s_median": tokens[arm]
+                      / statistics.median(secs[arm]), "seconds": secs[arm]}
+                for arm in arms}
+    overhead.update(overhead_frac=ratio - 1.0,
+                    health_capture_frac=hratio - 1.0, rounds=OBS_ROUNDS,
+                    tokens=tokens["enabled"])
+    out = {"phase": "serve_obs", "arch": ARCH, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "requests": len(shadowed),
+           "prompt_lens": [len(r.prompt) for r in shadowed],
+           "overhead_prompt_lens": [len(r.prompt) for r in reqs],
+           "tokens": sum(r["decode_len"] for r in results), "wall_s": wall,
+           "quant_policy": st["quant_policy"], "hardware": st["hardware"],
+           "jsonl_lines": lines, "trace_events": len(trace["traceEvents"]),
+           "request_lanes": len(lanes), "slo_alerts": watchdog.stats(),
+           "health": st["health"], "health_counts": health,
+           "kv_clip_rate": st["kv_clip_rate"],
+           "plane_clip_rate": last["gauges"]["quant.plane_clip_rate"],
+           "scale_growths": st["scale_growths"],
+           "requant_error_bound":
+               last["counters"]["quant.requant_error_bound"],
+           "shadow_oracle": sh, "tokens_equal_obs_off": True,
+           "roofline": roof, "overhead": overhead,
+           "launches": launches, **decode_graphs(st)}
+    emit(out)
+    return out
+
+
 GRAPH_LENS = (40, 17, 100, None, 64, 23, 200, 90)    # None: an idle slot
 GRAPH_BUDGETS = (20, 3, 13, 0, 9, 0, 17, 5)          # slot 5 stalled
 
@@ -3418,6 +3621,7 @@ def main() -> int:
         for engine in ("batch", "oracle"):
             runs[f"{arch}/{engine}"] = out[engine]
     runs.update(phase_serve_fused(cfg))
+    phase_serve_obs(cfg)
     phase_decode_graph(cfg)
     runs["train"] = phase_train(cfg)
     phase_train_parity(cfg)

@@ -18,6 +18,21 @@ prefill can fill the ring.  An encoder-decoder (whisper) encodes zero
 frames.  mixtral, gemma2, recurrentgemma, xlstm and whisper are served by
 the batch engine only: ``--engine continuous`` refuses them, as
 ``repro``'s launcher does.
+
+Telemetry (``repro_torch.obs``, on unless ``--no-obs``): ``--metrics-out``
+writes registry snapshots and request traces as JSONL every
+``--metrics-every`` dispatches (``python -m repro_torch.obs --validate``
+checks it), ``--trace-out`` a Chrome trace of the dispatches and requests
+(``python -m repro_torch.obs.chrometrace --validate``), ``--slo`` runs the
+SLO watchdog (``--slo-rules`` a JSON list of rules), ``--shadow-sample``
+replays that fraction of finished requests through the float32 oracle
+(continuous engine), and ``--hardware`` names the spec the profiler
+prices dispatches against (default: the device's).  The run ends with
+the pool-pressure, roofline, health and obs-summary lines.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+      --engine continuous --device cpu --requests 4 --new-tokens 6 \\
+      --metrics-out m.jsonl --metrics-every 2 --trace-out t.json --slo
 """
 from __future__ import annotations
 
@@ -31,7 +46,11 @@ from ..configs.registry import ARCH_IDS, get_config, get_smoke_config
 from ..device import resolve_device
 from ..models.registry import init_params
 from ..models.transformer import layer_kinds, window_for
+from ..obs import Obs, resolve_hardware
+from ..obs.chrometrace import write_trace
+from ..obs.slo import SloWatchdog, rules_from_json
 from ..quant.codec import QuantPolicy
+from ..roofline.analysis import HARDWARE_PRESETS
 from ..serve.engine import ContinuousEngine, Engine, Request
 from ..serve.kvcache import servable_reasons
 
@@ -81,6 +100,37 @@ def main(argv=None):
     ap.add_argument("--weight-bits", type=int, default=8, choices=[8, 4],
                     help="with --quant-weights: int8 planes or packed int4 "
                          "(two nibbles per byte)")
+    ap.add_argument("--metrics-out", default=None, metavar="FILE",
+                    help="write obs JSONL telemetry (registry snapshots + "
+                         "request traces) to FILE; check it with python -m "
+                         "repro_torch.obs --validate FILE")
+    ap.add_argument("--metrics-every", type=int, default=10,
+                    help="with --metrics-out: flush every N engine "
+                         "dispatches")
+    ap.add_argument("--no-obs", action="store_true",
+                    help="disable traces, histograms, profiler spans and "
+                         "the numerics capture (counters stay live)")
+    ap.add_argument("--shadow-sample", type=float, default=0.0,
+                    metavar="FRAC",
+                    help="continuous: replay this fraction of FINISHED "
+                         "requests through the float32 dense-cache oracle "
+                         "between dispatches (health.greedy_agreement / "
+                         "health.logit_drift)")
+    ap.add_argument("--slo", action="store_true",
+                    help="run the SLO watchdog (obs/slo.py) over every "
+                         "snapshot; alerts go to --metrics-out and are "
+                         "summarized on exit")
+    ap.add_argument("--slo-rules", default=None, metavar="RULES.json",
+                    help="with --slo: a JSON list of Rule dicts instead of "
+                         "the stock ruleset")
+    ap.add_argument("--trace-out", default=None, metavar="FILE",
+                    help="write a Perfetto-loadable Chrome trace of the "
+                         "serve (dispatch lanes, one lane a request, "
+                         "counter tracks) to FILE")
+    ap.add_argument("--hardware", default="auto",
+                    choices=["auto"] + sorted(HARDWARE_PRESETS),
+                    help="roofline spec the profiler prices dispatches "
+                         "against (auto: the device's)")
     args = ap.parse_args(argv)
 
     cfg = (get_config if args.full else get_smoke_config)(args.arch)
@@ -91,6 +141,13 @@ def main(argv=None):
                              f"servable ({'; '.join(reasons)}); "
                              f"use --engine batch")
     device = resolve_device(args.device)
+    watchdog = None
+    if args.slo:
+        watchdog = SloWatchdog(rules_from_json(args.slo_rules)
+                               if args.slo_rules else None)
+    obs = Obs(enabled=not args.no_obs, emit_path=args.metrics_out,
+              emit_every=args.metrics_every,
+              hardware=resolve_hardware(args.hardware), slo=watchdog)
     params = init_params(cfg, seed=args.seed, device=device)
     quant = QuantPolicy(args.kv_dtype, args.quant_weights, args.weight_bits)
     # prompt slots ahead of the 16-31 text tokens: the patches, the window
@@ -104,17 +161,21 @@ def main(argv=None):
                                   decode_chunk=args.decode_chunk,
                                   sample=args.sample, seed=args.seed,
                                   eos_id=args.eos_id, device=device,
-                                  paged_attn=args.paged_attn, quant=quant)
+                                  paged_attn=args.paged_attn, quant=quant,
+                                  obs=obs, shadow_sample=args.shadow_sample)
     else:
         if args.kv_dtype != "f32":
             print(f"[launch.serve] note: --kv-dtype {args.kv_dtype} applies "
                   f"to the continuous engine's paged pool; the batch "
                   f"engine's dense cache stays f32 (parity oracle)")
+        if args.shadow_sample > 0.0:
+            print("[launch.serve] note: --shadow-sample applies to the "
+                  "continuous engine (the batch engine is the f32 oracle)")
         engine = Engine(cfg, params, max_batch=args.max_batch,
                         max_seq=max_seq, sample=args.sample,
                         decode_mode=args.decode_mode, eos_id=args.eos_id,
                         seed=args.seed, bucket_prompts=not args.no_bucket,
-                        quant=quant, device=device)
+                        quant=quant, obs=obs, device=device)
     rng = np.random.RandomState(args.seed)
     reqs = [Request(prompt=rng.randint(0, cfg.vocab_size, size=extra
                                        + rng.randint(16, 32)).astype(
@@ -141,17 +202,66 @@ def main(argv=None):
               f"pad_waste={st['prompt_pad_waste']} "
               f"decode_mode={args.decode_mode} sample={args.sample}")
         print(f"[launch.serve] quant={st['quant_policy']}")
-        return
-    nonzero = {s: n for s, n in st["statuses"].items() if n}
-    print(f"[launch.serve] lifecycle: statuses={nonzero} "
-          f"preempted={st['preempted']} anomalies={st['anomalies']} "
-          f"prefills={st['prefills']} decode_steps={st['decode_steps']} "
-          f"pool={st['pool_bytes'] / 1e6:.1f}MB "
-          f"buckets={st['prefill_buckets']}")
-    print(f"[launch.serve] quant={st['quant_policy']} "
-          f"attention={st['attention_impl']} "
-          f"attn_bytes/token={st['attention_bytes_per_token']} "
-          f"decode_peak_est={st['decode_peak_bytes_est'] / 1e6:.1f}MB")
+    else:
+        nonzero = {s: n for s, n in st["statuses"].items() if n}
+        print(f"[launch.serve] lifecycle: statuses={nonzero} "
+              f"preempted={st['preempted']} anomalies={st['anomalies']} "
+              f"prefills={st['prefills']} decode_steps={st['decode_steps']} "
+              f"pool={st['pool_bytes'] / 1e6:.1f}MB "
+              f"buckets={st['prefill_buckets']}")
+        print(f"[launch.serve] quant={st['quant_policy']} "
+              f"attention={st['attention_impl']} "
+              f"attn_bytes/token={st['attention_bytes_per_token']} "
+              f"decode_peak_est={st['decode_peak_bytes_est'] / 1e6:.1f}MB")
+        print(f"[launch.serve] pool pressure: free_pages={st['free_pages']} "
+              f"min_free_pages={st['min_free_pages']} (low-water headroom "
+              f"of {engine.num_pages - 1} usable)")
+        if st.get("health") is not None:
+            h = st["health"]
+            print(f"[launch.serve] health: nonfinite_dispatches="
+                  f"{h['nonfinite_dispatches']} "
+                  f"act_absmax_peak={h['act_absmax_peak']} "
+                  f"kv_clip_rate={st['kv_clip_rate']}")
+        if st.get("shadow_oracle") is not None:
+            sh = st["shadow_oracle"]
+            agree, drift = sh["greedy_agreement"], sh["logit_drift"]
+            print(f"[launch.serve] shadow oracle: sampled={sh['sampled']} "
+                  f"replays={sh['replays']} dropped={sh['dropped']} "
+                  f"greedy_agreement="
+                  f"{'n/a' if agree is None else f'{agree:.4f}'} "
+                  f"logit_drift="
+                  f"{'n/a' if drift is None else f'{drift:.4g}'}")
+    if not args.no_obs and st.get("roofline"):
+        print(f"[launch.serve] roofline ({st['hardware']}):")
+        for kind, r in st["roofline"].items():
+            if not r["dispatches"]:
+                continue
+            print(f"  {kind:<22} n={r['dispatches']:<4} "
+                  f"{r['achieved_flops_per_s'] / 1e9:8.2f} GFLOP/s  "
+                  f"{r['achieved_bytes_per_s'] / 1e9:8.2f} GB/s  "
+                  f"frac={r['roofline_frac']:.3g} ({r['bound']}-bound)")
+    if args.metrics_out is not None:
+        obs.close()                        # final snapshot + trailing traces
+        print(f"[launch.serve] metrics: {obs.emitter.lines_written} "
+              f"lines -> {args.metrics_out}")
+    if watchdog is not None:
+        ws = watchdog.stats()
+        print(f"[launch.serve] slo: {ws['alerts']} alerts "
+              f"({ws['page_alerts']} page) by_rule={ws['by_rule']}")
+        for a in watchdog.alerts:
+            print(f"[launch.serve]   {a['severity'].upper()} {a['rule']} "
+                  f"{a['series']}: {a['value']:.6g} {a['op']} "
+                  f"{a['threshold']:.6g}")
+    if args.trace_out is not None:
+        trace = write_trace(obs, args.trace_out,
+                            extra_meta={"arch": args.arch,
+                                        "engine": args.engine})
+        print(f"[launch.serve] chrome trace: "
+              f"{len(trace['traceEvents'])} events -> {args.trace_out}")
+    if not args.no_obs:
+        print("[launch.serve] obs summary:")
+        print(obs.summary())
+    return {"results": results, "stats": st, "obs": obs}
 
 
 if __name__ == "__main__":

@@ -14,8 +14,11 @@ kernels).
 
 Every arch trains: the MoE archs with their load-balancing loss, the
 windowed, recurrent and xLSTM blocks, and whisper's encoder-decoder on the
-data's stub frames.  ``--metrics-out`` (the JSONL emitter) raises
-(ROADMAP A.12).
+data's stub frames.  ``--metrics-out FILE`` streams the trainer's ``obs``
+registry snapshots (``train.loss``, ``train.step_s``,
+``train.tokens_per_s``, ...) to FILE as JSONL every ``--metrics-every``
+steps and once at the end; ``python -m repro_torch.obs --validate FILE``
+checks it.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import Optional, Sequence
 
 from ..configs.registry import ARCH_IDS, get_config, get_smoke_config
 from ..data.pipeline import SyntheticLM
+from ..obs import Obs
 from ..optim import adamw
 from ..train.trainer import Trainer
 
@@ -51,22 +55,24 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--workdir", default=os.path.join(
         tempfile.gettempdir(), "repro_torch_launch_train"))
     ap.add_argument("--metrics-out", default=None, metavar="FILE",
-                    help="JSONL telemetry (not ported: raises)")
+                    help="write obs JSONL telemetry (train.loss / "
+                         "train.step_s / train.tokens_per_s snapshots) to "
+                         "FILE; the heartbeat file is unaffected")
+    ap.add_argument("--metrics-every", type=int, default=10,
+                    help="with --metrics-out: flush every N steps")
     ap.add_argument("--log-every", type=int, default=10,
                     help="print (and keep in the history) every N steps")
     ap.add_argument("--ckpt-every", type=int, default=None,
                     help="checkpoint every N steps and at the end (default "
                          "steps // 2; 0: no checkpoints)")
     args = ap.parse_args(argv)
-    if args.metrics_out is not None:
-        raise NotImplementedError("--metrics-out: the JSONL telemetry "
-                                  "emitter is not ported yet (ROADMAP A.12)")
 
     getter = get_config if args.full else get_smoke_config
     cfg = getter(args.arch, compress=not args.no_compress)
     if args.layers is not None:
         cfg = cfg.replace(num_layers=args.layers)
     data = SyntheticLM(cfg, batch=args.batch, seq=args.seq, seed=0)
+    obs = Obs(emit_path=args.metrics_out, emit_every=args.metrics_every)
     trainer = Trainer(
         cfg,
         adamw.AdamWConfig(lr=args.lr, quantize_moments=args.int8_moments),
@@ -75,7 +81,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     else args.ckpt_every), log_every=args.log_every,
         accum=args.accum,
         compress_grads=args.compress_grads, bayesian_mode=args.bayesian,
-        device=args.device)
+        obs=obs, device=args.device)
     state = trainer.run()
     n = sum(p.numel() for p in state["model"].parameters())
     loss = (f"{trainer.history[-1]['loss']:.4f}" if trainer.history
@@ -83,8 +89,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     print(f"[launch.train] {args.arch} on {trainer.device}: "
           f"{int(state['step'])} steps, {n:,} params, loss {loss}, "
           f"skipped {int(state['skipped'])}", flush=True)
+    if args.metrics_out is not None:
+        obs.close()                         # the final cumulative snapshot
+        print(f"[launch.train] metrics: {obs.emitter.lines_written} "
+              f"lines -> {args.metrics_out}", flush=True)
     return {"state": state, "history": trainer.history,
-            "registry": trainer.registry}
+            "registry": trainer.registry, "obs": obs}
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """repro_torch.quant: fixed-point inference quantization for the serving
 stack (port of ``repro/quant``): the absmax int8/int4 codec over the baked
 spectral planes and the paged KV pool (``codec``), and the offline
-calibration report (``calibrate``).  ``QuantPolicy`` is the one config
+calibration report and the teacher-forced parity harness
+(``calibrate``).  ``QuantPolicy`` is the one config
 object the engine threads through ``serve/kvcache.build_pool``,
 ``serve/params`` and the kernels."""
 from .codec import (QuantPolicy, absmax_scale, dequantize, pack_int4,

@@ -21,8 +21,14 @@ decode slot) and the position it decodes, never on call order or device.
 So ``per_token`` equals ``scan`` and a recompute draws the same noise.  It
 cannot reproduce ``jax.random``'s bits (ROADMAP C).
 
-Not ported yet: the numerics capture side-outputs (``logit_stats``,
-``cache_group_absmax``) and logits sharding.
+The numerics capture of ``repro`` (``capture_stats``: ``logit_stats``,
+``cache_group_absmax``) feeds the health plane (``obs/health.py``): the
+prefill-and-pack step returns one flat float32 vector of reductions, and
+the paged step carries, in static buffers its CUDA graph writes, each
+slot's latest finite logit row and an exact per-step non-finite count;
+the reductions run once after the chunk, outside the graph.
+
+Left out: logits sharding (one card).
 """
 from __future__ import annotations
 
@@ -36,6 +42,16 @@ from ..kernels import build
 from ..layers.ffn import MoE
 from ..models.registry import build_model
 from . import kvcache as kvc
+
+
+# dispatch-kind names: the profiler's attribution units (obs/prof.py), the
+# keys of stats()["roofline"] and the Chrome trace's lanes
+DECODE_CHUNK_KIND = "decode_chunk"
+
+
+def prefill_kind(n_pages: int) -> str:
+    """Continuous engine: one prefill kind per page bucket."""
+    return f"prefill_{n_pages}p"
 
 
 def batch_prefill_kind(batch: int, seq: int) -> str:
@@ -186,10 +202,47 @@ def make_decode_loop(cfg: ArchConfig, steps: int, *, sample: bool = False,
 
 
 # ---------------------------------------------------------------------------
+# device-side numerics capture (obs/health.py)
+# ---------------------------------------------------------------------------
+def logit_stats(lg: torch.Tensor) -> torch.Tensor:
+    """``(..., V)`` logits -> ``(..., 4)`` float32 health reductions:
+    ``[absmax, softmax entropy, top1-top2 margin, non-finite count]``.
+
+    Rows holding non-finite values give non-finite absmax / entropy /
+    margin; consumers (``obs/health.py``) key on column 3 and skip the
+    rest.  The top-2 margin masks exactly the argmax position and takes
+    the max again (tied maxima: margin 0, as ``repro``'s)."""
+    r = lg.float()
+    nonf = (~torch.isfinite(r)).sum(-1).float()
+    absmax = r.abs().amax(-1)
+    m = r.amax(-1, keepdim=True)
+    z = r - m
+    lse = torch.log(torch.exp(z).sum(-1))
+    p = torch.exp(z - lse[..., None])
+    ent = lse - (p * z).sum(-1)
+    idx = torch.argmax(r, dim=-1, keepdim=True)
+    vocab = torch.arange(r.shape[-1], device=r.device)
+    r2 = torch.where(vocab == idx, float("-inf"), r)
+    margin = m[..., 0] - r2.amax(-1)
+    return torch.stack([absmax, ent, margin, nonf], dim=-1)
+
+
+def cache_group_absmax(cache) -> torch.Tensor:
+    """Per-layer activation absmax over a layer-stacked dense cache
+    ((L, B, S, Hkv, D) ``k`` and ``v``, the layout of every
+    continuous-servable arch's prefill cache): the L layers' K absmax,
+    then V's, ``repro``'s order for one segment.  The prefill cache is the
+    one place every layer's activations are materialized, so the prefill
+    carries this vector to ``health.act_absmax``."""
+    return torch.cat([cache[key].float().abs().flatten(1).amax(1)
+                      for key in ("k", "v")])
+
+
+# ---------------------------------------------------------------------------
 # continuous engine: B=1 prefill + page pack, paged decode loop
 # ---------------------------------------------------------------------------
-def make_prefill_pack_step(cfg: ArchConfig, n_pages: int,
-                           page_size: int) -> Callable:
+def make_prefill_pack_step(cfg: ArchConfig, n_pages: int, page_size: int,
+                           capture_stats: bool = False) -> Callable:
     """B=1 exact-position prefill + page scatter, one call per admission.
 
     The prompt is right-padded to ``n_pages * page_size``; causal masking
@@ -199,14 +252,16 @@ def make_prefill_pack_step(cfg: ArchConfig, n_pages: int,
 
     ``batch`` holds the padded ``tokens`` (1, spad) and, for a
     vision-stub config, ``patches``.  An int8 pool is packed with
-    ``true_len`` (the pad tail zeroed before
-    the page scales are derived) and with its saturation census.
+    ``true_len`` (the pad tail zeroed before the page scales are derived).
 
     Returns ``prefill_pack(params, batch, pool, pages, true_len)`` ->
-    ``(first_token, ok, pool, kv_clip)``: the greedy token at the prompt's
+    ``(first_token, ok, pool, stats)``: the greedy token at the prompt's
     last true position and whether those logits are all finite (device
-    scalars), and, for an int8 pool, ``(clipped, total)`` of the values it
-    wrote (device scalars; None for other pools).
+    scalars).  With ``capture_stats`` (the obs-enabled engine) ``stats`` is
+    ONE flat float32 device vector ``[logit_stats(4) | kv_clipped |
+    kv_total | act_absmax per layer group]`` (the int8 pool's saturation
+    census of the values it wrote; zeros for other pools), so the host
+    reads it back once a prefill; without, None.
     """
     model = build_model(cfg)
     spad = n_pages * page_size
@@ -218,16 +273,16 @@ def make_prefill_pack_step(cfg: ArchConfig, n_pages: int,
         last = logits[0, true_len - 1]
         ok = torch.isfinite(last).all()
         nxt = torch.argmax(last, dim=-1).to(torch.int32)
-        kv_clip = None
-        if "k_scale" in pool:
-            pool, clipped, total = kvc.pack_prefill_cache(
-                pool, dense, pages, page_size, true_len=true_len,
-                with_stats=True)
-            kv_clip = (clipped, total)
-        else:
+        if not capture_stats:
             pool = kvc.pack_prefill_cache(pool, dense, pages, page_size,
                                           true_len=true_len)
-        return nxt, ok, pool, kv_clip
+            return nxt, ok, pool, None
+        pool, clipped, total = kvc.pack_prefill_cache(
+            pool, dense, pages, page_size, true_len=true_len,
+            with_stats=True)
+        stats = torch.cat([logit_stats(last), torch.stack([clipped, total]),
+                           cache_group_absmax(dense)])
+        return nxt, ok, pool, stats
     return prefill_pack
 
 
@@ -236,12 +291,15 @@ class DecodeSlots:
     token in flight ``cur``, its position ``pos``, the budget left ``rem``,
     ``done`` and ``anom``; the output buffer ``buf`` (B, chunk); the
     column index ``j`` (a (1,) device tensor, as ``dynamic_update_slice``
-    takes it); and the block ``table``.  Each step reads and writes them in
-    place, so one captured CUDA graph replays every step.  ``graph`` and
-    ``record`` (its launches, ``kernels/build.py``) are set where the step
-    is captured."""
+    takes it); and the block ``table``.  With ``vocab`` (the numerics
+    capture) also each slot's latest finite logit row ``lastrow`` (B,
+    vocab) and its non-finite step count ``nonf`` (B,), float32.  Each step
+    reads and writes them in place, so one captured CUDA graph replays
+    every step.  ``graph`` and ``record`` (its launches,
+    ``kernels/build.py``) are set where the step is captured."""
 
-    def __init__(self, B: int, chunk: int, maxp: int, device, fill: int):
+    def __init__(self, B: int, chunk: int, maxp: int, device, fill: int,
+                 vocab: Optional[int] = None):
         i32 = dict(dtype=torch.int32, device=device)
         self.fill = fill
         self.cur = torch.zeros(B, **i32)
@@ -252,6 +310,11 @@ class DecodeSlots:
         self.buf = torch.full((B, chunk), fill, **i32)
         self.j = torch.zeros(1, dtype=torch.int64, device=device)
         self.table = torch.zeros((B, maxp), **i32)
+        self.lastrow = self.nonf = None
+        if vocab is not None:
+            f32 = dict(dtype=torch.float32, device=device)
+            self.lastrow = torch.zeros((B, vocab), **f32)
+            self.nonf = torch.zeros(B, **f32)
         self.params = None          # the weights a captured graph reads
         self.graph = None
         self.record = None
@@ -268,6 +331,9 @@ class DecodeSlots:
         self.anom.zero_()
         self.buf.fill_(self.fill)
         self.j.zero_()
+        if self.lastrow is not None:
+            self.lastrow.zero_()
+            self.nonf.zero_()
 
     def idle(self) -> None:
         """Every slot frozen at position -1: a step writes only to the
@@ -286,8 +352,11 @@ class PagedDecodeLoop:
 
     def __init__(self, cfg: ArchConfig, chunk: int, *, sample: bool,
                  temperature: float, eos_id: Optional[int], seed: int,
-                 nan_guard: bool, paged_impl: str, graphs: Optional[bool]):
+                 nan_guard: bool, paged_impl: str, graphs: Optional[bool],
+                 capture_stats: bool = False):
         self.model = build_model(cfg)
+        self.capture_stats = capture_stats
+        self.last_stats = None              # (B, 4) of the last call
         self.chunk = chunk
         self.sample, self.temperature, self.seed = sample, temperature, seed
         self.eos_id, self.nan_guard = eos_id, nan_guard
@@ -331,6 +400,12 @@ class PagedDecodeLoop:
         st.done.copy_(nd)
         st.anom.logical_or_(bad)
         st.j.add_(1)
+        if st.lastrow is not None:
+            # the latest FINITE active row per slot (a poisoned row never
+            # lands in the sample); ``bad`` counts every non-finite step
+            upd = (~halt & finite)[:, None]
+            st.lastrow.copy_(torch.where(upd, last.float(), st.lastrow))
+            st.nonf.add_(bad.float())
 
     def slots(self, params, pool, B: int, maxp: int) -> DecodeSlots:
         """The static buffers for ``B`` slots of ``maxp``-page tables over
@@ -341,10 +416,13 @@ class PagedDecodeLoop:
         ``params`` alive."""
         device = pool["k"].device
         key = (id(params), B, maxp, pool["k"].dtype,
-               tuple(t.data_ptr() for t in pool.values()))
+               tuple(t.data_ptr() for t in pool.values()),
+               self.capture_stats)
         if key != self._key:
             self._key, self._slots = None, None    # free the old graph
-            st = DecodeSlots(B, self.chunk, maxp, device, self.fill)
+            vocab = (params.embed.table.shape[0] if self.capture_stats
+                     else None)
+            st = DecodeSlots(B, self.chunk, maxp, device, self.fill, vocab)
             st.params = params
             capture = (self.graphs if self.graphs is not None
                        else device.type == "cuda")
@@ -404,6 +482,10 @@ class PagedDecodeLoop:
             else:
                 self.step(params, st, pool)
             steps += 1
+        if st.lastrow is not None:
+            stats = logit_stats(st.lastrow)
+            stats[:, 3] = st.nonf
+            self.last_stats = stats
         return (st.buf.clone(), st.cur.clone(), pool, st.pos.clone(),
                 st.rem.clone(), st.done.clone(), st.anom.clone(), steps)
 
@@ -413,7 +495,8 @@ def make_paged_decode_loop(cfg: ArchConfig, chunk: int, *,
                            eos_id: Optional[int] = None, seed: int = 0,
                            nan_guard: bool = True,
                            paged_impl: str = "stream",
-                           graphs: Optional[bool] = None) -> PagedDecodeLoop:
+                           graphs: Optional[bool] = None,
+                           capture_stats: bool = False) -> PagedDecodeLoop:
     """Decode over paged slots, up to ``chunk`` steps per call.
 
     ``paged_impl`` picks the attention lowering of each step: "stream"
@@ -442,8 +525,20 @@ def make_paged_decode_loop(cfg: ArchConfig, chunk: int, *,
     steps)``; ``steps`` is the number of decode steps (forward passes) it
     ran; ``cur``, ``pos``, ``rem`` and ``table`` may be host or device
     tensors.
+
+    With ``capture_stats`` the loop's ``last_stats`` holds, after each
+    call, a (B, 4) float32 device tensor per slot: ``[logit absmax,
+    entropy, top1-margin, non-finite step count]`` (``logit_stats``
+    columns).  Columns 0-2 are taken once a call from each slot's latest
+    finite-step logit row, carried in ``DecodeSlots.lastrow`` (a masked
+    row copy a step) and reduced after the chunk, outside the graph;
+    column 3 counts the NaN guard's ``bad`` steps exactly, so ``anom`` is
+    its thresholded view.  A slot that took no finite step keeps an
+    all-zero row (margin 0 after reduction): the engine skips rows that
+    took no step.  Without it ``last_stats`` stays None and the step is
+    the one without capture.
     """
     return PagedDecodeLoop(cfg, chunk, sample=sample,
                            temperature=temperature, eos_id=eos_id, seed=seed,
                            nan_guard=nan_guard, paged_impl=paged_impl,
-                           graphs=graphs)
+                           graphs=graphs, capture_stats=capture_stats)

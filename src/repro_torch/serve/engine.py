@@ -38,11 +38,20 @@ attention: "stream" (the paged flash-decode kernel) or "gather" (the parity
 oracle).  Both sample with ``sample=True`` at ``temperature`` from
 ``seed`` (``serve/decode.py:sample_tokens``).
 
+Both take ``obs`` (``repro_torch.obs.Obs``; a fresh one by default), as
+``repro``'s do: its registry backs ``stats()``, and with ``obs.enabled``
+each request gets a trace, each dispatch a profiler span priced against
+the card's ``HardwareSpec`` (``stats()["roofline"]``), and the continuous
+engine folds the numerics capture of its prefill and decode steps into the
+health plane (``obs/health.py``), with the int8 pool's and planes'
+quantization telemetry and, with ``shadow_sample``, the shadow oracle.
+Spans end at the host reads each dispatch already makes (the prefill's
+token, the decode loop's ``done`` and outputs): obs adds no
+synchronisation inside the replayed step.
+
 ``repro``'s ``mesh`` argument is not taken: on one card a placement is a
-no-op.  ``repro``'s ``obs`` becomes ``registry`` (the port's counters).
-Not ported yet: request traces, the profiler's roofline attribution, the
-numerics health plane and shadow oracle (with the quantization histograms
-that ride it), fault injection and meshes.
+no-op.  Not ported yet: fault injection (``faults=`` raises, ROADMAP
+A.13) and meshes.
 """
 from __future__ import annotations
 
@@ -58,8 +67,10 @@ from ..device import resolve_device, synchronize
 from ..kernels import ops as kops
 from ..models.registry import build_model
 from ..models.transformer import cache_bytes, layer_kinds, window_for
-from ..obs.metrics import Registry
-from ..quant.codec import QuantPolicy
+from ..obs import BYTES_BUCKETS, RATIO_BUCKETS, Obs
+from ..obs.health import SCALE_BUCKETS, HealthPlane, ShadowOracle
+from ..quant.codec import QuantPolicy, plane_clip_report
+from ..roofline.analysis import ServingCounts
 from . import decode as dec
 from . import kvcache as kvc
 from .params import precompute_serving_params
@@ -73,11 +84,12 @@ ENGINE_COUNTERS = ("requests", "tokens", "prompt_tokens",
                    "dispatches")
 
 
-def _engine_stats_view(registry: Registry, engine: str) -> Dict:
+def _engine_stats_view(obs: Obs, engine: str) -> Dict:
     """The half of ``stats()`` both engines share (``repro``'s
-    ``_engine_stats_view``): the counters, pad waste, and tokens/s over
-    prefill plus decode time."""
-    v = registry.value
+    ``_engine_stats_view``): the counters, pad waste, tokens/s over
+    prefill plus decode time, and the profiler's hardware and per-kind
+    roofline summary."""
+    v = obs.registry.value
     st = {"engine": engine}
     for name in ENGINE_COUNTERS:
         val = v(name)
@@ -86,7 +98,16 @@ def _engine_stats_view(registry: Registry, engine: str) -> Dict:
                               - st["prompt_tokens"])
     st["tokens_per_s"] = st["tokens"] / max(
         st["prefill_s"] + st["decode_s"], 1e-9)
+    st["hardware"] = obs.profiler.spec.name
+    st["roofline"] = obs.profiler.summary()
     return st
+
+
+def _dense_kv_bytes(cfg: ArchConfig) -> int:
+    """Bytes of one position of one layer's K and V in the float32 dense
+    cache."""
+    a = cfg.attention
+    return 2 * a.num_kv_heads * a.head_dim * 4
 
 
 def _engine_device(params, device) -> torch.device:
@@ -145,7 +166,10 @@ class Engine:
     ``stats()`` adds ``prefills`` and ``decode_steps`` (forward passes) to
     the shared counters, ``cache_bytes`` (the largest cache it allocated:
     KV, ring, cross K/V and recurrent state) and ``dispatch_kinds`` (the
-    prefill and decode-loop shapes it served).
+    prefill and decode-loop shapes it served).  With ``obs.enabled`` every
+    request is traced (enqueue at ``generate``, admit at its batch's
+    start, first token after the prefill, retire after the decode) and the
+    prefill and the decode loop (not ``per_token``'s steps) are profiled.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, max_batch: int = 8,
@@ -154,7 +178,7 @@ class Engine:
                  eos_id: Optional[int] = None, temperature: float = 1.0,
                  seed: int = 0, bucket_prompts: bool = True,
                  quant: Optional[QuantPolicy] = None,
-                 registry: Optional[Registry] = None, device=None):
+                 obs: Optional[Obs] = None, device=None):
         if decode_mode not in ("scan", "per_token"):
             raise ValueError(f"decode_mode {decode_mode!r}: expected 'scan' "
                              f"or 'per_token'")
@@ -186,11 +210,18 @@ class Engine:
                                             temperature=temperature,
                                             seed=seed)
         self._loops: Dict[int, object] = {}
-        self.registry = registry if registry is not None else Registry()
-        reg = self.registry
+        # telemetry: the registry IS the stats() backing store; counters
+        # are held directly so the hot path is one float add
+        self.obs = obs if obs is not None else Obs()
+        self.obs.profiler.bind_device(self.device)
+        reg = self.obs.registry
         self._ctr = {n: reg.counter(n) for n in ENGINE_COUNTERS}
         self._c_steps = reg.counter("engine.decode_steps")
         self._c_prefills = reg.counter("engine.prefills")
+        self._h_prefill = reg.histogram("engine.prefill_dispatch_s")
+        self._h_decode = reg.histogram("engine.decode_dispatch_s")
+        self._counts = ServingCounts(self.params, cfg, _dense_kv_bytes(cfg))
+        self._order = 0                     # trace submission order
         self._cache_bytes = 0               # largest dense cache so far
         self._kinds: set = set()            # prefill / decode shapes served
 
@@ -222,15 +253,25 @@ class Engine:
                                           reqs[i].max_new_tokens))
         else:
             order = list(range(len(reqs)))
+        # every request enqueues now; a later batch's traces carry the
+        # queue wait its bucket imposed (admit - enqueue)
+        t_enq = self.obs.now()
+        traces = [None] * len(reqs)
+        if self.obs.enabled:
+            for i, r in enumerate(reqs):
+                traces[i] = self.obs.trace_start(r.id, self._order,
+                                                 len(r.prompt), t_enq)
+                self._order += 1
         out: List[Optional[Dict]] = [None] * len(reqs)
         for i in range(0, len(order), self.max_batch):
             idxs = order[i:i + self.max_batch]
             for j, r in zip(idxs, self._generate_batch(
-                    [reqs[j] for j in idxs])):
+                    [reqs[j] for j in idxs], [traces[j] for j in idxs])):
                 out[j] = r
         return out
 
-    def _generate_batch(self, reqs: Sequence[Request]) -> List[Dict]:
+    def _generate_batch(self, reqs: Sequence[Request],
+                        traces: Sequence) -> List[Dict]:
         t0 = time.perf_counter()
         batch = self._make_batch(reqs)
         B, S = batch["tokens"].shape
@@ -300,7 +341,42 @@ class Engine:
         c["decode_s"].inc(decode_s)
         self._c_prefills.inc()
         self._c_steps.inc(n)
+        if self.obs.enabled:
+            self._observe_batch(reqs, traces, out, (B, S, steps, n),
+                                (t0, t1, t2))
+        self.obs.tick()
         return out
+
+    def _observe_batch(self, reqs, traces, out, shape, marks) -> None:
+        """A batch's profiler spans (its prefill, and the decode loop in
+        ``scan`` mode), histograms and traces."""
+        B, S, steps, n = shape
+        t0, t1, t2 = marks
+        obs, prof = self.obs, self.obs.profiler
+        lens = [len(r.prompt) for r in reqs]
+        flops, nbytes = self._counts.prefill(lens)
+        cost = prof.register(dec.batch_prefill_kind(B, S), flops, nbytes)
+        prof.on_dispatch(cost, obs.rebase(t0), obs.rebase(t1))
+        if self.decode_mode == "scan" and n:
+            # row i decodes its tokens 2.. at positions S_i .. (keys S_i+1..)
+            ctx = [s + j for s, res in zip(lens, out)
+                   for j in range(1, res["decode_len"])]
+            flops, nbytes = self._counts.decode(ctx, n, B)
+            cost = prof.register(dec.batch_decode_kind(steps, B), flops,
+                                 nbytes)
+            prof.on_dispatch(cost, obs.rebase(t1), obs.rebase(t2))
+        self._h_prefill.observe(t1 - t0)
+        self._h_decode.observe(t2 - t1)
+        for tr, res in zip(traces, out):
+            if tr is None:
+                continue
+            tr.status = res["status"]
+            tr.mark_admit(obs.rebase(t0))
+            tr.mark_first_token(obs.rebase(t1))
+            if res["decode_len"] > 1:
+                tr.mark_chunk(obs.rebase(t2), res["decode_len"] - 1)
+            tr.mark_retire(obs.rebase(t2))
+            obs.trace_finish(tr)
 
     def _decode_per_token(self, nxt, cache, S: int, steps: int):
         """One decode-step call per token (the oracle's host loop).
@@ -314,11 +390,13 @@ class Engine:
 
     def stats(self) -> Dict:
         """Engine counters (``repro``'s shared schema; ``batches`` is its
-        alias of ``dispatches``)."""
-        st = _engine_stats_view(self.registry, "batch")
+        alias of ``dispatches``) and the port's additions (``prefills`` to
+        ``device``)."""
+        st = _engine_stats_view(self.obs, "batch")
         st["batches"] = st["dispatches"]
-        st["prefills"] = int(self.registry.value("engine.prefills"))
-        st["decode_steps"] = int(self.registry.value("engine.decode_steps"))
+        v = self.obs.registry.value
+        st["prefills"] = int(v("engine.prefills"))
+        st["decode_steps"] = int(v("engine.decode_steps"))
         st["cache_bytes"] = self._cache_bytes
         st["dispatch_kinds"] = sorted(self._kinds)
         st["quant_policy"] = self.quant.describe()
@@ -334,6 +412,13 @@ class ContinuousEngine:
     ``device`` defaults to the CUDA card; ``params`` must already be on it.
     ``decode_steps`` counts forward passes of the decode loop and
     ``prefills`` counts prefill calls (both also in ``stats()``).
+
+    The numerics capture rides ``obs.enabled``; ``capture=False`` opts an
+    enabled ``obs`` out of it (the middle arm of the overhead
+    measurement: traces and spans without the health plane).
+    ``shadow_sample`` replays that fraction of FINISHED requests through
+    the float32 dense-cache oracle between dispatches
+    (``obs/health.py:ShadowOracle``).  ``faults`` is not ported (raises).
     """
 
     def __init__(self, cfg: ArchConfig, params, *, max_slots: int = 4,
@@ -348,7 +433,12 @@ class ContinuousEngine:
                  admission: str = "optimistic",
                  max_queue: Optional[int] = None,
                  max_preemptions: int = 4, nan_guard: bool = True,
-                 registry: Optional[Registry] = None, device=None):
+                 obs: Optional[Obs] = None, faults=None,
+                 shadow_sample: float = 0.0,
+                 capture: Optional[bool] = None, device=None):
+        if faults is not None:
+            raise NotImplementedError("fault injection (faults=) is not "
+                                      "ported yet (ROADMAP A.13)")
         if paged_attn not in ("stream", "gather"):
             raise ValueError(f"paged_attn {paged_attn!r}: "
                              f"expected 'stream' or 'gather'")
@@ -387,8 +477,13 @@ class ContinuousEngine:
         self.num_pages = num_pages
         self.pool = kvc.build_pool(cfg, num_pages, page_size, self.quant,
                                    device=self.device)
-        self.registry = registry if registry is not None else Registry()
-        reg = self.registry
+        # telemetry: the registry backs stats(); the allocator and the
+        # scheduler write their own gauges and counters into it
+        self.obs = obs if obs is not None else Obs()
+        self.obs.profiler.bind_device(self.device)
+        reg = self.obs.registry
+        self._capture = (self.obs.enabled if capture is None
+                         else bool(capture) and self.obs.enabled)
         self.block_table = kvc.BlockTable(
             kvc.PageAllocator(num_pages, registry=reg),
             max_slots, page_size, self.max_pages_per_slot)
@@ -397,10 +492,15 @@ class ContinuousEngine:
                                    registry=reg, admission=admission,
                                    max_queue=max_queue,
                                    max_preemptions=max_preemptions)
+        # the control-plane gauges sampled at every dispatch end (the
+        # Chrome trace's counter tracks)
+        for gname in ("pool.free_pages", "sched.queue_depth",
+                      "sched.tokens_in_flight"):
+            self.obs.profiler.watch(gname)
         self._loop = dec.make_paged_decode_loop(
             cfg, decode_chunk, sample=sample, temperature=temperature,
             eos_id=eos_id, seed=seed, nan_guard=nan_guard,
-            paged_impl=paged_attn)
+            paged_impl=paged_attn, capture_stats=self._capture)
         # the decode step's static buffers (on the card its CUDA graph,
         # captured here, before the first request)
         with torch.no_grad():
@@ -415,14 +515,63 @@ class ContinuousEngine:
         self._c_anom = reg.counter("engine.anomalies")
         self._c_steps = reg.counter("engine.decode_steps")
         self._c_prefills = reg.counter("engine.prefills")
-        # saturation census of the int8 pool's prefill page writes
+        self._h_prefill = reg.histogram("engine.prefill_dispatch_s")
+        self._h_chunk = reg.histogram("engine.decode_chunk_s")
+        self._h_occup = reg.histogram("sched.slot_occupancy",
+                                      bounds=RATIO_BUCKETS)
+        self._h_attn_bytes = reg.histogram("attn.bytes_per_token",
+                                           bounds=BYTES_BUCKETS)
+        self._c_growths = reg.counter("quant.scale_growths")
+        attn = kvc.attention_bytes_per_position(self.pool)
+        self._attn_per_pos = attn["per_pos"]
+        self._counts = ServingCounts(self.params, cfg, attn["widest"])
+        # numerics health plane: folds the capture of the prefill and
+        # decode steps, so the NaN guard becomes the degenerate case of
+        # labelled absmax / entropy / margin histograms
+        self._health = HealthPlane(reg) if self._capture else None
+        # quantization telemetry: the int8 pool's prefill saturation census
+        # (values at the rail), the planes' census, and a host copy of the
+        # pool's scales whose growth each decode dispatch counts
         self._c_kv_clip = reg.counter("quant.clip.kv_clipped")
         self._c_kv_total = reg.counter("quant.clip.kv_total")
+        self._g_kv_clip = reg.gauge("quant.kv_clip_rate")
+        if self._capture and self.quant.quant_weights:
+            prep = plane_clip_report(self.params)
+            reg.counter("quant.clip.plane_clipped").inc(prep["clipped"])
+            reg.counter("quant.clip.plane_total").inc(prep["total"])
+            reg.gauge("quant.plane_clip_rate").set(
+                prep["clipped"] / max(prep["total"], 1))
+        self._scales_host = (kvc.pool_scale_map(self.pool)
+                             if self._capture and self.quant.kv_quantized
+                             else None)
+        self._h_scale = {}
+        if self._scales_host is not None:
+            for k in ("k_scale", "v_scale"):
+                self._h_scale[k] = reg.histogram("quant." + k,
+                                                 bounds=SCALE_BUCKETS)
+            self._h_grow = reg.histogram("quant.scale_grow_ratio",
+                                         bounds=RATIO_BUCKETS)
+            # a grown page rescales its resident int8 values: each
+            # element's round-off is at most new_scale / 2
+            self._c_requant = reg.counter("quant.requant_error_bound")
+        self._shadow = None
+        if shadow_sample > 0.0:
+            if not precompute:
+                raise ValueError("shadow_sample needs precompute=True: the "
+                                 "oracle bakes float32 planes from the "
+                                 "generators")
+            self._shadow = ShadowOracle(cfg, self.params, policy=self.quant,
+                                        registry=reg, sample=shadow_sample,
+                                        seed=seed, page_size=page_size)
+        self._traces: Dict[int, object] = {}     # submission order -> trace
         self._t0_perf = None                # serve-clock origin (perf)
         self._results: Dict[int, Dict] = {}      # order -> terminal result
         self._cancels: set = set()          # request ids pending cancel
         self._stall_streak = 0              # consecutive all-stalled rounds
         self._stall_limit = 3               # then FAIL the youngest stalled
+        # every counter above now exists at its true zero: SLO rate
+        # windows cover the whole serve
+        self.obs.baseline()
 
     # -- public lifecycle API ---------------------------------------------
     def _now(self) -> float:
@@ -430,6 +579,15 @@ class ContinuousEngine:
         if self._t0_perf is None:
             self._t0_perf = time.perf_counter()
         return time.perf_counter() - self._t0_perf
+
+    def reset_serve_clock(self) -> None:
+        """Re-anchor the serve clock at the next submit or step (a fleet
+        replica adopting a warmed engine: arrival and deadline stamps are
+        router-relative).  Only while idle: in-flight work carries stamps
+        on the current clock."""
+        if not self.scheduler.idle:
+            raise RuntimeError("reset_serve_clock with work in flight")
+        self._t0_perf = None
 
     def submit(self, request: Request, arrival_s: float = 0.0, *,
                resume_tokens: Optional[Sequence[int]] = None,
@@ -448,6 +606,12 @@ class ContinuousEngine:
         order, accepted = self.scheduler.submit(request, arrival_s,
                                                 resume_tokens=resume,
                                                 preemptions=preemptions)
+        if self.obs.enabled:
+            # the timeline starts at the (possibly simulated) arrival, so
+            # queue_s covers the admission wait
+            self._traces[order] = self.obs.trace_start(
+                request.id, order, len(request.prompt),
+                self.obs.rebase(self._t0_perf) + arrival_s)
         if not accepted:
             self._finish_unserved(order, request, resume, REJECTED,
                                   preemptions=preemptions)
@@ -485,11 +649,20 @@ class ContinuousEngine:
             if not self._step(self._now()):
                 raise RuntimeError("drain stall: in-flight work cannot "
                                    "make progress")
+        if self._shadow is not None:
+            self._shadow.drain()
+        self.obs.close()
         return [self._results[o] for o in sorted(set(self._results) - before)]
 
     def result(self, order: int, pop: bool = False) -> Optional[Dict]:
         return (self._results.pop(order, None) if pop
                 else self._results.get(order))
+
+    @property
+    def anomalies(self) -> int:
+        """Cumulative NaN / Inf-guard trips (the health signal a fleet
+        replica folds into its DEGRADED transitions)."""
+        return int(self._c_anom.value)
 
     # -- serving loop -----------------------------------------------------
     def generate(self, reqs: Sequence[Request],
@@ -520,6 +693,9 @@ class ContinuousEngine:
                 raise RuntimeError(
                     "scheduler stall: queued request cannot be admitted "
                     "into an idle engine (budget/pool too small)")
+        if self._shadow is not None:
+            # pending replays publish agreement / drift before stats()
+            self._shadow.drain()
         return [self._results.pop(o) for o in orders]
 
     def _step(self, now_s: float,
@@ -551,9 +727,13 @@ class ContinuousEngine:
             self._prefill_slot(slot)
             progress = True
         prep = sched.prepare_decode(self.decode_chunk)
-        for idx, _ in prep.preempted:
+        t_pre = self.obs.rebase(time.perf_counter())
+        for idx, entry in prep.preempted:
             self._rem[idx] = 0              # victim's slot is dead on device
             progress = True
+            tr = self._traces.get(entry.order)
+            if tr is not None:
+                tr.mark_preempt(t_pre, len(entry.resume_tokens))
         if admitted or prep.preempted or prep.runnable:
             self._stall_streak = 0
         if prep.runnable:
@@ -568,12 +748,16 @@ class ContinuousEngine:
                 victim = max(prep.stalled, key=lambda s: s.order)
                 self._finish(victim, FAILED)
                 self._stall_streak = 0
+        if self._shadow is not None:
+            self._shadow.tick()     # at most one replay, off the hot path
+        self.obs.tick()             # the emitter rides the dispatch cadence
         return progress
 
     def _prefill_fn(self, n_pages: int):
         fn = self._prefills.get(n_pages)
         if fn is None:
-            fn = dec.make_prefill_pack_step(self.cfg, n_pages, self.page_size)
+            fn = dec.make_prefill_pack_step(self.cfg, n_pages, self.page_size,
+                                            capture_stats=self._capture)
             self._prefills[n_pages] = fn
         return fn
 
@@ -593,24 +777,46 @@ class ContinuousEngine:
         pages = torch.as_tensor(self.block_table.pages(slot.index)[:n_pages],
                                 dtype=torch.int64, device=self.device)
         with torch.no_grad():
-            nxt, ok, self.pool, kv_clip = self._prefill_fn(n_pages)(
+            nxt, ok, self.pool, pstats = self._prefill_fn(n_pages)(
                 self.params, batch, self.pool, pages, S)
             first, ok = int(nxt), bool(ok)
-            if kv_clip is not None:            # one transfer for both
-                clipped, total = torch.stack(kv_clip).tolist()
-                self._c_kv_clip.inc(clipped)
-                self._c_kv_total.inc(total)
+            # the capture is one flat vector: one transfer a prefill
+            arr = (None if pstats is None
+                   else pstats.cpu().numpy().astype(np.float64))
         synchronize(self.device)
-        dt = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        dt = t1 - t0
+        obs = self.obs
+        if obs.enabled:
+            flops, nbytes = self._counts.prefill([S])
+            obs.profiler.on_dispatch(
+                obs.profiler.register(dec.prefill_kind(n_pages), flops,
+                                      nbytes),
+                obs.rebase(t0), obs.rebase(t1))
+            self._h_prefill.observe(dt)
         self._ctr["prefill_s"].inc(dt)
         self._ctr["prompt_tokens"].inc(S)
         self._ctr["padded_prompt_tokens"].inc(spad)
         self._c_prefills.inc()
         slot.prefill_s = dt
+        if arr is not None:
+            # fold BEFORE the guard: a poisoned prefill bumps
+            # health.nonfinite_* in the dispatch the guard retires it
+            # ([logit(4) | kv_clipped | kv_total | act_absmax...])
+            self._health.on_prefill({"logit": arr[:4],
+                                     "act_absmax": arr[6:]})
+            if arr[5] > 0:
+                self._c_kv_clip.inc(float(arr[4]))
+                self._c_kv_total.inc(float(arr[5]))
+                self._g_kv_clip.set(self._c_kv_clip.value
+                                    / max(self._c_kv_total.value, 1.0))
+        tr = self._traces.get(slot.order)
         if self.nan_guard and not ok:
             # poisoned prefill: never stream a garbage first token
             self._c_anom.inc()
             self._rem[slot.index] = 0
+            if tr is not None and tr.admit_s is None:
+                tr.mark_admit(obs.rebase(self._t0_perf) + slot.admit_s)
             self._finish(slot, FAILED)
             return
         slot.tokens.append(first)
@@ -620,6 +826,20 @@ class ContinuousEngine:
         self._pos[slot.index] = S
         self._rem[slot.index] = slot.budget
         self._ctr["tokens"].inc()          # the prefill-emitted token
+        if tr is not None:
+            if tr.admit_s is None:         # first admission of the request
+                tr.mark_admit(obs.rebase(self._t0_perf) + slot.admit_s)
+                tr.mark_first_token(obs.rebase(t1))
+            else:                          # recompute-prefill after preempt
+                tr.mark_chunk(obs.rebase(t1), 1)
+        if self._scales_host is not None:
+            # fresh pages carry new scales (not growth): census them and
+            # refresh the host copy so the next decode diff is clean
+            new = kvc.pool_scale_map(self.pool)
+            for k, h in self._h_scale.items():
+                h.observe_many(new[k][(new[k] != self._scales_host[k])
+                                      & (new[k] > 0)])
+            self._scales_host = new
         if (len(slot.tokens) >= slot.total_budget
                 or (self.eos_id is not None and first == self.eos_id)):
             self._rem[slot.index] = 0
@@ -640,14 +860,18 @@ class ContinuousEngine:
             table.copy_(torch.from_numpy(self.block_table.table))
             self._table_version = self.block_table.version
         host = torch.from_numpy
+        pos_before = self._pos.copy()
         with torch.no_grad():
             buf, cur, self.pool, pos, rem, done, anom, steps = self._loop(
                 self.params, host(self._cur), self.pool, table,
                 host(self._pos), host(rem_dispatch))
             buf, cur, pos, rem, done, anom = (
                 t.cpu().numpy() for t in (buf, cur, pos, rem, done, anom))
+            dstats = (None if self._loop.last_stats is None
+                      else self._loop.last_stats.cpu().numpy())
         synchronize(self.device)
-        dt = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        dt = t1 - t0
         self._cur = cur.copy()
         self._pos = pos.copy()
         rem_after = rem.copy()
@@ -658,18 +882,63 @@ class ContinuousEngine:
         self._ctr["decode_s"].inc(dt)
         self._ctr["dispatches"].inc()
         self._c_steps.inc(steps)
+        advanced = rem_dispatch - rem_after
+        if self.obs.enabled:
+            self._observe_decode(runnable, advanced, pos_before, steps,
+                                 dstats, t0, t1)
+        t_chunk = self.obs.rebase(t1)
         for slot in runnable:
             b = slot.index
-            n = int(rem_dispatch[b] - rem_after[b])
+            n = int(advanced[b])
             if n:
                 slot.tokens.extend(buf[b, :n].tolist())
                 slot.pos = int(self._pos[b])
                 self._ctr["tokens"].inc(n)
+                tr = self._traces.get(slot.order)
+                if tr is not None:
+                    tr.mark_chunk(t_chunk, n)
             if anom[b]:
                 self._c_anom.inc()
                 self._finish(slot, FAILED)
             elif done[b]:
                 self._finish(slot)
+
+    def _observe_decode(self, runnable, advanced, pos_before, steps,
+                        dstats, t0, t1) -> None:
+        """A decode dispatch's profiler span, histograms, health fold and
+        int8-pool scale census (obs enabled)."""
+        obs = self.obs
+        # slot b decoded advanced[b] tokens from pos_before[b], each
+        # attending to its position + 1 keys
+        ctx = [int(p) + 1 + i for p, n in zip(pos_before, advanced)
+               for i in range(int(n))]
+        flops, nbytes = self._counts.decode(ctx, steps, len(runnable))
+        obs.profiler.on_dispatch(
+            obs.profiler.register(dec.DECODE_CHUNK_KIND, flops, nbytes),
+            obs.rebase(t0), obs.rebase(t1))
+        self._h_chunk.observe(t1 - t0)
+        self._h_occup.observe(len(runnable) / max(self.max_slots, 1))
+        live = self._pos[[s.index for s in runnable if advanced[s.index]]]
+        if live.size:
+            # the bytes attention streamed for each slot that advanced
+            self._h_attn_bytes.observe_many(self._attn_per_pos * live)
+        if dstats is not None:
+            # rows of slots that took no step hold init sentinels or stale
+            # rows and are skipped by the fold
+            self._health.on_decode(dstats, steps=advanced)
+        if self._scales_host is not None:
+            new = kvc.pool_scale_map(self.pool)
+            grown = 0
+            for k, old in self._scales_host.items():
+                g = new[k] > old
+                if g.any():
+                    grown += int(g.sum())
+                    ns, olds = new[k][g], old[g]
+                    self._c_requant.inc(float(0.5 * ns.sum()))
+                    self._h_grow.observe_many((olds / ns)[ns > 0])
+                    self._h_scale[k].observe_many(ns)
+            self._c_growths.inc(grown)
+            self._scales_host = new
 
     # -- terminal transitions ---------------------------------------------
     def _finish(self, slot, status: Optional[str] = None) -> None:
@@ -680,26 +949,51 @@ class ContinuousEngine:
                       if (self.eos_id is not None and toks
                           and toks[-1] == self.eos_id)
                       else FINISHED_BUDGET)
+        if (self._shadow is not None
+                and status in (FINISHED_EOS, FINISHED_BUDGET)):
+            # only cleanly finished requests are replayable (their whole
+            # greedy trajectory exists); replays run between dispatches
+            self._shadow.maybe_enqueue(np.asarray(slot.request.prompt),
+                                       len(slot.tokens))
         now = self._now()
         prefill_s = getattr(slot, "prefill_s", 0.0)
         arrival, admit = slot.arrival_s, slot.admit_s
         self._rem[slot.index] = 0           # device slot is dead
         res = self.scheduler.retire(slot, status)  # releases the pages
-        decode_s = max(now - admit - prefill_s, 0.0)
-        res.update({
-            "tokens_per_s": res["decode_len"] / max(decode_s, 1e-9),
-            "prefill_s": prefill_s,
-            "decode_s": decode_s,
-            "queue_s": max(admit - arrival, 0.0),
-            "latency_s": max(now - arrival, 0.0),
-        })
+        tr = self._traces.pop(res["order"], None)
+        if tr is not None:
+            # one timeline: the result's latencies come from the trace
+            tr.status = status
+            # clamp: a cancel or timeout can land before a simulated arrival
+            tr.mark_retire(max(self.obs.rebase(self._t0_perf) + now,
+                               tr.enqueue_s))
+            self.obs.trace_finish(tr)
+            decode_s = tr.decode_s if tr.decode_s is not None else 0.0
+            res.update({
+                "tokens_per_s": res["decode_len"] / max(decode_s, 1e-9),
+                "prefill_s": tr.prefill_s,
+                "decode_s": decode_s,
+                "queue_s": tr.queue_s,
+                "latency_s": tr.latency_s,
+            })
+        else:
+            decode_s = max(now - admit - prefill_s, 0.0)
+            res.update({
+                "tokens_per_s": res["decode_len"] / max(decode_s, 1e-9),
+                "prefill_s": prefill_s,
+                "decode_s": decode_s,
+                "queue_s": max(admit - arrival, 0.0),
+                "latency_s": max(now - arrival, 0.0),
+            })
         self._ctr["requests"].inc()
         self._results[res.pop("order")] = res
 
     def _finish_unserved(self, order: int, request, tokens, status: str,
                          preemptions: int = 0) -> None:
         """Terminal result for a request that never (re)entered a slot."""
-        self._results[order] = {
+        now = self._now()
+        tr = self._traces.pop(order, None)
+        res = self._results[order] = {
             "id": request.id,
             "tokens": list(tokens),
             "decode_len": len(tokens),
@@ -711,26 +1005,40 @@ class ContinuousEngine:
             "queue_s": None,
             "latency_s": None,
         }
+        if tr is not None:
+            tr.status = status
+            tr.mark_retire(max(self.obs.rebase(self._t0_perf) + now,
+                               tr.enqueue_s))
+            self.obs.trace_finish(tr)
+            res["latency_s"] = tr.latency_s
+            res["queue_s"] = tr.latency_s   # never admitted: all queue wait
 
     # -- telemetry --------------------------------------------------------
     def stats(self) -> Dict:
-        """Engine + scheduler counters (``repro``'s schema, where ported)."""
-        v = self.registry.value
-        st = _engine_stats_view(self.registry, "continuous")
+        """Engine + scheduler telemetry (``repro``'s schema) and the port's
+        additions (``decode_steps``, ``prefills``, ``decode_graphs``,
+        ``decode_capture_s``, ``device``)."""
+        v = self.obs.registry.value
+        st = _engine_stats_view(self.obs, "continuous")
         st["decode_dispatches"] = st["dispatches"]
         st.update(self.scheduler.stats())
         st["anomalies"] = int(v("engine.anomalies"))
         st["decode_steps"] = int(v("engine.decode_steps"))
         st["prefills"] = int(v("engine.prefills"))
         st["free_pages"] = int(v("pool.free_pages"))
-        low = self.registry.gauge("pool.free_pages").min_seen
+        low = self.obs.registry.gauge("pool.free_pages").min_seen
         st["min_free_pages"] = (int(low) if low is not None
                                 else st["free_pages"])
         st["pages_alloc"] = int(v("pool.pages_alloc"))
         st["pages_freed"] = int(v("pool.pages_freed"))
+        st["scale_growths"] = int(v("quant.scale_growths"))
         kv_total = v("quant.clip.kv_total")
         st["kv_clip_rate"] = (v("quant.clip.kv_clipped") / kv_total
                               if kv_total else None)
+        if self._health is not None:
+            st["health"] = self._health.stats()
+        if self._shadow is not None:
+            st["shadow_oracle"] = self._shadow.stats()
         st["pool_bytes"] = kvc.pool_bytes(self.pool)
         st["kv_pool_bytes"] = st["pool_bytes"]
         st["quant_policy"] = self.quant.describe()

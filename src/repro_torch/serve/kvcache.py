@@ -280,7 +280,7 @@ def pool_scale_map(pool: Dict[str, torch.Tensor]
                    ) -> Optional[Dict[str, np.ndarray]]:
     """Flat host copies ``{"k_scale": ..., "v_scale": ...}`` of an int8
     pool's scales, or None for an unquantized pool."""
-    out = {key: pool[key].detach().cpu().numpy().ravel()
+    out = {key: pool[key].detach().cpu().numpy().ravel().copy()
            for key in ("k_scale", "v_scale") if key in pool}
     return out or None
 

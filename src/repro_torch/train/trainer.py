@@ -12,12 +12,16 @@
   watchdog.
 * Step-indexed data: nothing of the pipeline to restore.
 
-Telemetry goes to the port's ``obs/metrics.py`` registry: ``train.steps``,
-``train.tokens``, ``train.skipped_steps`` (counters), ``train.step_s``
-(histogram: a step's wall time, the device synchronised), ``train.loss``,
-``train.grad_norm`` and ``train.tokens_per_s`` (gauges; loss and gradient
-norm are read from the device at logging steps only).  The JSONL emitter
-of ``repro``'s ``obs`` is not ported: ``obs=`` raises (ROADMAP A.12).
+Telemetry rides the same ``obs`` plane the serving stack uses: pass
+``obs=`` (``repro_torch.obs.Obs``, or let the trainer build one) and every
+step lands in its registry: ``train.steps``, ``train.tokens``,
+``train.skipped_steps`` (counters), ``train.step_s`` (histogram: a step's
+wall time, the device synchronised), ``train.loss``, ``train.grad_norm``
+and ``train.tokens_per_s`` (gauges).  With ``obs.enabled`` the loss and
+gradient norm are read every step, as ``repro``'s trainer does (else at
+logging steps only); with an emitter attached the snapshots stream to
+JSONL on its cadence (``obs.tick()`` once a step).  ``registry`` is
+``obs.registry``.  The heartbeat file keeps its own format.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ from typing import Callable, Dict, Optional
 from . import checkpoint as ckpt
 from . import train_step as ts
 from ..device import resolve_device, synchronize
-from ..obs.metrics import Registry
+from ..obs import Obs
 from ..optim import adamw, schedule
 
 
@@ -40,12 +44,7 @@ class Trainer:
                  ckpt_every: int = 50, accum: int = 1, log_every: int = 10,
                  compress_grads: bool = False, bayesian_mode: bool = False,
                  lr_schedule=None,
-                 obs=None, device=None, seed: int = 0):
-        if obs is not None:
-            raise NotImplementedError("the JSONL telemetry emitter (obs=) is "
-                                      "not ported yet (ROADMAP A.12); the "
-                                      "trainer fills an obs/metrics.py "
-                                      "Registry")
+                 obs: Optional[Obs] = None, device=None, seed: int = 0):
         self.cfg = cfg
         self.opt_cfg = opt_cfg or adamw.AdamWConfig()
         self.workdir = workdir
@@ -55,7 +54,8 @@ class Trainer:
         self.log_every = log_every
         self.device = resolve_device(device)
         self.seed = seed
-        self.registry = reg = Registry()
+        self.obs = obs if obs is not None else Obs()
+        self.registry = reg = self.obs.registry
         self._c_steps = reg.counter("train.steps")
         self._c_tokens = reg.counter("train.tokens")
         self._c_skipped = reg.counter("train.skipped_steps")
@@ -156,20 +156,23 @@ class Trainer:
             self._c_tokens.inc(ntok)
             self._h_step.observe(dt)
             self._g_tps.set(ntok / max(dt, 1e-9))
-            if (step + 1) % self.log_every == 0 or step == start:
-                m = {k: float(v) for k, v in metrics.items()}
-                m.update(step=step + 1, step_s=dt)
-                self.history.append(m)
-                self._g_loss.set(m["loss"])
-                self._g_gnorm.set(m["grad_norm"])
+            log = (step + 1) % self.log_every == 0 or step == start
+            if log or self.obs.enabled:
+                self._g_loss.set(float(metrics["loss"]))
+                self._g_gnorm.set(float(metrics["grad_norm"]))
                 skipped = int(state["skipped"])
                 if skipped > skipped0:
                     self._c_skipped.inc(skipped - skipped0)
                     skipped0 = skipped
+            if log:
+                m = {k: float(v) for k, v in metrics.items()}
+                m.update(step=step + 1, step_s=dt)
+                self.history.append(m)
                 print(f"[trainer] step {step + 1} loss={m['loss']:.4f} "
                       f"gnorm={m['grad_norm']:.3f} skipped={skipped}",
                       flush=True)
             self._heartbeat(step + 1)
+            self.obs.tick()                # the emitter rides the step cadence
             if self._preempted or (self.ckpt_every
                                    and (step + 1) % self.ckpt_every == 0):
                 ckpt.save(ckpt_dir, step + 1, state)

@@ -816,3 +816,84 @@ def test_other_archs_train_on_card_match_cpu(cuda, arch):
     for got, ref in zip(res["cuda"][1], res["cpu"][1]):
         scale = max(1.0, float(ref.abs().max()))
         assert float((got - ref).abs().max()) <= tol * scale
+
+
+def _capture_run(cfg, model, graphs, kv_dtype):
+    """Two dispatches of the paged loop with the numerics capture over a
+    random pool (slot 1 poisoned: NaN keys on its first page): each
+    dispatch's tokens, anom and capture stats."""
+    from repro_torch.serve import decode as tdec
+    from repro_torch.serve import kvcache as tkv
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    pool = tkv.build_pool(cfg, 13, 4, codec.QuantPolicy(kv_dtype),
+                          device="cuda")
+    for key, t in pool.items():
+        if key.endswith("_scale"):
+            t.copy_(0.01 + 0.02 * torch.rand(t.shape, generator=gen,
+                                             device="cuda"))
+        elif t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                  device="cuda", dtype=torch.int8))
+        else:
+            t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    pool["k_scale" if kv_dtype == "int8" else "k"][:, 4] = float("nan")
+    table = torch.tensor([[1, 2, 3], [4, 5, 6], [0, 0, 0], [7, 8, 9]],
+                         dtype=torch.int32, device="cuda")
+    loop = tdec.make_paged_decode_loop(cfg, 4, graphs=graphs,
+                                       capture_stats=True)
+    state = [torch.tensor(v, dtype=torch.int32, device="cuda") for v in
+             ([3, 7, 0, 9], [5, 2, -1, 6], [6, 4, 0, 0])]
+    outs = []
+    with torch.no_grad():
+        for _ in range(2):
+            buf, cur, pool, pos, rem, _, anom, _ = loop(
+                model, state[0], pool, table, state[1], state[2])
+            outs.append((buf.cpu(), anom.cpu(), loop.last_stats.cpu()))
+            state = [cur, pos, rem]
+    assert loop.captures == int(graphs)
+    return outs
+
+
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+def test_replayed_capture_stats_equal_eager(cuda, kv_dtype):
+    """The numerics capture replayed from the step's CUDA graph equals the
+    same step run eagerly, bit for bit, poisoned slot and all."""
+    cfg = get_smoke_config("tinyllama-1.1b").replace(dtype="float32")
+    model = precompute_serving_params(init_params(cfg, seed=0,
+                                                  device="cuda"), cfg)
+    eager = _capture_run(cfg, model, False, kv_dtype)
+    replay = _capture_run(cfg, model, True, kv_dtype)
+    for (b0, a0, s0), (b1, a1, s1) in zip(eager, replay):
+        assert torch.equal(b0, b1) and torch.equal(a0, a1)
+        assert torch.equal(s0.nan_to_num(-1.0), s1.nan_to_num(-1.0))
+    assert bool(eager[0][1][1]) and float(eager[0][2][1, 3]) >= 1
+
+
+@pytest.mark.parametrize("quant", [None, ("int8", 8)])
+def test_profiled_fractions_on_card(cuda, quant):
+    """Priced against the h100 spec, every dispatch kind of both engines
+    on the card reads a roofline fraction in (0, 1], with capture on."""
+    from repro_torch.obs import Obs
+    from repro_torch.roofline.analysis import H100
+    cfg = get_smoke_config("tinyllama-1.1b").replace(dtype="float32")
+    policy = (codec.QuantPolicy(quant[0], quant_weights=True,
+                                weight_bits=quant[1]) if quant
+              else codec.QuantPolicy())
+    rng = np.random.RandomState(0)
+    reqs = [Request(prompt=rng.randint(1, 500, size=s).astype(np.int32),
+                    max_new_tokens=8, id=i) for i, s in enumerate((9, 23))]
+    model = init_params(cfg, seed=0, device="cuda")
+    for eng in (ContinuousEngine(cfg, model, max_slots=2, max_seq=48,
+                                 page_size=4, decode_chunk=4, quant=policy,
+                                 obs=Obs(hardware=H100), device="cuda"),
+                Engine(cfg, copy.deepcopy(model), max_batch=2, max_seq=48,
+                       quant=policy, obs=Obs(hardware=H100),
+                       device="cuda")):
+        eng.generate(reqs)
+        roof = eng.stats()["roofline"]
+        assert roof and eng.stats()["hardware"] == "h100"
+        for kind, r in roof.items():
+            assert r["dispatches"] > 0, kind
+            assert 0 < r["roofline_frac"] <= r["roofline_frac_max"] <= 1, (
+                kind, r)

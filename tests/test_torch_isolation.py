@@ -42,7 +42,13 @@ import chip_smoke
 for name in ("repro_torch.quant", "repro_torch.quant.codec",
              "repro_torch.quant.calibrate", "repro_torch.kernels.paged",
              "repro_torch.kernels.spectral_matmul", "repro_torch.layers.ffn",
-             "repro_torch.serve.decode", "repro_torch.serve.engine"):
+             "repro_torch.serve.decode", "repro_torch.serve.engine",
+             "repro_torch.obs", "repro_torch.obs.__main__",
+             "repro_torch.obs.chrometrace", "repro_torch.obs.emit",
+             "repro_torch.obs.health", "repro_torch.obs.metrics",
+             "repro_torch.obs.prof", "repro_torch.obs.slo",
+             "repro_torch.obs.trace", "repro_torch.roofline",
+             "repro_torch.roofline.analysis", "repro_torch.roofline.report"):
     assert name in names, name
 leaked = sorted(n for n in sys.modules if n == "repro" or n.startswith("repro."))
 assert not leaked, leaked

@@ -414,9 +414,13 @@ def test_launch_train_on_cpu(tmp_path):
     assert reg.value("train.steps") == 2
     assert reg.value("train.tokens") == 2 * 2 * 16
     assert np.isfinite(out["history"][0]["loss"])
-    with pytest.raises(NotImplementedError, match="A.12"):
-        train.main(["--arch", "tinyllama-1.1b", "--device", "cpu",
-                    "--metrics-out", str(tmp_path / "m.jsonl")])
+    # --metrics-out streams the trainer's obs snapshots as JSONL
+    from repro_torch.obs.emit import validate_jsonl
+    path = str(tmp_path / "m.jsonl")
+    train.main(["--arch", "tinyllama-1.1b", "--device", "cpu", "--steps",
+                "1", "--batch", "2", "--seq", "16", "--ckpt-every", "0",
+                "--workdir", str(tmp_path / "w"), "--metrics-out", path])
+    assert validate_jsonl(path)["snapshot"] == 1
 
 
 def test_train_path_never_reaches_flash(monkeypatch):
