@@ -106,6 +106,25 @@ itself.  Each phase prints one JSON line:
                 17-200 + 32 in ``OBS_ROUNDS`` paired rounds (``serve_batch``
                 also checks its fractions; ``train`` validates its
                 ``--metrics-out`` file)
+  serve_chaos   fault injection (``serve/faults.py:run_chaos``'s schedule:
+                24 requests a seed with randomized deadlines, cancels,
+                allocator failures, dispatch delays and NaN-poisoned
+                slots) at tinyllama-1.1b's full width and depth in
+                float32: three seeds on an f32 pool and one on an int8
+                pool; the chaos invariants (one terminal each, no page
+                leak, the B=1 oracle's tokens up to a near-tie, the health
+                plane sees every guard trip), one decode capture a run
+  serve_fleet   two replicas sharing the weights behind the failover
+                router (``run_fleet_chaos``): one crashed mid-serving, one
+                hanging now and then; every request settles once, the
+                survivor's pool is restored, migrated requests finish with
+                the oracle's tokens, step timeouts only at injected hangs
+  conv          the paper's block-circulant CONV layer (``core/conv.py``)
+                at cifar_wrn's three 3x3 widths, batch 128, block 16:
+                forward and both gradients through ``bc_fused`` and
+                ``bc_grad_w`` against the plain path and ``F.conv2d`` on
+                the materialized filter, times and bounds, each kernel at
+                the layer's shapes against its plain version
   decode_graph  the continuous engine's decode loop replayed from its CUDA
                 graph against the same loop run eagerly, on the f32 and
                 bf16 pools (stream), the gather path and the int8 pool,
@@ -233,6 +252,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import circulant as cc  # noqa: E402
+from repro_torch.core import conv  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.kernels import bc_fused, build  # noqa: E402
 from repro_torch.kernels import bc_grad_w as bgw  # noqa: E402
@@ -257,6 +277,7 @@ from repro_torch.quant import codec  # noqa: E402
 # time for a kernel's work on them
 from repro_torch.roofline.analysis import H100, bound, rfft_flops  # noqa: E402,E501
 from repro_torch.serve import decode as dec  # noqa: E402
+from repro_torch.serve import faults  # noqa: E402
 from repro_torch.serve import kvcache as kvc  # noqa: E402
 from repro_torch.serve.engine import (ContinuousEngine, Engine,  # noqa: E402
                                       Request, frontend_inputs)
@@ -541,6 +562,18 @@ NEW_SHAPES = {
         bgw.KERNEL, "src/repro/layers/ffn.py:106-111 (jax.vmap of "
         "bc_matmul_fft; _bc_fft_bwd's gw, XLA)", "bc_grad_w",
         "llama4_up_gate_e128_c80", "train_llama4"),
+    # the paper's CONV layer (phase conv) at cifar_wrn's g2 (128 x 16 x 16
+    # rows, 320 -> 320 channels, block 16): its forward, its input
+    # gradient's adjoint and its weight gradient, counted at the case's
+    # shape in the layer's run
+    "bc_fused@conv": (bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48",
+                      "conv_bc_fused", "conv_g2_forward", "conv"),
+    "bc_fused@conv_adjoint": (
+        bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48",
+        "conv_bc_fused", "conv_g2_adjoint", "conv"),
+    "bc_grad_w@conv": (
+        bgw.KERNEL, "src/repro/core/circulant.py:247 (_bc_fft_bwd, XLA)",
+        "conv_bc_grad_w", "conv_g2", "conv"),
 }
 
 
@@ -675,6 +708,22 @@ def new_projections(cfg):
             if blocks(*io) not in seen}
 
 
+def fused_work(B, p, q, k, row_bytes=None, scaled=False):
+    """(bytes, operations) of one ``bc_fused`` call of B rows over p x q
+    blocks: the input, the DFT panel and the output once, the three planes
+    (``row_bytes`` a plane row, float32 by default) and their scales; the
+    input and output FFTs, the Gauss MAC (3 products and 3 sums a row,
+    pair and bin) with its operand and output sums, and the scale folds."""
+    kf = k // 2 + 1
+    row_bytes = 4 * kf if row_bytes is None else row_bytes
+    nbytes = (4 * (B * q * k + 4 * k * kf + B * p * k) + 3 * p * q * row_bytes
+              + (3 * 4 * p if scaled else 0))
+    flops = (rfft_flops(B * q, k) + 6 * B * p * q * kf + B * q * kf
+             + 2 * B * p * kf + rfft_flops(B * p, k)
+             + (3 * B * p * kf if scaled else 0))
+    return nbytes, flops
+
+
 def check_bc_fused(cfg, gen, shapes=None, batches=(8, 256),
                    lane_names=("bc_fused", "bc_fused_i8", "bc_fused_i4"),
                    timing=None):
@@ -715,12 +764,8 @@ def check_bc_fused(cfg, gen, shapes=None, batches=(8, 256),
                 # order, over identical plane values: expected ~1e-6 of the
                 # output's scale, held at 1e-4
                 tol = 1e-4 * max(1.0, float(ref.abs().max()))
-                nbytes = (4 * (B * q * k + 4 * k * kf + B * p * k)
-                          + 3 * p * q * row_bytes
-                          + (0 if scales is None else 3 * 4 * p))
-                flops = (rfft_flops(B * q, k) + 6 * B * p * q * kf
-                         + B * q * kf + 2 * B * p * kf + rfft_flops(B * p, k)
-                         + (0 if scales is None else 3 * B * p * kf))
+                nbytes, flops = fused_work(B, p, q, k, row_bytes,
+                                           scales is not None)
                 bound_ms, bound_by = bound(nbytes, flops, torch.float32)
                 lanes[lane].append({
                     "case": f"{name}_b{B}", "shape": [B, p, q, k],
@@ -3442,6 +3487,333 @@ def phase_serve_obs(cfg):
     return out
 
 
+# ---------------------------------------------------------------------------
+# serve_chaos / serve_fleet: fault injection and the replicated fleet at
+# tinyllama-1.1b's full width and depth (serve/faults.py, fleet/)
+# ---------------------------------------------------------------------------
+CHAOS_SEEDS = (0, 1, 2)
+CHAOS_REQUESTS, FLEET_REQUESTS = 24, 16
+# the parity phases' near-tie rule (phase_parity): a greedy token may
+# differ from the oracle's only where the oracle's top-2 logit gap is
+# under 4 x the 1e-4 logit tolerance, of the logit scale
+NEAR_TIE = 4e-4
+# the fleet's hang replica: a step of the full-width model (its prefills
+# and a 4-step decode dispatch) takes well under a second on the card, so
+# its heartbeat bound is 1 s and the injected hang 1.25 s (repro's 3 and
+# 4 ms are below a step at this width); the other replica keeps the
+# default 5 s
+FLEET_HANG = dict(hang_step_timeout_s=1.0, hang_s=1.25)
+
+
+def reset_counts():
+    """Every kernel's launch counts to 0 (the training kernel's too)."""
+    for lib in TRAIN_LIBRARIES:
+        lib.reset_counts()
+
+
+def serving_lanes(launches, pool_lane):
+    """Every projection through ``bc_fused``, the prefill through the flash
+    kernel, the paged decode through ``pool_lane``: each launched while
+    the engine served."""
+    for lane in ("bc_fused", "flash_attention", pool_lane):
+        if not launches.get(lane):
+            raise AssertionError(f"no {lane} launch while serving: "
+                                 f"{launches}")
+
+
+def phase_serve_chaos(cfg, params):
+    """``run_chaos``'s schedule (24 requests a seed: randomized prompts,
+    budgets, deadlines, arrivals and cancels; ``FaultConfig`` allocator
+    failures 0.05, dispatch delays 0.1 of 2 ms, corruption 0.08; 4 slots
+    over a pool of half their full-grown footprint) at tinyllama-1.1b's
+    full width and depth in float32, through ``ContinuousEngine`` on the
+    card: three seeds on an f32 pool, then the first seed on an int8 pool,
+    where the poison lands in the K scales.  Each run holds invariants 1-4
+    (the B=1 ``Engine`` on the card the oracle, under the near-tie rule;
+    on the int8 pool the oracle part is that no poisoned request
+    finishes), one decode-step capture, and the kernel lanes launched
+    while serving (counts set to 0 after the oracle, before serving)."""
+    runs = []
+    for seed, kv in ([(s, "f32") for s in CHAOS_SEEDS]
+                     + [(CHAOS_SEEDS[0], "int8")]):
+        t0 = time.perf_counter()
+        s = faults.run_chaos(ARCH, seed, requests=CHAOS_REQUESTS,
+                             verbose=False, device=DEVICE, full=True,
+                             params=params, quant=codec.QuantPolicy(kv),
+                             near_tie=NEAR_TIE, on_serve=reset_counts)
+        torch.cuda.synchronize()
+        launches = lane_counts()
+        serving_lanes(launches, "paged_attention_i8" if kv == "int8"
+                      else "paged_attention")
+        if s["decode_graphs"] != 1:
+            raise AssertionError(f"serve_chaos seed {seed} {kv}: "
+                                 f"{s['decode_graphs']} decode captures")
+        if kv == "int8" and not (s["faults"]["corruptions"]
+                                 and s["anomalies"]):
+            raise AssertionError(f"serve_chaos int8: the guard did not trip "
+                                 f"({s['faults']}, {s['anomalies']})")
+        runs.append({
+            "seed": seed, "kv_dtype": kv,
+            "statuses": {k: n for k, n in s["statuses"].items() if n},
+            "preemptions": s["preemptions"], "anomalies": s["anomalies"],
+            "nonfinite_dispatches": s["health"]["nonfinite_dispatches"],
+            "alerts": s["alerts"]["by_rule"], "faults": s["faults"],
+            "oracle_parity": s["oracle_parity"],
+            "near_ties": s["near_ties"], "decode_graphs": s["decode_graphs"],
+            "pool_bytes": s["pool_bytes"], "events": s["events"],
+            "steps": s["steps"], "tokens": s["tokens"],
+            "serve_wall_s": s["wall_s"],
+            "run_s": time.perf_counter() - t0, "launches": launches})
+    out = {"phase": "serve_chaos", "arch": ARCH, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "dtype": "float32",
+           "requests": CHAOS_REQUESTS, "near_tie": NEAR_TIE, "runs": runs}
+    emit(out)
+    return out
+
+
+def phase_serve_fleet(cfg, params):
+    """``run_fleet_chaos``'s schedule at tinyllama-1.1b's full width and
+    depth in float32: 2 replicas sharing one ``params`` on the card, 16
+    requests, the victim's crash armed once it serves mid-flight and one
+    request has settled, the other replica hanging now and then (3% of its
+    steps, ``FLEET_HANG``).  The fleet invariants hold (every request
+    settles once, none lost, the survivor's pool restored, migrated
+    requests finish; the oracle parity under the near-tie rule), at least
+    one migrated request finishes with the oracle's tokens outright, each
+    replica's step timeouts are exactly its injected hangs, and each
+    captured its decode step once."""
+    t0 = time.perf_counter()
+    s = faults.run_fleet_chaos(ARCH, seed=0, requests=FLEET_REQUESTS,
+                               replicas=2, verbose=False, device=DEVICE,
+                               full=True, params=params, near_tie=NEAR_TIE,
+                               on_serve=reset_counts, **FLEET_HANG)
+    torch.cuda.synchronize()
+    launches = lane_counts()
+    serving_lanes(launches, "paged_attention")
+    rs = s["router"]
+    for rep in rs["replicas"]:
+        hangs = s["faults"][rep["name"]]["hangs"]
+        if rep["step_timeouts"] != hangs:
+            raise AssertionError(f"{rep['name']}: {rep['step_timeouts']} "
+                                 f"step timeouts, {hangs} injected hangs")
+        if rep["engine"]["decode_graphs"] != 1:
+            raise AssertionError(f"{rep['name']}: "
+                                 f"{rep['engine']['decode_graphs']} captures")
+    exact = sorted(set(s["migrated_finished"])
+                   - {t["id"] for t in s["near_ties"]})
+    if not exact:
+        raise AssertionError(f"no migrated request finished with the "
+                             f"oracle's tokens: {s['near_ties']}")
+    out = {"phase": "serve_fleet", "arch": ARCH, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "dtype": "float32",
+           "requests": s["requests"], "replicas": s["replicas"],
+           "statuses": {k: n for k, n in s["statuses"].items() if n},
+           "failovers": rs["failovers"],
+           "migrated_requests": rs["migrated_requests"],
+           "migrated": s["migrated"],
+           "migrated_finished": s["migrated_finished"],
+           "migrated_oracle_equal": exact, "near_ties": s["near_ties"],
+           "hedges": rs["hedges"], "hedge_wins": rs["hedge_wins"],
+           "shed": rs["shed"], "place_retries": rs["place_retries"],
+           "replica_states": {r["name"]: r["state"] for r in rs["replicas"]},
+           "down_reason": rs["replicas"][0]["down_reason"],
+           "step_timeouts": {r["name"]: r["step_timeouts"]
+                             for r in rs["replicas"]},
+           "faults": s["faults"], **FLEET_HANG,
+           "abandoned_pool_bytes": s["abandoned_pool_bytes"],
+           "serve_wall_s": s["wall_s"], "tokens": s["tokens"],
+           "tokens_per_s": s["tokens_per_s"],
+           "run_s": time.perf_counter() - t0, "launches": launches}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# conv: the paper's block-circulant CONV layer (core/conv.py) on the card
+# ---------------------------------------------------------------------------
+# cifar_wrn's three 3x3 widths (benchmarks/common.py:158-162): channels in
+# = out, feature maps; batch 128, SAME, stride 1; block 16, the block
+# benchmarks/bench_compression.py:25 gives CONV layers
+CONV_LAYERS = {"g1": (160, 32), "g2": (320, 16), "g3": (640, 8)}
+CONV_BATCH, CONV_R, CONV_K = 128, 3, 16
+
+
+def conv_layer_run(x, w, ct, C, path):
+    """The layer forward and both gradients, (y, dx, dw), through
+    ``conv2d_block_circulant`` on ``path`` ("fft": the kernels; "direct":
+    plain PyTorch on the materialized W)."""
+    xi = x.detach().requires_grad_(True)
+    wi = w.detach().requires_grad_(True)
+    y = conv.conv2d_block_circulant(xi, wi, CONV_R, C, padding="SAME",
+                                    path=path)
+    (y * ct).sum().backward()
+    return y.detach(), xi.grad, wi.grad
+
+
+def conv_library_run(x, w, ct, C):
+    """The same three through ``F.conv2d`` (cuDNN, float32, TF32 off) on
+    the filter materialized from ``w``, the generators' gradient through
+    the materialization."""
+    k, n_in = CONV_K, CONV_R * CONV_R * C
+    xi = x.detach().requires_grad_(True)
+    wi = w.detach().requires_grad_(True)
+    p, q, _ = wi.shape
+    f = cc.materialize_dense(wi, p * k, q * k)[:C, :n_in].T.reshape(
+        CONV_R, CONV_R, C, C)
+    y = conv.conv2d_dense(xi, f, padding="SAME")
+    (y * ct).sum().backward()
+    return y.detach(), xi.grad, wi.grad
+
+
+def phase_conv():
+    """The CONV layer at ``CONV_LAYERS``' shapes: the forward and both
+    gradients on the kernel path (one ``bc_fused`` forward, one adjoint,
+    one ``bc_grad_w`` a layer, counted at their shapes from 0) held
+    against the plain path on the card and against ``F.conv2d`` on the
+    materialized filter, each at 1e-4 of its scale, with the three paths'
+    times (forward and backward) and the bound of the kernels' work; then
+    each kernel at the layer's shape against its plain version on the same
+    inputs, its call and device times, the plain version's, the library
+    call computing the dense layer's same step (``F.conv2d``, its input
+    gradient, its weight gradient: ``torch.nn.grad``), and its bound."""
+    gen = kernel_gen()
+    k = CONV_K
+    layers, fused_cases, grad_cases = [], [], []
+    launches, shapes = {}, {}
+    for name, (C, hw) in CONV_LAYERS.items():
+        n_in = CONV_R * CONV_R * C
+        p, q = cc.num_blocks(C, k), cc.num_blocks(n_in, k)
+        N = CONV_BATCH * hw * hw
+        w = conv.init_conv_circulant(CONV_R, C, C, k, generator=gen,
+                                     device=DEVICE)
+        x = torch.randn((CONV_BATCH, hw, hw, C), generator=gen,
+                        device=DEVICE)
+        ct = torch.randn((CONV_BATCH, hw, hw, C), generator=gen,
+                         device=DEVICE)
+        reset_counts()
+        got = conv_layer_run(x, w, ct, C, "fft")
+        torch.cuda.synchronize()
+        run = lane_counts(TRAIN_LIBRARIES)
+        run_shapes = shape_counts(TRAIN_LIBRARIES)
+        want = {bc_fused.shape_key(1, N, p, q, k, "bc_fused"): 1,
+                bc_fused.shape_key(1, N, q, p, k, "bc_fused"): 1}
+        if (run_shapes.get("bc_fused") != want
+                or run_shapes.get("bc_grad_w")
+                != {bgw.shape_key(N, p, q, k): 1}
+                or sum(run.values()) != 3):
+            raise AssertionError(f"conv {name}: launches {run_shapes}")
+        for lane, n in run.items():
+            launches[lane] = launches.get(lane, 0) + n
+        for lib, by in run_shapes.items():
+            for key, n in by.items():
+                shapes.setdefault(lib, {})[key] = n
+        plain = conv_layer_run(x, w, ct, C, "direct")
+        library = conv_library_run(x, w, ct, C)
+        errs = {}
+        for part, g, pl, lb in zip(("y", "dx", "dw"), got, plain, library):
+            scale = max(1.0, float(pl.abs().max()))
+            errs[part] = {"vs_plain": max_err(g, pl),
+                          "vs_library": max_err(g, lb),
+                          "plain_vs_library": max_err(pl, lb),
+                          "tol": 1e-4 * scale}
+            if not max(errs[part]["vs_plain"], errs[part]["vs_library"],
+                       errs[part]["plain_vs_library"]) <= 1e-4 * scale:
+                raise AssertionError(f"conv {name} {part}: {errs[part]}")
+        # the kernels' inputs at this shape: the blocked patches, the
+        # output gradient's blocks, the generators' planes
+        xb = conv.im2col(x, CONV_R, padding="SAME").reshape(N, q, k)
+        gy = ct.reshape(N, p, k).contiguous()
+        planes = cc.spectral_cache(w)
+        adj = kops.adjoint_planes(planes)
+        xc = x.permute(0, 3, 1, 2).contiguous()
+        ctc = ct.permute(0, 3, 1, 2).contiguous()
+        fd = cc.materialize_dense(w, p * k, q * k)[:C, :n_in].T.reshape(
+            CONV_R, CONV_R, C, C).permute(3, 2, 0, 1).contiguous()
+        lib_ms = {
+            "forward": time_ms(lambda: F.conv2d(xc, fd, padding=1), **LONG),
+            "adjoint": time_ms(lambda: torch.nn.grad.conv2d_input(
+                xc.shape, fd, ctc, padding=1), **LONG),
+            "grad_w": time_ms(lambda: torch.nn.grad.conv2d_weight(
+                xc, fd.shape, ctc, padding=1), **LONG)}
+        works = {}
+        for case, (inp, pl, pq) in (
+                ("forward", (xb, planes, (p, q))),
+                ("adjoint", (gy, adj, (q, p)))):
+            a = (inp, pl["wr"], pl["ws1"], pl["ws2"], k)
+            out = bc_fused.bc_fused_matmul(*a)
+            ref = bc_fused.bc_fused_matmul_plain(*a)
+            nbytes, flops = fused_work(N, *pq, k)
+            works[case] = (nbytes, flops)
+            bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+            fused_cases.append({
+                "case": f"conv_{name}_{case}", "shape": [N, *pq, k],
+                "launch_shape": bc_fused.shape_key(1, N, *pq, k, "bc_fused"),
+                "plan": bc_fused.plan(N, *pq, k, "bc_fused")._asdict(),
+                "max_abs_err": max_err(out, ref),
+                "tol": 1e-4 * max(1.0, float(ref.abs().max())),
+                **kernel_times(lambda: bc_fused.bc_fused_matmul(*a), **LONG),
+                "plain_ms": time_ms(lambda: bc_fused.bc_fused_matmul_plain(
+                    *a), **LONG),
+                "library_ms": lib_ms[case],
+                "library": ("F.conv2d, the dense layer's forward (cuDNN, "
+                            "float32)" if case == "forward" else
+                            "torch.nn.grad.conv2d_input, the dense layer's "
+                            "input gradient"),
+                "bytes": nbytes, "flops": flops,
+                "bound_ms": bound_ms, "bound_by": bound_by})
+        out = bgw.bc_grad_w(gy, xb, k)
+        ref = bgw.bc_grad_w_plain(gy, xb, k)
+        nbytes, flops = grad_w_work(1, N, p, q, k)
+        works["grad_w"] = (nbytes, flops)
+        bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+        grad_cases.append({
+            "case": f"conv_{name}", "shape": [N, p, q, k],
+            "launch_shape": bgw.shape_key(N, p, q, k),
+            "plan": bgw.plan(N, p, q, k)._asdict(),
+            "max_abs_err": max_err(out, ref),
+            "tol": 1e-4 * max(1.0, float(ref.abs().max())),
+            **kernel_times(lambda: bgw.bc_grad_w(gy, xb, k), **LONG),
+            "plain_ms": time_ms(lambda: bgw.bc_grad_w_plain(gy, xb, k),
+                                **LONG),
+            "library_ms": lib_ms["grad_w"],
+            "library": "torch.nn.grad.conv2d_weight, the dense layer's "
+                       "weight gradient (the dense filter's, not the "
+                       "generators')",
+            "bytes": nbytes, "flops": flops,
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        for c in fused_cases[-2:] + grad_cases[-1:]:
+            c["bound_share"] = (c["bound_ms"] / c["device_ms"]
+                                if c["device_ms"] else None)
+            if not c["max_abs_err"] <= c["tol"]:
+                raise AssertionError(f"conv {c['case']}: {c['max_abs_err']}"
+                                     f" > {c['tol']}")
+        layer_bytes = sum(b for b, _ in works.values())
+        layer_flops = sum(f for _, f in works.values())
+        bound_ms, bound_by = bound(layer_bytes, layer_flops, torch.float32)
+        layers.append({
+            "layer": name, "channels": C, "maps": [hw, hw],
+            "batch": CONV_BATCH, "rows": N, "blocks": [p, q, k],
+            "errors": errs, "launches": run, "launch_shapes": run_shapes,
+            "kernel_ms": time_ms(lambda: conv_layer_run(
+                x, w, ct, C, "fft"), **LONG),
+            "plain_ms": time_ms(lambda: conv_layer_run(
+                x, w, ct, C, "direct"), **LONG),
+            "library_ms": time_ms(lambda: conv_library_run(x, w, ct, C),
+                                  **LONG),
+            "library_conv_only_ms": sum(lib_ms.values()),
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        del x, ct, xb, gy, xc, ctc, got, plain, library
+        torch.cuda.empty_cache()
+    out = {"phase": "conv", "block": k, "kernel": [CONV_R, CONV_R],
+           "layers": layers, "launches": launches, "shapes": shapes,
+           "kernel_cases": {"bc_fused": fused_cases,
+                            "bc_grad_w": grad_cases}}
+    emit(out)
+    return {"launches": launches, "shapes": shapes,
+            "kernels": {"conv_bc_fused": (fused_cases, "conv_g2_forward"),
+                        "conv_bc_grad_w": (grad_cases, "conv_g2")}}
+
+
 GRAPH_LENS = (40, 17, 100, None, 64, 23, 200, 90)    # None: an idle slot
 GRAPH_BUDGETS = (20, 3, 13, 0, 9, 0, 17, 5)          # slot 5 stalled
 
@@ -3622,6 +3994,14 @@ def main() -> int:
             runs[f"{arch}/{engine}"] = out[engine]
     runs.update(phase_serve_fused(cfg))
     phase_serve_obs(cfg)
+    chaos_params = init_params(cfg.replace(dtype="float32"), seed=SEED,
+                               device=DEVICE)
+    phase_serve_chaos(cfg, chaos_params)
+    phase_serve_fleet(cfg, chaos_params)
+    del chaos_params
+    conv_run = phase_conv()
+    kernels.update(conv_run.pop("kernels"))
+    runs["conv"] = conv_run
     phase_decode_graph(cfg)
     runs["train"] = phase_train(cfg)
     phase_train_parity(cfg)

@@ -545,3 +545,36 @@ class Linear(nn.Module):
         return apply_linear(self.params(), x, self.spec, self.n_out, mode,
                             kernel_fn)
 
+
+
+# ---------------------------------------------------------------------------
+# Accounting (``core/compression.py``; ``repro``'s formulas)
+# ---------------------------------------------------------------------------
+def dense_flops(batch: int, n_in: int, n_out: int) -> int:
+    return 2 * batch * n_in * n_out
+
+
+def bc_flops(batch: int, n_in: int, n_out: int, k: int,
+             gauss: bool = True) -> int:
+    """FLOPs of the decoupled spectral pipeline (the paper's complexity
+    analysis): rfft + irfft at a split-radix estimate, plus the complex
+    MACs as real operations."""
+    p, q, kf = num_blocks(n_out, k), num_blocks(n_in, k), k // 2 + 1
+    fft = int(2.5 * batch * (q + p) * k * max(math.log2(k), 1))
+    muls = 3 if gauss else 4
+    mac = 2 * muls * batch * p * q * kf
+    return fft + mac
+
+
+def dense_param_bytes(n_in: int, n_out: int, bytes_per: int = 2) -> int:
+    return n_in * n_out * bytes_per
+
+
+def bc_param_bytes(n_in: int, n_out: int, k: int, bytes_per: int = 4,
+                   spectral: bool = False) -> int:
+    """Bytes of the generators, or with ``spectral`` of the cached rfft
+    planes (2 * kf reals a block)."""
+    p, q = num_blocks(n_out, k), num_blocks(n_in, k)
+    if spectral:
+        return p * q * (k // 2 + 1) * 2 * bytes_per
+    return p * q * k * bytes_per

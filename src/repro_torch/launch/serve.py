@@ -30,6 +30,17 @@ replays that fraction of finished requests through the float32 oracle
 prices dispatches against (default: the device's).  The run ends with
 the pool-pressure, roofline, health and obs-summary lines.
 
+The continuous engine's admission and lifecycle flags are ``repro``'s:
+``--max-tokens-in-flight``, ``--admission``, ``--max-queue``,
+``--max-preemptions``, ``--deadline-s`` (a deadline on every request) and
+``--no-precompute`` (both engines).  ``--replicas N`` (continuous only)
+serves through a fleet of N engines sharing the weights behind the
+health-checked failover router (``repro_torch.fleet``; ``--router-policy``,
+``--hedge-after``), and prints the fleet's and each replica's summary:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --engine continuous --device cpu --replicas 2 --requests 6
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --engine continuous --device cpu --requests 4 --new-tokens 6 \\
       --metrics-out m.jsonl --metrics-every 2 --trace-out t.json --slo
@@ -44,6 +55,8 @@ import torch
 
 from ..configs.registry import ARCH_IDS, get_config, get_smoke_config
 from ..device import resolve_device
+from ..fleet import EngineReplica, Router
+from ..kernels import build
 from ..models.registry import init_params
 from ..models.transformer import layer_kinds, window_for
 from ..obs import Obs, resolve_hardware
@@ -84,6 +97,37 @@ def main(argv=None):
     ap.add_argument("--no-bucket", action="store_true",
                     help="batch engine: disable prompt-length bucketing")
     ap.add_argument("--eos-id", type=int, default=None)
+    ap.add_argument("--max-tokens-in-flight", type=int, default=None,
+                    help="continuous: admission token budget")
+    ap.add_argument("--admission", default="optimistic",
+                    choices=["optimistic", "reserve"],
+                    help="continuous: optimistic page admission (preempt on "
+                         "exhaustion) or worst-case reservation")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="continuous: bounded submit queue; requests beyond "
+                         "it are REJECTED (backpressure)")
+    ap.add_argument("--max-preemptions", type=int, default=4,
+                    help="continuous: per-request preemption bound before a "
+                         "slot stalls instead of thrashing")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="continuous: per-request deadline (seconds from "
+                         "arrival); expired requests go terminal TIMEOUT")
+    ap.add_argument("--no-precompute", action="store_true",
+                    help="skip the offline spectral-weight pass")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="continuous: serve through a replicated fleet of N "
+                         "engines behind the health-checked failover router "
+                         "(repro_torch.fleet); telemetry gains a replica= "
+                         "label")
+    ap.add_argument("--router-policy", default="jsq",
+                    choices=["jsq", "round_robin"],
+                    help="with --replicas: join-shortest-queue placement "
+                         "(default) or round-robin")
+    ap.add_argument("--hedge-after", type=float, default=None,
+                    metavar="SECONDS",
+                    help="with --replicas: hedge a request to a second "
+                         "replica if its first token takes longer than this "
+                         "(default: adaptive, 4x the fleet's p99 TTFT)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--paged-attn", default="stream",
@@ -134,6 +178,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = (get_config if args.full else get_smoke_config)(args.arch)
+    if args.replicas > 1 and args.engine != "continuous":
+        raise SystemExit("[launch.serve] --replicas > 1 requires "
+                         "--engine continuous")
     if args.engine == "continuous":
         reasons = servable_reasons(cfg)
         if reasons:
@@ -155,14 +202,35 @@ def main(argv=None):
     if not cfg.is_encoder_decoder:
         extra += max(window_for(k, cfg) for k in layer_kinds(cfg))
     max_seq = extra + 64 + args.new_tokens
+    router = None
     if args.engine == "continuous":
-        engine = ContinuousEngine(cfg, params, max_slots=args.max_batch,
-                                  max_seq=max_seq, page_size=args.page_size,
-                                  decode_chunk=args.decode_chunk,
-                                  sample=args.sample, seed=args.seed,
-                                  eos_id=args.eos_id, device=device,
-                                  paged_attn=args.paged_attn, quant=quant,
-                                  obs=obs, shadow_sample=args.shadow_sample)
+
+        def make_engine(eng_obs):
+            return ContinuousEngine(
+                cfg, params, max_slots=args.max_batch, max_seq=max_seq,
+                page_size=args.page_size,
+                max_tokens_in_flight=args.max_tokens_in_flight,
+                decode_chunk=args.decode_chunk, sample=args.sample,
+                seed=args.seed, eos_id=args.eos_id,
+                precompute=not args.no_precompute,
+                paged_attn=args.paged_attn, quant=quant, obs=eng_obs,
+                admission=args.admission, max_queue=args.max_queue,
+                max_preemptions=args.max_preemptions,
+                shadow_sample=args.shadow_sample, device=device)
+
+        if args.replicas > 1:
+            if device.type == "cuda":
+                # a library built inside a replica's step would read as a
+                # step timeout: build them all before the first replica
+                build.build()
+            pool = [EngineReplica(f"r{i}",
+                                  make_engine(obs.scoped(replica=f"r{i}")))
+                    for i in range(args.replicas)]
+            router = Router(pool, policy=args.router_policy,
+                            hedge_after_s=args.hedge_after, obs=obs,
+                            seed=args.seed)
+        else:
+            engine = make_engine(obs)
     else:
         if args.kv_dtype != "f32":
             print(f"[launch.serve] note: --kv-dtype {args.kv_dtype} applies "
@@ -175,71 +243,102 @@ def main(argv=None):
                         max_seq=max_seq, sample=args.sample,
                         decode_mode=args.decode_mode, eos_id=args.eos_id,
                         seed=args.seed, bucket_prompts=not args.no_bucket,
-                        quant=quant, obs=obs, device=device)
+                        quant=quant, obs=obs, device=device,
+                        precompute=not args.no_precompute)
     rng = np.random.RandomState(args.seed)
     reqs = [Request(prompt=rng.randint(0, cfg.vocab_size, size=extra
                                        + rng.randint(16, 32)).astype(
-        np.int32), max_new_tokens=args.new_tokens, id=i)
+        np.int32), max_new_tokens=args.new_tokens, id=i,
+        deadline_s=args.deadline_s)
         for i in range(args.requests)]
     t0 = time.perf_counter()
-    results = engine.generate(reqs)
+    results = (router or engine).generate(reqs)
     dt = time.perf_counter() - t0
-    st = engine.stats()
     toks = sum(r["decode_len"] for r in results)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    print(f"[launch.serve] {args.arch} ({args.engine}) on {name}: "
-          f"{len(results)} requests, {toks} tokens, {dt:.2f}s "
-          f"({toks / dt:.1f} tok/s; prefill {st['prefill_s']:.2f}s / "
-          f"decode {st['decode_s']:.2f}s)")
-    if args.engine == "batch":
-        statuses = {}
-        for r in results:
-            statuses[r["status"]] = statuses.get(r["status"], 0) + 1
-        print(f"[launch.serve] lifecycle: statuses={statuses} "
-              f"batches={st['batches']} prefills={st['prefills']} "
-              f"decode_steps={st['decode_steps']} "
-              f"pad_waste={st['prompt_pad_waste']} "
-              f"decode_mode={args.decode_mode} sample={args.sample}")
-        print(f"[launch.serve] quant={st['quant_policy']}")
+    if router is not None:
+        # unserved terminals (TIMEOUT / REJECTED / ...) carry no prefill
+        served = [r for r in results if r.get("prefill_s") is not None]
+        pre = sum(r["prefill_s"] for r in served) / max(len(served), 1)
+        deco = sum(r["decode_s"] for r in served) / max(len(served), 1)
+        print(f"[launch.serve] {args.arch} (continuous x{args.replicas}) "
+              f"on {name}: {len(results)} requests, {toks} tokens, "
+              f"{dt:.2f}s ({toks / dt:.1f} tok/s; mean prefill "
+              f"{pre * 1e3:.0f}ms / decode {deco * 1e3:.0f}ms)")
+        rs = router.stats()
+        nonzero = {s: n for s, n in rs["statuses"].items() if n}
+        print(f"[launch.serve] fleet: policy={rs['policy']} "
+              f"live={rs['live_replicas']}/{len(router.replicas)} "
+              f"placed={rs['placed']} retries={rs['place_retries']} "
+              f"hedges={rs['hedges']} failovers={rs['failovers']} "
+              f"migrated={rs['migrated_requests']} shed={rs['shed']} "
+              f"statuses={nonzero}")
+        for rep in rs["replicas"]:
+            e = rep["engine"]
+            print(f"[launch.serve]   {rep['name']}: {rep['state']} "
+                  f"served_statuses="
+                  f"{ {s: n for s, n in e['statuses'].items() if n} } "
+                  f"preempted={e['preempted']} "
+                  f"peak_pages={e['peak_pages_in_use']} "
+                  f"step_timeouts={rep['step_timeouts']}")
+        router.drain()
+        st = router.stats()
     else:
-        nonzero = {s: n for s, n in st["statuses"].items() if n}
-        print(f"[launch.serve] lifecycle: statuses={nonzero} "
-              f"preempted={st['preempted']} anomalies={st['anomalies']} "
-              f"prefills={st['prefills']} decode_steps={st['decode_steps']} "
-              f"pool={st['pool_bytes'] / 1e6:.1f}MB "
-              f"buckets={st['prefill_buckets']}")
-        print(f"[launch.serve] quant={st['quant_policy']} "
-              f"attention={st['attention_impl']} "
-              f"attn_bytes/token={st['attention_bytes_per_token']} "
-              f"decode_peak_est={st['decode_peak_bytes_est'] / 1e6:.1f}MB")
-        print(f"[launch.serve] pool pressure: free_pages={st['free_pages']} "
-              f"min_free_pages={st['min_free_pages']} (low-water headroom "
-              f"of {engine.num_pages - 1} usable)")
-        if st.get("health") is not None:
-            h = st["health"]
-            print(f"[launch.serve] health: nonfinite_dispatches="
-                  f"{h['nonfinite_dispatches']} "
-                  f"act_absmax_peak={h['act_absmax_peak']} "
-                  f"kv_clip_rate={st['kv_clip_rate']}")
-        if st.get("shadow_oracle") is not None:
-            sh = st["shadow_oracle"]
-            agree, drift = sh["greedy_agreement"], sh["logit_drift"]
-            print(f"[launch.serve] shadow oracle: sampled={sh['sampled']} "
-                  f"replays={sh['replays']} dropped={sh['dropped']} "
-                  f"greedy_agreement="
-                  f"{'n/a' if agree is None else f'{agree:.4f}'} "
-                  f"logit_drift="
-                  f"{'n/a' if drift is None else f'{drift:.4g}'}")
-    if not args.no_obs and st.get("roofline"):
-        print(f"[launch.serve] roofline ({st['hardware']}):")
-        for kind, r in st["roofline"].items():
-            if not r["dispatches"]:
-                continue
-            print(f"  {kind:<22} n={r['dispatches']:<4} "
-                  f"{r['achieved_flops_per_s'] / 1e9:8.2f} GFLOP/s  "
-                  f"{r['achieved_bytes_per_s'] / 1e9:8.2f} GB/s  "
-                  f"frac={r['roofline_frac']:.3g} ({r['bound']}-bound)")
+        st = engine.stats()
+        print(f"[launch.serve] {args.arch} ({args.engine}) on {name}: "
+              f"{len(results)} requests, {toks} tokens, {dt:.2f}s "
+              f"({toks / dt:.1f} tok/s; prefill {st['prefill_s']:.2f}s / "
+              f"decode {st['decode_s']:.2f}s)")
+        if args.engine == "batch":
+            statuses = {}
+            for r in results:
+                statuses[r["status"]] = statuses.get(r["status"], 0) + 1
+            print(f"[launch.serve] lifecycle: statuses={statuses} "
+                  f"batches={st['batches']} prefills={st['prefills']} "
+                  f"decode_steps={st['decode_steps']} "
+                  f"pad_waste={st['prompt_pad_waste']} "
+                  f"decode_mode={args.decode_mode} sample={args.sample}")
+            print(f"[launch.serve] quant={st['quant_policy']}")
+        else:
+            nonzero = {s: n for s, n in st["statuses"].items() if n}
+            print(f"[launch.serve] lifecycle: statuses={nonzero} "
+                  f"preempted={st['preempted']} anomalies={st['anomalies']} "
+                  f"prefills={st['prefills']} "
+                  f"decode_steps={st['decode_steps']} "
+                  f"pool={st['pool_bytes'] / 1e6:.1f}MB "
+                  f"buckets={st['prefill_buckets']}")
+            print(f"[launch.serve] quant={st['quant_policy']} "
+                  f"attention={st['attention_impl']} "
+                  f"attn_bytes/token={st['attention_bytes_per_token']} "
+                  f"decode_peak_est={st['decode_peak_bytes_est'] / 1e6:.1f}MB")
+            print(f"[launch.serve] pool pressure: "
+                  f"free_pages={st['free_pages']} min_free_pages={st['min_free_pages']} (low-water headroom "
+                  f"of {engine.num_pages - 1} usable)")
+            if st.get("health") is not None:
+                h = st["health"]
+                print(f"[launch.serve] health: nonfinite_dispatches="
+                      f"{h['nonfinite_dispatches']} "
+                      f"act_absmax_peak={h['act_absmax_peak']} "
+                      f"kv_clip_rate={st['kv_clip_rate']}")
+            if st.get("shadow_oracle") is not None:
+                sh = st["shadow_oracle"]
+                agree, drift = sh["greedy_agreement"], sh["logit_drift"]
+                print(f"[launch.serve] shadow oracle: sampled={sh['sampled']} "
+                      f"replays={sh['replays']} dropped={sh['dropped']} "
+                      f"greedy_agreement="
+                      f"{'n/a' if agree is None else f'{agree:.4f}'} "
+                      f"logit_drift="
+                      f"{'n/a' if drift is None else f'{drift:.4g}'}")
+        if not args.no_obs and st.get("roofline"):
+            print(f"[launch.serve] roofline ({st['hardware']}):")
+            for kind, r in st["roofline"].items():
+                if not r["dispatches"]:
+                    continue
+                print(f"  {kind:<22} n={r['dispatches']:<4} "
+                      f"{r['achieved_flops_per_s'] / 1e9:8.2f} GFLOP/s  "
+                      f"{r['achieved_bytes_per_s'] / 1e9:8.2f} GB/s  "
+                      f"frac={r['roofline_frac']:.3g} ({r['bound']}-bound)")
     if args.metrics_out is not None:
         obs.close()                        # final snapshot + trailing traces
         print(f"[launch.serve] metrics: {obs.emitter.lines_written} "
@@ -255,7 +354,8 @@ def main(argv=None):
     if args.trace_out is not None:
         trace = write_trace(obs, args.trace_out,
                             extra_meta={"arch": args.arch,
-                                        "engine": args.engine})
+                                        "engine": args.engine,
+                                        "replicas": args.replicas})
         print(f"[launch.serve] chrome trace: "
               f"{len(trace['traceEvents'])} events -> {args.trace_out}")
     if not args.no_obs:

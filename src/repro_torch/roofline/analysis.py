@@ -38,6 +38,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig, ShapeSpec
+from ..core.circulant import bc_flops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,22 +109,6 @@ def rfft_flops(rows: int, k: int) -> float:
     2.5 k log2 k each, half a complex FFT's 5 k log2 k.  The least a
     transform needs; the kernels multiply by dense DFT panels instead."""
     return 2.5 * rows * k * math.log2(k)
-
-
-def _num_blocks(dim: int, k: int) -> int:
-    return -(-dim // k)
-
-
-def bc_flops(batch: int, n_in: int, n_out: int, k: int,
-             gauss: bool = True) -> int:
-    """FLOPs of the decoupled spectral pipeline (``repro``'s
-    ``core/circulant.py:bc_flops``): rfft of the input, the complex MAC
-    (3 real products with the Gauss trick), irfft of the output."""
-    p, q, kf = _num_blocks(n_out, k), _num_blocks(n_in, k), k // 2 + 1
-    fft = int(2.5 * batch * (q + p) * k * max(math.log2(k), 1))
-    muls = 3 if gauss else 4
-    mac = 2 * muls * batch * p * q * kf
-    return fft + mac
 
 
 # ---------------------------------------------------------------------------

@@ -49,9 +49,14 @@ Spans end at the host reads each dispatch already makes (the prefill's
 token, the decode loop's ``done`` and outputs): obs adds no
 synchronisation inside the replayed step.
 
+``ContinuousEngine(faults=)`` takes a ``serve/faults.py:FaultInjector``:
+its allocator hook fails page allocations, and before each decode dispatch
+the engine sleeps for an injected delay and may NaN-poison a running
+slot's first page.  The poison is written in place into the pool tensors
+the captured decode step reads, so the step is never captured again.
+
 ``repro``'s ``mesh`` argument is not taken: on one card a placement is a
-no-op.  Not ported yet: fault injection (``faults=`` raises, ROADMAP
-A.13) and meshes.
+no-op.
 """
 from __future__ import annotations
 
@@ -73,6 +78,7 @@ from ..quant.codec import QuantPolicy, plane_clip_report
 from ..roofline.analysis import ServingCounts
 from . import decode as dec
 from . import kvcache as kvc
+from .faults import poison_slot_pages
 from .params import precompute_serving_params
 from .scheduler import (CANCELLED, FAILED, FINISHED_BUDGET, FINISHED_EOS,
                         REJECTED, TIMEOUT, Scheduler)
@@ -147,6 +153,9 @@ class Request:
     # the continuous engine's queue and in flight; the batch engine ignores
     # it (its whole batch is one dispatch)
     deadline_s: Optional[float] = None
+    # shedding priority (``fleet/router.py``): lower sheds first when the
+    # fleet's pending buffer overflows; the engines ignore it
+    priority: int = 0
 
 
 class Engine:
@@ -418,7 +427,9 @@ class ContinuousEngine:
     measurement: traces and spans without the health plane).
     ``shadow_sample`` replays that fraction of FINISHED requests through
     the float32 dense-cache oracle between dispatches
-    (``obs/health.py:ShadowOracle``).  ``faults`` is not ported (raises).
+    (``obs/health.py:ShadowOracle``).  ``faults`` (``serve/faults.py:
+    FaultInjector``) fails allocations, delays dispatches and poisons slots;
+    the NaN guard retires a poisoned slot FAILED.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, max_slots: int = 4,
@@ -436,9 +447,6 @@ class ContinuousEngine:
                  obs: Optional[Obs] = None, faults=None,
                  shadow_sample: float = 0.0,
                  capture: Optional[bool] = None, device=None):
-        if faults is not None:
-            raise NotImplementedError("fault injection (faults=) is not "
-                                      "ported yet (ROADMAP A.13)")
         if paged_attn not in ("stream", "gather"):
             raise ValueError(f"paged_attn {paged_attn!r}: "
                              f"expected 'stream' or 'gather'")
@@ -458,6 +466,7 @@ class ContinuousEngine:
         self.decode_chunk = decode_chunk
         self.eos_id = eos_id
         self.nan_guard = nan_guard
+        self.faults = faults
         self.max_pages_per_slot = kvc.pages_for(max_seq, page_size)
         if num_pages is None:
             num_pages = max_slots * self.max_pages_per_slot + 1
@@ -485,7 +494,9 @@ class ContinuousEngine:
         self._capture = (self.obs.enabled if capture is None
                          else bool(capture) and self.obs.enabled)
         self.block_table = kvc.BlockTable(
-            kvc.PageAllocator(num_pages, registry=reg),
+            kvc.PageAllocator(num_pages, registry=reg,
+                              fault=(faults.alloc_fault
+                                     if faults is not None else None)),
             max_slots, page_size, self.max_pages_per_slot)
         self.scheduler = Scheduler(self.block_table, max_seq=max_seq,
                                    max_tokens_in_flight=max_tokens_in_flight,
@@ -849,6 +860,14 @@ class ContinuousEngine:
             self._finish(slot, TIMEOUT)
 
     def _dispatch_decode(self, runnable, stalled) -> None:
+        if self.faults is not None:
+            delay = self.faults.dispatch_delay()
+            if delay > 0.0:
+                time.sleep(delay)           # injected control-plane hiccup
+            victim = self.faults.pick_corruption(runnable)
+            if victim is not None:
+                poison_slot_pages(self.pool,
+                                  self.block_table.pages(victim.index)[0])
         t0 = time.perf_counter()
         # stalled slots (no pages for the next chunk) are masked out of this
         # dispatch: rem=0 freezes them, their budget is restored afterwards

@@ -41,18 +41,21 @@ class PageAllocator:
     """LIFO free list over ``num_pages`` pages; page 0 (trash) is reserved.
 
     ``alloc`` returns None when the pool cannot satisfy the request.
+    ``fault`` is an optional hook (``fault(n) -> bool``, ``serve/faults.py``):
+    when it returns True an alloc fails as if the pool were empty.
     ``free`` raises on a double free, on a page the allocator never handed
     out, and on the trash page.  With a metrics ``registry`` it keeps the
     ``pool.free_pages`` gauge and the ``pool.pages_alloc`` /
     ``pool.pages_freed`` counters current.
     """
 
-    def __init__(self, num_pages: int, registry=None):
+    def __init__(self, num_pages: int, registry=None, fault=None):
         if num_pages < 2:
             raise ValueError("need at least 2 pages (page 0 is the trash)")
         self.num_pages = int(num_pages)
         self._free = list(range(self.num_pages - 1, 0, -1))
         self._held: set = set()
+        self.fault = fault
         self._free_gauge = self._alloc_ctr = self._freed_ctr = None
         if registry is not None:
             self._free_gauge = registry.gauge("pool.free_pages")
@@ -73,6 +76,8 @@ class PageAllocator:
             raise ValueError(f"alloc({n})")
         if n > len(self._free):
             return None
+        if self.fault is not None and self.fault(n):
+            return None                    # injected failure: as if empty
         pages = [self._free.pop() for _ in range(n)]
         self._held.update(pages)
         if self._alloc_ctr is not None:

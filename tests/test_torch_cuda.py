@@ -897,3 +897,109 @@ def test_profiled_fractions_on_card(cuda, quant):
             assert r["dispatches"] > 0, kind
             assert 0 < r["roofline_frac"] <= r["roofline_frac_max"] <= 1, (
                 kind, r)
+
+
+# ---------------------------------------------------------------------------
+# fault injection, shared weights across replicas, the CONV layer
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+def test_in_place_poison_keeps_the_graph_and_trips_the_guard(cuda,
+                                                            kv_dtype):
+    """A slot poisoned before a dispatch (NaN K on an f32 pool, NaN K
+    scales on an int8 one, written into the tensors the captured step
+    reads) is retired FAILED by the replayed step's guard; the other slot
+    finishes with the tokens of a fault-free engine; one capture."""
+    from repro_torch.serve.faults import FaultConfig, FaultInjector
+    cfg = get_smoke_config("tinyllama-1.1b").replace(dtype="float32")
+    model = init_params(cfg, seed=0, device="cuda")
+    rng = np.random.RandomState(0)
+    reqs = [Request(prompt=rng.randint(1, 500, size=s).astype(np.int32),
+                    max_new_tokens=10, id=i) for i, s in enumerate((9, 13))]
+    kw = dict(max_slots=2, max_seq=32, page_size=8, decode_chunk=4,
+              quant=codec.QuantPolicy(kv_dtype), device="cuda")
+    clean = ContinuousEngine(cfg, model, **kw).generate(reqs)
+    faults = FaultInjector(FaultConfig(seed=0, corrupt_p=1.0))
+    eng = ContinuousEngine(cfg, model, faults=faults, **kw)
+    orders = [eng.submit(r) for r in reqs]
+    while not eng.scheduler.idle:
+        eng.step()
+        if faults.corruptions:
+            faults.cfg.corrupt_p = 0.0               # one poisoned slot
+    res = [eng.result(o) for o in orders]
+    bad = faults.stats()["corrupted_ids"]
+    assert len(bad) == 1
+    for r, want in zip(res, clean):
+        if r["id"] in bad:
+            assert r["status"] == "FAILED"
+            assert r["tokens"] == want["tokens"][:len(r["tokens"])]
+        else:
+            assert r["status"] == "FINISHED_BUDGET"
+            assert r["tokens"] == want["tokens"]
+    st = eng.stats()
+    assert st["decode_graphs"] == 1 and st["anomalies"] == 1
+    assert st["health"]["nonfinite_dispatches"] >= 1
+
+
+@pytest.mark.parametrize("quant_weights", [False, True])
+def test_second_replica_keeps_the_plane_addresses(cuda, quant_weights):
+    """Two replicas over one ``params``: building the second bakes (and
+    quantizes) nothing anew, so every plane keeps the address the first
+    replica's captured step reads, and the first replica's tokens are
+    unchanged."""
+    from repro_torch.fleet import EngineReplica
+    cfg = get_smoke_config("tinyllama-1.1b").replace(dtype="float32")
+    model = init_params(cfg, seed=0, device="cuda")
+    policy = codec.QuantPolicy(quant_weights=quant_weights)
+    kw = dict(max_slots=2, max_seq=32, page_size=8, decode_chunk=4,
+              quant=policy, device="cuda")
+    rng = np.random.RandomState(1)
+    reqs = [Request(prompt=rng.randint(1, 500, size=s).astype(np.int32),
+                    max_new_tokens=8, id=i) for i, s in enumerate((7, 12))]
+
+    def planes():
+        return {f"{path}.{prefix}.{key}": (t.data_ptr(), t.dtype)
+                for path, _, prefix, cache in codec.baked_caches(model)
+                for key, t in cache.items()}
+    first = EngineReplica("r0", ContinuousEngine(cfg, model, **kw))
+    before, toks = planes(), first.engine.generate(reqs)
+    assert before and all(
+        (dt in (torch.int8, torch.uint8, torch.float32)) for _, dt in
+        before.values())
+    if quant_weights:
+        assert any(dt == torch.int8 for _, dt in before.values())
+    second = EngineReplica("r1", ContinuousEngine(cfg, model, **kw))
+    assert planes() == before
+    want = [r["tokens"] for r in toks]
+    assert [r["tokens"] for r in first.engine.generate(reqs)] == want
+    assert [r["tokens"] for r in second.engine.generate(reqs)] == want
+    assert first.engine.stats()["decode_graphs"] == 1
+
+
+@pytest.mark.parametrize("B,H,W,C", [(2, 6, 6, 32), (128, 16, 16, 320)])
+def test_conv_kernel_path_against_plain(cuda, B, H, W, C):
+    """The CONV layer's ``fft`` path on the card (``bc_fused`` forward and
+    adjoint, ``bc_grad_w``: one launch each) against its ``direct`` path
+    (plain PyTorch on the materialized filter), forward and both
+    gradients; block size 16, 3x3, SAME, as ``cifar_wrn``'s g2 at its
+    full shape."""
+    from repro_torch.core import conv as tconv
+    from repro_torch.kernels import bc_grad_w as bgw
+    r, k = 3, 16
+    w = tconv.init_conv_circulant(r, C, C, k, generator=cuda, device="cuda")
+    x = torch.randn((B, H, W, C), generator=cuda, device="cuda")
+    ct = torch.randn((B, H, W, C), generator=cuda, device="cuda")
+    outs = {}
+    for path in ("fft", "direct"):
+        xi = x.clone().requires_grad_(True)
+        wi = w.clone().requires_grad_(True)
+        before = (bcf.KERNEL.launches, bgw.KERNEL.launches)
+        y = tconv.conv2d_block_circulant(xi, wi, r, C, padding="SAME",
+                                         path=path)
+        (y * ct).sum().backward()
+        torch.cuda.synchronize()
+        launched = (bcf.KERNEL.launches - before[0],
+                    bgw.KERNEL.launches - before[1])
+        assert launched == ((2, 1) if path == "fft" else (0, 0)), launched
+        outs[path] = (y.detach(), xi.grad, wi.grad)
+    for got, ref in zip(outs["fft"], outs["direct"]):
+        _close(got, ref)

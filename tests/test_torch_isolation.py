@@ -48,7 +48,11 @@ for name in ("repro_torch.quant", "repro_torch.quant.codec",
              "repro_torch.obs.health", "repro_torch.obs.metrics",
              "repro_torch.obs.prof", "repro_torch.obs.slo",
              "repro_torch.obs.trace", "repro_torch.roofline",
-             "repro_torch.roofline.analysis", "repro_torch.roofline.report"):
+             "repro_torch.roofline.analysis", "repro_torch.roofline.report",
+             "repro_torch.serve.faults", "repro_torch.fleet",
+             "repro_torch.fleet.replica", "repro_torch.fleet.router",
+             "repro_torch.core.conv", "repro_torch.core.compression",
+             "repro_torch.core.theory", "repro_torch.launch.serve"):
     assert name in names, name
 leaked = sorted(n for n in sys.modules if n == "repro" or n.startswith("repro."))
 assert not leaked, leaked

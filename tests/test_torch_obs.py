@@ -409,8 +409,11 @@ def test_batch_engine_obs_off_and_traces():
 def test_continuous_engine_lifecycle_hooks():
     cfg = tget(ARCH)
     params = init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.13"):
-        _cont(cfg, params, faults=object())
+    from repro_torch.serve.faults import FaultConfig, FaultInjector
+    faults = FaultInjector(FaultConfig(seed=0))
+    eng = _cont(cfg, params, faults=faults)
+    assert eng.faults is faults
+    assert eng.block_table.allocator.fault == faults.alloc_fault
     eng = _cont(cfg, params)
     assert eng.anomalies == 0
     eng.reset_serve_clock()
