@@ -110,8 +110,8 @@ itself.  Each phase prints one JSON line:
                 24 requests a seed with randomized deadlines, cancels,
                 allocator failures, dispatch delays and NaN-poisoned
                 slots) at tinyllama-1.1b's full width and depth in
-                float32: three seeds on an f32 pool and one on an int8
-                pool; the chaos invariants (one terminal each, no page
+                float32: ``CHAOS_SEEDS`` on an f32 pool and the first on
+                an int8 pool; the chaos invariants (one terminal each, no page
                 leak, the B=1 oracle's tokens up to a near-tie, the health
                 plane sees every guard trip), one decode capture a run
   serve_fleet   two replicas sharing the weights behind the failover
@@ -124,7 +124,27 @@ itself.  Each phase prints one JSON line:
                 forward and both gradients through ``bc_fused`` and
                 ``bc_grad_w`` against the plain path and ``F.conv2d`` on
                 the materialized filter, times and bounds, each kernel at
-                the layer's shapes against its plain version
+                the layer's shapes against its plain version; then the
+                same at block 4 (the kernels' DFT panel padded to 8,
+                ``bc_grad_w``'s plain-DFT path)
+  block_sizes   tinyllama-1.1b at full width and depth with every
+                projection at block size 256 and then 4 (``--block-size``,
+                repro's hillclimb override): the continuous and the batch
+                engine (its prefill MAC through spectral_matmul at F = 129
+                bins at 256, through bc_fused at 4, as its
+                ``prefill_lanes`` say), 4
+                requests each with exact launch counts, the B=1 oracle
+                check, 3 training steps of 4 x 512 tokens with launches by
+                shape; ``bc_fused`` (every lane at B = 8, the training
+                rows) and ``bc_grad_w`` at these k against their plain
+                versions
+  serve_kvf8    tinyllama-1.1b, float32, through the batch ``Engine``
+                over a float8_e4m3fn dense cache: 4 requests of 64 + 16,
+                every decode attention on flash's e4m3 rows lane, the
+                engines equal to their paths, each row against the B=1
+                oracle over the same cache up to the first near-tie, the
+                float8 oracle beside the float32 cache's; the e4m3 lane
+                against its plain version
   decode_graph  the continuous engine's decode loop replayed from its CUDA
                 graph against the same loop run eagerly, on the f32 and
                 bf16 pools (stream), the gather path and the int8 pool,
@@ -165,6 +185,12 @@ itself.  Each phase prints one JSON line:
   train_parity  (again, one line per arch above) 2 layers (whisper 2 + 2)
                 at published widths, float32, 2 x 64 tokens: the card's
                 loss, aux and every gradient against the CPU's plain path
+  dist          ``launch/mesh.py:make_host_mesh()``'s one-rank NCCL mesh:
+                ``wire_allreduce_int8`` over tinyllama-1.1b's gradients
+                against the CPU's int8 round trip, ``Engine(mesh=)``'s
+                tokens equal to the default's, the rule engine's bytes a
+                device of a (16, 16) duck mesh would hold of tinyllama's
+                parameters and planes; the process group destroyed
 
 Every ``ContinuousEngine`` above decodes by replaying the CUDA graph of its
 step, captured when the engine is built (``serve/decode.py``); its launch
@@ -280,7 +306,8 @@ from repro_torch.serve import decode as dec  # noqa: E402
 from repro_torch.serve import faults  # noqa: E402
 from repro_torch.serve import kvcache as kvc  # noqa: E402
 from repro_torch.serve.engine import (ContinuousEngine, Engine,  # noqa: E402
-                                      Request, frontend_inputs)
+                                      PrefillContract, Request,
+                                      frontend_inputs)
 from repro_torch.serve.params import precompute_serving_params  # noqa: E402
 from repro_torch.train import checkpoint as tckpt  # noqa: E402
 from repro_torch.train import train_step as ts  # noqa: E402
@@ -343,6 +370,28 @@ TRAIN_ARCHS = {
     RGEMMA: dict(phase="train_recurrentgemma", batch=2, seq=2560, steps=3),
     XLSTM: dict(phase="train_xlstm", batch=8, seq=1024, steps=3),
     WHISPER: dict(phase="train_whisper", batch=8, seq=448, steps=3)}
+
+
+BLOCK_SIZES = (256, 4)
+# block_sizes: tinyllama-1.1b at full width and depth with every attention
+# and FFN projection at block size k (repro's hillclimb override); ``n``
+# requests of ``lo``-``hi`` + ``new`` tokens through each engine (8 slots:
+# the continuous step's B), the B=1 float32 oracle on one request of
+# ``oracle_len`` + ``oracle_new``, and ``steps`` training steps of ``batch``
+# x ``seq`` tokens through the launcher
+BLOCK_SERVE = dict(n=4, lo=17, hi=64, new=8, max_seq=128, oracle_len=32,
+                   oracle_new=8)
+BLOCK_TRAIN = dict(batch=4, seq=512, steps=3)
+BLOCK_ROWS = BLOCK_TRAIN["batch"] * BLOCK_TRAIN["seq"]
+# serve_kvf8: B requests of one length (no padding, so each row of the
+# batch is the B=1 path's request) over a float8_e4m3fn dense cache
+KVF8 = dict(B=4, S=64, new=16)
+# serve_kvf8's limit on a batch row's step logits against the B=1 oracle
+# over the same float8 cache, a fraction of the logit scale (4.2 on the
+# H100): between the largest reading of sound runs (6.7e-4, a code flipped
+# at an e4m3 midpoint) and the controls' (the oracle over a float32 or a
+# bfloat16 cache: 3.9e-2 and 3.5e-2), which the phase checks stay above it
+KVF8_TOL = 1e-2
 
 
 def ring_decode_keys(S, steps, window):
@@ -574,6 +623,43 @@ NEW_SHAPES = {
     "bc_grad_w@conv": (
         bgw.KERNEL, "src/repro/core/circulant.py:247 (_bc_fft_bwd, XLA)",
         "conv_bc_grad_w", "conv_g2", "conv"),
+    # the CONV layer at block 4 (phase conv, second run): the DFT panel
+    # padded to the tensor cores' 8, bc_grad_w's plain-DFT path
+    "bc_fused@conv_k4": (bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48",
+                         "conv_bc_fused_k4", "conv_g2_k4_forward",
+                         "conv_k4"),
+    "bc_fused@conv_k4_adjoint": (
+        bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48",
+        "conv_bc_fused_k4", "conv_g2_k4_adjoint", "conv_k4"),
+    "bc_grad_w@conv_k4": (
+        bgw.KERNEL, "src/repro/core/circulant.py:247 (_bc_fft_bwd, XLA)",
+        "conv_bc_grad_w_k4", "conv_g2_k4", "conv_k4"),
+    # tinyllama-1.1b at block sizes 256 and 4 (phase block_sizes): up/gate
+    # in the continuous engine's decode (B = 8) and at the training rows,
+    # the weight gradient, the batch prefill's MAC at F = 129; counted at
+    # the case's shape in that run (spectral_matmul: the lane's launches)
+    **{f"bc_fused@k{k}": (bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48",
+                          f"bc_fused_k{k}", f"k{k}_up_gate_b8",
+                          f"block_sizes/k{k}/continuous")
+       for k in BLOCK_SIZES},
+    **{f"bc_fused@k{k}_train": (
+        bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48",
+        f"bc_fused_k{k}", f"k{k}_train_up_gate_b{BLOCK_ROWS}",
+        f"block_sizes/k{k}/train") for k in BLOCK_SIZES},
+    **{f"bc_grad_w@k{k}": (
+        bgw.KERNEL, "src/repro/core/circulant.py:247 (_bc_fft_bwd, XLA)",
+        f"bc_grad_w_k{k}", f"k{k}_up_gate_n{BLOCK_ROWS}",
+        f"block_sizes/k{k}/train") for k in BLOCK_SIZES},
+    "spectral_matmul@k256": (
+        sm.KERNEL, "src/repro/kernels/spectral_matmul.py:42",
+        "spectral_matmul_k256", f"k256_up_gate_n{ROWS}_hook",
+        "block_sizes/k256/batch"),
+    # the float8 dense cache (phase serve_kvf8): the one-row decode over
+    # e4m3 K/V, counted on its plan path
+    "flash_attention@e4m3_decode": (
+        fa.KERNEL, "src/repro/kernels/flash_attention.py:75", "flash_e4m3",
+        f"e4m3_decode_b{KVF8['B']}_skv{KVF8['S'] + KVF8['new'] - 1}",
+        "serve_kvf8"),
 }
 
 
@@ -599,7 +685,8 @@ SHAPE_PATHS = {"flash_attention@d96": "bf16", "bc_fused@expert": "single",
                "bc_fused@experts_train": "experts",
                "bc_fused@experts_train_adjoint": "experts",
                "bc_grad_w@experts_mixtral": "experts",
-               "bc_grad_w@experts_llama4": "experts"}
+               "bc_grad_w@experts_llama4": "experts",
+               "flash_attention@e4m3_decode": "f32_rows_e4m3"}
 
 T0 = time.perf_counter()
 _LAST = [T0]                # when the previous phase line was printed
@@ -708,19 +795,21 @@ def new_projections(cfg):
             if blocks(*io) not in seen}
 
 
-def fused_work(B, p, q, k, row_bytes=None, scaled=False):
+def fused_work(B, p, q, k, row_bytes=None, scaled=False, E=1):
     """(bytes, operations) of one ``bc_fused`` call of B rows over p x q
-    blocks: the input, the DFT panel and the output once, the three planes
-    (``row_bytes`` a plane row, float32 by default) and their scales; the
-    input and output FFTs, the Gauss MAC (3 products and 3 sums a row,
-    pair and bin) with its operand and output sums, and the scale folds."""
+    blocks (each of ``E`` experts of a stack): the input and the output
+    once, the three planes (``row_bytes`` a plane row, float32 by default)
+    and their scales; the input and output FFTs, the Gauss MAC (3 products
+    and 3 sums a row, pair and bin) with its operand and output sums, and
+    the scale folds.  The DFT panel is not counted: it is a function of k
+    alone, which a kernel could make from k twiddles in registers."""
     kf = k // 2 + 1
     row_bytes = 4 * kf if row_bytes is None else row_bytes
-    nbytes = (4 * (B * q * k + 4 * k * kf + B * p * k) + 3 * p * q * row_bytes
-              + (3 * 4 * p if scaled else 0))
-    flops = (rfft_flops(B * q, k) + 6 * B * p * q * kf + B * q * kf
-             + 2 * B * p * kf + rfft_flops(B * p, k)
-             + (3 * B * p * kf if scaled else 0))
+    nbytes = E * (4 * (B * q * k + B * p * k) + 3 * p * q * row_bytes
+                  + (3 * 4 * p if scaled else 0))
+    flops = E * (rfft_flops(B * q, k) + 6 * B * p * q * kf + B * q * kf
+                 + 2 * B * p * kf + rfft_flops(B * p, k)
+                 + (3 * B * p * kf if scaled else 0))
     return nbytes, flops
 
 
@@ -1351,7 +1440,7 @@ def fused_projections(cfg):
             "tinyllama_fused_up_gate": (cfg.d_model, 2 * cfg.d_ff)}
 
 
-def check_spectral(cfg, gen, shapes=None, N=ROWS):
+def check_spectral(cfg, gen, shapes=None, N=ROWS, timing=None):
     """``spectral_matmul`` against its plain version at every batch-prefill
     shape (F = 65, N = 2048 rows), in both layouts: ``repro``'s contiguous
     one (``<name>_n2048``) and the views ``spectral_contract`` passes
@@ -1362,7 +1451,9 @@ def check_spectral(cfg, gen, shapes=None, N=ROWS):
     ``spectral_contract`` made on every call before it read views.  ``N``
     rows (default tinyllama's 2048).  The tolerance: 3xTF32 sums Q terms
     in another order than ``torch.bmm``, ~1e-6 of the output scale; 1e-4
-    of it is allowed."""
+    of it is allowed.  ``timing`` (``time_ms``'s reps and inner) for
+    long calls."""
+    timing = timing or {}
     cases = []
     for name, n_in, n_out, k in shapes or spectral_shapes():
         F_ = k // 2 + 1
@@ -1373,7 +1464,7 @@ def check_spectral(cfg, gen, shapes=None, N=ROWS):
                                     device="cuda") * Q ** -0.5
                         for _ in range(3))
         xc, wc = torch.complex(xr, xi), torch.complex(wr, ws1 + wr)
-        library_ms = time_ms(lambda: torch.matmul(xc, wc))
+        library_ms = time_ms(lambda: torch.matmul(xc, wc), **timing)
         del xc, wc
         nbytes = 4 * F_ * (2 * N * Q + 3 * Q * P + 2 * N * P)
         flops = 6 * F_ * N * Q * P
@@ -1407,9 +1498,9 @@ def check_spectral(cfg, gen, shapes=None, N=ROWS):
                          "rows": pl.rows, "p_tile": pl.p_tile},
                 "max_abs_err": err, "tol": tol,
                 "repeat_equal": repeat_equal, "graph_equal": graph_equal,
-                **kernel_times(call),
+                **kernel_times(call, **timing),
                 "plain_ms": time_ms(lambda: sm.spectral_matmul_plain(
-                    *planes)),
+                    *planes), **timing),
                 "library_ms": library_ms,
                 "library": "torch.matmul on complex64 (F, N, Q) @ (F, Q, P)",
                 **copies, "bytes": nbytes, "flops": flops,
@@ -1475,7 +1566,7 @@ def grad_w_work(E, C, p, q, k):
     return nbytes, flops
 
 
-def check_bc_grad_w(cfg, gen, N=TRAIN_ROWS):
+def check_bc_grad_w(cfg, gen, N=TRAIN_ROWS, shapes=None):
     """``bc_grad_w`` at every training shape of tinyllama-1.1b (N = 8 x
     1,024 rows; the fused q/k/v and up/gate too) against its plain version
     on the same inputs, and a second call bit-equal to the first; each
@@ -1484,10 +1575,16 @@ def check_bc_grad_w(cfg, gen, N=TRAIN_ROWS):
     alone, without the two DFTs and the iDFT.  ``library_whole_ms`` is the
     whole function as three library calls in sequence (``torch.fft.rfft``
     of both inputs, that ``torch.bmm``, ``torch.fft.irfft``), its error
-    against the plain version beside it."""
+    against the plain version beside it.  ``shapes`` (name -> (n_in,
+    n_out)) replaces those; the first is the main case."""
     k = cfg.compression.block_attn
-    shapes = {f"tinyllama_{name}": io for name, io in projections(cfg).items()}
-    shapes.update(fused_projections(cfg))
+    main = f"tinyllama_up_gate_n{N}"
+    if shapes is None:
+        shapes = {f"tinyllama_{name}": io
+                  for name, io in projections(cfg).items()}
+        shapes.update(fused_projections(cfg))
+    else:
+        main = f"{next(iter(shapes))}_n{N}"
     cases = []
     for name, (n_in, n_out) in shapes.items():
         p, q = cc.num_blocks(n_out, k), cc.num_blocks(n_in, k)
@@ -1533,7 +1630,7 @@ def check_bc_grad_w(cfg, gen, N=TRAIN_ROWS):
             "bound_ms": bound_ms, "bound_by": bound_by})
         if not cases[-1]["bit_equal"]:
             raise AssertionError(f"bc_grad_w {name}: two calls differ")
-    return {"bc_grad_w": (cases, f"tinyllama_up_gate_n{N}")}
+    return {"bc_grad_w": (cases, main)}
 
 
 def moe_capacity(cfg, T):
@@ -1658,11 +1755,7 @@ def check_train_stacks(gen):
                 ref = torch.stack([bc_fused.bc_fused_matmul_plain(
                     x[e], *(t[e] for t in args[:3]), k) for e in range(E)])
                 torch.cuda.synchronize()
-                nbytes = (4 * (E * C * qq * k + 4 * k * kf + E * C * pp * k)
-                          + 3 * 4 * E * pp * qq * kf)
-                flops = E * (rfft_flops(C * qq, k) + 6 * C * pp * qq * kf
-                             + C * qq * kf + 2 * C * pp * kf
-                             + rfft_flops(C * pp, k))
+                nbytes, flops = fused_work(C, pp, qq, k, E=E)
                 bound_ms, bound_by = bound(nbytes, flops, torch.float32)
                 fused_cases.append({
                     "case": f"train_{name}{tag}_e{E}_c{C}",
@@ -2095,7 +2188,6 @@ def check_bc_experts(cfg, gen, C=4, prefix="llama4"):
     expert by expert.  Library: one ``torch.bmm`` against the dense
     (E, n_in, n_out) float32 stack, built here and freed after."""
     E, k = cfg.moe.num_experts, cfg.compression.block_for("expert")
-    kf = k // 2 + 1
     n_in, n_out = cfg.d_model, cfg.d_ff
     w = torch.stack([cc.init_block_circulant(n_in, n_out, k, generator=gen,
                                              device="cuda")
@@ -2142,12 +2234,8 @@ def check_bc_experts(cfg, gen, C=4, prefix="llama4"):
             raise AssertionError(f"{lane} expert stack: per-expert loop "
                                  f"{loop_equal}, graph replay {graph_equal}")
         row_bytes = pl[0].shape[-1] * pl[0].element_size()
-        nbytes = (4 * (E * C * q * k + 4 * k * kf + E * C * p * k)
-                  + 3 * E * p * q * row_bytes
-                  + (0 if scales is None else 3 * 4 * E * p))
-        flops = E * (rfft_flops(C * q, k) + 6 * C * p * q * kf + C * q * kf
-                     + 2 * C * p * kf + rfft_flops(C * p, k)
-                     + (0 if scales is None else 3 * C * p * kf))
+        nbytes, flops = fused_work(C, p, q, k, row_bytes,
+                                   scales is not None, E=E)
         bound_ms, bound_by = bound(nbytes, flops, torch.float32)
         loop_t = kernel_times(loop)
         out[lane] = ([{
@@ -2261,7 +2349,7 @@ def phase_kernels(cfg):
         checks.append(lambda family=family, bk=bk, arch=arch: check_spectral(
             cfg, gen, [(n, *io, bk) for n, io in gemma.items()
                        if n.startswith(family + "_")],
-            N=4 * BATCH_ARCH[arch]["hi"]))
+            N=4 * BATCH_ARCH[arch]["hi"], timing=LONG))
     checks += [
         # training (phase train): bc_grad_w at each projection's shape,
         # bc_fused at the forward and adjoint shapes, N = 8 x 1,024 rows
@@ -2274,19 +2362,25 @@ def phase_kernels(cfg):
         lambda: check_train_stacks(gen)]
     out = {}
     for check in checks:
-        for lane, (cases, main_case) in check().items():
-            if not cases:
-                continue
-            for c in cases:                  # share of the bound reached
-                c["bound_share"] = (c["bound_ms"] / c["device_ms"]
-                                    if c.get("device_ms") else None)
-            out.setdefault(lane, ([], main_case))[0].extend(cases)
-            emit({"phase": "kernels", "kernel": lane, "cases": cases})
-            bad = [c["case"] for c in cases
-                   if not c["max_abs_err"] <= c["tol"]]
-            if bad:
-                raise AssertionError(f"{lane}: over tolerance in {bad}")
+        record_kernels(out, check())
     return out
+
+
+def record_kernels(out, groups):
+    """Each group's cases into ``out`` (group -> (cases, main case)): the
+    share of the bound each reached, one ``kernels`` line a group, and
+    every case within its tolerance."""
+    for lane, (cases, main_case) in groups.items():
+        if not cases:
+            continue
+        for c in cases:                      # share of the bound reached
+            c["bound_share"] = (c["bound_ms"] / c["device_ms"]
+                                if c.get("device_ms") else None)
+        out.setdefault(lane, ([], main_case))[0].extend(cases)
+        emit({"phase": "kernels", "kernel": lane, "cases": cases})
+        bad = [c["case"] for c in cases if not c["max_abs_err"] <= c["tol"]]
+        if bad:
+            raise AssertionError(f"{lane}: over tolerance in {bad}")
 
 
 # ---------------------------------------------------------------------------
@@ -2819,28 +2913,35 @@ def phase_quant_parity(cfg):
 # ---------------------------------------------------------------------------
 # serve_batch_parity / serve_qwen: the B=1 oracle on the card
 # ---------------------------------------------------------------------------
-def batch_trace(cfg, params, prompt, new):
+def batch_trace(cfg, params, prompt, new, cache_dtype=torch.float32):
     """One request through the batch engine's path by hand (the hooked
-    prefill, then greedy decode steps against the float32 dense cache):
-    (greedy tokens, the logits of every step as a (new, V) CPU tensor)."""
+    prefill, then greedy decode steps against the dense cache, float32 or
+    ``cache_dtype``): (greedy tokens, the logits of every step as a (new,
+    V) CPU tensor)."""
+    return batch_traces(cfg, params, prompt[None], new, cache_dtype)[0]
+
+
+def batch_traces(cfg, params, prompts, new, cache_dtype=torch.float32):
+    """``batch_trace`` of B prompts of one length (B, S) as one batch:
+    one (tokens, logits) pair a row."""
     dev = next(params.parameters()).device
     model = build_model(cfg)
-    prefill = dec.make_prefill_step(cfg, kernel_fn=kops.spectral_contract)
+    prefill = dec.make_prefill_step(cfg, kernel_fn=PrefillContract(params))
     step = dec.make_decode_step(cfg)
-    S = len(prompt)
+    B, S = prompts.shape
     with torch.no_grad():
-        cache = model.init_cache(1, S + new - 1, dtype=torch.float32,
+        cache = model.init_cache(B, S + new - 1, dtype=cache_dtype,
                                  device=dev)
         logits, cache = prefill(params, {"tokens": torch.as_tensor(
-            prompt[None], dtype=torch.int64, device=dev),
-            **frontend_inputs(cfg, 1, dev)}, cache)
-        steps = [logits[0, -1].float().cpu()]
+            prompts, dtype=torch.int64, device=dev),
+            **frontend_inputs(cfg, B, dev)}, cache)
+        steps = [logits[:, -1].float().cpu()]
         for i in range(new - 1):
-            cur = torch.tensor([[int(steps[-1].argmax())]], device=dev)
+            cur = steps[-1].argmax(-1)[:, None].to(dev)
             logits, _, cache = step(params, cur, cache, S + i)
-            steps.append(logits[0, -1].float().cpu())
-    lg = torch.stack(steps)
-    return lg.argmax(-1).tolist(), lg
+            steps.append(logits[:, -1].float().cpu())
+    lg = torch.stack(steps, 1)                       # (B, new, V)
+    return [(row.argmax(-1).tolist(), row) for row in lg]
 
 
 def generate_one(engine, prompt, new):
@@ -3327,7 +3428,8 @@ def phase_serve_fused(cfg):
 # ---------------------------------------------------------------------------
 # serve_obs: the telemetry plane on the card
 # ---------------------------------------------------------------------------
-OBS_ROUNDS = 8          # paired rounds of the three-arm overhead
+OBS_ROUNDS = 4          # paired rounds of the three-arm overhead (cut
+                        # from 8 for the script's time limit)
 
 
 def obs_engine(cfg, params, obs, **kw):
@@ -3491,7 +3593,7 @@ def phase_serve_obs(cfg):
 # serve_chaos / serve_fleet: fault injection and the replicated fleet at
 # tinyllama-1.1b's full width and depth (serve/faults.py, fleet/)
 # ---------------------------------------------------------------------------
-CHAOS_SEEDS = (0, 1, 2)
+CHAOS_SEEDS = (0,)          # cut from 3 seeds for the time limit
 CHAOS_REQUESTS, FLEET_REQUESTS = 24, 16
 # the parity phases' near-tie rule (phase_parity): a greedy token may
 # differ from the oracle's only where the oracle's top-2 logit gap is
@@ -3527,7 +3629,7 @@ def phase_serve_chaos(cfg, params):
     failures 0.05, dispatch delays 0.1 of 2 ms, corruption 0.08; 4 slots
     over a pool of half their full-grown footprint) at tinyllama-1.1b's
     full width and depth in float32, through ``ContinuousEngine`` on the
-    card: three seeds on an f32 pool, then the first seed on an int8 pool,
+    card: ``CHAOS_SEEDS`` on an f32 pool, then the first on an int8 pool,
     where the poison lands in the K scales.  Each run holds invariants 1-4
     (the B=1 ``Engine`` on the card the oracle, under the near-tie rule;
     on the int8 pool the oracle part is that no poisoned request
@@ -3654,7 +3756,7 @@ def conv_library_run(x, w, ct, C):
     """The same three through ``F.conv2d`` (cuDNN, float32, TF32 off) on
     the filter materialized from ``w``, the generators' gradient through
     the materialization."""
-    k, n_in = CONV_K, CONV_R * CONV_R * C
+    k, n_in = w.shape[-1], CONV_R * CONV_R * C
     xi = x.detach().requires_grad_(True)
     wi = w.detach().requires_grad_(True)
     p, q, _ = wi.shape
@@ -3665,8 +3767,10 @@ def conv_library_run(x, w, ct, C):
     return y.detach(), xi.grad, wi.grad
 
 
-def phase_conv():
-    """The CONV layer at ``CONV_LAYERS``' shapes: the forward and both
+def phase_conv(k=CONV_K):
+    """The CONV layer at ``CONV_LAYERS``' shapes at block size ``k`` (the
+    paper's 16, then ``repro``'s test block 4, whose kernels pad the DFT
+    panel to 8; cases and groups named ``_k4``): the forward and both
     gradients on the kernel path (one ``bc_fused`` forward, one adjoint,
     one ``bc_grad_w`` a layer, counted at their shapes from 0) held
     against the plain path on the card and against ``F.conv2d`` on the
@@ -3677,7 +3781,7 @@ def phase_conv():
     call computing the dense layer's same step (``F.conv2d``, its input
     gradient, its weight gradient: ``torch.nn.grad``), and its bound."""
     gen = kernel_gen()
-    k = CONV_K
+    tag = "" if k == CONV_K else f"_k{k}"
     layers, fused_cases, grad_cases = [], [], []
     launches, shapes = {}, {}
     for name, (C, hw) in CONV_LAYERS.items():
@@ -3746,7 +3850,7 @@ def phase_conv():
             works[case] = (nbytes, flops)
             bound_ms, bound_by = bound(nbytes, flops, torch.float32)
             fused_cases.append({
-                "case": f"conv_{name}_{case}", "shape": [N, *pq, k],
+                "case": f"conv_{name}{tag}_{case}", "shape": [N, *pq, k],
                 "launch_shape": bc_fused.shape_key(1, N, *pq, k, "bc_fused"),
                 "plan": bc_fused.plan(N, *pq, k, "bc_fused")._asdict(),
                 "max_abs_err": max_err(out, ref),
@@ -3767,7 +3871,7 @@ def phase_conv():
         works["grad_w"] = (nbytes, flops)
         bound_ms, bound_by = bound(nbytes, flops, torch.float32)
         grad_cases.append({
-            "case": f"conv_{name}", "shape": [N, p, q, k],
+            "case": f"conv_{name}{tag}", "shape": [N, p, q, k],
             "launch_shape": bgw.shape_key(N, p, q, k),
             "plan": bgw.plan(N, p, q, k)._asdict(),
             "max_abs_err": max_err(out, ref),
@@ -3810,8 +3914,415 @@ def phase_conv():
                             "bc_grad_w": grad_cases}}
     emit(out)
     return {"launches": launches, "shapes": shapes,
-            "kernels": {"conv_bc_fused": (fused_cases, "conv_g2_forward"),
-                        "conv_bc_grad_w": (grad_cases, "conv_g2")}}
+            "kernels": {f"conv_bc_fused{tag}": (fused_cases,
+                                                f"conv_g2{tag}_forward"),
+                        f"conv_bc_grad_w{tag}": (grad_cases,
+                                                 f"conv_g2{tag}")}}
+
+
+# ---------------------------------------------------------------------------
+# block_sizes, serve_kvf8, dist: the block sizes, the float8 dense cache and
+# the distribution layer that repro takes
+# ---------------------------------------------------------------------------
+
+
+def block_cfg(cfg, k):
+    """``cfg`` with every attention and FFN projection at block size k.
+    At k <= 8 ``repro``'s auto path materializes the blocks (a dense
+    product, ``direct``); the path is set to ``spectral`` there (its own
+    override: baked planes to serve, the FFT backward to train), so the
+    circulant kernels carry it."""
+    return cfg.with_compression(block_ffn=k, block_attn=k,
+                                **({"path": "spectral"} if k <= 8 else {}))
+
+
+def block_kernel_checks(cfg, gen):
+    """At ``cfg``'s block size k: ``bc_fused`` at tinyllama's up/gate on
+    every plane lane at B = 8 (the continuous step's rows) and on the
+    float32 lane at the training rows, and ``bc_grad_w`` at the training
+    rows, each against its plain version, in groups named ``<lane>_k<k>``
+    (their library: the dense product / the complex64 contraction)."""
+    k = cfg.compression.block_attn
+    up = {f"k{k}_up_gate": (cfg.d_model, cfg.d_ff)}
+    train_up = {f"k{k}_train_up_gate": (cfg.d_model, cfg.d_ff)}
+    out = {f"{lane}_k{k}": (cases, f"k{k}_up_gate_b8")
+           for lane, (cases, _) in check_bc_fused(cfg, gen, up,
+                                                  batches=(8,)).items()}
+    out[f"bc_fused_k{k}"][0].extend(check_bc_fused(
+        cfg, gen, train_up, batches=(BLOCK_ROWS,), lane_names=("bc_fused",),
+        timing=LONG)["bc_fused"][0])
+    cases, main = check_bc_grad_w(cfg, gen, N=BLOCK_ROWS, shapes=up)[
+        "bc_grad_w"]
+    out[f"bc_grad_w_k{k}"] = (cases, main)
+    if k == 256:             # the batch prefill's MAC at F = 129 bins
+        out["spectral_matmul_k256"] = (check_spectral(
+            cfg, gen, [(f"k{k}_up_gate", cfg.d_model, cfg.d_ff, k)])[
+                "spectral_matmul"][0], f"k{k}_up_gate_n{ROWS}_hook")
+    return out
+
+
+def block_serve(cfg, k):
+    """The serving half of ``phase_block_sizes`` at block size k: the
+    continuous engine and the batch engine on fresh random weights with
+    exact launch counts, then the B=1 oracle."""
+    s = BLOCK_SERVE
+    L = cfg.num_layers
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    rng = np.random.RandomState(SEED + k)
+    reqs = make_requests(cfg, s["n"], s["lo"], s["hi"], s["new"], rng)
+    out, runs = {}, {}
+    engine = ContinuousEngine(cfg, params, max_slots=8, max_seq=s["max_seq"],
+                              page_size=16, decode_chunk=8, device=DEVICE)
+    results, st, launches, wall, peak = timed_run(engine, reqs)
+    check_launches(launches, {
+        "bc_fused": 7 * L * (st["prefills"] + st["decode_steps"]),
+        "flash_attention": L * st["prefills"],
+        "paged_attention": L * st["decode_steps"]})
+    out["continuous"] = {**serve_summary("block_sizes", cfg, results, reqs,
+                                         st, launches, wall, peak),
+                         "shapes": shape_counts()}
+    runs["continuous"] = {"launches": launches, "shapes": shape_counts()}
+    del engine
+    # the batch engine's prefill MAC: spectral_matmul plans every plane
+    # shape at 256 (F = 129 bins), none at 4, so the fused kernel takes
+    # them there
+    engine = Engine(cfg, params, max_batch=8, max_seq=s["max_seq"],
+                    device=DEVICE)
+    hooked = k == 256
+    lanes = engine.stats()["prefill_lanes"]
+    if bool(lanes["bc_fused"]) == hooked or \
+            bool(lanes["spectral_matmul"]) != hooked:
+        raise AssertionError(f"block size {k}: prefill lanes {lanes}")
+    results, st, launches, wall, peak = timed_run(engine, reqs)
+    check_launches(launches, batch_launches(cfg, st, hooked=hooked))
+    out["batch"] = {**batch_summary("block_sizes", cfg, results, reqs, st,
+                                    launches, wall, peak),
+                    "prefill_lanes": lanes}
+    runs["batch"] = {"launches": launches}
+    del engine
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(dtype="float32")
+    params32 = precompute_serving_params(
+        init_params(cfg32, seed=SEED + 1, device=DEVICE), cfg32)
+    prompt = np.random.RandomState(SEED + k + 1).randint(
+        0, cfg.vocab_size, size=s["oracle_len"]).astype(np.int32)
+    _, out["oracle"] = oracle_check(cfg32, params32, prompt, s["oracle_new"])
+    del params32
+    torch.cuda.empty_cache()
+    return out, runs
+
+
+def block_train(cfg, k):
+    """The training half: ``BLOCK_TRAIN`` through the launcher with
+    ``--block-size k``: losses finite, no step skipped, and the launches a
+    step by shape equal to those the model calls for."""
+    t = BLOCK_TRAIN
+    res, wall, peak = launch_train_run(
+        ["--arch", ARCH, "--full", "--block-size", str(k),
+         "--path", cfg.compression.path, "--steps", str(t["steps"]),
+         "--ckpt-every", "0"], batch=t["batch"], seq=t["seq"])
+    hist = res["history"]
+    losses = [h["loss"] for h in hist]
+    if (len(hist) != t["steps"] or not all(np.isfinite(losses))
+            or int(res["state"]["skipped"])):
+        raise AssertionError(f"block size {k}: losses {losses}, skipped "
+                             f"{int(res['state']['skipped'])}")
+    want_fused, want_grads = train_shape_counts(cfg, BLOCK_ROWS)
+    shapes = shape_counts(TRAIN_LIBRARIES)
+    got = ({s_: n / t["steps"] for s_, n in shapes.get("bc_fused",
+                                                       {}).items()},
+           {s_: n / t["steps"] for s_, n in shapes.get("bc_grad_w",
+                                                       {}).items()})
+    if got != (want_fused, want_grads):
+        raise AssertionError(f"block size {k}: launches a step {got}, "
+                             f"expected {(want_fused, want_grads)}")
+    launches = lane_counts(TRAIN_LIBRARIES)
+    check_launches(launches, {
+        "bc_fused": t["steps"] * sum(want_fused.values()),
+        "bc_grad_w": t["steps"] * sum(want_grads.values())})
+    ms, ms_step = train_steps_summary(hist, first=1)
+    summary = {"batch": t["batch"], "seq": t["seq"], "steps": t["steps"],
+               "losses": losses, "step_ms": ms, "ms_per_step": ms_step,
+               "tokens_per_s": 1e3 * BLOCK_ROWS / ms_step, "wall_s": wall,
+               "peak_memory_bytes": peak, "launches": launches,
+               "params": sum(p.numel()
+                             for p in res["state"]["model"].parameters())}
+    return summary, {"launches": launches, "shapes": shapes}
+
+
+def phase_block_sizes(cfg):
+    """tinyllama-1.1b at full width and depth with every projection at
+    block size 256 (DFT panel read from memory: 264 KB is past a block's
+    shared memory) and 4 (the panel padded to the tensor cores' 8; path
+    ``spectral``, ``block_cfg``): at 256
+    the continuous and batch engines (the batch prefill's MAC through
+    ``spectral_matmul`` at F = 129), the B=1 oracle and 3 training steps;
+    at 4 (p = q = 512 at q/o, kf = 3) the continuous engine, the oracle and
+    3 training steps.  Exact launch counts; the kernels at these k against
+    their plain versions (``block_kernel_checks``)."""
+    gen = kernel_gen()
+    kernels, runs = {}, {}
+    for k in BLOCK_SIZES:
+        t0 = time.perf_counter()
+        kcfg = block_cfg(cfg, k)
+        record_kernels(kernels, block_kernel_checks(kcfg, gen))
+        serve, serve_runs = block_serve(kcfg, k)
+        train, train_run = block_train(kcfg, k)
+        for name, run in serve_runs.items():
+            runs[f"block_sizes/k{k}/{name}"] = run
+        runs[f"block_sizes/k{k}/train"] = train_run
+        a = kcfg.attention
+        emit({"phase": "block_sizes", "block": k, "arch": ARCH,
+              "layers": kcfg.num_layers, "d_model": kcfg.d_model,
+              "blocks": {name: [cc.num_blocks(o, k), cc.num_blocks(i, k)]
+                         for name, (i, o) in projections(kcfg).items()},
+              "panel_staged": bc_fused.panel_staged(k),
+              "heads": [a.num_heads, a.num_kv_heads, a.head_dim],
+              **serve, "train": train, "wall_s": time.perf_counter() - t0})
+    return kernels, runs
+
+
+def check_flash_e4m3(gen, name, B, Hq, Hkv, Sq, Skv, D, **kw):
+    """The flash kernel's e4m3 lane (the rows kernel at any rows): a
+    float32 query over K/V stored as float8_e4m3fn (as ``layers/
+    attention.py:to_cache`` writes a cache),
+    against ``attention_ref`` on K/V widened to float32.  Bytes count K/V
+    at 1 byte.  No library call reads an e4m3 cache (SDPA takes q, k and
+    v of one dtype): ``library_ms`` None."""
+    q = torch.randn((B, Hq, Sq, D), generator=gen, device="cuda")
+    k, v = (attn_lib.to_cache(torch.randn((B, Hkv, Skv, D), generator=gen,
+                                          device="cuda"),
+                              torch.float8_e4m3fn) for _ in range(2))
+    got = fa.flash_attention(q, k, v, **kw)
+    ref = fa.attention_ref(q, k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    causal, off = kw.get("causal", True), kw.get("kv_offset", 0)
+    rows = torch.arange(Sq)[:, None] + off
+    pairs = int((torch.arange(Skv)[None, :] <= rows).sum()) if causal \
+        else Sq * Skv
+    nbytes = 4 * 2 * q.numel() + k.numel() + v.numel()
+    flops = 4 * D * B * Hq * pairs
+    bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+    pl = fa.plan(B, Hq, Hkv, Sq, Skv, D, torch.float32, torch.float8_e4m3fn)
+    return {"case": name, "shape": [B, Hq, Hkv, Sq, Skv, D],
+            "path": pl.path + "_e4m3", "kv_dtype": "float8_e4m3fn",
+            "launch_shape": fa.shape_key(
+                B, Hq, Hkv, Sq, Skv, D, torch.float32, causal=causal,
+                kv_offset=off, kv_dtype=torch.float8_e4m3fn),
+            "plan": {**pl._asdict(), "dtype": "float32"},
+            "max_abs_err": max_err(got, ref),
+            "tol": 1e-4 * max(1.0, float(ref.abs().max())),
+            **kernel_times(lambda: fa.flash_attention(q, k, v, **kw)),
+            "plain_ms": time_ms(lambda: fa.attention_ref(
+                q, k.float(), v.float(), **kw)),
+            "library_ms": None,
+            "library": "none: no PyTorch call reads an e4m3 K/V under a "
+                       "float32 query",
+            "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def phase_serve_kvf8(cfg):
+    """tinyllama-1.1b at full width and depth in float32 through the batch
+    ``Engine`` with ``kv_cache_dtype="float8_e4m3fn"``'s dense cache
+    (``cache_dtype``): ``KVF8``'s B requests of one length, the prefill on
+    the float32 tensor-core flash over the fresh K/V (as ``repro``'s
+    prefill reads them), every decode step's attention on the e4m3 rows
+    lane (exact launch counts by path), the cache a quarter of float32's.
+    The engine's tokens equal its path's by hand (``batch_traces``) and a
+    B=1 engine's its B=1 path's; each row of the batch against the B=1
+    oracle over the same float8 cache step by step (tokens up to the
+    first near-tie; a K/V value within float32 noise of an e4m3 rounding
+    midpoint takes the neighbouring code in the two, so step logits are
+    held at ``KVF8_TOL`` of the scale), and the float8 oracle against the
+    float32 and bfloat16 caches' (the controls: each must exceed the
+    limit)."""
+    t0 = time.perf_counter()
+    f8 = torch.float8_e4m3fn
+    cfg32 = cfg.replace(dtype="float32", kv_cache_dtype="float8_e4m3fn")
+    L, B, S, new = cfg32.num_layers, KVF8["B"], KVF8["S"], KVF8["new"]
+    params = precompute_serving_params(
+        init_params(cfg32, seed=SEED + 5, device=DEVICE), cfg32)
+    rng = np.random.RandomState(SEED + 5)
+    prompts = rng.randint(0, cfg32.vocab_size, size=(B, S)).astype(np.int32)
+    reqs = [Request(prompt=p, max_new_tokens=new, id=i)
+            for i, p in enumerate(prompts)]
+    engine = Engine(cfg32, params, max_batch=B, max_seq=S + new,
+                    device=DEVICE, cache_dtype=f8)
+    results, st, launches, wall, peak = timed_run(engine, reqs)
+    paths = path_counts()
+    want_paths = {"f32_mma": L * st["prefills"],
+                  "f32_rows_e4m3": L * st["decode_steps"]}
+    check_launches(launches, batch_launches(cfg32, st))
+    if paths.get("flash_attention") != want_paths or st["cache_dtype"] \
+            != "float8_e4m3fn":
+        raise AssertionError(f"serve_kvf8: flash paths {paths}, expected "
+                             f"{want_paths}; cache {st['cache_dtype']}")
+    batched = batch_traces(cfg32, params, prompts, new, f8)
+    if [r["tokens"] for r in results] != [t for t, _ in batched]:
+        raise AssertionError("serve_kvf8: the engine's tokens are not its "
+                             "path's")
+    one = generate_one(Engine(cfg32, params, max_batch=1, max_seq=S + new,
+                              device=DEVICE, cache_dtype=f8), prompts[0],
+                       new)
+    oracles = [batch_trace(cfg32, params, p, new, f8) for p in prompts]
+    if one != oracles[0][0]:
+        raise AssertionError(f"serve_kvf8: B=1 engine {one} against its "
+                             f"path {oracles[0][0]}")
+    scale = max(1.0, float(oracles[0][1][0].abs().max()))
+    rows = [compare_traces(b, o, KVF8_TOL * scale)
+            for b, o in zip(batched, oracles)]
+    # the controls: the float8 oracle against the same request over a
+    # float32 and a bfloat16-rounded cache, up to their first differing
+    # token; a batch row that read a wider cache than e4m3 would be off by
+    # as much, so the limit must sit below both
+    controls = {}
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        ref = batch_trace(cfg32, params, prompts[0], new, dt)
+        n = next((i for i, (a, b) in enumerate(zip(ref[0], oracles[0][0]))
+                  if a != b), len(ref[0]))
+        controls[name] = {"tokens_equal": n, "max_step_err_before": max_err(
+            ref[1][:max(n, 1)], oracles[0][1][:max(n, 1)]) / scale,
+            "tokens": ref[0]}
+    if not all(c["max_step_err_before"] > KVF8_TOL for c in controls.values()):
+        raise AssertionError(f"serve_kvf8: the limit {KVF8_TOL} of the "
+                             f"logit scale does not separate the wider "
+                             f"caches' {controls}")
+    vs_f32 = {**controls, "tokens_f8": oracles[0][0]}
+    tokens = sum(r["decode_len"] for r in results)
+    out = {"phase": "serve_kvf8", "arch": ARCH, "layers": L,
+           "d_model": cfg32.d_model, "dtype": "float32",
+           "cache_dtype": "float8_e4m3fn", "requests": B, "prompt_len": S,
+           "new_tokens": new, "tokens": tokens, "wall_s": wall,
+           "tokens_per_s": tokens / wall, "prefill_s": st["prefill_s"],
+           "decode_s": st["decode_s"], "decode_steps": st["decode_steps"],
+           "ms_per_step": 1e3 * st["decode_s"] / max(st["decode_steps"], 1),
+           "cache_bytes": st["cache_bytes"],
+           "launches": launches, "paths": paths, "peak_memory_bytes": peak,
+           "batch_vs_oracle": rows, "tol": KVF8_TOL, "logit_scale": scale,
+           "oracle_f8_vs_wider": vs_f32,
+           "phase_s": time.perf_counter() - t0}
+    emit(out)
+    gen = kernel_gen()
+    D = cfg32.attention.head_dim
+    a = cfg32.attention
+    Skv = S + new - 1                 # the last decode step's keys
+    kernels = {"flash_e4m3": ([
+        check_flash_e4m3(gen, f"e4m3_decode_b{B}_skv{Skv}", B, a.num_heads,
+                         a.num_kv_heads, 1, Skv, D, kv_offset=Skv - 1),
+        check_flash_e4m3(gen, f"e4m3_prefill_b1_s{S}", 1, a.num_heads,
+                         a.num_kv_heads, S, S, D)],
+        f"e4m3_decode_b{B}_skv{Skv}")}
+    del engine, params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "paths": paths, "kernels": kernels}
+
+
+class DuckMesh:
+    """A mesh's names and shape, no devices (``repro``'s test fake):
+    enough for the rule engine."""
+
+    def __init__(self, shape, names):
+        self.devices = np.zeros(shape)
+        self.axis_names = names
+
+
+def spec_bytes(leaves, mesh):
+    """(bytes of every leaf, the most one device holds under the rule
+    engine's specs on ``mesh``, the same replicated)."""
+    from repro_torch.dist import sharding as sh
+    specs = sh.param_specs(leaves, mesh)
+    total = per = 0
+    for name, t in leaves.items():
+        nb = t.numel() * t.element_size()
+        total += nb
+        per += math.prod(sh.local_shape(t.shape, specs[name], mesh)) \
+            * t.element_size()
+    return total, per
+
+
+def phase_dist(cfg):
+    """The distribution layer on one card: this host's one-rank NCCL mesh
+    (``launch/mesh.py:make_host_mesh``): ``wire_allreduce_int8`` over
+    tinyllama-1.1b's gradients (full width and depth, one backward of 2 x
+    64 tokens) against the CPU's int8 round trip of each with
+    ``q_sym``'s float32 scale (bit-equal); the batch ``Engine`` with
+    ``mesh=`` a second (1, 1) mesh built by ``make_mesh``, against its
+    path run by hand with no policy entered (equal tokens); the rule
+    engine's specs of tinyllama's
+    full parameters and baked planes on a duck (16, 16) mesh and the bytes
+    one device would hold; then the process group is destroyed."""
+    import torch.distributed as dist
+    from repro_torch.dist import ctx as dist_ctx
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.optim import grad_compression as gc_lib
+    t0 = time.perf_counter()
+    mesh = mesh_lib.make_host_mesh()
+    info = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+            "mesh": list(mesh.mesh_dim_names), "shape": list(mesh.shape)}
+    model = init_params(cfg, seed=SEED + 7, device=DEVICE)
+    batch = SyntheticLM(cfg, batch=2, seq=64, seed=SEED)(0)
+    state = ts.init_state(cfg, adamw.AdamWConfig(), model=model)
+    _, _, grads = ts.make_train_step(cfg, adamw.AdamWConfig()).grads(
+        state, {n: t.to(DEVICE) for n, t in batch.items()})
+    flat = {f"{i}.{j}": g for i, gs in enumerate(grads)
+            for j, g in enumerate(gs)}
+    got = gc_lib.wire_allreduce_int8(flat, mesh, axis="data")
+    torch.cuda.synchronize()
+    # the CPU's round trip with q_sym's own float32 scale, over n = 1 rank:
+    # the card's division, rounding and dequantization are IEEE float32
+    # both sides, so every tensor must be bit-equal
+    exact, worst = 0, 0.0
+    for name, g in flat.items():
+        gc_ = g.float().cpu()
+        scale = torch.clamp(gc_.abs().max(), min=1e-12) / 127.0
+        codes = torch.clamp(torch.round(gc_ / scale), -127, 127)
+        want = (codes * scale / 1).to(g.dtype)
+        err = max_err(got[name].cpu().float(), want.float())
+        worst = max(worst, err / float(scale))
+        exact += int(torch.equal(got[name].cpu(), want))
+    if exact != len(flat):
+        raise AssertionError(f"dist: wire all-reduce bit-equal on {exact} "
+                             f"of {len(flat)} tensors, off by {worst} steps")
+    del grads, state, got
+    # the engine under the policy of a mesh built explicitly, against the
+    # batch engine's path run by hand with no policy entered
+    explicit = mesh_lib.make_mesh((1, 1), ("data", "model"))
+    if explicit is mesh:
+        raise AssertionError("dist: make_mesh returned the host mesh")
+    rng = np.random.RandomState(SEED + 7)
+    prompts = rng.randint(0, cfg.vocab_size, size=(4, 48)).astype(np.int32)
+    reqs = [Request(prompt=p, max_new_tokens=8, id=i)
+            for i, p in enumerate(prompts)]
+    eng = Engine(cfg, model, max_batch=4, max_seq=128, device=DEVICE,
+                 mesh=explicit, bucket_prompts=False)
+    tokens = {"mesh": [r["tokens"] for r in eng.generate(reqs)]}
+    if dist_ctx.current_policy() is not None:
+        raise AssertionError("dist: the engine left its policy entered")
+    tokens["no_policy"] = [t for t, _ in batch_traces(cfg, model, prompts,
+                                                      8)]
+    if tokens["mesh"] != tokens["no_policy"]:
+        raise AssertionError(f"dist: Engine(mesh=) tokens {tokens}")
+    duck = DuckMesh((16, 16), ("data", "model"))
+    leaves = {n: p for n, p in model.named_parameters()}
+    serving = dict(leaves)
+    serving.update((n, b) for n, b in model.named_buffers()
+                   if b is not None)
+    full = {}
+    for name, ls in (("params", leaves), ("serving", serving)):
+        total, per = spec_bytes(ls, duck)
+        full[name] = {"bytes": total, "per_device_bytes": per,
+                      "ratio": total / per}
+    dist.destroy_process_group()
+    emit({"phase": "dist", **info, "wire_allreduce": {
+        "tensors": len(flat), "bit_equal": exact},
+        "engine_tokens_equal_no_policy": True,
+        "tokens": tokens["mesh"], "duck_mesh": [16, 16],
+        "rule_engine": full, "destroyed": not dist.is_initialized(),
+        "phase_s": time.perf_counter() - t0})
+    del model
+    torch.cuda.empty_cache()
 
 
 GRAPH_LENS = (40, 17, 100, None, 64, 23, 200, 90)    # None: an idle slot
@@ -4002,6 +4513,15 @@ def main() -> int:
     conv_run = phase_conv()
     kernels.update(conv_run.pop("kernels"))
     runs["conv"] = conv_run
+    conv_run = phase_conv(4)
+    kernels.update(conv_run.pop("kernels"))
+    runs["conv_k4"] = conv_run
+    block_kernels, block_runs = phase_block_sizes(cfg)
+    kernels.update(block_kernels)
+    runs.update(block_runs)
+    kvf8_run = phase_serve_kvf8(cfg)
+    record_kernels(kernels, kvf8_run.pop("kernels"))
+    runs["serve_kvf8"] = kvf8_run
     phase_decode_graph(cfg)
     runs["train"] = phase_train(cfg)
     phase_train_parity(cfg)
@@ -4010,6 +4530,7 @@ def main() -> int:
         runs[t["phase"]] = phase_train_arch(arch)
     for arch in TRAIN_ARCHS:
         phase_train_parity_arch(arch)
+    phase_dist(cfg)
     phase_lowering(cfg, kernel_gen())
     summary = []
     for name, (lib, replaces, group, main_case, run) in (

@@ -401,10 +401,13 @@ class LinearSpec:
 
 def _spectral_linear(x, cache, k: int, gauss: bool, n_out: int, kernel_fn):
     """One projection against spectral planes: through ``kernel_fn`` when
-    the hook is set and the planes are float32, else the fused kernel (its
-    quantized lane for int8 / int4 planes)."""
+    the hook is set, the planes are float32 and the hook takes them (a
+    hook with a ``takes(cache)`` method decides projection by projection),
+    else the fused kernel (its quantized lane for int8 / int4 planes)."""
     from ..kernels import ops as kops   # kernels import this module
-    if kernel_fn is not None and "wr_s" not in cache:
+    takes = getattr(kernel_fn, "takes", None)
+    if kernel_fn is not None and "wr_s" not in cache and (
+            takes is None or takes(cache)):
         return bc_matmul_spectral(x, cache, k, n_out, gauss, kernel_fn)
     return kops.bc_linear(x, cache, k, n_out, gauss)
 

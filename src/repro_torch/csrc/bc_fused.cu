@@ -84,9 +84,20 @@
 //   the output equals the per-expert loop bit for bit; E * 32 blocks at
 //   llama4's decode (128 experts of 4 rows) instead of 128 launches that
 //   each fill a quarter of the card.
+// - Any block size k >= 1.  The products tile k in 8s, so the DFT runs
+//   over kp = k rounded up to 8: the panel's rows k .. kp - 1 and the staged
+//   rows' columns k .. kp - 1 are zeros (the signal itself is not padded: a
+//   length-8 transform of a length-4 block would be another circulant), and
+//   the iDFT's columns past k are not stored.  Such rows are staged and
+//   stored a float at a time.  Odd k has no Nyquist bin: w_f = 1/k at bin 0
+//   only (repro/core/circulant.py:dft_mats).  Where the panel would take
+//   more than 128 KiB of shared memory (k >= 184: at k = 256, 264 KB, past
+//   the 227 KB a block has) it is not staged: both products read it (and
+//   the iDFT its transpose) from device memory through L1 and L2.
 // Not done here: wgmma (M is 16-86 rows a tile, where mma.sync fits), TMA,
 // double-buffered chunks, planes staged in shared memory (tried for
-// decode: the copies cost more than the L2 waits they saved).
+// decode: the copies cost more than the L2 waits they saved), the panel
+// streamed through shared memory in chunks of bins at k >= 184.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -108,6 +119,7 @@ constexpr int kMaxCluster = 8;    // portable cluster size
 constexpr int kNTG = 4;           // 8-wide column tiles per warp unit
 constexpr int kSmallRows = 16;    // products of up to 16 rows: CUDA cores
 constexpr int kMaxSmem = 232448;  // bytes a block can use on an H100
+constexpr int kPanelFloats = 32768;  // a panel past 128 KiB stays in memory
 
 enum Planes { kF32 = 0, kI8 = 1, kI4 = 2 };
 enum Mode { kPSplit = 0, kQSplit = 1 };
@@ -273,6 +285,12 @@ __device__ __forceinline__ Args for_expert(Args a, int e) {
 }
 
 __host__ __device__ inline int ncols(int k) { return ((k + 2) + 7) / 8 * 8; }
+// the block size rounded up to the products' tile of 8
+__host__ __device__ inline int kpad(int k) { return (k + 7) / 8 * 8; }
+// whether the panel (kp, NC) is staged in shared memory
+__host__ __device__ inline bool panel_staged(int k) {
+  return kpad(k) * ncols(k) <= kPanelFloats;
+}
 
 // Shared-memory regions of a block, in floats (each a multiple of 4, so
 // every region starts 16-byte aligned).  Mirrored by kernels/bc_fused.py.
@@ -289,13 +307,13 @@ __host__ __device__ inline bool small_idft(const Args& a) {
 }
 
 __host__ __device__ inline Layout layout(const Args& a) {
-  const int NC = ncols(a.k);
+  const int NC = ncols(a.k), kp = kpad(a.k);
   const bool ps = a.mode == kPSplit;
   const int dft_rows = ps ? (a.R * a.qc + a.cs - 1) / a.cs : a.R * a.share;
   Layout L;
   L.cs = 0;
-  L.xin = L.cs + a.k * NC;
-  L.xall = L.xin + dft_rows * (a.k + 4);
+  L.xin = L.cs + (panel_staged(a.k) ? kp * NC : 0);
+  L.xall = L.xin + dft_rows * (kp + 4);
   L.ys = L.xall + (ps ? a.R * a.qc : a.R * a.share) * NC;
   L.yred = L.ys + a.R * (ps ? a.share : a.p) * (NC + 4);
   L.scratch = L.yred + (ps ? 0 : a.R * a.p * (NC + 4));
@@ -305,10 +323,22 @@ __host__ __device__ inline Layout layout(const Args& a) {
 
 // Stage DFT rows m in [m0, m0 + ms) of a set of input blocks starting at
 // jbase (row m is input row row0 + m % R, block jbase + m / R) into Xin;
-// rows past the batch are zero.
+// rows past the batch are zero, and so are the columns k .. kp - 1 of a
+// block size not a multiple of 8 (staged a float at a time).
 __device__ __forceinline__ void stage_x(const Args& a, float* Xin, int row0,
                                         int nrow, int jbase, int m0, int ms) {
-  const int k4 = a.k / 4, ldx = a.k + 4;
+  const int kp = kpad(a.k), k4 = a.k / 4, ldx = kp + 4;
+  if (kp != a.k) {
+    for (int idx = threadIdx.x; idx < ms * kp; idx += kThreads) {
+      const int m = idx / kp, c = idx % kp;
+      const int b = (m0 + m) % a.R, jl = (m0 + m) / a.R;
+      Xin[m * ldx + c] =
+          b < nrow && c < a.k
+              ? a.x[((size_t)(row0 + b) * a.q + jbase + jl) * a.k + c]
+              : 0.f;
+    }
+    return;
+  }
   for (int idx = threadIdx.x; idx < ms * k4; idx += kThreads) {
     const int m = idx / k4, c = (idx % k4) * 4;
     const int b = (m0 + m) % a.R, jl = (m0 + m) / a.R;
@@ -449,13 +479,17 @@ bc_fused_kernel(const Args args) {
   const Args a = for_expert<P>(args, blockIdx.y);
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int k = a.k, NC = ncols(k), ldx = k + 4, ldy = NC + 4;
+  const int k = a.k, kp = kpad(k), NC = ncols(k), ldx = kp + 4, ldy = NC + 4;
+  const bool staged = panel_staged(k);
   const int rank = static_cast<int>(cluster.block_rank());
   const int row0 = (blockIdx.x / a.cs) * a.R;
   const int nrow = min(a.R, a.B - row0);
   const Layout L = layout(a);
-  float* Cs = smem + L.cs;
-  float* Ct = Cs;                             // replaces the panel
+  // the panel (kp, NC) and its transpose (NC, kp): staged in shared memory
+  // (the transpose over the panel once the DFT is done), or read from
+  // device memory
+  const float* Cs = staged ? smem + L.cs : a.cpan;
+  const float* Ct = staged ? smem + L.cs : a.cpan_t;
   float* scratch = smem + L.scratch;
   const bool has_ct = small_idft(a);
   float* Xin = smem + L.xin;
@@ -463,17 +497,30 @@ bc_fused_kernel(const Args args) {
   float* Ys = smem + L.ys;
   float* Yred = smem + L.yred;
   const auto panel = [&](int kk, int n) { return Cs[kk * NC + n]; };
-  const auto panel_t = [&](int kk, int n) { return Cs[n * NC + kk]; };
-  const auto ct = [&](int kk, int n) { return Ct[kk * k + n]; };
+  const auto panel_t = [&](int kk, int n) {
+    return staged ? Cs[n * NC + kk] : Ct[kk * kp + n];
+  };
+  const auto ct = [&](int kk, int n) { return Ct[kk * kp + n]; };
+  // a row of y: float2 stores where k is a multiple of 8, else the columns
+  // below k a float at a time
+  const auto store_y = [&](float* yrow, int col, float v0, float v1) {
+    if (kp == k) {
+      *reinterpret_cast<float2*>(yrow + col) = make_float2(v0, v1);
+    } else {
+      if (col < k) yrow[col] = v0;
+      if (col + 1 < k) yrow[col + 1] = v1;
+    }
+  };
 
-  for (int idx = threadIdx.x; idx < k * NC / 4; idx += kThreads)
-    cp_async16(Cs + idx * 4, a.cpan + idx * 4);
+  if (staged)
+    for (int idx = threadIdx.x; idx < kp * NC / 4; idx += kThreads)
+      cp_async16(smem + L.cs + idx * 4, a.cpan + idx * 4);
   // after the (one) DFT: the transposed panel over the panel, in flight
   // during the MAC
   const auto load_ct = [&]() {
-    if (!has_ct) return;
-    for (int idx = threadIdx.x; idx < k * NC / 4; idx += kThreads)
-      cp_async16(Ct + idx * 4, a.cpan_t + idx * 4);
+    if (!has_ct || !staged) return;
+    for (int idx = threadIdx.x; idx < kp * NC / 4; idx += kThreads)
+      cp_async16(smem + L.cs + idx * 4, a.cpan_t + idx * 4);
     asm volatile("cp.async.commit_group;" ::: "memory");
   };
   for (int idx = threadIdx.x; idx < L.scratch - L.ys; idx += kThreads)
@@ -492,7 +539,7 @@ bc_fused_kernel(const Args args) {
       cp_async_wait_all();                    // the panel and x
       __syncthreads();
       // this block's DFT rows, then copied into every peer's spectra
-      tile_product(Xin, ldx, ms, k, 0, NC / 8, panel, true, panel,
+      tile_product(Xin, ldx, ms, kp, 0, NC / 8, panel, true, panel,
                    [&](int m, int col, float v0, float v1) {
                      *reinterpret_cast<float2*>(Xall + (m0 + m) * NC + col) =
                          make_float2(v0, v1);
@@ -512,13 +559,12 @@ bc_fused_kernel(const Args args) {
     }
     cp_async_wait_all();
     __syncthreads();
-    tile_product(Ys, ldy, nrow * a.share, NC, 0, k / 8, panel_t, has_ct, ct,
+    tile_product(Ys, ldy, nrow * a.share, NC, 0, kp / 8, panel_t, has_ct, ct,
                  [&](int m, int col, float v0, float v1) {
                    const int b = m / a.share, il = m % a.share;
                    if (il < npt)
-                     *reinterpret_cast<float2*>(
-                         a.y + ((size_t)(row0 + b) * a.p + i0 + il) * k +
-                         col) = make_float2(v0, v1);
+                     store_y(a.y + ((size_t)(row0 + b) * a.p + i0 + il) * k,
+                             col, v0, v1);
                  });
     return;
   }
@@ -530,7 +576,7 @@ bc_fused_kernel(const Args args) {
   stage_x(a, Xin, row0, nrow, j0, 0, a.R * nj);
   cp_async_wait_all();                        // the panel and x
   __syncthreads();
-  tile_product(Xin, ldx, a.R * nj, k, 0, NC / 8, panel, true, panel,
+  tile_product(Xin, ldx, a.R * nj, kp, 0, NC / 8, panel, true, panel,
                [&](int m, int col, float v0, float v1) {
                  *reinterpret_cast<float2*>(Xall + m * NC + col) =
                      make_float2(v0, v1);
@@ -555,28 +601,29 @@ bc_fused_kernel(const Args args) {
   }
   cp_async_wait_all();
   cluster.sync();                             // peers done reading my Ys
-  const int ntn = k / 8, per = (ntn + a.cs - 1) / a.cs;
+  const int ntn = kp / 8, per = (ntn + a.cs - 1) / a.cs;
   const int nt0 = min(ntn, rank * per), nt1 = min(ntn, nt0 + per);
   tile_product(Yred, ldy, nrow * a.p, NC, nt0, nt1, panel_t, has_ct, ct,
                [&](int m, int col, float v0, float v1) {
-                 *reinterpret_cast<float2*>(
-                     a.y + ((size_t)row0 * a.p + m) * k + col) =
-                     make_float2(v0, v1);
+                 store_y(a.y + ((size_t)row0 * a.p + m) * k, col, v0, v1);
                });
 }
 
 template <int P>
 cudaError_t launch(Args a, cudaStream_t stream) {
   const bool ps = a.mode == kPSplit;
-  if (a.B <= 0 || a.p <= 0 || a.q <= 0 || a.k < 8 || a.k % 8 != 0 ||
+  const bool vec = a.k % 8 == 0;              // x staged with cp.async
+  if (a.B <= 0 || a.p <= 0 || a.q <= 0 || a.k < 1 ||
       a.R < 1 || a.R > kMaxRows || a.cs < 1 || a.cs > kMaxCluster ||
       (a.cs & (a.cs - 1)) != 0 || (a.mode != kPSplit && a.mode != kQSplit) ||
       a.share < 1 || (ps && a.share * a.cs < a.p) ||
       (!ps && a.share * a.cs < a.q) || (ps && (a.qc < 1 || a.qc > a.q)) ||
-      (reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.cpan) |
+      (reinterpret_cast<uintptr_t>(a.cpan) |
        reinterpret_cast<uintptr_t>(a.cpan_t)) % 16 ||
+      (vec && reinterpret_cast<uintptr_t>(a.x) % 16) ||
       a.E < 1 || a.E > 65535 ||
-      (a.E > 1 && (a.sx < (long long)a.B * a.q * a.k || a.sx % 4 != 0 ||
+      (a.E > 1 && (a.sx < (long long)a.B * a.q * a.k ||
+                   (vec && a.sx % 4 != 0) ||
                    a.sw < 1 || a.sy < (long long)a.B * a.p * a.k ||
                    (P != kF32 && a.ss < a.p))))
     return cudaErrorInvalidValue;
@@ -629,10 +676,11 @@ extern "C" const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// xb: (B, q, k); wr, ws1, ws2: (p, q, k/2 + 1); cpan: (k, NC), Cr and Ci
-// interleaved per bin then zeros, NC = k + 2 rounded up to 8; cpan_t: its
-// transpose (NC, k); y: (B, p, k).  All float32, contiguous,
-// xb and cpan 16-byte aligned.  The plan: R rows per tile, a cluster of cs
+// xb: (B, q, k); wr, ws1, ws2: (p, q, k/2 + 1); cpan: (kp, NC), Cr and Ci
+// interleaved per bin then zeros, kp = k rounded up to 8 (rows k .. kp - 1
+// zero), NC = k + 2 rounded up to 8; cpan_t: its transpose (NC, kp); y:
+// (B, p, k).  All float32, contiguous, cpan 16-byte aligned, and xb too
+// where k is a multiple of 8.  The plan: R rows per tile, a cluster of cs
 // blocks (1, 2, 4 or 8), mode 0 (p-split: share output blocks a block, q
 // chunks of qc input blocks) or 1 (q-split: share input blocks a block).
 // An expert stack: E such products in one launch (grid y), expert e's

@@ -93,7 +93,17 @@
 // through device memory, 3 x 252 MB at up/gate (~0.23 ms).  Smaller
 // chunks that would keep the spectra in L2 ran slower on the H100
 // (tools/grad_w_sweep.py --chunks; PERF.md).
-// Not done here: wgmma, TMA, sharing gy's DFT with the dX pass.
+// Any other block size (k < 8, or not a multiple of 8: the folds above
+// need four groups of whole 8-position tiles) takes the same three passes
+// with the spectra of a plain DFT: dft_any_kernel stages a tile of 64 rows
+// and gives each of a block's threads one (row, packed column) dot product
+// of k terms on the CUDA cores, against P read through L1 (at k = 4, P is
+// 4 x 4).  An odd k has no Nyquist bin: its packed slot 0 holds bin 0 and a
+// column of zeros, so it has S = (k + 1) / 2 slots and 2 S = k + 1
+// columns, where an even k has S = k / 2 and k; the contraction and the
+// iDFT run over S slots either way.
+// Not done here: wgmma, TMA, sharing gy's DFT with the dX pass, the small-k
+// spectra on the tensor cores.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -116,6 +126,13 @@ constexpr int kIdftPanel = 16384; // floats of P an iDFT block stages
 constexpr int kMaxGridY = 65535;  // the contraction's output tiles
 constexpr int kMaxGridZ = 65535;  // its row splits times a group's experts
 constexpr int kMaxSmem = 232448;
+constexpr int kMaxK = 256;        // k / 2 + 1 <= 132 bins (MAX_BINS)
+
+// packed slots of a block size: bins 0 and k/2 share slot 0 (an odd k's
+// slot 0: bin 0 and zeros), then one slot a bin
+__host__ __device__ inline int slots_of(int k) { return (k + 1) / 2; }
+// the folded DFT of dft_kernel takes block sizes that are multiples of 8
+__host__ __device__ inline bool folded(int k) { return k % 8 == 0; }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -346,13 +363,45 @@ __global__ void __launch_bounds__(kThreads, 2) dft_kernel(DftArgs a) {
   cp_async_wait_all();
 }
 
+// Packed spectra of a chunk's rows for a block size that does not fold:
+// one block a tile of 64 rows of one block b (gy's, then xb's), staged in
+// shared memory; thread items (row, packed column c), each a k-term dot
+// product with row c of P (2 S, k) read through L1.  Rows past the chunk
+// are written as zeros.
+__global__ void __launch_bounds__(kThreads) dft_any_kernel(DftArgs a,
+                                                           const float* P) {
+  extern __shared__ __align__(16) float smem[];
+  const int k = a.k, C2 = 2 * slots_of(k), fam = a.p + a.q, ld = k + 1;
+  const int nbk = a.np / 64, rtiles = a.np / kDftRows, per_e = fam * rtiles;
+  const int tile = blockIdx.x, ex = tile / per_e;
+  const int b = tile % per_e / rtiles, n0 = (tile % rtiles) * kDftRows;
+  const bool from_gy = b < a.p;
+  const float* src = from_gy ? a.gy + ex * a.gy_stride + (size_t)b * k
+                             : a.xb + ex * a.xb_stride + (size_t)(b - a.p) * k;
+  const size_t stride = (size_t)(from_gy ? a.p : a.q) * k;
+  float* const spec = a.spec + ex * a.spec_stride;
+  for (int i = threadIdx.x; i < kDftRows * k; i += kThreads) {
+    const int r = i / k, t = i % k;
+    smem[r * ld + t] = n0 + r < a.nc ? src[(n0 + r) * stride + t] : 0.f;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kDftRows * C2; i += kThreads) {
+    const int r = i % kDftRows, c = i / kDftRows;
+    const float* x = smem + r * ld;
+    const float* pc = P + (size_t)c * k;
+    float acc = 0.f;
+    for (int t = 0; t < k; ++t) acc = fmaf(x[t], __ldg(pc + t), acc);
+    spec[spec_at(c, b, n0 + r, nbk, fam)] = acc;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // MAC: the partial spectra of one slot, output tile and row split
 // ---------------------------------------------------------------------------
 struct MacArgs {
-  const float* spec;     // (k, np / 64, p + q, 64) an expert
-  float* part;           // (splits, k / 2, p q, 2) an expert
-  int np, p, q, k, mt, per, stages, accumulate, splits;
+  const float* spec;     // (2 S, np / 64, p + q, 64) an expert
+  float* part;           // (splits, S, p q, 2) an expert
+  int np, p, q, slots, mt, per, stages, accumulate, splits;
   size_t spec_stride, part_stride;  // between experts
 };
 
@@ -372,7 +421,7 @@ template <int NT>
 __global__ void __launch_bounds__(kThreads, 2) mac_kernel(MacArgs a) {
   constexpr int kMt = kMaxUnits / NT;        // 16-row tiles at most
   extern __shared__ __align__(16) float smem[];
-  const int slots = a.k / 2, fam = a.p + a.q;
+  const int slots = a.slots, fam = a.p + a.q;
   const int s = blockIdx.x;
   const int q_tiles = (a.q + 8 * NT - 1) / (8 * NT);
   const int i0 = blockIdx.y / q_tiles * 16 * a.mt;
@@ -509,7 +558,7 @@ __global__ void __launch_bounds__(kThreads, 2) mac_kernel(MacArgs a) {
 // ---------------------------------------------------------------------------
 struct IdftArgs {
   const float* part;     // an expert's at part_stride
-  const float* panel;    // P (k, k): row c the packed column c's basis
+  const float* panel;    // P (2 S, k): row c the packed column c's basis
   float* gw;             // (p, q, k) an expert, at pq k
   int pq, k, splits;
   size_t part_stride;
@@ -517,9 +566,10 @@ struct IdftArgs {
 
 __global__ void __launch_bounds__(kThreads) idft_kernel(IdftArgs a) {
   extern __shared__ __align__(16) float smem[];
-  const int k = a.k, slots = k / 2, rows = kIdftPanel / k;
-  float* u = smem;                           // (kPairsBlock, k)
-  float* pan = smem + kPairsBlock * k;       // rows x k of P at a time
+  const int k = a.k, slots = slots_of(k), C2 = 2 * slots;
+  const int rows = kIdftPanel / k;
+  float* u = smem;                           // (kPairsBlock, 2 S)
+  float* pan = smem + kPairsBlock * C2;      // rows x k of P at a time
   const int pr0 = blockIdx.x * kPairsBlock;
   const int npr = min(kPairsBlock, a.pq - pr0);
   const size_t zstride = (size_t)slots * a.pq * 2;
@@ -535,7 +585,7 @@ __global__ void __launch_bounds__(kThreads) idft_kernel(IdftArgs a) {
       for (int z = 0; z < a.splits; ++z) v += __ldg(src + z * zstride);
     }
     const int c = 2 * s + r;
-    u[pr * k + c] = v * (c < 2 ? 1.f / k : 2.f / k);
+    u[pr * C2 + c] = v * (c < 2 ? 1.f / k : 2.f / k);
   }
   // thread (group, t): output t of pairs group, group + groups, ...
   const int kp = (k + 31) / 32 * 32, groups = kThreads / kp;
@@ -544,11 +594,16 @@ __global__ void __launch_bounds__(kThreads) idft_kernel(IdftArgs a) {
   float y[kPairsBlock];
 #pragma unroll
   for (int i = 0; i < kPairsBlock; ++i) y[i] = 0.f;
-  for (int c0 = 0; c0 < k; c0 += rows) {     // P staged a block of rows
-    const int nr = min(rows, k - c0);
+  for (int c0 = 0; c0 < C2; c0 += rows) {    // P staged a block of rows
+    const int nr = min(rows, C2 - c0);
     __syncthreads();
-    for (int i = threadIdx.x; i < nr * k / 4; i += kThreads)
-      cp_async16(pan + 4 * i, a.panel + (size_t)c0 * k + 4 * i);
+    if (k % 4 == 0) {
+      for (int i = threadIdx.x; i < nr * k / 4; i += kThreads)
+        cp_async16(pan + 4 * i, a.panel + (size_t)c0 * k + 4 * i);
+    } else {
+      for (int i = threadIdx.x; i < nr * k; i += kThreads)
+        pan[i] = a.panel[(size_t)c0 * k + i];
+    }
     cp_async_commit();
     cp_async_wait_all();
     __syncthreads();
@@ -558,7 +613,7 @@ __global__ void __launch_bounds__(kThreads) idft_kernel(IdftArgs a) {
 #pragma unroll
         for (int i = 0; i < kPairsBlock; ++i)
           if (grp + i * groups < kPairsBlock)
-            y[i] = fmaf(u[(grp + i * groups) * k + c0 + c], w, y[i]);
+            y[i] = fmaf(u[(grp + i * groups) * C2 + c0 + c], w, y[i]);
       }
   }
   if (active)
@@ -597,10 +652,12 @@ extern "C" const char* error_string(int err) {
 
 // gy: (E, N, p, k); xb: (E, N, q, k); fold: the folded DFT sub-panels (4,
 // M16, L), M16 = k/4 rounded up to 16, L = k/4 rounded up to 8
-// (kernels/bc_grad_w.py:dft_panel); panel: P (k, k), the packed real DFT,
-// rows in slot order; spec: scratch of group k (p + q) chunk floats; part:
-// scratch of group splits (k / 2) p q 2 floats; gw: (E, p, q, k).  All
-// float32, contiguous, 16-byte aligned; E = 1 is one projection.  The plan
+// (kernels/bc_grad_w.py:dft_panel; unread where k is not a multiple of 8);
+// panel: P (2 S, k), the packed real DFT, rows in slot order, S = (k + 1)
+// / 2; spec: scratch of group 2 S (p + q) chunk floats; part: scratch of
+// group splits S p q 2 floats; gw: (E, p, q, k).  All float32, contiguous;
+// fold, panel, spec and part 16-byte aligned, and gy and xb too where k is
+// a multiple of 8 (1 <= k <= 256); E = 1 is one projection.  The plan
 // (kernels/bc_grad_w.py:plan, one expert's): rows in chunks of `chunk` (a
 // multiple of 128); the DFT in tiles of 64 rows, `dft_stages` (2 to 4)
 // tiles in flight, `dft_blocks` persistent blocks; the MAC's output tile
@@ -617,21 +674,25 @@ extern "C" int bc_grad_w(const void* gy, const void* xb, const void* fold,
                          int splits, int mac_stages, int E, int group,
                          void* stream) {
   const int fam = p + q, L = cdiv(k / 4, 8) * 8, M16 = cdiv(k / 4, 16) * 16;
-  if (N <= 0 || p <= 0 || q <= 0 || k < 8 || k % 8 != 0 || k > 256 ||
+  const int S = slots_of(k), C2 = 2 * S;
+  if (N <= 0 || p <= 0 || q <= 0 || k < 1 || k > kMaxK ||
       chunk < kChunkRows || chunk % kChunkRows != 0 || dft_stages < 2 ||
       dft_stages > 4 || dft_blocks < 1 || mt < 1 ||
       (nt != 1 && nt != 2 && nt != 4 && nt != 8) || mt * nt > kMaxUnits ||
       splits < 1 || mac_stages < 2 || mac_stages > 3 || E < 1 ||
       group < 1 || group > E || (long long)splits * group > kMaxGridZ ||
-      (reinterpret_cast<uintptr_t>(gy) | reinterpret_cast<uintptr_t>(xb) |
-       reinterpret_cast<uintptr_t>(fold) |
+      (folded(k) && (reinterpret_cast<uintptr_t>(gy) |
+                     reinterpret_cast<uintptr_t>(xb)) % 16) ||
+      (reinterpret_cast<uintptr_t>(fold) |
        reinterpret_cast<uintptr_t>(panel) |
        reinterpret_cast<uintptr_t>(spec) |
        reinterpret_cast<uintptr_t>(part)) % 16)
     return (int)cudaErrorInvalidValue;
   const size_t dsmem =
-      sizeof(float) * ((size_t)4 * M16 * (L + 4) +
-                       (size_t)dft_stages * kDftRows * (max(k, 4 * L) + 4));
+      folded(k) ? sizeof(float) *
+                      ((size_t)4 * M16 * (L + 4) +
+                       (size_t)dft_stages * kDftRows * (max(k, 4 * L) + 4))
+                : sizeof(float) * (size_t)kDftRows * (k + 1);
   const int p_rows = min(16 * mt, p), q_rows = min(8 * nt, q);
   const size_t msmem =
       sizeof(float) *
@@ -641,20 +702,21 @@ extern "C" int bc_grad_w(const void* gy, const void* xb, const void* fold,
       (long long)cdiv(p, 16 * mt) * cdiv(q, 8 * nt) > kMaxGridY)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static bool dft_opted = false;
-  cudaError_t e = opt_in(dft_kernel, dsmem, dft_opted);
+  static bool dft_opted = false, any_opted = false;
+  cudaError_t e = folded(k) ? opt_in(dft_kernel, dsmem, dft_opted)
+                            : opt_in(dft_any_kernel, dsmem, any_opted);
   if (e != cudaSuccess) return (int)e;
   const int per = cdiv(chunk / kRows, splits);
   const size_t gy_e = (size_t)N * p * k, xb_e = (size_t)N * q * k;
-  const size_t spec_e = (size_t)k * fam * chunk;
-  const size_t part_e = (size_t)splits * (k / 2) * p * q * 2;
-  const size_t ismem = sizeof(float) * (kPairsBlock * k + kIdftPanel);
+  const size_t spec_e = (size_t)C2 * fam * chunk;
+  const size_t part_e = (size_t)splits * S * p * q * 2;
+  const size_t ismem = sizeof(float) * (kPairsBlock * C2 + kIdftPanel);
   static bool idft_opted = false;
   if ((e = opt_in(idft_kernel, ismem, idft_opted)) != cudaSuccess)
     return (int)e;
   for (int e0 = 0; e0 < E; e0 += group) {
     const int ge = min(group, E - e0);
-    const dim3 mgrid(k / 2, cdiv(p, 16 * mt) * cdiv(q, 8 * nt), splits * ge);
+    const dim3 mgrid(S, cdiv(p, 16 * mt) * cdiv(q, 8 * nt), splits * ge);
     for (int n0 = 0; n0 < N; n0 += chunk) {
       const int nc = min(chunk, N - n0);
       const int np = cdiv(nc, kChunkRows) * kChunkRows;
@@ -663,10 +725,14 @@ extern "C" int bc_grad_w(const void* gy, const void* xb, const void* fold,
                 static_cast<const float*>(fold), static_cast<float*>(spec),
                 nc, np, p, q, k, dft_stages, ge, gy_e, xb_e, spec_e};
       const int tiles = ge * fam * (np / kDftRows);
-      dft_kernel<<<min(dft_blocks, tiles), kThreads, dsmem, s>>>(d);
+      if (folded(k))
+        dft_kernel<<<min(dft_blocks, tiles), kThreads, dsmem, s>>>(d);
+      else
+        dft_any_kernel<<<tiles, kThreads, dsmem, s>>>(
+            d, static_cast<const float*>(panel));
       if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
       MacArgs m{static_cast<const float*>(spec), static_cast<float*>(part),
-                np, p, q, k, mt, per, mac_stages, n0 > 0, splits,
+                np, p, q, S, mt, per, mac_stages, n0 > 0, splits,
                 spec_e, part_e};
       switch (nt) {
         case 1: e = launch_mac<1>(m, mgrid, msmem, s); break;

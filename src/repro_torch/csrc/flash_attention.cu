@@ -73,12 +73,24 @@
 //   splits in a fixed order in the same call.  A split, group or row that
 //   sees no valid key has m = -1e30, l = 0, acc = 0 and merges to exactly
 //   0.
+// - A float8 (e4m3) K/V cache under a float32 query (the dense cache of
+//   kv_cache_dtype = "float8_e4m3fn", which repro reads widened to float32):
+//   the rows kernel takes K and V as e4m3 (a template argument KV), four
+//   values a 4-byte load, widened to float32 as they are staged (exact: an
+//   e4m3 value is a float32 value), then runs as for a float32 cache.  The
+//   loads are plain loads, not cp.async: a tile's widening waits for them.
+//   Only decode reads a cache (repro's prefill attends over its fresh K/V),
+//   so the lane has no tensor-core instance: the plan sends any e4m3 shape
+//   to the rows kernel.
 // The plan (kernel, rows, splits, keys per split) is chosen in Python
 // (kernels/flash_attention.py:plan), a pure function of the shapes.
 #include "attn_common.cuh"
 #include "mma_tf32.cuh"
 
+#include <cuda_fp8.h>
 #include <math_constants.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -123,6 +135,35 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
                    smem_addr(smem)),
                "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+using fp8 = __nv_fp8_e4m3;
+
+// four e4m3 values at src (4-byte aligned) widened to float32 at dst (16-
+// byte aligned shared memory); zeros instead where !valid
+__device__ __forceinline__ void widen4(float* dst, const fp8* src,
+                                       bool valid) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (valid) {
+    const uint32_t w = __ldg(reinterpret_cast<const unsigned int*>(src));
+    fp8 e[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[i].__x = (w >> (8 * i)) & 0xFF;
+    v = make_float4(static_cast<float>(e[0]), static_cast<float>(e[1]),
+                    static_cast<float>(e[2]), static_cast<float>(e[3]));
+  }
+  *reinterpret_cast<float4*>(dst) = v;
+}
+
+// a K/V piece of 4 values into float32 shared memory: a 16-byte cp.async
+// of a float32 cache, or an e4m3 cache's 4 bytes widened
+__device__ __forceinline__ void kv_load4(float* dst, const float* src,
+                                         bool valid) {
+  cp_async16(dst, src, valid);
+}
+__device__ __forceinline__ void kv_load4(float* dst, const fp8* src,
+                                         bool valid) {
+  widen4(dst, src, valid);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -539,10 +580,10 @@ constexpr int kNPL = DT > attn::kMaxD ? DT / 32 : attn::kDPerLane;
 // and the kw partial (m, l, acc) of a row merge in warp order at the end.
 // With one split the rows are written to o; with more, (m, l) and acc go
 // to part for flash_combine.
-template <int DT>
+template <int DT, typename KV>
 __global__ void __launch_bounds__(kF32Warps * 32)
-flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
+flash_f32_kernel(const float* __restrict__ q, const KV* __restrict__ k,
+                 const KV* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ part, int B, int Hq, int Hkv, int Sq,
                  int Skv, int D, float scale, int causal, int window,
                  float softcap, int kv_offset, int rows, int splits,
@@ -566,8 +607,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int r0 = kw > 1 ? warp % rows : warp;   // first row of this warp
   const int grp = kw > 1 ? warp / rows : 0;     // its key group
   const int key = lane / kw, prt = lane % kw;   // its key and dot part
-  const float* kb = k + (size_t)bh * Skv * Dn;
-  const float* vb = v + (size_t)bh * Skv * Dn;
+  const KV* kb = k + (size_t)bh * Skv * Dn;
+  const KV* vb = v + (size_t)bh * Skv * Dn;
   const auto q_off = [&](int pr) {           // row pr of q / o
     return (((size_t)b * Hq + hk * G + pr % G) * Sq + pr / G) * Dn;
   };
@@ -593,15 +634,20 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int idx = threadIdx.x; idx < kTile * CH; idx += blockDim.x) {
         const int c = idx / CH, d = (idx % CH) * 4, col = t0 + c;
         const size_t off = (size_t)(col < hi ? col : 0) * DT + d;
-        cp_async16(ks + c * KS + d, kb + off, col < hi);
-        cp_async16(vs + c * DT + d, vb + off, col < hi);
+        kv_load4(ks + c * KS + d, kb + off, col < hi);
+        kv_load4(vs + c * DT + d, vb + off, col < hi);
       }
     } else {
       for (int idx = threadIdx.x; idx < kTile * Dn; idx += blockDim.x) {
         const int c = idx / Dn, d = idx % Dn, col = t0 + c;
         const size_t off = (size_t)(col < hi ? col : 0) * Dn + d;
-        cp_async4(ks + c * KS + d, kb + off, col < hi);
-        cp_async4(vs + c * Dn + d, vb + off, col < hi);
+        if constexpr (sizeof(KV) == sizeof(float)) {
+          cp_async4(ks + c * KS + d, kb + off, col < hi);
+          cp_async4(vs + c * Dn + d, vb + off, col < hi);
+        } else {                             // an e4m3 value, widened
+          ks[c * KS + d] = col < hi ? static_cast<float>(kb[off]) : 0.f;
+          vs[c * Dn + d] = col < hi ? static_cast<float>(vb[off]) : 0.f;
+        }
       }
     }
   };
@@ -794,8 +840,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <int DT>
-cudaError_t launch_f32_rows(const float* q, const float* k, const float* v,
+template <int DT, typename KV>
+cudaError_t launch_f32_rows(const float* q, const KV* k, const KV* v,
                             float* o, float* part, int B, int Hq, int Hkv,
                             int Sq, int Skv, int D, float scale, int causal,
                             int window, float softcap, int kv_offset,
@@ -805,11 +851,11 @@ cudaError_t launch_f32_rows(const float* q, const float* k, const float* v,
   const size_t smem =
       sizeof(float) * ((size_t)rows * D +
                        (size_t)2 * attn::kTile * (2 * D + 4 * kw));
-  cudaError_t e = opt_in((const void*)flash_f32_kernel<DT>, smem);
+  cudaError_t e = opt_in((const void*)flash_f32_kernel<DT, KV>, smem);
   if (e != cudaSuccess) return e;
   const int NR = (Hq / Hkv) * Sq;
   dim3 grid((NR + rows - 1) / rows, B * Hkv, splits);
-  flash_f32_kernel<DT><<<grid, kF32Warps * 32, smem, stream>>>(
+  flash_f32_kernel<DT, KV><<<grid, kF32Warps * 32, smem, stream>>>(
       q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D, scale, causal, window,
       softcap, kv_offset, rows, splits, chunk);
   e = cudaGetLastError();
@@ -837,27 +883,33 @@ cudaError_t launch_f32_mma(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-cudaError_t launch_f32(const float* q, const float* k, const float* v,
+template <typename KV>
+cudaError_t launch_f32(const float* q, const KV* k, const KV* v,
                        float* o, float* part, int B, int Hq, int Hkv, int Sq,
                        int Skv, int D, float scale, int causal, int window,
                        float softcap, int kv_offset, int rows, int splits,
                        int chunk, int mma, cudaStream_t stream) {
-  if (mma) {
-    if (rows != kFR || splits != 1) return cudaErrorInvalidValue;
-    if (D == 64)
-      return launch_f32_mma<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
-                                causal, window, softcap, kv_offset, stream);
-    if (D == 96)
-      return launch_f32_mma<96>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
-                                causal, window, softcap, kv_offset, stream);
-    if (D == 128)
-      return launch_f32_mma<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
-                                 causal, window, softcap, kv_offset, stream);
-    if (D == kWideD)
-      return launch_f32_mma<kWideD>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
-                                    causal, window, softcap, kv_offset,
-                                    stream);
-    return cudaErrorInvalidValue;
+  if (mma) {                                  // float32 K/V only
+    if constexpr (!std::is_same_v<KV, float>) {
+      return cudaErrorInvalidValue;
+    } else {
+      if (rows != kFR || splits != 1) return cudaErrorInvalidValue;
+      if (D == 64)
+        return launch_f32_mma<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
+                                  causal, window, softcap, kv_offset, stream);
+      if (D == 96)
+        return launch_f32_mma<96>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
+                                  causal, window, softcap, kv_offset, stream);
+      if (D == 128)
+        return launch_f32_mma<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
+                                   causal, window, softcap, kv_offset,
+                                   stream);
+      if (D == kWideD)
+        return launch_f32_mma<kWideD>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
+                                      scale, causal, window, softcap,
+                                      kv_offset, stream);
+      return cudaErrorInvalidValue;
+    }
   }
   const int NR = (Hq / Hkv) * Sq;
   if (rows < 1 || rows > kF32MaxRows || (rows & (rows - 1)) != 0 ||
@@ -868,31 +920,32 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
     return cudaErrorInvalidValue;
   if (splits == 1) chunk = Skv > 0 ? Skv : 1;
   if (D == 64)
-    return launch_f32_rows<64>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D,
+    return launch_f32_rows<64, KV>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D,
                                scale, causal, window, softcap, kv_offset,
                                rows, splits, chunk, stream);
   if (D == 96)
-    return launch_f32_rows<96>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D,
+    return launch_f32_rows<96, KV>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D,
                                scale, causal, window, softcap, kv_offset,
                                rows, splits, chunk, stream);
   if (D == 128)
-    return launch_f32_rows<128>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D,
+    return launch_f32_rows<128, KV>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D,
                                 scale, causal, window, softcap, kv_offset,
                                 rows, splits, chunk, stream);
   if (D == kWideD)
-    return launch_f32_rows<kWideD>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D,
+    return launch_f32_rows<kWideD, KV>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D,
                                    scale, causal, window, softcap,
                                    kv_offset, rows, splits, chunk, stream);
   if (D > attn::kMaxD) return cudaErrorInvalidValue;
-  return launch_f32_rows<0>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D, scale,
+  return launch_f32_rows<0, KV>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D, scale,
                             causal, window, softcap, kv_offset, rows, splits,
                             chunk, stream);
 }
 
 }  // namespace
 
-// q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D); o: (B, Hq, Sq, D), all of one
-// dtype (0 = float32, 1 = bfloat16), contiguous.  bfloat16 takes D = 64,
+// q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D); o: (B, Hq, Sq, D), contiguous;
+// q and o of `dtype` (0 = float32, 1 = bfloat16), k and v of `kv_dtype`
+// (the same code, or 2 = float8 e4m3 under a float32 q, 4-byte aligned).  bfloat16 takes D = 64,
 // 96, 128 or 256 (the tensor-core tiles) and one split; it ignores `rows`.
 // float32 with mma = 1 is the tensor-core prefill: D = 64, 96, 128 or 256,
 // rows = 64, one split.  float32 with mma = 0 is the rows kernel: D <= 128
@@ -904,13 +957,23 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, void* part, int B, int Hq, int Hkv,
                                int Sq, int Skv, int D, float scale,
                                int causal, int window, float softcap,
-                               int kv_offset, int dtype, int rows,
-                               int splits, int chunk, int mma,
+                               int kv_offset, int dtype, int kv_dtype,
+                               int rows, int splits, int chunk, int mma,
                                void* stream) {
   if (B <= 0 || Sq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 ||
-      (D > attn::kMaxD && D != kWideD) || Skv < 0)
+      (D > attn::kMaxD && D != kWideD) || Skv < 0 ||
+      !(kv_dtype == dtype || (dtype == 0 && kv_dtype == 2)) ||
+      (kv_dtype == 2 && (D % 4 != 0 ||
+                         (reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v)) % 4 != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && kv_dtype == 2)
+    return (int)launch_f32(
+        static_cast<const float*>(q), static_cast<const fp8*>(k),
+        static_cast<const fp8*>(v), static_cast<float*>(o),
+        static_cast<float*>(part), B, Hq, Hkv, Sq, Skv, D, scale, causal,
+        window, softcap, kv_offset, rows, splits, chunk, mma, s);
   if (dtype == 0)
     return (int)launch_f32(
         static_cast<const float*>(q), static_cast<const float*>(k),

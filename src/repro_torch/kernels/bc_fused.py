@@ -28,6 +28,14 @@ the CPU the stack runs the plain version expert by expert.
 (the source's head note says how); it is a pure function of the shapes,
 so the CPU tests check it against the kernel's indexing.  ``dft_panel`` / ``dft_panel_t`` are the one DFT matrix the
 kernel reads, and its transpose.
+
+Every block size k >= 1 has a plan.  The kernel's products tile k in 8s,
+so a k that is not a multiple of 8 (4, 5, 12, ...) runs them over ``kpad(k)``
+columns: the panel's extra rows are zeros, as are the staged rows' extra
+columns, so the transform is still the length-k DFT.  A panel past
+``PANEL_FLOATS`` (k >= 184; k = 256 would take 264 KB of the 227 KB a block
+has) is read from device memory instead of shared memory
+(``panel_staged``).
 """
 from __future__ import annotations
 
@@ -55,6 +63,7 @@ MAX_SMEM = 232448          # bytes of shared memory a block can use (H100)
 MAX_CLUSTER = 8            # portable thread-block cluster size
 MAX_ROWS = 64              # rows per tile
 SCRATCH_FLOATS = 3 * 2 * 256   # the decode MAC's partial sums (csrc)
+PANEL_FLOATS = 32768       # a larger DFT panel is not staged (csrc)
 P_SPLIT, Q_SPLIT = 0, 1    # cluster over output blocks / input blocks
 # Clusters of each size that one H100 SXM runs at once, one block an SM
 # (its 132 SMs sit in GPCs; 8-block clusters fit 15 times).  chip_smoke.py
@@ -84,17 +93,29 @@ def ncols(k: int) -> int:
     return (k + 2 + 7) // 8 * 8
 
 
+def kpad(k: int) -> int:
+    """Rows of the DFT panel: k rounded up to 8 (the mma's k); rows past k
+    are zeros."""
+    return (k + 7) // 8 * 8
+
+
+def panel_staged(k: int) -> bool:
+    """Whether the kernel stages the (kpad(k), ncols(k)) panel in shared
+    memory (up to 128 KiB; k <= 176), or reads it from device memory."""
+    return kpad(k) * ncols(k) <= PANEL_FLOATS
+
+
 def smem_bytes(p: int, q: int, k: int, rows: int, cluster: int, mode: int,
                share: int, qchunk: int) -> int:
     """Shared memory of one block (csrc/bc_fused.cu:layout): the panel
     (its transpose takes its place for a small iDFT), the staged input
     rows, the spectra, the Y accumulator, (Q_SPLIT) the summed Y and the
     decode MAC's scratch."""
-    nc = ncols(k)
+    nc, kp = ncols(k), kpad(k)
     ps = mode == P_SPLIT
     dft_rows = -(-rows * qchunk // cluster) if ps else rows * share
     idft_rows = rows * (share if ps else p)
-    floats = (k * nc + dft_rows * (k + 4)
+    floats = ((kp * nc if panel_staged(k) else 0) + dft_rows * (kp + 4)
               + (rows * qchunk if ps else rows * share) * nc
               + idft_rows * (nc + 4)
               + (0 if ps else rows * p * (nc + 4)) + SCRATCH_FLOATS)
@@ -115,12 +136,11 @@ def plan(B: int, p: int, q: int, k: int, lane: str = "bc_fused") -> Plan:
     clusters, up to 64; P_SPLIT streams the input
     blocks in the largest chunk that fits in shared memory, and a plan
     with chunks under 4 input blocks is taken only if no wave count gives
-    one."""
+    one.  Any block size k >= 1 plans (module docstring)."""
     if lane not in LANES.values():
         raise ValueError(f"bc_fused: unknown lane {lane!r}")
-    if k < 8 or k % 8:
-        raise ValueError(f"bc_fused: block size {k} is not a multiple of 8 "
-                         f"(the tensor-core tiles of the DFT)")
+    if k < 1:
+        raise ValueError(f"bc_fused: block size {k}")
     if min(B, p, q) < 1:
         raise ValueError(f"bc_fused: empty shape B={B}, p={p}, q={q}")
     if B <= MAX_CLUSTERS[MAX_CLUSTER]:        # decode: one row a tile
@@ -179,8 +199,9 @@ def shape_key(E: int, B: int, p: int, q: int, k: int, lane: str) -> str:
 
 
 def dft_panel_t(k: int, device) -> torch.Tensor:
-    """The transpose of ``dft_panel`` (ncols(k), k), built once: the
-    iDFT's matrix where it runs on the CUDA cores."""
+    """The transpose of ``dft_panel`` (ncols(k), kpad(k)), built once: the
+    iDFT's matrix where it runs on the CUDA cores, or where the panel is
+    read from device memory."""
     key = (-k, str(device))
     if key not in _PANELS:
         _PANELS[key] = dft_panel(k, device).t().contiguous()
@@ -188,16 +209,17 @@ def dft_panel_t(k: int, device) -> torch.Tensor:
 
 
 def dft_panel(k: int, device) -> torch.Tensor:
-    """The DFT panel (k, ncols(k)) float32 on ``device``, built once: Cr
-    and Ci interleaved per bin (columns 2f and 2f + 1), then zeros.  It is
-    the one matrix both of the kernel's DFTs read (the irfft matrices are
-    its transpose scaled per bin by 1/k or 2/k)."""
+    """The DFT panel (kpad(k), ncols(k)) float32 on ``device``, built once:
+    Cr and Ci interleaved per bin (columns 2f and 2f + 1), then zeros, and
+    zero rows past k.  It is the one matrix both of the kernel's DFTs read
+    (the irfft matrices are its transpose scaled per bin by 1/k or 2/k)."""
     key = (k, str(device))
     if key not in _PANELS:
         cr, ci, _, _ = cc.dft_mats(k, device)
         pair = torch.stack([cr, ci], dim=-1).reshape(k, -1)
-        pad = torch.zeros((k, ncols(k) - pair.shape[1]), device=device)
-        _PANELS[key] = torch.cat([pair, pad], dim=1).contiguous()
+        panel = torch.zeros((kpad(k), ncols(k)), device=device)
+        panel[:k, :pair.shape[1]] = pair
+        _PANELS[key] = panel.contiguous()
     return _PANELS[key]
 
 
@@ -266,7 +288,7 @@ def bc_fused_matmul(xb: torch.Tensor, wr: torch.Tensor, ws1: torch.Tensor,
     if scales is not None and any(s.numel() != E * p for s in scales):
         raise ValueError(f"bc_fused: scales must hold one value per output "
                          f"block ({p}) and expert ({E})")
-    if xb.data_ptr() % 16:
+    if k % 8 == 0 and xb.data_ptr() % 16:
         raise ValueError("bc_fused: xb must start 16-byte aligned (its rows "
                          "are staged with 16-byte asynchronous copies)")
     y = torch.empty((*lead, B, p, k), device=device, dtype=torch.float32)

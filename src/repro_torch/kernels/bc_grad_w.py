@@ -27,7 +27,13 @@ The kernel works on packed spectra: bins 0 and k/2 are real, so they
 share slot 0 (its two columns), and bin f in 1 .. k/2 - 1 takes slot f.
 ``packed_panel_t`` is the (k, k) matrix of that transform, rows in slot
 order, and its transpose is the inverse's (each column weighted by 1/k or
-2/k).
+2/k).  An odd k has no Nyquist bin: slot 0's second column is zeros, so it
+has ``slots(k) = (k + 1) // 2`` slots and a (k + 1, k) matrix.
+
+Block sizes that are multiples of 8 take the folded DFT on the tensor
+cores; every other k >= 1 (up to 256) takes a plain DFT of each row on the
+CUDA cores against ``packed_panel_t`` (``folded``), then the same
+contraction and iDFT.
 """
 from __future__ import annotations
 
@@ -93,6 +99,18 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def slots(k: int) -> int:
+    """Packed slots of block size k: bins 0 and k/2 share slot 0 (an odd
+    k's slot 0 holds bin 0 and zeros), then one slot a bin."""
+    return (k + 1) // 2
+
+
+def folded(k: int) -> bool:
+    """Whether the DFT runs folded on the tensor cores (k a multiple of 8)
+    or as plain dot products on the CUDA cores."""
+    return k % 8 == 0
+
+
 def fold_len(k: int) -> int:
     """Positions of each of the four folded groups of a row: k/4 rounded
     up to 8 (the mma's k)."""
@@ -109,7 +127,10 @@ def dft_smem(k: int, stages: int) -> int:
     """The four folded sub-panels (rows of fold_len + 4 floats) and
     ``stages`` tiles of ``DFT_ROWS`` rows, each folded in place (rows of
     max(k, 4 fold_len) + 4 floats) (csrc/bc_grad_w.cu:dft_kernel): at most
-    202,752 bytes, at k = 256 and two stages."""
+    202,752 bytes, at k = 256 and two stages.  A k that does not fold
+    stages one tile of rows of k + 1 floats (dft_any_kernel)."""
+    if not folded(k):
+        return 4 * DFT_ROWS * (k + 1)
     L = fold_len(k)
     return 4 * (4 * fold_rows(k) * (L + 4)
                 + stages * DFT_ROWS * (max(k, 4 * L) + 4))
@@ -152,8 +173,8 @@ def plan(N: int, p: int, q: int, k: int,
     ``chunk`` (rows a chunk, rounded up to 128) replaces the plan's own
     row chunks, which are as long as a scratch of ``CHUNK_BYTES`` allows
     (``tools/grad_w_sweep.py --chunks`` times other lengths)."""
-    if k < 8 or k % 8:
-        raise ValueError(f"bc_grad_w: block size {k} is not a multiple of 8")
+    if k < 1:
+        raise ValueError(f"bc_grad_w: block size {k}")
     if min(N, p, q) < 1:
         raise ValueError(f"bc_grad_w: empty shape N={N}, p={p}, q={q}")
     if k // 2 + 1 > MAX_BINS:
@@ -168,26 +189,26 @@ def plan(N: int, p: int, q: int, k: int,
     stages = max(s for s in (2, 3, 4) if dft_smem(k, s) <= MAX_SMEM
                  and per_sm(dft_smem(k, s)) == per_sm(dft_smem(k, 2)))
     d_smem = dft_smem(k, stages)
-    fam = p + q
+    fam, cols = p + q, 2 * slots(k)
     if chunk is None:
-        per_chunk = max(1, CHUNK_BYTES // (4 * k * fam * CHUNK_ROWS))
+        per_chunk = max(1, CHUNK_BYTES // (4 * cols * fam * CHUNK_ROWS))
         chunk = cdiv(N, cdiv(N, CHUNK_ROWS * per_chunk))
     chunk = cdiv(chunk, CHUNK_ROWS) * CHUNK_ROWS
     p_rows, q_rows = min(16 * mt, p), min(8 * nt, q)
     units = mt * nt
     m_stages = 3 if per_sm(mac_smem(p_rows, q_rows, 3, units)) == 2 else 2
     m_smem = mac_smem(p_rows, q_rows, m_stages, units)
-    slots = k // 2
-    wave = SMS * per_sm(m_smem) // (slots * p_tiles * q_tiles)
+    S = slots(k)
+    wave = SMS * per_sm(m_smem) // (S * p_tiles * q_tiles)
     per = cdiv(chunk // ROWS, max(1, wave))
     splits = cdiv(chunk // ROWS, per)
     return Plan(chunk=chunk, chunks=cdiv(N, chunk), dft_stages=stages,
                 dft_blocks=SMS * per_sm(d_smem), dft_smem=d_smem, mt=mt,
                 nt=nt, p_tiles=p_tiles, q_tiles=q_tiles, splits=splits,
                 mac_stages=m_stages,
-                mac_blocks=slots * p_tiles * q_tiles * splits,
-                mac_smem=m_smem, spec_floats=k * fam * chunk,
-                part_floats=splits * slots * p * q * 2)
+                mac_blocks=S * p_tiles * q_tiles * splits,
+                mac_smem=m_smem, spec_floats=cols * fam * chunk,
+                part_floats=splits * S * p * q * 2)
 
 
 def stack_group(E: int, pl: Plan) -> int:
@@ -211,19 +232,20 @@ def shape_key(N: int, p: int, q: int, k: int, E: int = 1) -> str:
 
 
 def packed_panel_t(k: int, device) -> torch.Tensor:
-    """The packed real DFT P (k, k) float32 on ``device``, built once, rows
-    in slot order: Cr's bin 0 and bin k/2 columns, then Cr and Ci of each
-    bin 1 .. k/2 - 1.  The inverse of packed spectra u (..., k) is
-    ``(u * w) @ P`` with w = 1/k on columns 0 and 1 (bins 0 and k/2), 2/k
-    on the others."""
+    """The packed real DFT P (2 slots(k), k) float32 on ``device``, built
+    once, rows in slot order: Cr's bin 0 and bin k/2 columns (an odd k:
+    zeros in place of the second), then Cr and Ci of each bin 1 ..
+    kf - 1 below k/2.  The inverse of packed spectra u (..., 2 slots(k))
+    is ``(u * w) @ P`` with w = 1/k on columns 0 and 1, 2/k on the
+    others."""
     return _packed_panel_t(k, str(device))
 
 
 @functools.lru_cache(maxsize=None)
 def _packed_panel_t(k: int, device: str) -> torch.Tensor:
     cr, ci, _, _ = cc.dft_mats(k, "cpu")
-    rows = [cr[:, 0], cr[:, k // 2]]
-    for f in range(1, k // 2):
+    rows = [cr[:, 0], cr[:, k // 2] if k % 2 == 0 else torch.zeros(k)]
+    for f in range(1, slots(k)):
         rows += [cr[:, f], ci[:, f]]
     return torch.stack(rows).contiguous().to(device)
 
@@ -288,7 +310,7 @@ def bc_grad_w(gy: torch.Tensor, xb: torch.Tensor, k: int,
         raise ValueError(f"bc_grad_w: gy {tuple(gy.shape)} and xb "
                          f"{tuple(xb.shape)} are not ([E,] N, p, {k}) and "
                          f"([E,] N, q, {k})")
-    if (gy.data_ptr() | xb.data_ptr()) % 16:
+    if folded(k) and (gy.data_ptr() | xb.data_ptr()) % 16:
         raise ValueError("bc_grad_w: gy and xb must start 16-byte aligned")
     E = gy.shape[0] if stacked else 1
     N, p, _ = gy.shape[-3:]
@@ -301,8 +323,10 @@ def bc_grad_w(gy: torch.Tensor, xb: torch.Tensor, k: int,
                        dtype=torch.float32)
     gw = torch.empty((*gy.shape[:-3], p, q, k), device=device,
                      dtype=torch.float32)
+    fold = dft_panel(k, device) if folded(k) else None   # unread otherwise
+    panel = packed_panel_t(k, device)
     KERNEL.launch("bc_grad_w", device, ptr(gy), ptr(xb),
-                  ptr(dft_panel(k, device)), ptr(packed_panel_t(k, device)),
+                  ptr(panel if fold is None else fold), ptr(panel),
                   ptr(spec), ptr(part), ptr(gw), N, p, q, k, pl.chunk,
                   pl.dft_stages, pl.dft_blocks, pl.mt, pl.nt, pl.splits,
                   pl.mac_stages, E, group,

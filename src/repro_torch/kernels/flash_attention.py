@@ -16,6 +16,14 @@ than warps, and, where the grid is small, the keys split over blocks and
 merged in the same call.  ``plan`` picks the kernel and the splits from the shapes alone.
 Above 128 only D = 256 has kernels (compile-time instances of all three);
 another head dim above 128 raises.
+
+K and V share q's dtype, or, under a float32 q, are ``float8_e4m3fn`` (a
+dense cache of ``kv_cache_dtype="float8_e4m3fn"``): the rows kernel then
+reads them as e4m3 and widens them as it stages them, exactly, at any
+number of rows (``plan(..., kv_dtype=)``; its launches count under the path
+``f32_rows_e4m3``).  Only decode reads a cache, as in ``repro``, so the
+tensor-core prefill has no e4m3 instance.  The plain version is
+``attention_ref`` on K and V widened to float32.
 """
 from __future__ import annotations
 
@@ -29,9 +37,12 @@ from .build import Kernel, check_cuda, ptr
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = Kernel("flash_attention", {
     "flash_attention": [_VP] * 5 + [_I] * 6 + [_F, _I, _I, _F, _I, _I, _I,
-                                               _I, _I, _I]})
+                                               _I, _I, _I, _I]})
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# K/V dtypes: q's own, or e4m3 under a float32 q (the float32 kernels)
+KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
+E4M3 = torch.float8_e4m3fn
 RUN_TIME_MAX_HEAD_DIM = 128  # csrc attn::kMaxD: the rows kernel's run-time D
 BF16_HEAD_DIMS = (64, 96, 128, 256)   # the bf16 lane's tensor-core tilings
 SMS = 132                    # streaming multiprocessors of an H100
@@ -60,7 +71,7 @@ class FlashPlan(NamedTuple):
 
 
 def plan(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int,
-         dtype: torch.dtype) -> FlashPlan:
+         dtype: torch.dtype, kv_dtype: torch.dtype = None) -> FlashPlan:
     """The launch plan, a pure function of the shapes.  bf16: one block
     per (batch, query head, 64 rows).  float32 with at least 16 packed
     rows (G heads x Sq positions) at D = 64, 96, 128 or 256: the
@@ -74,7 +85,7 @@ def plan(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int,
     the keys are split into ranges of a multiple of 32 keys, enough ranges
     to reach about SMS blocks: each block keeps all its warps busy (the key
     groups), so one block an SM fills the card.  A head dim above 128 but
-    256 raises."""
+    256 raises.  An e4m3 ``kv_dtype`` takes the rows kernel at any rows."""
     if dtype == torch.bfloat16:
         if D not in BF16_HEAD_DIMS:
             raise ValueError(f"flash_attention: the bf16 lane tiles head "
@@ -89,7 +100,8 @@ def plan(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int,
                          f"other head dims above {RUN_TIME_MAX_HEAD_DIM} are "
                          f"not ported")
     packed = (Hq // Hkv) * Sq
-    if D in F32_MMA_HEAD_DIMS and packed >= F32_MMA_MIN_ROWS:
+    if (D in F32_MMA_HEAD_DIMS and packed >= F32_MMA_MIN_ROWS
+            and kv_dtype != E4M3):
         return FlashPlan(dtype, F32_MMA_ROWS, 1, max(Skv, 1),
                          -(-packed // F32_MMA_ROWS) * B * Hkv,
                          4 * (F32_MMA_ROWS * (D + 4)
@@ -114,9 +126,13 @@ def plan(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int,
 
 
 def shape_key(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int, dtype,
-              *, causal: bool, window: int = 0, kv_offset: int = 0) -> str:
-    """A launch's shape and mask as ``Kernel.shape_launches`` counts it."""
-    return (f"{B}x{Hq}x{Hkv}x{Sq}x{Skv}x{D}/{str(dtype).split('.')[-1]}/"
+              *, causal: bool, window: int = 0, kv_offset: int = 0,
+              kv_dtype=None) -> str:
+    """A launch's shape and mask as ``Kernel.shape_launches`` counts it
+    (an e4m3 K/V adds ``/kv_float8_e4m3fn`` after the dtype)."""
+    kv = ("" if kv_dtype in (None, dtype)
+          else f"/kv_{str(kv_dtype).split('.')[-1]}")
+    return (f"{B}x{Hq}x{Hkv}x{Sq}x{Skv}x{D}/{str(dtype).split('.')[-1]}{kv}/"
             f"{'causal' if causal else 'full'}/w{window}/off{kv_offset}")
 
 
@@ -129,8 +145,8 @@ def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
     Hkv, Skv = k.shape[1], k.shape[2]
     group = Hq // Hkv
     scale = scale if scale is not None else D ** -0.5
-    kk = k.repeat_interleave(group, dim=1)
-    vv = v.repeat_interleave(group, dim=1)
+    kk = k.float().repeat_interleave(group, dim=1)
+    vv = v.float().repeat_interleave(group, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, kk.float())
     if softcap:
         s = softcap * torch.tanh(s / softcap)
@@ -150,22 +166,30 @@ def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     scale=None, kv_offset=0):
-    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q.dtype."""
+    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q.dtype.
+    k and v share q's dtype, or are float8_e4m3fn under a float32 q."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap, scale=scale,
                              kv_offset=kv_offset)
-    dts = tuple(DTYPE_CODES)
+    dts, kvs = tuple(DTYPE_CODES), tuple(KV_CODES)
     device = check_cuda("flash_attention", {"q": q, "k": k, "v": v},
-                        {"q": dts, "k": dts, "v": dts})
-    if not (q.dtype == k.dtype == v.dtype):
-        raise ValueError("flash_attention: q, k and v must share one dtype")
+                        {"q": dts, "k": kvs, "v": kvs})
+    e4m3 = k.dtype == E4M3
+    if k.dtype != v.dtype or not (k.dtype == q.dtype or (
+            e4m3 and q.dtype == torch.float32)):
+        raise ValueError(f"flash_attention: q {q.dtype}, k {k.dtype}, v "
+                         f"{v.dtype}: k and v share q's dtype, or are "
+                         f"float8_e4m3fn under a float32 q")
     B, Hq, Sq, D = q.shape
     Bk, Hkv, Skv, Dk = k.shape
     if v.shape != k.shape or Bk != B or Dk != D or Hq % Hkv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
                          f"k/v {tuple(k.shape)}/{tuple(v.shape)}")
-    pl = plan(B, Hq, Hkv, Sq, Skv, D, q.dtype)   # raises on an untiled D
+    pl = plan(B, Hq, Hkv, Sq, Skv, D, q.dtype, k.dtype)  # raises: untiled D
+    if e4m3 and (D % 4 or (k.data_ptr() | v.data_ptr()) % 4):
+        raise ValueError("flash_attention: an e4m3 K/V is read 4 values a "
+                         "load: D a multiple of 4, k and v 4-byte aligned")
     scale = scale if scale is not None else D ** -0.5
     o = torch.empty_like(q)
     part = None                       # the splits' (m, l) and acc
@@ -176,9 +200,11 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                   ctypes.c_void_p(None if part is None else part.data_ptr()),
                   B, Hq, Hkv, Sq, Skv, D, float(scale), int(bool(causal)),
                   int(window), float(softcap), int(kv_offset),
-                  DTYPE_CODES[q.dtype], pl.rows, pl.splits, pl.chunk,
-                  int(pl.path == "f32_mma"), path=pl.path,
+                  DTYPE_CODES[q.dtype], KV_CODES[k.dtype], pl.rows,
+                  pl.splits, pl.chunk, int(pl.path == "f32_mma"),
+                  path=pl.path + ("_e4m3" if e4m3 else ""),
                   shape=shape_key(B, Hq, Hkv, Sq, Skv, D, q.dtype,
                                   causal=bool(causal), window=int(window),
-                                  kv_offset=int(kv_offset)))
+                                  kv_offset=int(kv_offset),
+                                  kv_dtype=k.dtype))
     return o

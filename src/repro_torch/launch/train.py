@@ -29,9 +29,11 @@ from typing import Optional, Sequence
 
 from ..configs.registry import ARCH_IDS, get_config, get_smoke_config
 from ..data.pipeline import SyntheticLM
+from ..dist import ctx as dist_ctx
 from ..obs import Obs
 from ..optim import adamw
 from ..train.trainer import Trainer
+from . import mesh as mesh_lib
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -42,6 +44,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--no-compress", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the config to this many (decoder) layers")
+    ap.add_argument("--block-size", type=int, default=None,
+                    help="the circulant block size of every attention and "
+                         "FFN projection (repro's hillclimb override of "
+                         "block_ffn and block_attn)")
+    ap.add_argument("--path", default=None,
+                    choices=["auto", "direct", "fft", "spectral"],
+                    help="the circulant lowering (compression.path; auto "
+                         "materializes blocks of k <= 8, direct)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -71,6 +81,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     cfg = getter(args.arch, compress=not args.no_compress)
     if args.layers is not None:
         cfg = cfg.replace(num_layers=args.layers)
+    if args.block_size is not None:
+        cfg = cfg.with_compression(block_ffn=args.block_size,
+                                   block_attn=args.block_size)
+    if args.path is not None:
+        cfg = cfg.with_compression(path=args.path)
     data = SyntheticLM(cfg, batch=args.batch, seq=args.seq, seed=0)
     obs = Obs(emit_path=args.metrics_out, emit_every=args.metrics_every)
     trainer = Trainer(
@@ -82,7 +97,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         accum=args.accum,
         compress_grads=args.compress_grads, bayesian_mode=args.bayesian,
         obs=obs, device=args.device)
-    state = trainer.run()
+    # the activation policy over this host's mesh, as repro's launcher
+    # installs it, for the whole run
+    with dist_ctx.activation_policy(mesh_lib.make_host_mesh(trainer.device)):
+        state = trainer.run()
     n = sum(p.numel() for p in state["model"].parameters())
     loss = (f"{trainer.history[-1]['loss']:.4f}" if trainer.history
             else "n/a")

@@ -14,8 +14,12 @@ of ``repro/layers/attention.py``).
   the whole cache with its ``pos`` row (-1 past ``cache_pos``); for a
   linear cache filled in order that mask keeps exactly the rows
   ``0..cache_pos``, which is what the slice and the causal offset keep.
-  The query is cast to the cache's dtype and the output back, so a bf16
-  model attends over its float32 cache in float32, as ``repro`` does.
+  A read of cached K/V never narrows the query (``kv_read``): a bf16
+  model attends over its float32 cache in float32, as ``repro`` does, and
+  a float8_e4m3fn cache (``kv_cache_dtype``) is read by the float32
+  kernels' e4m3 lane under a float32 query, as ``repro`` reads it widened
+  to float32.  Writes into such a cache round as ``repro``'s ``astype``
+  does (``to_cache``).
 * Paged decode (``block_table`` set, S == 1): the cache is a page pool
   ``{"k": (P, page, Hkv, D), "v": ...}`` shared by every slot; position
   ``i`` of slot ``b`` lives at page ``block_table[b, i // page]``, offset
@@ -84,6 +88,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..dist.ctx import shard_heads
 from ..core.circulant import (FusedProjections, Linear, LinearSpec,
                               register_planes)
 from ..kernels import ops as kops
@@ -180,6 +185,37 @@ def masked_attention(q, k, v, rows, kv_positions, *, causal=True, window=0,
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
 
 
+# |x| above this rounds past 448, the largest float8_e4m3fn: NaN in
+# ml_dtypes' and XLA's casts, while torch's cast saturates it to 448
+E4M3_NAN_ABOVE = 464.0
+
+
+def to_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` cast to a cache's dtype as ``repro``'s ``astype`` casts it.
+    To float8_e4m3fn: round to nearest even, and NaN for a magnitude above
+    464 (inf included), where torch alone would give +-448."""
+    if dtype != torch.float8_e4m3fn:
+        return x.to(dtype)
+    xf = x.float()
+    return torch.where(xf.abs() > E4M3_NAN_ABOVE,
+                       torch.full_like(xf, float("nan")), xf).to(dtype)
+
+
+def kv_read(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(q, k, v) for attention over cached K/V, never narrowing the query:
+    q widened to the cache's dtype (a bf16 query over a float32 cache), or
+    to float32 over a float8_e4m3fn cache (the float32 kernels read e4m3
+    K/V), or the cache widened to the query's (a float32 query over a bf16
+    cache).  The caller casts the output back to ``q.dtype``."""
+    if k.dtype == q.dtype:
+        return q, k, v
+    if k.dtype == torch.float8_e4m3fn:
+        return q.float(), k, v
+    if k.dtype.itemsize >= q.dtype.itemsize:
+        return q.to(k.dtype), k, v
+    return q, k.to(q.dtype), v.to(q.dtype)
+
+
 def ring_runs(pos: torch.Tensor, q_pos: int, window: int
               ) -> List[Tuple[int, int]]:
     """The runs ``[a, b)`` of ring slots that ``repro``'s mask keeps for
@@ -195,13 +231,14 @@ def ring_runs(pos: torch.Tensor, q_pos: int, window: int
 def _ring_read(q, cache, runs, softcap):
     """One query row (B, 1, Hq, D) over the ring slots ``runs``: gathered
     into the kernel's (B, Hkv, n, D) layout in one copy (the same copy a
-    whole-ring read makes), then non-causal flash.  The query is cast to
-    the cache's dtype and the output back."""
+    whole-ring read makes), then non-causal flash over ``kv_read``'s
+    operands; the output is cast back to the query's dtype."""
     kt, vt = cache["k"].transpose(1, 2), cache["v"].transpose(1, 2)
     kr = torch.cat([kt[:, :, a:b] for a, b in runs], dim=2)
     vr = torch.cat([vt[:, :, a:b] for a, b in runs], dim=2)
-    o = kops.flash_attention(q.to(kr.dtype).transpose(1, 2).contiguous(), kr,
-                             vr, causal=False, softcap=softcap)
+    qr, kr, vr = kv_read(q, kr, vr)
+    o = kops.flash_attention(qr.transpose(1, 2).contiguous(), kr, vr,
+                             causal=False, softcap=softcap)
     return o.transpose(1, 2).to(q.dtype)
 
 
@@ -265,7 +302,7 @@ def attention_block(attn: Attention, x: torch.Tensor, *, cfg, causal=True,
                              causal=causal and cross_kv is None,
                              window=window, softcap=a.logit_softcap)
     elif cross_kv is not None:
-        o = attend(q.to(k.dtype), k, v, causal=False,
+        o = attend(*kv_read(q, k, v), causal=False,
                    softcap=a.logit_softcap).to(q.dtype)
     elif paged:
         if paged_impl not in ("stream", "gather"):
@@ -289,10 +326,10 @@ def attention_block(attn: Attention, x: torch.Tensor, *, cfg, causal=True,
             pool_k.index_put_((pid, off), k[:, 0].to(pool_k.dtype))
             pool_v.index_put_((pid, off), v[:, 0].to(pool_v.dtype))
         if paged_impl == "stream":
-            o = kops.paged_attention(q[:, 0].contiguous(), pool_k, pool_v,
-                                     block_table, cache_pos,
-                                     softcap=a.logit_softcap, k_scale=k_sc,
-                                     v_scale=v_sc)[:, None]
+            o = shard_heads(kops.paged_attention(
+                shard_heads(q[:, 0].contiguous()), pool_k, pool_v,
+                block_table, cache_pos, softcap=a.logit_softcap,
+                k_scale=k_sc, v_scale=v_sc))[:, None]
         else:
             kg = kops.paged_gather(pool_k, block_table)
             vg = kops.paged_gather(pool_v, block_table)
@@ -311,8 +348,8 @@ def attention_block(attn: Attention, x: torch.Tensor, *, cfg, causal=True,
         smax = cache["k"].shape[1]                       # ring buffer (SWA)
         if S == 1:
             slot = q_pos0 % smax
-            cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-            cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+            cache["k"][:, slot] = to_cache(k[:, 0], cache["k"].dtype)
+            cache["v"][:, slot] = to_cache(v[:, 0], cache["v"].dtype)
             cache["pos"][slot] = q_pos0
             o = _ring_read(q, cache, ring_runs(cache["pos"], q_pos0, window),
                            a.logit_softcap)
@@ -320,8 +357,8 @@ def attention_block(attn: Attention, x: torch.Tensor, *, cfg, causal=True,
             if S < smax:
                 raise ValueError(f"sliding-window prefill of {S} positions "
                                  f"cannot fill a ring of {smax}")
-            cache["k"].copy_(k[:, -smax:])
-            cache["v"].copy_(v[:, -smax:])
+            cache["k"].copy_(to_cache(k[:, -smax:], cache["k"].dtype))
+            cache["v"].copy_(to_cache(v[:, -smax:], cache["v"].dtype))
             cache["pos"].copy_(torch.arange(q_pos0 + S - smax, q_pos0 + S,
                                             dtype=cache["pos"].dtype))
             o = attend(q, k, v, causal=causal, window=window,
@@ -332,12 +369,12 @@ def attention_block(attn: Attention, x: torch.Tensor, *, cfg, causal=True,
             if end > cache["k"].shape[1]:
                 raise ValueError(f"cache of {cache['k'].shape[1]} positions "
                                  f"cannot take positions {q_pos0}..{end - 1}")
-            cache["k"][:, q_pos0:end] = k.to(cache["k"].dtype)
-            cache["v"][:, q_pos0:end] = v.to(cache["v"].dtype)
+            cache["k"][:, q_pos0:end] = to_cache(k, cache["k"].dtype)
+            cache["v"][:, q_pos0:end] = to_cache(v, cache["v"].dtype)
             cache["pos"][q_pos0:end] = positions[0].to(cache["pos"].dtype)
         if cache is not None and S == 1:        # decode reads the cache
             kc, vc = cache["k"][:, :end], cache["v"][:, :end]
-            o = attend(q.to(kc.dtype), kc, vc, causal=causal, window=window,
+            o = attend(*kv_read(q, kc, vc), causal=causal, window=window,
                        softcap=a.logit_softcap, q_pos0=q_pos0).to(q.dtype)
         else:
             o = attend(q, k, v, causal=causal, window=window,

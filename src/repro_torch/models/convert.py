@@ -18,8 +18,10 @@ so is an xLSTM block's ``cell`` (the mLSTM's projections, ``ifg``,
 ``ifg_b`` and ``onorm_scale``; the sLSTM's ``wx``, ``wh``, ``b`` and
 ``out``), a ``rec`` block's RG-LRU ``rec`` (``in_x``, ``in_gate``,
 ``out``, ``gate_r``, ``gate_i``, ``conv_w``, ``conv_b``, ``lam``),
-gemma2's sandwich norms ``ln1_post`` / ``ln2_post``, and an
-encoder-decoder's ``enc_pos`` / ``dec_pos`` tables and ``enc_norm``.
+gemma2's sandwich norms ``ln1_post`` / ``ln2_post``, a decoder-only
+model's learned position table ``pos`` (where ``max_position`` is set),
+and an encoder-decoder's ``enc_pos`` / ``dec_pos`` tables and
+``enc_norm``.
 A segment plan's remainder segment (recurrentgemma's 26 layers: 8 x
 (rec, rec, attn_local), then (rec, rec)) is walked like any other.
 
@@ -99,8 +101,8 @@ def from_jax_params(tree: Mapping[str, Any], cfg: ArchConfig,
                 _copy_into(block, tree[name], i, f"{name}.{i}")
         return model
     model = Transformer(cfg, device=device)
-    _copy_into(model, {"embed": tree["embed"],
-                       "final_norm": tree["final_norm"]}, None, "")
+    _copy_into(model, {k: tree[k] for k in ("embed", "final_norm", "pos")
+                       if k in tree}, None, "")
     layer = 0
     for seg, (pattern, n) in zip(tree["segments"], segments_for(cfg)):
         for g in range(n):

@@ -41,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..dist.ctx import shard_act
 from ..layers import attention as attn_lib
 from ..layers import embeddings as emb_lib
 from ..layers import ffn as ffn_lib
@@ -133,7 +134,7 @@ def encode(params: EncDec, frames: torch.Tensor, cfg: ArchConfig, *,
                                comp=cfg.compression)
 
     for bp in params.enc_blocks:
-        x = _layer(cfg, mode, block, x, bp)
+        x = _layer(cfg, mode, block, shard_act(x), bp)
     return params.enc_norm(x)
 
 
@@ -185,8 +186,8 @@ def decode(params: EncDec, tokens: torch.Tensor, cfg: ArchConfig, *,
                                comp=cfg.compression)
 
     for i, bp in enumerate(params.dec_blocks):
-        x = _layer(cfg, mode, block, x, cross[0][i], cross[1][i], bp,
-                   layer_cache(cache, i))
+        x = _layer(cfg, mode, block, shard_act(x), cross[0][i], cross[1][i],
+                   bp, layer_cache(cache, i))
     x = params.final_norm(x)
     return emb_lib.logits(params.embed.table, x)
 
@@ -202,8 +203,12 @@ def forward_train(params: EncDec, tokens: torch.Tensor,
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, device=None,
                dtype=torch.bfloat16) -> Dict:
-    """``{"self": stacked linear cache, "cross": (k, v)}``, zeros (pos -1)."""
+    """``{"self": stacked linear cache, "cross": (k, v)}``, zeros (pos -1).
+    Under a float8_e4m3fn cache the cross K/V stay float32: ``repro``'s
+    decode carries them as its projections return them, never cast to the
+    cache's dtype."""
     device = resolve_device(device)
+    cdtype = torch.float32 if dtype == torch.float8_e4m3fn else dtype
     a = cfg.attention
     L = cfg.num_layers
     shape = (L, batch, max_seq, a.num_kv_heads, a.head_dim)
@@ -212,5 +217,5 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, device=None,
                      "v": torch.zeros(shape, dtype=dtype, device=device),
                      "pos": torch.full((L, max_seq), -1, dtype=torch.int32,
                                        device=device)},
-            "cross": (torch.zeros(cshape, dtype=dtype, device=device),
-                      torch.zeros(cshape, dtype=dtype, device=device))}
+            "cross": (torch.zeros(cshape, dtype=cdtype, device=device),
+                      torch.zeros(cshape, dtype=cdtype, device=device))}

@@ -55,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..dist.ctx import shard_act
 from ..layers import attention as attn_lib
 from ..layers import embeddings as emb_lib
 from ..layers import ffn as ffn_lib
@@ -202,7 +203,11 @@ def apply_block(block: Block, x, cfg: ArchConfig, *, mode: str, cache=None,
 
 
 class Transformer(nn.Module):
-    """embed → blocks → final norm → tied logits."""
+    """embed (+ a learned position table where ``max_position`` is set) →
+    blocks → final norm → tied logits.  As in ``repro``, the logits always
+    come from the embedding table: ``repro`` builds no untied head and
+    ignores ``tie_embeddings`` (``src/repro/models/transformer.py:165``,
+    ``:298``), so an untied config computes the same tied logits."""
 
     def __init__(self, cfg: ArchConfig, *, device: torch.device,
                  generator: Optional[torch.Generator] = None):
@@ -210,14 +215,13 @@ class Transformer(nn.Module):
         if cfg.is_encoder_decoder:
             raise NotImplementedError(f"{cfg.name} is an encoder-decoder "
                                       f"model: models/encdec.py serves it")
-        if (cfg.max_position or cfg.frontend not in ("none", "vision_stub")):
-            raise NotImplementedError(f"{cfg.name}: learned positions and "
-                                      f"the audio frontend of a decoder-only "
-                                      f"model are not ported yet")
-        if not cfg.tie_embeddings:
-            raise NotImplementedError("untied LM heads are not ported yet")
+        if cfg.frontend not in ("none", "vision_stub"):
+            raise NotImplementedError(f"{cfg.name}: the audio frontend of a "
+                                      f"decoder-only model is not ported")
         kw = dict(device=device, generator=generator)
         self.embed = emb_lib.Embedding(cfg.padded_vocab(), cfg.d_model, **kw)
+        if cfg.max_position:               # repro's params["pos"]
+            self.pos = emb_lib.LearnedPos(cfg.max_position, cfg.d_model, **kw)
         self.blocks = nn.ModuleList(Block(kind, cfg, **kw)
                                     for kind in layer_kinds(cfg))
         self.final_norm = norm_lib.init_norm(cfg.norm, cfg.d_model,
@@ -309,19 +313,34 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, *,
     if frontend_embeds is not None:
         n = frontend_embeds.shape[1]
         x = torch.cat([frontend_embeds.to(dtype), x[:, n:]], dim=1)
+    if hasattr(params, "pos"):            # as repro's forward adds it
+        x = x + _positions(params.pos.pos, cache_pos, x.shape[1]).to(dtype)
     aux = None
     if mode == "train":
         if cache is not None:
             raise ValueError("train mode takes no cache")
         x, aux = _train_blocks(params, x, cfg)
     for i, block in enumerate(params.blocks if mode != "train" else ()):
+        x = shard_act(x)                  # block-boundary sharding pin
         x, _, _ = apply_block(block, x, cfg, mode=mode,
                               cache=layer_cache(cache, i),
                               cache_pos=cache_pos, block_table=block_table,
                               paged_impl=paged_impl, kernel_fn=kernel_fn)
-    x = params.final_norm(x)
+    x = params.final_norm(shard_act(x))
     logits = emb_lib.logits(params.embed.table, x, softcap=cfg.logit_softcap)
     return logits, (aux if mode == "train" else cache)
+
+
+def _positions(table: torch.Tensor, cache_pos, S: int) -> torch.Tensor:
+    """Rows of a learned position table for S new positions from
+    ``cache_pos`` (None: 0): (1, S, d) for an int, (B, S, d) for a (B,)
+    position vector (idle slots, -1, read row 0)."""
+    if cache_pos is None or not isinstance(cache_pos, torch.Tensor):
+        pos0 = 0 if cache_pos is None else int(cache_pos)
+        return table[pos0:pos0 + S][None]
+    idx = torch.clamp(cache_pos.long(), min=0)[:, None] + torch.arange(
+        S, device=table.device)
+    return table[idx]
 
 
 def _train_blocks(params: Transformer, x: torch.Tensor, cfg: ArchConfig
@@ -331,6 +350,7 @@ def _train_blocks(params: Transformer, x: torch.Tensor, cfg: ArchConfig
     "full"``: (x, the float32 sum of the MoE blocks' aux losses)."""
     def group(x, aux, blocks):
         for block in blocks:
+            x = shard_act(x)
             x, _, a = apply_block(block, x, cfg, mode="train")
             if a is not None:
                 aux = aux + a

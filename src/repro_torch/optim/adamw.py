@@ -49,9 +49,17 @@ def _absmax(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.stack([x.abs().amax() for x in xs]).amax()
 
 
+def _scale(absmax: torch.Tensor, levels: float) -> torch.Tensor:
+    """``max(absmax, 1e-12) / levels`` as a true division on every device:
+    CUDA divides by a host scalar as a product with its reciprocal, which
+    can land one ulp off the CPU's and ``repro``'s quotient (and move a
+    code at a rounding boundary), so the divisor is a tensor beside it."""
+    return torch.clamp(absmax, min=1e-12) / torch.full_like(absmax, levels)
+
+
 def q_sym(xs: Sequence[torch.Tensor]) -> Tuple[Tensors, torch.Tensor]:
     """Symmetric int8 with one absmax scale (for m, sign-carrying)."""
-    scale = torch.clamp(_absmax(xs), min=1e-12) / 127.0
+    scale = _scale(_absmax(xs), 127.0)
     return ([torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
              for x in xs], scale)
 
@@ -63,7 +71,7 @@ def dq_sym(qs: Sequence[torch.Tensor], scale: torch.Tensor) -> Tensors:
 def q_pos(xs: Sequence[torch.Tensor]) -> Tuple[Tensors, torch.Tensor]:
     """uint8 sqrt-companded codec for the non-negative second moment."""
     rs = [torch.sqrt(torch.clamp(x, min=0.0)) for x in xs]
-    scale = torch.clamp(_absmax(rs), min=1e-12) / 255.0
+    scale = _scale(_absmax(rs), 255.0)
     return ([torch.clamp(torch.round(r / scale), 0, 255).to(torch.uint8)
              for r in rs], scale)
 

@@ -119,7 +119,7 @@ def make_prefill_step(cfg: ArchConfig, *, kernel_fn=None) -> Callable:
     (B, 1, V), cache).  ``batch`` holds ``tokens`` and the stub
     frontend's ``patches`` or ``frames`` (``engine.py:frontend_inputs``).
     ``kernel_fn`` is the projections' spectral-MAC hook
-    (the batch engine passes ``kernels/ops.py:spectral_contract``)."""
+    (the batch engine passes ``serve/engine.py:PrefillContract``)."""
     model = build_model(cfg)
 
     def prefill_step(params, batch, cache):

@@ -11,7 +11,11 @@ them into batches; results come back in request order.  Its prefill runs
 every float32-plane projection's spectral MAC through the
 ``spectral_matmul`` kernel (the ``kernel_fn`` hook,
 ``kernels/ops.py:spectral_contract``): many rows share one set of planes
-there.  Its decode passes no hook, so the B rows take the fused kernel.
+there.  The hook decides projection by projection (``PrefillContract``):
+planes that kernel's block cannot stage (block sizes below about 32 at
+tinyllama's widths) take the fused kernel, and ``stats()["prefill_lanes"]``
+says which shapes took which.  Its decode passes no hook, so the B rows
+take the fused kernel.
 
 ``ContinuousEngine``:
 
@@ -55,8 +59,19 @@ the engine sleeps for an injected delay and may NaN-poison a running
 slot's first page.  The poison is written in place into the pool tensors
 the captured decode step reads, so the step is never captured again.
 
-``repro``'s ``mesh`` argument is not taken: on one card a placement is a
-no-op.
+Both take ``mesh`` (a ``DeviceMesh``; by default ``launch/mesh.py:
+make_host_mesh()``, this host's (1, 1) ("data", "model") mesh on the
+engine's device) and serve inside its activation policy
+(``dist/ctx.py``), where ``repro``'s do; ``ContinuousEngine`` rounds its
+page count up to the mesh's data-parallel size (``dist/sharding.py:
+dp_round_up``).  On one card every placement is local: the policy's pins
+pass plain tensors through.
+
+``Engine(cache_dtype=)`` picks its dense cache's dtype: float32 by default
+(the oracle, as ``repro``'s batch engine keeps it), or a config's
+``kv_cache_dtype`` such as ``torch.float8_e4m3fn``: K/V are written
+rounded as ``repro``'s ``astype`` rounds them and read by the float32
+flash kernels' e4m3 lane (``layers/attention.py``).
 """
 from __future__ import annotations
 
@@ -69,12 +84,16 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device, synchronize
+from ..dist import ctx as dist_ctx
+from ..dist import sharding as dist_sharding
 from ..kernels import ops as kops
+from ..kernels import spectral_matmul as smm
+from ..launch import mesh as mesh_lib
 from ..models.registry import build_model
 from ..models.transformer import cache_bytes, layer_kinds, window_for
 from ..obs import BYTES_BUCKETS, RATIO_BUCKETS, Obs
 from ..obs.health import SCALE_BUCKETS, HealthPlane, ShadowOracle
-from ..quant.codec import QuantPolicy, plane_clip_report
+from ..quant.codec import QuantPolicy, baked_caches, plane_clip_report
 from ..roofline.analysis import ServingCounts
 from . import decode as dec
 from . import kvcache as kvc
@@ -109,11 +128,10 @@ def _engine_stats_view(obs: Obs, engine: str) -> Dict:
     return st
 
 
-def _dense_kv_bytes(cfg: ArchConfig) -> int:
-    """Bytes of one position of one layer's K and V in the float32 dense
-    cache."""
+def _dense_kv_bytes(cfg: ArchConfig, dtype=torch.float32) -> int:
+    """Bytes of one position of one layer's K and V in the dense cache."""
     a = cfg.attention
-    return 2 * a.num_kv_heads * a.head_dim * 4
+    return 2 * a.num_kv_heads * a.head_dim * dtype.itemsize
 
 
 def _engine_device(params, device) -> torch.device:
@@ -158,13 +176,58 @@ class Request:
     priority: int = 0
 
 
+class PrefillContract:
+    """The batch prefill's ``kernel_fn``: the spectral MAC of a projection's
+    float32 planes through ``spectral_matmul``
+    (``kernels/ops.py:spectral_contract``) where that kernel plans their
+    (p, q, kf) shape, else (``takes`` is False) through the fused kernel,
+    as ``core/circulant.py:_spectral_linear`` reads it.  Its block stages
+    a bin chunk's three (q, p) planes whole, so at tinyllama's widths it
+    takes block sizes from about 32 up.  The choice is made once a shape,
+    at the first call (or up front for the baked caches of ``params``),
+    and kept with the planner's reason."""
+
+    def __init__(self, params=None):
+        self.lanes: Dict[tuple, str] = {}
+        self.reasons: Dict[tuple, str] = {}
+        if params is not None:
+            for _, _, _, cache in baked_caches(params):
+                if "wr_s" not in cache and cache["wr"].dim() == 3:
+                    self.takes(cache)
+
+    def takes(self, cache: Dict[str, torch.Tensor]) -> bool:
+        shape = tuple(cache["wr"].shape)
+        lane = self.lanes.get(shape)
+        if lane is None:
+            p, q, kf = shape
+            try:
+                smm.plan(kf, 1, q, p, smm.BIN_MINOR)
+                lane = "spectral_matmul"
+            except ValueError as e:
+                lane = "bc_fused"
+                self.reasons[shape] = str(e)
+            self.lanes[shape] = lane
+        return lane == "spectral_matmul"
+
+    def __call__(self, xr, xi, cache):
+        return kops.spectral_contract(xr, xi, cache)
+
+    def report(self) -> Dict[str, List[str]]:
+        """The (p, q, kf) plane shapes each lane took, as "p x q x kf"."""
+        out: Dict[str, List[str]] = {"spectral_matmul": [], "bc_fused": []}
+        for shape, lane in sorted(self.lanes.items()):
+            out[lane].append("x".join(map(str, shape)))
+        return out
+
+
 class Engine:
     """Batch-synchronous engine over a float32 dense cache: the oracle.
 
     ``decode_mode`` is "scan" (``make_decode_loop``: per-row lengths, EOS
     freeze, early exit) or "per_token" (one ``make_decode_step`` call per
     token, no freezing; the results are cut the same way).  Only the
-    weight half of ``quant`` applies: the cache stays float32.  It serves
+    weight half of ``quant`` applies: the cache is float32, or
+    ``cache_dtype`` (module docstring).  It serves
     every block kind: the ``attn`` / ``moe`` decoder LMs, the
     sliding-window ``attn_local`` (gemma2, recurrentgemma) and ``moe_swa``
     (mixtral) blocks over a ring cache (a batch's padded prompt must cover
@@ -187,7 +250,8 @@ class Engine:
                  eos_id: Optional[int] = None, temperature: float = 1.0,
                  seed: int = 0, bucket_prompts: bool = True,
                  quant: Optional[QuantPolicy] = None,
-                 obs: Optional[Obs] = None, device=None):
+                 obs: Optional[Obs] = None, device=None, mesh=None,
+                 cache_dtype: torch.dtype = torch.float32):
         if decode_mode not in ("scan", "per_token"):
             raise ValueError(f"decode_mode {decode_mode!r}: expected 'scan' "
                              f"or 'per_token'")
@@ -198,10 +262,13 @@ class Engine:
         self._swa_window = max((window_for(k, cfg) for k in kinds),
                                default=0)
         self.device = _engine_device(params, device)
+        self.mesh = (mesh if mesh is not None
+                     else mesh_lib.make_host_mesh(self.device))
         self.cfg = cfg
+        self.cache_dtype = cache_dtype
         self.quant = quant or QuantPolicy()
-        # the dense cache stays float32 (the parity oracle); only the
-        # weight half of the policy applies here
+        # the dense cache is float32 (the parity oracle) unless asked;
+        # only the weight half of the policy applies here
         self.params = (precompute_serving_params(params, cfg, self.quant)
                        if precompute else params)
         self.model = build_model(cfg)
@@ -213,8 +280,8 @@ class Engine:
         self.temperature = temperature
         self.seed = seed
         self.bucket_prompts = bucket_prompts
-        self._prefill = dec.make_prefill_step(
-            cfg, kernel_fn=kops.spectral_contract)
+        self._contract = PrefillContract(self.params)
+        self._prefill = dec.make_prefill_step(cfg, kernel_fn=self._contract)
         self._decode = dec.make_decode_step(cfg, sample=sample,
                                             temperature=temperature,
                                             seed=seed)
@@ -229,7 +296,8 @@ class Engine:
         self._c_prefills = reg.counter("engine.prefills")
         self._h_prefill = reg.histogram("engine.prefill_dispatch_s")
         self._h_decode = reg.histogram("engine.decode_dispatch_s")
-        self._counts = ServingCounts(self.params, cfg, _dense_kv_bytes(cfg))
+        self._counts = ServingCounts(self.params, cfg,
+                                     _dense_kv_bytes(cfg, cache_dtype))
         self._order = 0                     # trace submission order
         self._cache_bytes = 0               # largest dense cache so far
         self._kinds: set = set()            # prefill / decode shapes served
@@ -281,6 +349,11 @@ class Engine:
 
     def _generate_batch(self, reqs: Sequence[Request],
                         traces: Sequence) -> List[Dict]:
+        with dist_ctx.activation_policy(self.mesh):
+            return self._generate_batch_inner(reqs, traces)
+
+    def _generate_batch_inner(self, reqs: Sequence[Request],
+                              traces: Sequence) -> List[Dict]:
         t0 = time.perf_counter()
         batch = self._make_batch(reqs)
         B, S = batch["tokens"].shape
@@ -299,7 +372,7 @@ class Engine:
                 f"so prompts must be >= min(window, cache length)")
         with torch.no_grad():
             cache = self.model.init_cache(B, S + steps - 1,
-                                          dtype=torch.float32,
+                                          dtype=self.cache_dtype,
                                           device=self.device)
             self._cache_bytes = max(self._cache_bytes, cache_bytes(cache))
             self._kinds.add(dec.batch_prefill_kind(B, S))
@@ -409,6 +482,8 @@ class Engine:
         st["cache_bytes"] = self._cache_bytes
         st["dispatch_kinds"] = sorted(self._kinds)
         st["quant_policy"] = self.quant.describe()
+        st["cache_dtype"] = str(self.cache_dtype).split(".")[-1]
+        st["prefill_lanes"] = self._contract.report()
         st["device"] = str(self.device)
         return st
 
@@ -446,7 +521,7 @@ class ContinuousEngine:
                  max_preemptions: int = 4, nan_guard: bool = True,
                  obs: Optional[Obs] = None, faults=None,
                  shadow_sample: float = 0.0,
-                 capture: Optional[bool] = None, device=None):
+                 capture: Optional[bool] = None, device=None, mesh=None):
         if paged_attn not in ("stream", "gather"):
             raise ValueError(f"paged_attn {paged_attn!r}: "
                              f"expected 'stream' or 'gather'")
@@ -483,6 +558,11 @@ class ContinuousEngine:
         if max_tokens_in_flight < max_seq + 1:
             raise ValueError(f"max_tokens_in_flight {max_tokens_in_flight} "
                              f"cannot admit one max_seq request")
+        self.mesh = (mesh if mesh is not None
+                     else mesh_lib.make_host_mesh(self.device))
+        # keep the page dim DP-divisible (page_pool_spec would otherwise
+        # replicate the pool over the data-parallel ranks)
+        num_pages = dist_sharding.dp_round_up(num_pages, self.mesh)
         self.num_pages = num_pages
         self.pool = kvc.build_pool(cfg, num_pages, page_size, self.quant,
                                    device=self.device)
@@ -644,8 +724,9 @@ class ContinuousEngine:
 
     def step(self) -> bool:
         """One scheduler round; True if anything happened."""
-        now = self._now()
-        return self._step(now, arrived_before=now)
+        with dist_ctx.activation_policy(self.mesh):
+            now = self._now()
+            return self._step(now, arrived_before=now)
 
     def drain(self) -> List[Dict]:
         """Stop admitting, shed fresh queued work as REJECTED, run in-flight
@@ -656,12 +737,13 @@ class ContinuousEngine:
             self._finish_unserved(entry.order, entry.request,
                                   entry.resume_tokens, REJECTED,
                                   preemptions=entry.preemptions)
-        while not self.scheduler.idle:
-            if not self._step(self._now()):
-                raise RuntimeError("drain stall: in-flight work cannot "
-                                   "make progress")
-        if self._shadow is not None:
-            self._shadow.drain()
+        with dist_ctx.activation_policy(self.mesh):
+            while not self.scheduler.idle:
+                if not self._step(self._now()):
+                    raise RuntimeError("drain stall: in-flight work cannot "
+                                       "make progress")
+            if self._shadow is not None:
+                self._shadow.drain()
         self.obs.close()
         return [self._results[o] for o in sorted(set(self._results) - before)]
 
@@ -689,6 +771,13 @@ class ContinuousEngine:
                else [float(a) for a in arrival_times])
         orders = [self.submit(r, a) for r, a in zip(reqs, arr)]
         gate = arrival_times is not None
+        with dist_ctx.activation_policy(self.mesh):
+            self._serve(gate)
+        return [self._results.pop(o) for o in orders]
+
+    def _serve(self, gate: bool) -> None:
+        """``generate``'s loop: steps until the scheduler is idle (with
+        ``gate``, sleeping until the queue head's arrival)."""
         while not self.scheduler.idle:
             now = self._now()
             if gate and not self.scheduler.running and self.scheduler.queue:
@@ -707,7 +796,6 @@ class ContinuousEngine:
         if self._shadow is not None:
             # pending replays publish agreement / drift before stats()
             self._shadow.drain()
-        return [self._results.pop(o) for o in orders]
 
     def _step(self, now_s: float,
               arrived_before: Optional[float] = None) -> bool:

@@ -128,8 +128,9 @@ def test_conv_equals_materialized_dense():
 
 
 def test_conv_block_size_not_multiple_of_8_runs_plain_on_cpu():
-    """Block sizes the card's kernels refuse (k = 4 here) still run on the
-    CPU, where the wrappers take their plain versions."""
+    """A block size below 8 (k = 4 here; the card's kernels pad its DFT
+    panel to 8) runs on the CPU, where the wrappers take their plain
+    versions."""
     r, C, P, k = 3, 2, 4, 4
     gen = torch.Generator().manual_seed(1)
     w = tconv.init_conv_circulant(r, C, P, k, generator=gen,

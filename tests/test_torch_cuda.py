@@ -26,8 +26,10 @@ from repro_torch.kernels import paged as pg  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import spectral_matmul as sm  # noqa: E402
+from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
 from repro_torch.quant import codec  # noqa: E402
+from repro_torch.serve import decode as dec  # noqa: E402
 from repro_torch.serve.engine import (ContinuousEngine, Engine,  # noqa: E402
                                       Request)
 from repro_torch.serve.params import precompute_serving_params  # noqa: E402
@@ -1003,3 +1005,228 @@ def test_conv_kernel_path_against_plain(cuda, B, H, W, C):
         outs[path] = (y.detach(), xi.grad, wi.grad)
     for got, ref in zip(outs["fft"], outs["direct"]):
         _close(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# block sizes below 8, not a multiple of 8, and 256; the e4m3 K/V lane
+# ---------------------------------------------------------------------------
+BLOCK_SIZES = [4, 5, 12, 256, 1, 3]
+
+
+def _lanes(planes):
+    """The float32, int8 and packed-int4 planes of one spectral cache."""
+    out = [((planes["wr"], planes["ws1"], planes["ws2"]), None)]
+    for bits in (8, 4):
+        qp = codec.quantize_plane_cache(planes, bits)
+        out.append(((qp["wr"], qp["ws1"], qp["ws2"]),
+                    [qp[n + "_s"] for n in ("wr", "ws1", "ws2")]))
+    return out
+
+
+@pytest.mark.parametrize("k", BLOCK_SIZES)
+@pytest.mark.parametrize("B,p,q", [(1, 3, 5), (8, 44, 16), (70, 2, 16),
+                                   (300, 16, 44)])
+def test_bc_fused_block_sizes(cuda, k, B, p, q):
+    """Every plane lane at block sizes the DFT panel is padded for (k < 8,
+    odd, not a multiple of 8) or read from memory (256), against the plain
+    version; one launch a call.  At k = 256 a block of xb that starts off
+    16-byte alignment is refused only where k is a multiple of 8."""
+    w = torch.randn((p, q, k), generator=cuda, device="cuda") / (q * k) ** .5
+    xb = torch.randn((B, q, k), generator=cuda, device="cuda")
+    for pl, scales in _lanes(cc.spectral_cache(w)):
+        lane = bcf.LANES[pl[0].dtype]
+        assert bcf.plan(B, p, q, k, lane).smem_bytes <= bcf.MAX_SMEM
+        before = bcf.KERNEL.launches
+        got = bcf.bc_fused_matmul(xb, *pl, k, scales)
+        assert bcf.KERNEL.launches == before + 1
+        _close(got, bcf.bc_fused_matmul_plain(xb, *pl, k, scales))
+
+
+@pytest.mark.parametrize("k", [4, 5, 12, 256])
+def test_bc_fused_block_sizes_plan_tinyllama(cuda, k):
+    """``plan`` at tinyllama's four projections at block size k, every
+    lane and the expert stack's one-expert plan, and a launch of each at
+    B = 8 against the plain version."""
+    nb = lambda n: -(-n // k)  # noqa: E731
+    for n_in, n_out in ((2048, 2048), (2048, 256), (2048, 5632),
+                        (5632, 2048)):
+        p, q = nb(n_out), nb(n_in)
+        for lane in bcf.LANES.values():
+            for B in (1, 8, 8192):
+                assert bcf.launch_args(B, p, q, k, lane, E=4)
+        w = torch.randn((p, q, k), generator=cuda, device="cuda") / n_in ** .5
+        xb = torch.randn((8, q, k), generator=cuda, device="cuda")
+        for pl, scales in _lanes(cc.spectral_cache(w)):
+            _close(bcf.bc_fused_matmul(xb, *pl, k, scales),
+                   bcf.bc_fused_matmul_plain(xb, *pl, k, scales))
+
+
+@pytest.mark.parametrize("k", [4, 5, 256])
+def test_bc_fused_stack_block_sizes(cuda, k):
+    """An expert stack at these k is one launch, each expert bit-equal to
+    the single call, on all three lanes."""
+    E, C, p, q = 3, 7, 4, 6
+    w = torch.randn((E, p, q, k), generator=cuda, device="cuda") / (q * k) ** .5
+    xb = torch.randn((E, C, q, k), generator=cuda, device="cuda")
+    cache = cc.spectral_cache(w)
+    for pl, scales in _lanes(cache):
+        before = bcf.KERNEL.launches
+        got = bcf.bc_fused_matmul(xb, *pl, k, scales)
+        assert bcf.KERNEL.launches == before + 1
+        for e in range(E):
+            one = bcf.bc_fused_matmul(
+                xb[e].contiguous(), *(t[e] for t in pl), k,
+                None if scales is None else [s[e] for s in scales])
+            assert torch.equal(got[e], one)
+
+
+@pytest.mark.parametrize("N,p,q,k", [(1000, 44, 16, 4), (300, 3, 5, 5),
+                                     (1024, 16, 44, 12), (37, 2, 3, 1),
+                                     (200, 5, 7, 3), (8192, 22, 8, 256),
+                                     (8192, 8, 22, 256), (3000, 11, 8, 100)])
+def test_bc_grad_w_block_sizes(cuda, N, p, q, k):
+    """``bc_grad_w``'s plain-DFT path (k not a multiple of 8) and the folded
+    one at tinyllama's k = 256 up/gate and down, against the plain version
+    (1e-4 of the scale), two calls bit-equal."""
+    from repro_torch.kernels import bc_grad_w as bgw
+    gy = torch.randn((N, p, k), generator=cuda, device="cuda")
+    xb = torch.randn((N, q, k), generator=cuda, device="cuda")
+    got = bgw.bc_grad_w(gy, xb, k)
+    assert torch.equal(got, bgw.bc_grad_w(gy, xb, k))
+    _close(got, bgw.bc_grad_w_plain(gy, xb, k))
+
+
+def test_bc_grad_w_stack_block_size_4(cuda):
+    from repro_torch.kernels import bc_grad_w as bgw
+    E, C, p, q, k = 4, 90, 6, 5, 4
+    gy = torch.randn((E, C, p, k), generator=cuda, device="cuda")
+    xb = torch.randn((E, C, q, k), generator=cuda, device="cuda")
+    got = bgw.bc_grad_w(gy, xb, k)
+    for e in range(E):
+        assert torch.equal(got[e], bgw.bc_grad_w(gy[e].contiguous(),
+                                                 xb[e].contiguous(), k))
+
+
+@pytest.mark.parametrize("k", [4, 5, 256])
+def test_bc_matmul_fft_block_sizes_on_card(cuda, k):
+    """The circulant Function at these k on the card (bc_fused forward and
+    adjoint, bc_grad_w) against the CPU's plain versions."""
+    n_in, n_out = (512, 700) if k == 256 else (30, 22)
+    p, q = cc.num_blocks(n_out, k), cc.num_blocks(n_in, k)
+    w = torch.randn((p, q, k), generator=cuda, device="cuda") / n_in ** .5
+    x = torch.randn((4, 6, n_in), generator=cuda, device="cuda")
+    g = torch.randn((4, 6, n_out), generator=cuda, device="cuda")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        wd = w.detach().to(dev).requires_grad_()
+        xd = x.detach().to(dev).requires_grad_()
+        y = cc.bc_matmul_fft(xd, wd, n_out)
+        (y * g.to(dev)).sum().backward()
+        out[dev] = (y.detach().cpu(), xd.grad.cpu(), wd.grad.cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("D", [64, 96, 128, 256])
+@pytest.mark.parametrize("shape,opts", [
+    ((4, 32, 4, 1, 231), dict(kv_offset=230)),        # decode, split-KV
+    ((2, 8, 8, 1, 40), dict(causal=False)),           # ring read, G = 1
+    ((1, 8, 2, 48, 48), dict()),                      # 192 packed rows
+    ((2, 4, 4, 40, 100), dict(window=16, kv_offset=60, softcap=5.0)),
+])
+def test_flash_e4m3_lane(cuda, D, shape, opts):
+    """A float32 query over e4m3 K/V (the rows kernel widens them as it
+    stages them, at any rows) against ``attention_ref`` on K/V widened to
+    float32; the launch counts under ``f32_rows_e4m3``."""
+    from repro_torch.layers.attention import to_cache
+    B, Hq, Hkv, Sq, Skv = shape
+    q = torch.randn((B, Hq, Sq, D), generator=cuda, device="cuda")
+    k, v = (to_cache(torch.randn((B, Hkv, Skv, D), generator=cuda,
+                                 device="cuda") * 2, torch.float8_e4m3fn)
+            for _ in range(2))
+    pl = fa.plan(B, Hq, Hkv, Sq, Skv, D, torch.float32, torch.float8_e4m3fn)
+    assert pl.path == "f32_rows"
+    before = dict(fa.KERNEL.path_launches)
+    got = fa.flash_attention(q, k, v, **opts)
+    path = "f32_rows_e4m3"
+    assert fa.KERNEL.path_launches.get(path, 0) == before.get(path, 0) + 1
+    assert got.dtype == torch.float32
+    _close(got, fa.attention_ref(q, k.float(), v.float(), **opts))
+    with pytest.raises(ValueError, match="float8_e4m3fn"):
+        fa.flash_attention(q.bfloat16(), k, v, **opts)
+
+
+# a step whose top-2 logit gap on the CPU is below this may take the other
+# token on the card (``tests/test_torch_kvf8.py``'s rule)
+NEAR_TIE = 0.02
+
+
+def _f8_gaps(cfg, params, reqs, steps):
+    """The top-2 logit gap of each row and greedy step of the batch
+    engine's path by hand on the CPU over a float8 cache, the prompts
+    left-padded as the engine pads them: (B, steps)."""
+    B, S = len(reqs), max(len(r.prompt) for r in reqs)
+    toks = np.zeros((B, S), np.int64)
+    for i, r in enumerate(reqs):
+        toks[i, S - len(r.prompt):] = r.prompt
+    prefill = dec.make_prefill_step(cfg)
+    step = dec.make_decode_step(cfg)
+    with torch.no_grad():
+        cache = build_model(cfg).init_cache(B, S + steps - 1,
+                                            dtype=torch.float8_e4m3fn,
+                                            device="cpu")
+        logits, cache = prefill(params, {"tokens": torch.as_tensor(toks)},
+                                cache)
+        gaps = []
+        for j in range(steps):
+            top = torch.topk(logits[:, -1].float(), 2).values
+            gaps.append((top[:, 0] - top[:, 1]).numpy())
+            if j + 1 < steps:
+                cur = logits[:, -1].argmax(-1)[:, None]
+                logits, _, cache = step(params, cur, cache, S + j)
+    return np.stack(gaps, 1)
+
+
+def test_engine_f8_cache_on_card(cuda):
+    """The batch ``Engine`` with a float8 dense cache on the card: its
+    decode reads the cache through the e4m3 rows lane (5 steps x 2
+    layers); its tokens equal the same engine's on the CPU, row by row,
+    up to the row's first near-tie on the CPU (a K/V value at an e4m3
+    rounding midpoint may take the neighbouring code on the two devices
+    and move the logits by a few 1e-3: ``tests/test_torch_kvf8.py``)."""
+    cfg = get_smoke_config("tinyllama-1.1b").replace(dtype="float32")
+    model = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(0)
+    steps = 6
+    reqs = [Request(prompt=rng.randint(1, 500, size=n).astype(np.int32),
+                    max_new_tokens=steps, id=i) for i, n in enumerate((9, 5))]
+    eng = Engine(cfg, copy.deepcopy(model), device="cpu",
+                 cache_dtype=torch.float8_e4m3fn, bucket_prompts=False)
+    cpu = eng.generate(reqs)
+    gaps = _f8_gaps(cfg, eng.params, reqs, steps)
+    before = dict(fa.KERNEL.path_launches)
+    card = Engine(cfg, model.to("cuda"), device="cuda",
+                  cache_dtype=torch.float8_e4m3fn,
+                  bucket_prompts=False).generate(reqs)
+    assert (fa.KERNEL.path_launches.get("f32_rows_e4m3", 0)
+            - before.get("f32_rows_e4m3", 0)) == (steps - 1) * cfg.num_layers
+    for row, (c, g) in enumerate(zip(card, cpu)):
+        ties = np.flatnonzero(gaps[row] < NEAR_TIE)
+        n = int(ties[0]) if len(ties) else steps   # the tied token
+        assert n >= steps - 1, (row, gaps[row])    # may differ
+        assert c["tokens"][:n] == g["tokens"][:n], (row, n)
+
+
+@pytest.mark.parametrize("codec", ["q_sym", "q_pos"])
+def test_optimizer_codec_equals_cpu_on_card(cuda, codec):
+    """The int8 / uint8 moment codecs (and the wire all-reduce's
+    quantizer) give the CPU's scale and codes bit for bit on the card: the
+    scale is a true division there too, not a product with 1/127."""
+    from repro_torch.optim import adamw
+    fn = getattr(adamw, codec)
+    g = torch.Generator().manual_seed(0)
+    xs = [torch.randn(n, generator=g) * 3e-3 for n in (4096, 1000, 77)]
+    qc, sc = fn(xs)
+    qg, sg = fn([x.cuda() for x in xs])
+    assert torch.equal(sg.cpu(), sc)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(qg, qc))

@@ -187,7 +187,7 @@ def test_bc_fused_plan_gemma_shapes(arch, proj, p, q, k, B):
     assert pl.blocks == -(-B // pl.rows) * pl.cluster
 
 
-@pytest.mark.parametrize("p,q,k", [(3, 5, 7), (3, 5, 0), (0, 4, 16)])
+@pytest.mark.parametrize("p,q,k", [(3, 5, -8), (3, 5, 0), (0, 4, 16)])
 def test_bc_fused_plan_refuses(p, q, k):
     with pytest.raises(ValueError):
         bcf.plan(8, p, q, k)
@@ -321,7 +321,7 @@ def test_flash_decode_key_groups(B, Hq, Hkv, Sq, Skv, D):
     key group), and each key of the cache is scored by exactly one
     (split, group)."""
     assert list(inspect.signature(fa.plan).parameters) == [
-        "B", "Hq", "Hkv", "Sq", "Skv", "D", "dtype"]
+        "B", "Hq", "Hkv", "Sq", "Skv", "D", "dtype", "kv_dtype"]
     pl = fa.plan(B, Hq, Hkv, Sq, Skv, D, torch.float32)
     assert pl == fa.plan(B, Hq, Hkv, Sq, Skv, D, torch.float32)
     packed = (Hq // Hkv) * Sq

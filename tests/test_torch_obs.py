@@ -57,7 +57,7 @@ ARCH = "tinyllama-1.1b"
 # stats() keys the port adds to repro's schema, by engine
 PORT_KEYS = {
     "batch": {"prefills", "decode_steps", "cache_bytes", "dispatch_kinds",
-              "quant_policy", "device"},
+              "quant_policy", "cache_dtype", "prefill_lanes", "device"},
     "continuous": {"decode_steps", "prefills", "decode_graphs",
                    "decode_capture_s", "device"},
 }

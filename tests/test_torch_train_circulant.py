@@ -199,12 +199,14 @@ def test_bc_grad_w_plan(N, p, q, k, want):
 
 
 @pytest.mark.parametrize("N,p,q,k,why", [
-    (64, 2, 2, 12, "multiple of 8"), (64, 2, 2, 264, "bins"),
+    (64, 2, 2, 0, "block size"), (64, 2, 2, 264, "bins"),
     (64, 8192, 8192, 128, "grid"), (0, 2, 2, 16, "empty")])
 def test_bc_grad_w_plan_refuses(N, p, q, k, why):
     """What the kernel cannot run raises ValueError naming the reason:
-    k not a multiple of 8, more than 132 bins, more output tiles than a
-    grid's y can hold (8,192 x 8,192 blocks: 256 x 256 tiles), no rows."""
+    a block size below 1 (any other k up to 256 runs: the folded DFT at
+    multiples of 8, the plain one else), more than 132 bins, more output
+    tiles than a grid's y can hold (8,192 x 8,192 blocks: 256 x 256
+    tiles), no rows."""
     with pytest.raises(ValueError, match=why):
         tgw.plan(N, p, q, k)
 
