@@ -191,10 +191,36 @@ itself.  Each phase prints one JSON line:
                 tokens equal to the default's, the rule engine's bytes a
                 device of a (16, 16) duck mesh would hold of tinyllama's
                 parameters and planes; the process group destroyed
+  nogauss       tinyllama-1.1b at full width and depth with
+                ``gauss_trick=False`` (the paper's own MAC): every
+                projection on ``bc_fused``'s 4-product lanes through both
+                engines (f32 planes; the continuous engine also on int8
+                and int4), exact launch counts, the batch prefill's MAC on
+                the fused kernel with the planner's reason; one float32
+                request against the CPU's plain path; 3 training steps of
+                4 x 512 tokens, the forward and adjoint on the lane
+  dryrun        ``repro_torch.launch.dryrun`` in seven subprocesses at
+                once, started before the train phases (the card hidden
+                from them; the host's cores trace while the card trains):
+                tinyllama-1.1b x every shape
+                on the (16, 16) and (2, 16, 16) meshes, llama4 x
+                decode_32k, recurrentgemma-2b and xlstm-125m x long_500k,
+                every cell ok but tinyllama's long_500k (skipped with
+                repro's reason): bytes a device against the card's memory,
+                FLOPs, collective bytes and the dominant term on the
+                ``h100`` spec, as predictions; then the one-rank record of
+                recurrentgemma-2b x long_500k against the same decode step
+                on the card: argument bytes equal, new bytes within
+                ``DRYRUN_PEAK_TOL`` of the rise of ``max_memory_allocated``
 
 Every ``ContinuousEngine`` above decodes by replaying the CUDA graph of its
 step, captured when the engine is built (``serve/decode.py``); its launch
 counts are the replays' (warm-up and capture are counted apart).
+
+The kernels phase also holds the 4-product lanes (``bc_fused4``, int8,
+int4) at tinyllama's up/gate (B = 8; 2,048 rows; an 8-expert stack of 4
+rows, each expert bit-equal to its single call; the adjoint at 2,048
+rows) to their plain version, dense ``torch.matmul`` their library.
 
 The kernels phase adds ``spectral_matmul`` at every batch-prefill shape
 (F = 65, N = 2048 rows) in both of its layouts (``repro``'s contiguous
@@ -256,6 +282,7 @@ without a CUDA device.
 """
 from __future__ import annotations
 
+import atexit
 import copy
 import ctypes
 import gc
@@ -263,6 +290,7 @@ import json
 import math
 import shutil
 import statistics
+import os
 import subprocess
 import sys
 import tempfile
@@ -386,6 +414,33 @@ BLOCK_ROWS = BLOCK_TRAIN["batch"] * BLOCK_TRAIN["seq"]
 # serve_kvf8: B requests of one length (no padding, so each row of the
 # batch is the B=1 path's request) over a float8_e4m3fn dense cache
 KVF8 = dict(B=4, S=64, new=16)
+# nogauss (the paper's 4-product MAC, gauss_trick=False): 4 requests of
+# 17-64 + 8 tokens through each engine, int8 and int4 planes through the
+# continuous one, the float32 card-vs-CPU parity, 3 training steps of 4 x
+# 512 tokens
+NOGAUSS = dict(n=4, lo=17, hi=64, new=8, max_seq=128)
+# dryrun: each job one process of repro_torch.launch.dryrun (arch, shape,
+# mesh), all at once on the host's cores while the train phases run on the
+# card; "one" is the 1-rank mesh whose record dryrun_card_check holds to
+# the card
+DRYRUN_JOBS = (("tinyllama-1.1b", "train_4k", "single"),
+               ("tinyllama-1.1b", "prefill_32k,decode_32k,long_500k",
+                "single"),
+               ("tinyllama-1.1b", "train_4k", "multi"),
+               ("tinyllama-1.1b", "prefill_32k,decode_32k,long_500k",
+                "multi"),
+               ("llama4-maverick-400b-a17b", "decode_32k", "single"),
+               ("recurrentgemma-2b,xlstm-125m", "long_500k", "single"),
+               ("recurrentgemma-2b", "long_500k", "one"))
+DRYRUN_TIMEOUT = 300
+# the one-rank record's new bytes against the card's rise of
+# max_memory_allocated: the allocator rounds every block up to 512 bytes,
+# the flash kernel's split-KV partials are not in the trace, and the plain
+# versions' temporaries (the DFT products, attention's repeated K/V) are
+# not made by the kernels but are freed before the step's peak (the LM
+# head's bfloat16 copy of the float32 table is in both)
+DRYRUN_PEAK_TOL = dict(rel=0.05, abs=16 << 20)
+NOGAUSS_TRAIN = dict(batch=4, seq=512, steps=3)
 # serve_kvf8's limit on a batch row's step logits against the B=1 oracle
 # over the same float8 cache, a fraction of the logit scale (4.2 on the
 # H100): between the largest reading of sound runs (6.7e-4, a code flipped
@@ -467,6 +522,14 @@ LANES = {
                         "src/repro/kernels/spectral_matmul.py:42",
                         "spectral_matmul", "tinyllama_q_o_n2048",
                         "serve_batch"),
+    # bc_fused's 4-product lanes (gauss_trick=False, the paper's MAC), on
+    # the main path in the nogauss phase
+    "bc_fused4": (bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48",
+                  "bc_fused4", "up_gate_b8", "nogauss"),
+    "bc_fused4_i8": (bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48",
+                     "bc_fused4_i8", "up_gate_b8", "nogauss_int8"),
+    "bc_fused4_i4": (bc_fused.KERNEL, "src/repro/kernels/bc_fused.py:48",
+                     "bc_fused4_i4", "up_gate_b8", "nogauss_int4"),
     # no Pallas kernel: the weight-gradient half of repro's hand-derived
     # block-circulant backward, which repro leaves to XLA
     "bc_grad_w": (bgw.KERNEL,
@@ -722,11 +785,16 @@ def time_ms(fn, reps: int = 15, inner: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+# samples of a graph timing: each is ``inner`` replays back to back
+GRAPH_REPS = 5
+
+
 def graph_ms(fn, inner: int = 10, reps: int = 15) -> float:
     """Device time of one call: ``inner`` calls captured in a CUDA graph,
-    replayed and timed as ``time_ms`` times a call (``reps`` timings of
-    ``inner`` replays), so the host's work in the wrapper (checks,
-    allocation, the ctypes call) is left out."""
+    replayed and timed as ``time_ms`` times a call (at most
+    ``GRAPH_REPS`` timings of ``inner`` replays back to back, the median
+    divided by ``inner`` twice), so the host's work in the wrapper
+    (checks, allocation, the ctypes call) is left out."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -736,7 +804,8 @@ def graph_ms(fn, inner: int = 10, reps: int = 15) -> float:
     with torch.cuda.graph(graph):
         for _ in range(inner):
             fn()
-    return time_ms(graph.replay, reps=reps, inner=inner) / inner
+    return time_ms(graph.replay, reps=min(reps, GRAPH_REPS),
+                   inner=inner) / inner
 
 
 # timings of the millisecond-scale training cases: fewer calls, the same
@@ -871,6 +940,145 @@ def check_bc_fused(cfg, gen, shapes=None, batches=(8, 256),
                     "library": "torch.matmul against the dense W (float32)",
                     "bytes": nbytes, "flops": flops,
                     "bound_ms": bound_ms, "bound_by": bound_by})
+    return {lane: (cases, "up_gate_b8") for lane, cases in lanes.items()}
+
+
+def fused4_work(B, p, q, k, row_bytes=None, scaled=False, E=1):
+    """(bytes, operations) of one call of ``bc_fused``'s 4-product lane
+    (``gauss_trick=False``): as ``fused_work``, with two planes (and two
+    scale vectors) read, and its MAC's 4 products and 4 sums a row, pair
+    and bin, the two combines (Yr, Yi) a row, output block and bin, and
+    the four scale folds."""
+    kf = k // 2 + 1
+    row_bytes = 4 * kf if row_bytes is None else row_bytes
+    nbytes = E * (4 * (B * q * k + B * p * k) + 2 * p * q * row_bytes
+                  + (2 * 4 * p if scaled else 0))
+    flops = E * (rfft_flops(B * q, k) + 8 * B * p * q * kf
+                 + 2 * B * p * kf + rfft_flops(B * p, k)
+                 + (4 * B * p * kf if scaled else 0))
+    return nbytes, flops
+
+
+def plain4(xb, planes, k, scales):
+    """The 4-product lane's plain version, expert by expert for a stack."""
+    if xb.dim() == 3:
+        return bc_fused.bc_fused4_matmul_plain(xb, *planes, k, scales)
+    return torch.stack([bc_fused.bc_fused4_matmul_plain(
+        xb[e], *(w[e] for w in planes), k,
+        None if scales is None else [s_[e] for s_ in scales])
+        for e in range(xb.shape[0])])
+
+
+def fused4_case(name, xb, planes, scales, k, library, library_name,
+                timing=None, stack=False):
+    """One case of the 4-product lane: the kernel against its plain
+    version (expert by expert for a stack, whose experts must equal their
+    single calls bit for bit), times, the dense library time and the
+    bound."""
+    timing = timing or {}
+    lane = bc_fused.LANES4[planes[0].dtype]
+    E = xb.shape[0] if stack else 1
+    B, q, _ = xb.shape[-3:]
+    p = planes[0].shape[-3]
+    before = bc_fused.KERNEL.fn_launches[lane]
+    got = bc_fused.bc_fused4_matmul(xb, *planes, k, scales)
+    if bc_fused.KERNEL.fn_launches[lane] != before + 1:
+        raise AssertionError(f"{lane} {name}: not one launch")
+    ref = plain4(xb, planes, k, scales)
+    torch.cuda.synchronize()
+    equal = None
+    if stack:
+        equal = all(torch.equal(got[e], bc_fused.bc_fused4_matmul(
+            xb[e], *(w[e] for w in planes), k,
+            None if scales is None else [s_[e] for s_ in scales]))
+            for e in range(E))
+        if not equal:
+            raise AssertionError(f"{lane} {name}: an expert differs from "
+                                 f"its single call")
+    err = max_err(got, ref)
+    # float32 sums in another order over identical plane values, as the
+    # Gauss lanes': ~1e-6 of the output's scale, held at 1e-4
+    tol = 1e-4 * max(1.0, float(ref.abs().max()))
+    row_bytes = planes[0].shape[-1] * planes[0].element_size()
+    nbytes, flops = fused4_work(B, p, q, k, row_bytes, scales is not None, E)
+    bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+    return lane, {
+        "case": name, "shape": [E, B, p, q, k],
+        "launch_shape": bc_fused.shape_key(E, B, p, q, k, lane),
+        "plan": bc_fused.plan(B, p, q, k, lane)._asdict(),
+        "planes": str(planes[0].dtype).split(".")[-1],
+        "max_abs_err": err, "tol": tol, "experts_bit_equal": equal,
+        **kernel_times(lambda: bc_fused.bc_fused4_matmul(
+            xb, *planes, k, scales), **timing),
+        "plain_ms": time_ms(lambda: plain4(xb, planes, k, scales),
+                            **timing),
+        "library_ms": time_ms(library, **timing), "library": library_name,
+        "bytes": nbytes, "flops": flops,
+        "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_bc_fused4(cfg, gen):
+    """The 4-product lane (``gauss_trick=False``) against its plain
+    version at tinyllama's up/gate: on its float32, int8 and int4 planes
+    at B = 8 (the decode step's rows), on float32 planes at the training
+    rows (2,048: ``NOGAUSS_TRAIN``'s), one expert stack (8 experts of 4
+    rows, one launch), and the adjoint (the training backward's input
+    gradient, planes wr^T, -wi^T) at the training rows.  Library: dense
+    ``torch.matmul`` (``torch.bmm`` for the stack) against the
+    materialized W in float32."""
+    k = cfg.compression.block_ffn
+    n_in, n_out = cfg.d_model, cfg.d_ff
+    N = NOGAUSS_TRAIN["batch"] * NOGAUSS_TRAIN["seq"]
+    w = cc.init_block_circulant(n_in, n_out, k, generator=gen, device="cuda")
+    planes = cc.spectral_cache(w, gauss=False)
+    p, q, _ = planes["wr"].shape
+    dense = cc.materialize_dense(w, n_out, n_in).T.contiguous()
+    lanes = {lane: [] for lane in bc_fused.LANES4.values()}
+    for B in (8, N):
+        xb = torch.randn((B, q, k), generator=gen, device="cuda")
+        x2 = xb.reshape(B, q * k)[:, :n_in]
+        timing = LONG if B > 8 else None
+        variants = [(None, (planes["wr"], planes["wi"]), None)]
+        if B == 8:
+            for bits in (8, 4):
+                qp = codec.quantize_plane_cache(planes, bits)
+                variants.append((bits, (qp["wr"], qp["wi"]),
+                                 [qp["wr_s"], qp["wi_s"]]))
+        for _, pl, scales in variants:
+            lane, case = fused4_case(f"up_gate_b{B}", xb, pl, scales, k,
+                                     lambda: x2 @ dense,
+                                     "torch.matmul against the dense W "
+                                     "(float32)", timing)
+            lanes[lane].append(case)
+    # the adjoint at the training rows: gy (N, p, k) against W^H's planes
+    adj = kops.adjoint_planes(planes)
+    gy = torch.randn((N, p, k), generator=gen, device="cuda")
+    g2 = gy.reshape(N, p * k)[:, :n_out]
+    dense_t = dense.T.contiguous()
+    lane, case = fused4_case(f"up_gate_adjoint_b{N}", gy,
+                             (adj["wr"], adj["wi"]), None, k,
+                             lambda: g2 @ dense_t,
+                             "torch.matmul against the dense W^T (float32)",
+                             LONG)
+    lanes[lane].append(case)
+    # one expert stack: 8 experts of 4 rows at up/gate's width
+    E, C = 8, 4
+    ws = torch.stack([cc.init_block_circulant(n_in, n_out, k, generator=gen,
+                                              device="cuda")
+                      for _ in range(E)])
+    sp = cc.spectral_cache(ws, gauss=False)
+    xs = torch.randn((E, C, q, k), generator=gen, device="cuda")
+    stack = torch.stack([cc.materialize_dense(ws[e], n_out, n_in).T
+                         for e in range(E)]).contiguous()
+    xs2 = xs.reshape(E, C, q * k)[..., :n_in]
+    lane, case = fused4_case(f"stack_up_gate_e{E}_c{C}", xs,
+                             (sp["wr"], sp["wi"]), None, k,
+                             lambda: torch.bmm(xs2, stack),
+                             "torch.bmm against the dense (E, n_in, n_out) "
+                             "stack (float32)", stack=True)
+    lanes[lane].append(case)
+    del stack, dense, dense_t
+    torch.cuda.empty_cache()
     return {lane: (cases, "up_gate_b8") for lane, cases in lanes.items()}
 
 
@@ -2359,7 +2567,10 @@ def phase_kernels(cfg):
                                lane_names=("bc_fused",), timing=LONG),
         # training an expert stack (train_mixtral, train_llama4): the
         # bc_grad_w stack lane, bc_fused's stack forward and adjoint
-        lambda: check_train_stacks(gen)]
+        lambda: check_train_stacks(gen),
+        # the 4-product lane (nogauss): its three plane lanes, the
+        # training rows, an expert stack and the adjoint
+        lambda: check_bc_fused4(cfg, gen)]
     out = {}
     for check in checks:
         record_kernels(out, check())
@@ -2737,11 +2948,19 @@ def phase_serve_batch_quant(cfg):
 # serve_parity: float32, the card's kernels against the CPU's plain path
 # ---------------------------------------------------------------------------
 def phase_parity(cfg):
+    emit({"phase": "serve_parity", **card_cpu_parity(cfg, SEED + 1)})
+
+
+def card_cpu_parity(cfg, seed):
+    """``cfg`` in float32, one request of 48 + 16 tokens from ``seed``'s
+    weights on the card and on the CPU's plain path: prefill logits within
+    1e-4 of their scale, greedy tokens equal up to the CPU's first
+    near-tie.  Returns the comparison."""
     cfg = cfg.replace(dtype="float32")
-    rng = np.random.RandomState(SEED + 1)
+    rng = np.random.RandomState(seed)
     prompt = rng.randint(0, cfg.vocab_size, size=48).astype(np.int32)
     new = 16
-    params = {"cpu": init_params(cfg, seed=SEED + 1, device="cpu")}
+    params = {"cpu": init_params(cfg, seed=seed, device="cpu")}
     params["card"] = copy.deepcopy(params["cpu"]).to(DEVICE)
     model = build_model(cfg)
     last = {}
@@ -2789,14 +3008,13 @@ def phase_parity(cfg):
                                  f"{toks['card'][i]}, cpu {toks['cpu'][i]} "
                                  f"(cpu margin {m})")
         agreed += 1
-    out = {"phase": "serve_parity", "dtype": "float32", "prompt_len": 48,
-           "new_tokens": new, "logit_max_abs_err": logit_err,
-           "logit_tol": logit_tol, "near_tie": near_tie,
-           "tokens_compared": agreed, "tokens_equal": toks["card"] == toks["cpu"],
-           "min_margin": min(margins), "tokens_card": toks["card"],
-           "tokens_cpu": toks["cpu"]}
-    emit(out)
-    return out
+    return {"dtype": "float32", "prompt_len": 48,
+            "new_tokens": new, "logit_max_abs_err": logit_err,
+            "logit_tol": logit_tol, "near_tie": near_tie,
+            "tokens_compared": agreed,
+            "tokens_equal": toks["card"] == toks["cpu"],
+            "min_margin": min(margins), "tokens_card": toks["card"],
+            "tokens_cpu": toks["cpu"]}
 
 
 # ---------------------------------------------------------------------------
@@ -4083,6 +4301,301 @@ def phase_block_sizes(cfg):
     return kernels, runs
 
 
+# ---------------------------------------------------------------------------
+# nogauss: the paper's 4-product MAC (gauss_trick=False) on the main path
+# ---------------------------------------------------------------------------
+def nogauss_train(cfg):
+    """``NOGAUSS_TRAIN``'s steps of ``cfg`` (bf16, remat) through the train
+    step on the card, weights from the seed: losses finite, none skipped,
+    every projection's forward (twice under remat) and adjoint on the
+    4-product lane, its weight gradient through ``bc_grad_w``
+    (``train_expected``), no other kernel."""
+    t = NOGAUSS_TRAIN
+    model = init_params(cfg, seed=SEED, device=DEVICE)
+    opt = adamw.AdamWConfig()
+    state = ts.init_state(cfg, opt, model=model)
+    step = ts.make_train_step(cfg, opt)
+    data = SyntheticLM(cfg, batch=t["batch"], seq=t["seq"], seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for lib in TRAIN_LIBRARIES:
+        lib.reset_counts()
+    losses, ms = [], []
+    for i in range(t["steps"]):
+        batch = {k: v.to(DEVICE) for k, v in data(i).items()}
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+    launches = lane_counts(TRAIN_LIBRARIES)
+    if not all(np.isfinite(losses)) or int(state["skipped"]):
+        raise AssertionError(f"nogauss train: losses {losses}, skipped "
+                             f"{int(state['skipped'])}")
+    want, _ = train_expected(cfg, model)
+    check_launches(launches, {"bc_fused4": t["steps"] * want["bc_fused"],
+                              "bc_grad_w": t["steps"] * want["bc_grad_w"]})
+    out = {"batch": t["batch"], "seq": t["seq"], "steps": t["steps"],
+           "losses": losses, "step_ms": ms, "launches": launches,
+           "bc_fused4_per_step": want["bc_fused"],
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    del state, model
+    torch.cuda.empty_cache()
+    return out, {"launches": launches}
+
+
+def phase_nogauss(cfg):
+    """tinyllama-1.1b at full width and depth with ``gauss_trick=False``
+    (repro's hillclimb variant ``nogauss``: the paper's own MAC): every
+    projection on ``bc_fused``'s 4-product lanes.  ``NOGAUSS``'s requests
+    through the continuous engine and the batch engine (its prefill MAC
+    too: ``spectral_matmul`` contracts the Gauss planes only, as
+    ``prefill_lanes`` and their reasons say), then through the continuous
+    engine on int8 and int4 planes (an int8 pool), each with exact launch
+    counts and no other projection lane; one float32 request against the
+    CPU's plain path (``card_cpu_parity``); and ``NOGAUSS_TRAIN``'s training
+    steps (``nogauss_train``)."""
+    t0 = time.perf_counter()
+    ncfg = cfg.with_compression(gauss_trick=False)
+    s, L = NOGAUSS, ncfg.num_layers
+    rng = np.random.RandomState(SEED + 5)
+    reqs = make_requests(ncfg, s["n"], s["lo"], s["hi"], s["new"], rng)
+    out, runs = {}, {}
+    params = init_params(ncfg, seed=SEED, device=DEVICE)
+    engine = ContinuousEngine(ncfg, params, max_slots=8,
+                              max_seq=s["max_seq"], page_size=16,
+                              decode_chunk=8, device=DEVICE)
+    results, st, launches, wall, peak = timed_run(engine, reqs)
+    check_launches(launches, continuous_launches(ncfg, st,
+                                                 lane="bc_fused4"))
+    out["continuous"] = serve_summary("nogauss", ncfg, results, reqs, st,
+                                      launches, wall, peak)
+    runs["nogauss"] = {"launches": launches}
+    del engine
+    engine = Engine(ncfg, params, max_batch=8, max_seq=s["max_seq"],
+                    device=DEVICE)
+    lanes = engine.stats()["prefill_lanes"]
+    reasons = engine._contract.reasons
+    if lanes["spectral_matmul"] or not lanes["bc_fused"] or not all(
+            "gauss_trick=False" in r for r in reasons.values()):
+        raise AssertionError(f"nogauss: prefill lanes {lanes} {reasons}")
+    results, st, launches, wall, peak = timed_run(engine, reqs)
+    check_launches(launches, batch_launches(ncfg, st, lane="bc_fused4",
+                                            hooked=False))
+    out["batch"] = {**batch_summary("nogauss", ncfg, results, reqs, st,
+                                    launches, wall, peak),
+                    "prefill_lanes": lanes,
+                    "prefill_reason": sorted(set(reasons.values()))}
+    runs["nogauss/batch"] = {"launches": launches}
+    del engine, params
+    torch.cuda.empty_cache()
+    for bits in (8, 4):
+        policy = codec.QuantPolicy("int8", quant_weights=True,
+                                   weight_bits=bits)
+        params = init_params(ncfg, seed=SEED, device=DEVICE)
+        engine = ContinuousEngine(ncfg, params, max_slots=8,
+                                  max_seq=s["max_seq"], page_size=16,
+                                  decode_chunk=8, device=DEVICE,
+                                  quant=policy)
+        results, st, launches, wall, peak = timed_run(engine, reqs)
+        lane = bc_fused.LANES4[torch.int8 if bits == 8 else torch.uint8]
+        check_launches(launches, {
+            lane: 7 * L * (st["prefills"] + st["decode_steps"]),
+            "flash_attention": L * st["prefills"],
+            "paged_attention_i8": L * st["decode_steps"]})
+        out[f"continuous_int{bits}"] = serve_summary(
+            "nogauss", ncfg, results, reqs, st, launches, wall, peak)
+        runs[f"nogauss_int{bits}"] = {"launches": launches}
+        del engine, params
+        torch.cuda.empty_cache()
+    out["parity"] = card_cpu_parity(ncfg, SEED + 7)
+    out["train"], runs["nogauss/train"] = nogauss_train(ncfg)
+    emit({"phase": "nogauss", "arch": ARCH, "layers": L,
+          "d_model": ncfg.d_model, "gauss_trick": False, **out,
+          "wall_s": time.perf_counter() - t0})
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# dryrun: the dry run's records, and its prediction held against the card
+# ---------------------------------------------------------------------------
+def start_dryruns():
+    """Start ``DRYRUN_JOBS`` as subprocesses of ``repro_torch.launch.
+    dryrun`` at once (each its own fake process group, one CPU thread, the
+    card hidden from them), each writing its records to a temporary
+    directory.  Returns (directory, [(process, records path, log path)],
+    start time) for ``finish_dryruns``; should the script stop before it,
+    they are killed at exit."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    procs = []
+    for i, (arch, shape, mesh) in enumerate(DRYRUN_JOBS):
+        out, log = tmp / f"dryrun_{i}.json", tmp / f"dryrun_{i}.log"
+        with open(log, "w") as f:
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--mesh", mesh, "--out", str(out)],
+                cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT),
+                out, log))
+    atexit.register(stop_dryruns, tmp, procs)
+    return tmp, procs, time.perf_counter()
+
+
+def stop_dryruns(tmp, procs):
+    """Kill what is left of the dry-run jobs and remove their directory."""
+    for p, _, _ in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def finish_dryruns(started):
+    """Wait for ``start_dryruns``'s jobs within ``DRYRUN_TIMEOUT`` s of
+    their start (killing what is left), remove their directory, and
+    return each job's (exit code, records, log tail) and the seconds from
+    their start to the last one's end."""
+    tmp, procs, t0 = started
+    done = []
+    try:
+        for p, out, log in procs:
+            rc = p.wait(timeout=max(1.0, t0 + DRYRUN_TIMEOUT
+                                    - time.perf_counter()))
+            recs = json.loads(out.read_text()) if out.exists() else []
+            done.append((rc, recs, log.read_text()[-1500:]))
+        return done, time.perf_counter() - t0
+    finally:
+        stop_dryruns(tmp, procs)
+
+
+def served_input_bytes(params, cfg):
+    """Bytes of what a serving step reads of the weights as they lie on
+    the card: the planes its MAC takes of each baked cache (wr, ws1, ws2
+    under the Gauss trick) and every parameter no plane replaces."""
+    total, replaced = 0, set()
+    for _, m, prefix, cache in codec.baked_caches(params):
+        total += sum(t.numel() * t.element_size() for t in cc.read_planes(
+            cache, cfg.compression.gauss_trick).values())
+        gen = getattr(m, prefix[:-len("_cache")], None)
+        if isinstance(gen, torch.Tensor):
+            replaced.add(id(gen))
+    return total + sum(p.numel() * p.element_size()
+                       for p in params.parameters() if id(p) not in replaced)
+
+
+def dryrun_card_check(rec):
+    """The one-rank dry run of recurrentgemma-2b x long_500k (a decode step
+    of one row at position 524,287) against the same step on the card at
+    full width and depth, baked planes, through ``bc_fused`` and the flash
+    rows kernel: the record's argument bytes equal to the bytes of the
+    step's inputs (``served_input_bytes``, the cache, the tokens and the
+    4-byte position), and its new allocations (temp plus the outputs that
+    are not the cache) equal to the rise of ``max_memory_allocated`` over
+    the step within ``DRYRUN_PEAK_TOL``.  Each attention layer's ring is
+    filled in position order first, as the trace takes it (18 of 26
+    layers are RG-LRU blocks: their state is the cache)."""
+    cfg = get_config(RGEMMA)
+    S = 524288
+    params = precompute_serving_params(init_params(cfg, seed=SEED,
+                                                   device=DEVICE), cfg)
+    cache = build_model(cfg).init_cache(1, S, device=DEVICE)
+    for c in cache:
+        if isinstance(c, dict):
+            n = c["pos"].shape[0]
+            slots = torch.arange(n, dtype=torch.int64)
+            c["pos"].copy_((S - 2) - ((S - 2 - slots) % n))
+    tokens = torch.zeros((1, 1), dtype=torch.int32, device=DEVICE)
+    step = dec.make_decode_step(cfg)
+    real = (served_input_bytes(params, cfg) + tfm.cache_bytes(cache)
+            + tokens.numel() * tokens.element_size() + 4)
+    launches = {}
+    for i in range(2):                     # warm-up, then the measured one
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for lib in LIBRARIES:
+            lib.reset_counts()
+        out = step(params, tokens, cache, S - 1)
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated() - base
+        launches = lane_counts()
+        del out
+    mem = rec["memory"]
+    predicted = (mem["temp_bytes"] + mem["output_bytes"]
+                 - mem["alias_bytes"])
+    tol = DRYRUN_PEAK_TOL["rel"] * predicted + DRYRUN_PEAK_TOL["abs"]
+    if mem["argument_bytes"] != real:
+        raise AssertionError(f"dryrun: argument bytes {mem['argument_bytes']}"
+                             f" predicted, {real} on the card")
+    if not abs(rise - predicted) <= tol:
+        raise AssertionError(f"dryrun: {predicted} new bytes predicted, "
+                             f"{rise} measured (tolerance {tol})")
+    kinds = layer_kinds(cfg)
+    n_attn = sum(k in tfm.ATTN_KINDS for k in kinds)
+    if not (launches.get("bc_fused") and launches.get("flash_attention")
+            == n_attn):
+        raise AssertionError(f"dryrun: the card's step launched {launches}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"arch": RGEMMA, "shape": "long_500k", "mesh": rec["mesh"],
+            "argument_bytes": mem["argument_bytes"],
+            "input_bytes_on_card": real, "predicted_new_bytes": predicted,
+            "measured_rise_bytes": rise, "diff_bytes": rise - predicted,
+            "tol_bytes": tol, "launches": launches}
+
+
+def phase_dryrun(started):
+    """``repro_torch.launch.dryrun`` in subprocesses (``DRYRUN_JOBS``,
+    started by ``start_dryruns`` after the last phase that times anything,
+    so that no timing shares the host's cores with the traces):
+    tinyllama-1.1b x every shape on both production meshes, llama4 x
+    decode_32k, recurrentgemma-2b and xlstm-125m x long_500k on the
+    single-pod one; every cell ``ok`` but tinyllama's long_500k (skipped
+    with repro's reason); each record's status, bytes a device against
+    this card's memory, FLOPs, collective bytes and dominant term on the
+    ``h100`` spec (predictions: nothing runs on the card).  Then the
+    one-rank record against the card (``dryrun_card_check``)."""
+    t0 = time.perf_counter()
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    jobs, trace_s = finish_dryruns(started)
+    records, one = [], None
+    for rc, recs, log in jobs:
+        if rc != 0 or not recs:
+            raise AssertionError(f"dryrun: exit {rc}, {len(recs)} records; "
+                                 f"{log}")
+        for r in recs:
+            skip_ok = (r["status"] == "skipped" and r["shape"] == "long_500k"
+                       and r["arch"] == ARCH)
+            if r["status"] != "ok" and not skip_ok:
+                raise AssertionError(f"dryrun: {r['arch']} x {r['shape']} "
+                                     f"on {r['mesh']}: {r['status']} "
+                                     f"{r.get('error') or r.get('why')}")
+            if r["mesh"] == "1x1":
+                one = r
+                continue
+            records.append({
+                "arch": r["arch"], "shape": r["shape"], "mesh": r["mesh"],
+                "status": r["status"], "why": r.get("why"),
+                **({} if r["status"] != "ok" else {
+                    "bytes_per_device": r["bytes_per_device"],
+                    "share_of_card": r["bytes_per_device"] / card_bytes,
+                    "fits_card": r["bytes_per_device"] <= card_bytes,
+                    "argument_bytes": r["memory"]["argument_bytes"],
+                    "temp_bytes": r["memory"]["temp_bytes"],
+                    "flops_per_device": r["flops_per_device"],
+                    "collective_bytes": r["collectives"]["total"],
+                    "collectives": r["collectives"],
+                    "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+                    "collective_s": r["collective_s"],
+                    "dominant": r["dominant"], "trace_s": r["wall_s"]})})
+    check = dryrun_card_check(one)
+    emit({"phase": "dryrun", "card_memory_bytes": card_bytes,
+          "hardware": "h100", "records": records, "card_check": check,
+          "jobs": len(jobs), "traces_wall_s": trace_s,
+          "wall_s": time.perf_counter() - t0})
+
+
 def check_flash_e4m3(gen, name, B, Hq, Hkv, Sq, Skv, D, **kw):
     """The flash kernel's e4m3 lane (the rows kernel at any rows): a
     float32 query over K/V stored as float8_e4m3fn (as ``layers/
@@ -4467,7 +4980,8 @@ def main() -> int:
     card = smi()
     emit({"phase": "env", "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
-          "nvidia_smi": card, "device": torch.cuda.get_device_name(0)})
+          "nvidia_smi": card, "device": torch.cuda.get_device_name(0),
+          "host_cpus": os.cpu_count()})
     t0 = time.perf_counter()
     secs = build.build()
     # clusters of each size the card runs at once (bc_fused's plan assumes
@@ -4531,7 +5045,9 @@ def main() -> int:
     for arch in TRAIN_ARCHS:
         phase_train_parity_arch(arch)
     phase_dist(cfg)
+    runs.update(phase_nogauss(cfg))
     phase_lowering(cfg, kernel_gen())
+    phase_dryrun(start_dryruns())
     summary = []
     for name, (lib, replaces, group, main_case, run) in (
             list(LANES.items()) + list(NEW_SHAPES.items())):

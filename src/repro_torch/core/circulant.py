@@ -166,7 +166,17 @@ def dft_mats(k: int, device="cpu") -> Tuple[torch.Tensor, ...]:
     """Real rfft/irfft as matrices ``(Cr, Ci, Dr, Di)``: ``X = x@C`` (two
     planes), ``x = Xr@Dr + Xi@Di``.  Built in float64 with numpy and cast to
     float32, exactly as ``repro`` builds them; cached per device, so callers
-    must not modify the returned tensors."""
+    must not modify the returned tensors.  Under a fake-tensor mode (the
+    dry run's trace) they are cached on the mode: a fake tensor belongs to
+    the mode that made it."""
+    fake = torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE)
+    if fake is not None:
+        mats = fake.__dict__.setdefault("_dft_mats", {})
+        key = (k, str(torch.device(device)))
+        if key not in mats:
+            mats[key] = tuple(torch.as_tensor(m.copy(), device=device)
+                              for m in _dft_mats_np(k))
+        return mats[key]
     return _dft_mats_on(k, str(torch.device(device)))
 
 
@@ -440,6 +450,15 @@ def apply_linear(params: Dict[str, torch.Tensor], x: torch.Tensor,
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y
+
+
+def read_planes(cache: Dict[str, torch.Tensor], gauss: bool
+                ) -> Dict[str, torch.Tensor]:
+    """The planes (and scales) of ``cache`` a contraction reads: wr, ws1,
+    ws2 under the Gauss trick where baked, else wr, wi."""
+    names = (("wr", "ws1", "ws2") if gauss and "ws1" in cache
+             else ("wr", "wi"))
+    return {n: t for n, t in cache.items() if n.split("_")[0] in names}
 
 
 class FusedProjections:

@@ -13,6 +13,18 @@
 // lanes take one float32 scale per output block row and plane (the
 // per-block-row absmax scales of repro/quant/codec.py:quantize_plane).
 //
+// The paper's own MAC, without the Gauss trick (gauss_trick=False), is a
+// second set of the same three lanes (bc_fused4, bc_fused4_i8,
+// bc_fused4_i4) on the two planes wr, wi:
+//   Yr = s_wr sum_j Xr wr - s_wi sum_j Xi wi,
+//   Yi = s_wi sum_j Xr wi + s_wr sum_j Xi wr                  (4 products)
+// as repro/core/circulant.py:_naive_complex_contract folds each plane's
+// scale into its own terms.  It shares the panel, the plan and every phase
+// but the MAC with the Gauss lanes (one kernel a plane type carries both
+// MACs, picked per launch): a MAC thread loads two planes, not three, and
+// keeps four sums, not three (so the decode MAC's scratch holds four
+// floats a work item).
+//
 // Replaces: src/repro/kernels/bc_fused.py:bc_fused_matmul (Pallas body
 // _kernel) for the float32 lane.  The quantized lanes have no Pallas
 // counterpart: repro runs a quantized cache through the scale-folding
@@ -63,7 +75,7 @@
 //   tile would be mostly padding and its serial k loop the latency, so
 //   those products run on the CUDA cores in float32, the iDFT then from
 //   the transposed panel, loaded over the panel once the DFT is done.
-// - The Gauss MAC stays on the CUDA cores: a thread owns (output block,
+// - The MAC (Gauss or 4-product) stays on the CUDA cores: a thread owns (output block,
 //   bin, group of up to 8 rows) and keeps each plane value in a register
 //   across the group's rows; it loads the planes of 8 input blocks before
 //   their FMAs (one L2 latency per 8), and at one row a tile it splits the
@@ -122,6 +134,10 @@ constexpr int kMaxSmem = 232448;  // bytes a block can use on an H100
 constexpr int kPanelFloats = 32768;  // a panel past 128 KiB stays in memory
 
 enum Planes { kF32 = 0, kI8 = 1, kI4 = 2 };
+// sums a MAC thread keeps: Gauss's t1, t2, t3, or the 4-product lane's
+// Xr wr, Xi wi, Xr wi, Xi wr
+template <bool G>
+constexpr int kSums = G ? 3 : 4;
 enum Mode { kPSplit = 0, kQSplit = 1 };
 
 // Plane value (row, f) as float32, where row = output block * q + input
@@ -251,7 +267,7 @@ __device__ __forceinline__ void tile_product(const float* __restrict__ A,
 
 struct Args {
   const float* x;                       // (B, q, k)
-  const void *wr, *ws1, *ws2;           // (p, q, kb)
+  const void *wr, *ws1, *ws2;           // (p, q, kb); 4-product: wr, wi, -
   const float *s_wr, *s_ws1, *s_ws2;    // (p,) row scales, or null
   const float* cpan;                    // (k, NC): Cr, Ci interleaved
   const float* cpan_t;                  // (NC, k): its transpose
@@ -259,6 +275,7 @@ struct Args {
   int B, p, q, k;
   int R, cs, mode, share, qc;           // the launch plan
   int E;                                // experts (gridDim.y); 1: one call
+  int sums;                             // kSums of the lane (3 or 4)
   long long sx, sw, ss, sy;             // strides between experts, in
                                         // elements of x, a plane, a scale
                                         // vector and y
@@ -275,11 +292,11 @@ __device__ __forceinline__ Args for_expert(Args a, int e) {
   a.y += (size_t)e * a.sy;
   a.wr = static_cast<const char*>(a.wr) + wb;
   a.ws1 = static_cast<const char*>(a.ws1) + wb;
-  a.ws2 = static_cast<const char*>(a.ws2) + wb;
+  if (a.ws2) a.ws2 = static_cast<const char*>(a.ws2) + wb;
   if (P != kF32) {
     a.s_wr += (size_t)e * a.ss;
     a.s_ws1 += (size_t)e * a.ss;
-    a.s_ws2 += (size_t)e * a.ss;
+    if (a.s_ws2) a.s_ws2 += (size_t)e * a.ss;
   }
   return a;
 }
@@ -317,7 +334,7 @@ __host__ __device__ inline Layout layout(const Args& a) {
   L.ys = L.xall + (ps ? a.R * a.qc : a.R * a.share) * NC;
   L.yred = L.ys + a.R * (ps ? a.share : a.p) * (NC + 4);
   L.scratch = L.yred + (ps ? 0 : a.R * a.p * (NC + 4));
-  L.total = L.scratch + 3 * kScratchRounds * kThreads;
+  L.total = L.scratch + a.sums * kScratchRounds * kThreads;
   return L;
 }
 
@@ -350,21 +367,22 @@ __device__ __forceinline__ void stage_x(const Args& a, float* Xin, int row0,
   }
 }
 
-// t1, t2, t3 of rows [b0, b0 + nb) at (output block i, bin f) over input
-// blocks [jlo, jhi) (spectra in Xall, row (j - jbase) * R + b).  The plane
-// values of kJBatch input blocks load before their FMAs: one L2 latency
-// per batch, not per input block.
-template <int P>
+// The sums of rows [b0, b0 + nb) at (output block i, bin f) over input
+// blocks [jlo, jhi) (spectra in Xall, row (j - jbase) * R + b): Gauss's
+// t1, t2, t3 in t[0..2], or the 4-product lane's Xr wr, Xi wi, Xr wi,
+// Xi wr in t[0..3].  The plane values of kJBatch input blocks load before
+// their FMAs: one L2 latency per batch, not per input block.
+template <int P, bool G>
 __device__ __forceinline__ void mac_sums(const Args& a, const float* Xall,
                                          int i, int jbase, int jlo, int jhi,
                                          int f, int b0, int nb,
-                                         float (&t1)[kRowGroup],
-                                         float (&t2)[kRowGroup],
-                                         float (&t3)[kRowGroup]) {
+                                         float (&t)[kSums<G>][kRowGroup]) {
   const int kf = a.k / 2 + 1, NC = ncols(a.k);
   const int kb = P == kI4 ? (kf + 1) / 2 : kf;
 #pragma unroll
-  for (int b = 0; b < kRowGroup; ++b) t1[b] = t2[b] = t3[b] = 0.f;
+  for (int s = 0; s < kSums<G>; ++s)
+#pragma unroll
+    for (int b = 0; b < kRowGroup; ++b) t[s][b] = 0.f;
   for (int jb = jlo; jb < jhi; jb += kJBatch) {
     float w1[kJBatch], w2[kJBatch], w3[kJBatch];
 #pragma unroll
@@ -372,7 +390,7 @@ __device__ __forceinline__ void mac_sums(const Args& a, const float* Xall,
       const size_t wrow = (size_t)i * a.q + min(jb + u, jhi - 1);
       w1[u] = plane_at<P>(a.wr, wrow, f, kb);
       w2[u] = plane_at<P>(a.ws1, wrow, f, kb);
-      w3[u] = plane_at<P>(a.ws2, wrow, f, kb);
+      if (G) w3[u] = plane_at<P>(a.ws2, wrow, f, kb);
     }
 #pragma unroll
     for (int u = 0; u < kJBatch; ++u) {
@@ -382,82 +400,99 @@ __device__ __forceinline__ void mac_sums(const Args& a, const float* Xall,
       for (int b = 0; b < kRowGroup; ++b) {
         if (b < nb) {
           const float2 x = *reinterpret_cast<const float2*>(xv + b * NC);
-          t1[b] = fmaf(x.x + x.y, w1[u], t1[b]);
-          t2[b] = fmaf(x.x, w2[u], t2[b]);
-          t3[b] = fmaf(x.y, w3[u], t3[b]);
+          if (G) {
+            t[0][b] = fmaf(x.x + x.y, w1[u], t[0][b]);
+            t[1][b] = fmaf(x.x, w2[u], t[1][b]);
+            t[2][b] = fmaf(x.y, w3[u], t[2][b]);
+          } else {
+            t[0][b] = fmaf(x.x, w1[u], t[0][b]);
+            t[1][b] = fmaf(x.y, w2[u], t[1][b]);
+            t[2][b] = fmaf(x.x, w2[u], t[2][b]);
+            t[kSums<G> - 1][b] = fmaf(x.y, w1[u], t[kSums<G> - 1][b]);
+          }
         }
       }
     }
   }
 }
 
-// Scale t1, t2, t3 by their planes' row scales (quantized lanes), combine
-// them (Yr = t1 - t3, Yi = t1 + t2), weight by the irfft weight of bin f
-// (1/k at DC and Nyquist, 2/k between) and add to Ys row b * P_ + il.
-template <int P>
+// Scale the sums by their planes' row scales (quantized lanes), combine
+// them (Gauss: Yr = t1 - t3, Yi = t1 + t2; 4-product: Yr = Xr wr - Xi wi,
+// Yi = Xr wi + Xi wr), weight by the irfft weight of bin f (1/k at DC and
+// Nyquist, 2/k between) and add to Ys row b * P_ + il.
+template <int P, bool G>
 __device__ __forceinline__ void mac_store(const Args& a, float* Ys, int P_,
                                           int i, int il, int f, int b0,
-                                          int nb, const float (&t1)[kRowGroup],
-                                          const float (&t2)[kRowGroup],
-                                          const float (&t3)[kRowGroup]) {
+                                          int nb,
+                                          const float (&t)[kSums<G>][kRowGroup]) {
   const int ldy = ncols(a.k) + 4;
   float g1 = 1.f, g2 = 1.f, g3 = 1.f;
   if (P != kF32) {
     g1 = a.s_wr[i];
     g2 = a.s_ws1[i];
-    g3 = a.s_ws2[i];
+    if (G) g3 = a.s_ws2[i];
   }
   const float wf = (f == 0 || 2 * f == a.k) ? 1.f / a.k : 2.f / a.k;
 #pragma unroll
   for (int b = 0; b < kRowGroup; ++b) {
     if (b < nb) {
-      const float u1 = t1[b] * g1, u2 = t2[b] * g2, u3 = t3[b] * g3;
+      float yr, yi;
+      if (G) {
+        const float u1 = t[0][b] * g1, u2 = t[1][b] * g2,
+                    u3 = t[2][b] * g3;
+        yr = u1 - u3;
+        yi = u1 + u2;
+      } else {
+        yr = t[0][b] * g1 - t[1][b] * g2;
+        yi = t[2][b] * g2 + t[kSums<G> - 1][b] * g1;
+      }
       float2* y2 = reinterpret_cast<float2*>(
           Ys + ((b0 + b) * P_ + il) * ldy + 2 * f);
       const float2 prev = *y2;
-      *y2 = make_float2(prev.x + wf * (u1 - u3), prev.y + wf * (u1 + u2));
+      *y2 = make_float2(prev.x + wf * yr, prev.y + wf * yi);
     }
   }
 }
 
-// Gauss MAC of input blocks [jbase, jbase + nj) for output blocks
-// [ibase, ibase + nout); adds w_f Yr, w_f Yi to Ys row b * P_ + il.  A
-// thread owns (output block, bin, group of up to 8 rows).  At one row
-// (decode) with threads to spare, the input blocks are split over jp
-// threads instead (up to kScratchRounds rounds of the block), whose
-// partial sums go through `scratch` and are added in jp order: no atomics.
-template <int P>
+// The MAC (Gauss, or 4-product where !G) of input blocks [jbase, jbase +
+// nj) for output blocks [ibase, ibase + nout); adds w_f Yr, w_f Yi to Ys
+// row b * P_ + il.  A thread owns (output block, bin, group of up to 8
+// rows).  At one row (decode) with threads to spare, the input blocks are
+// split over jp threads instead (up to kScratchRounds rounds of the
+// block), whose partial sums go through `scratch` and are added in jp
+// order: no atomics.
+template <int P, bool G>
 __device__ __forceinline__ void mac(const Args& a, const float* Xall,
                                     float* Ys, float* scratch, int nrow,
                                     int jbase, int nj, int ibase, int nout,
                                     int P_) {
+  constexpr int S = kSums<G>;
   const int kf = a.k / 2 + 1;
   const int ngrp = (nrow + kRowGroup - 1) / kRowGroup;
   const int items = nout * kf * ngrp;
-  float t1[kRowGroup], t2[kRowGroup], t3[kRowGroup];
+  float t[S][kRowGroup];
   const int jp_n = (nrow == 1 && items > 0 && items <= kThreads)
       ? min(kScratchRounds * kThreads / items, (nj + kJBatch - 1) / kJBatch)
       : 1;
   if (jp_n > 1) {                             // block-uniform
     for (int w = threadIdx.x; w < items * jp_n; w += kThreads) {
       const int it = w % items, jp = w / items;
-      mac_sums<P>(a, Xall, ibase + it / kf, jbase, jbase + jp * nj / jp_n,
-                  jbase + (jp + 1) * nj / jp_n, it % kf, 0, 1, t1, t2, t3);
-      scratch[3 * w] = t1[0];
-      scratch[3 * w + 1] = t2[0];
-      scratch[3 * w + 2] = t3[0];
+      mac_sums<P, G>(a, Xall, ibase + it / kf, jbase,
+                     jbase + jp * nj / jp_n, jbase + (jp + 1) * nj / jp_n,
+                     it % kf, 0, 1, t);
+#pragma unroll
+      for (int s = 0; s < S; ++s) scratch[S * w + s] = t[s][0];
     }
     __syncthreads();
     const int it = threadIdx.x;
     if (it < items) {
-      t1[0] = t2[0] = t3[0] = 0.f;
-      for (int jp = 0; jp < jp_n; ++jp) {
-        t1[0] += scratch[3 * (jp * items + it)];
-        t2[0] += scratch[3 * (jp * items + it) + 1];
-        t3[0] += scratch[3 * (jp * items + it) + 2];
-      }
-      mac_store<P>(a, Ys, P_, ibase + it / kf, it / kf, it % kf, 0, 1, t1,
-                   t2, t3);
+#pragma unroll
+      for (int s = 0; s < S; ++s) t[s][0] = 0.f;
+      for (int jp = 0; jp < jp_n; ++jp)
+#pragma unroll
+        for (int s = 0; s < S; ++s)
+          t[s][0] += scratch[S * (jp * items + it) + s];
+      mac_store<P, G>(a, Ys, P_, ibase + it / kf, it / kf, it % kf, 0, 1, t);
     }
     __syncthreads();                          // scratch free again
     return;
@@ -467,10 +502,24 @@ __device__ __forceinline__ void mac(const Args& a, const float* Xall,
     const int il = (it / kf) % nout;
     const int b0 = (it / (kf * nout)) * kRowGroup;
     const int nb = min(kRowGroup, nrow - b0);
-    mac_sums<P>(a, Xall, ibase + il, jbase, jbase, jbase + nj, f, b0, nb, t1,
-                t2, t3);
-    mac_store<P>(a, Ys, P_, ibase + il, il, f, b0, nb, t1, t2, t3);
+    mac_sums<P, G>(a, Xall, ibase + il, jbase, jbase, jbase + nj, f, b0, nb,
+                   t);
+    mac_store<P, G>(a, Ys, P_, ibase + il, il, f, b0, nb, t);
   }
+}
+
+// The MAC of the lane ``a.sums`` names (block-uniform): the kernel is
+// instantiated once a plane type and carries both MACs, so the 4-product
+// lanes add no copy of its DFT and staging code.
+template <int P>
+__device__ __forceinline__ void mac_lane(const Args& a, const float* Xall,
+                                         float* Ys, float* scratch, int nrow,
+                                         int jbase, int nj, int ibase,
+                                         int nout, int P_) {
+  if (a.sums == kSums<true>)
+    mac<P, true>(a, Xall, Ys, scratch, nrow, jbase, nj, ibase, nout, P_);
+  else
+    mac<P, false>(a, Xall, Ys, scratch, nrow, jbase, nj, ibase, nout, P_);
 }
 
 template <int P>
@@ -554,7 +603,7 @@ bc_fused_kernel(const Args args) {
           dst[idx] = mine[idx];
       }
       cluster.sync();                         // the chunk's spectra are in
-      mac<P>(a, Xall, Ys, scratch, nrow, c0, qcur, i0, npt, a.share);
+      mac_lane<P>(a, Xall, Ys, scratch, nrow, c0, qcur, i0, npt, a.share);
       if (c0 + a.qc < a.q) cluster.sync();    // peers done with Xall, Xin
     }
     cp_async_wait_all();
@@ -583,7 +632,7 @@ bc_fused_kernel(const Args args) {
                });
   __syncthreads();                            // the panel is free
   load_ct();
-  mac<P>(a, Xall, Ys, scratch, nrow, j0, nj, 0, a.p, a.p);
+  mac_lane<P>(a, Xall, Ys, scratch, nrow, j0, nj, 0, a.p, a.p);
   cluster.sync();                             // every partial is done
   const int n4 = NC / 4;
   for (int idx = threadIdx.x; idx < nrow * a.p * n4; idx += kThreads) {
@@ -609,7 +658,7 @@ bc_fused_kernel(const Args args) {
                });
 }
 
-template <int P>
+template <int P, bool G>
 cudaError_t launch(Args a, cudaStream_t stream) {
   const bool ps = a.mode == kPSplit;
   const bool vec = a.k % 8 == 0;              // x staged with cp.async
@@ -622,6 +671,7 @@ cudaError_t launch(Args a, cudaStream_t stream) {
        reinterpret_cast<uintptr_t>(a.cpan_t)) % 16 ||
       (vec && reinterpret_cast<uintptr_t>(a.x) % 16) ||
       a.E < 1 || a.E > 65535 ||
+      a.sums != kSums<G> || !a.wr || !a.ws1 || (G && !a.ws2) ||
       (a.E > 1 && (a.sx < (long long)a.B * a.q * a.k ||
                    (vec && a.sx % 4 != 0) ||
                    a.sw < 1 || a.sy < (long long)a.B * a.p * a.k ||
@@ -660,14 +710,14 @@ Args make_args(const void* xb, const void* wr, const void* ws1,
                const void* s_ws2, const void* cpan, const void* cpan_t,
                void* y, int B, int p, int q, int k, int R, int cs, int mode,
                int share, int qc, int E, long long sx, long long sw,
-               long long ss, long long sy) {
+               long long ss, long long sy, int sums) {
   return Args{static_cast<const float*>(xb), wr, ws1, ws2,
               static_cast<const float*>(s_wr),
               static_cast<const float*>(s_ws1),
               static_cast<const float*>(s_ws2),
               static_cast<const float*>(cpan),
               static_cast<const float*>(cpan_t), static_cast<float*>(y),
-              B, p, q, k, R, cs, mode, share, qc, E, sx, sw, ss, sy};
+              B, p, q, k, R, cs, mode, share, qc, E, sums, sx, sw, ss, sy};
 }
 
 }  // namespace
@@ -693,9 +743,10 @@ extern "C" int bc_fused(const void* xb, const void* wr, const void* ws1,
                         int k, int R, int cs, int mode, int share, int qc,
                         int E, long long sx, long long sw, long long ss,
                         long long sy, void* stream) {
-  return (int)launch<kF32>(
+  return (int)launch<kF32, true>(
       make_args(xb, wr, ws1, ws2, nullptr, nullptr, nullptr, cpan, cpan_t, y,
-                B, p, q, k, R, cs, mode, share, qc, E, sx, sw, ss, sy),
+                B, p, q, k, R, cs, mode, share, qc, E, sx, sw, ss, sy,
+                kSums<true>),
       static_cast<cudaStream_t>(stream));
 }
 
@@ -709,9 +760,10 @@ extern "C" int bc_fused_i8(const void* xb, const void* wr, const void* ws1,
                            int mode, int share, int qc, int E, long long sx,
                            long long sw, long long ss, long long sy,
                            void* stream) {
-  return (int)launch<kI8>(
+  return (int)launch<kI8, true>(
       make_args(xb, wr, ws1, ws2, s_wr, s_ws1, s_ws2, cpan, cpan_t, y, B, p,
-                q, k, R, cs, mode, share, qc, E, sx, sw, ss, sy),
+                q, k, R, cs, mode, share, qc, E, sx, sw, ss, sy,
+                kSums<true>),
       static_cast<cudaStream_t>(stream));
 }
 
@@ -725,9 +777,53 @@ extern "C" int bc_fused_i4(const void* xb, const void* wr, const void* ws1,
                            int mode, int share, int qc, int E, long long sx,
                            long long sw, long long ss, long long sy,
                            void* stream) {
-  return (int)launch<kI4>(
+  return (int)launch<kI4, true>(
       make_args(xb, wr, ws1, ws2, s_wr, s_ws1, s_ws2, cpan, cpan_t, y, B, p,
-                q, k, R, cs, mode, share, qc, E, sx, sw, ss, sy),
+                q, k, R, cs, mode, share, qc, E, sx, sw, ss, sy,
+                kSums<true>),
+      static_cast<cudaStream_t>(stream));
+}
+
+// The 4-product lanes (gauss_trick=False): as bc_fused, bc_fused_i8 and
+// bc_fused_i4 on the two planes wr, wi (p, q, ·) and, quantized, their
+// row scales s_wr, s_wi (p,).
+extern "C" int bc_fused4(const void* xb, const void* wr, const void* wi,
+                         const void* cpan, const void* cpan_t, void* y, int B,
+                         int p, int q, int k, int R, int cs, int mode,
+                         int share, int qc, int E, long long sx, long long sw,
+                         long long ss, long long sy, void* stream) {
+  return (int)launch<kF32, false>(
+      make_args(xb, wr, wi, nullptr, nullptr, nullptr, nullptr, cpan, cpan_t,
+                y, B, p, q, k, R, cs, mode, share, qc, E, sx, sw, ss, sy,
+                kSums<false>),
+      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int bc_fused4_i8(const void* xb, const void* wr, const void* wi,
+                            const void* s_wr, const void* s_wi,
+                            const void* cpan, const void* cpan_t, void* y,
+                            int B, int p, int q, int k, int R, int cs,
+                            int mode, int share, int qc, int E, long long sx,
+                            long long sw, long long ss, long long sy,
+                            void* stream) {
+  return (int)launch<kI8, false>(
+      make_args(xb, wr, wi, nullptr, s_wr, s_wi, nullptr, cpan, cpan_t, y, B,
+                p, q, k, R, cs, mode, share, qc, E, sx, sw, ss, sy,
+                kSums<false>),
+      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int bc_fused4_i4(const void* xb, const void* wr, const void* wi,
+                            const void* s_wr, const void* s_wi,
+                            const void* cpan, const void* cpan_t, void* y,
+                            int B, int p, int q, int k, int R, int cs,
+                            int mode, int share, int qc, int E, long long sx,
+                            long long sw, long long ss, long long sy,
+                            void* stream) {
+  return (int)launch<kI4, false>(
+      make_args(xb, wr, wi, nullptr, s_wr, s_wi, nullptr, cpan, cpan_t, y, B,
+                p, q, k, R, cs, mode, share, qc, E, sx, sw, ss, sy,
+                kSums<false>),
       static_cast<cudaStream_t>(stream));
 }
 

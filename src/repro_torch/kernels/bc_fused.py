@@ -18,6 +18,16 @@ does; the planes are never dequantized in device memory.  Activations are
 float32: the serve path casts them before blockifying and back after
 (``kernels/ops.py:bc_linear``).
 
+The paper's own MAC, without the Gauss trick (``gauss_trick=False``), is
+a second set of the same three lanes on the two planes wr, wi
+(``bc_fused4_matmul``; ``LANES4``): Yr = Σ (Xr wr - Xi wi), Yi = Σ (Xr wi +
+Xi wr), each quantized plane's row scale folded into its own terms as
+``repro``'s ``_naive_complex_contract`` folds them.  It shares the DFT
+panel and the plan with the Gauss lanes; its MAC loads two planes and keeps
+four sums, so the decode MAC's scratch holds four floats a work item
+(``smem_bytes(..., sums=4)``).  Its plain version is that 4-product
+contraction (``bc_fused4_matmul_plain``).
+
 An expert stack (xb (E, B, q, k), planes (E, p, q, kf), scales (E, p, 1))
 is one launch: the kernel puts the expert index on its grid and reads each
 expert's rows, planes and scales at its stride (``launch_args``), with one
@@ -53,16 +63,22 @@ _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PLAN = [_I] * 10 + [_LL] * 4
 KERNEL = Kernel("bc_fused", {"bc_fused": [_VP] * 7 + _PLAN,
                              "bc_fused_i8": [_VP] * 10 + _PLAN,
-                             "bc_fused_i4": [_VP] * 10 + _PLAN})
-# the exported function of each plane dtype (one lane each)
+                             "bc_fused_i4": [_VP] * 10 + _PLAN,
+                             "bc_fused4": [_VP] * 6 + _PLAN,
+                             "bc_fused4_i8": [_VP] * 8 + _PLAN,
+                             "bc_fused4_i4": [_VP] * 8 + _PLAN})
+# the exported function of each plane dtype (one lane each): the Gauss
+# MAC's, and the 4-product MAC's
 LANES = {torch.float32: "bc_fused", torch.int8: "bc_fused_i8",
          torch.uint8: "bc_fused_i4"}
+LANES4 = {torch.float32: "bc_fused4", torch.int8: "bc_fused4_i8",
+          torch.uint8: "bc_fused4_i4"}
 
 # Launch-plan limits, as csrc/bc_fused.cu checks them.
 MAX_SMEM = 232448          # bytes of shared memory a block can use (H100)
 MAX_CLUSTER = 8            # portable thread-block cluster size
 MAX_ROWS = 64              # rows per tile
-SCRATCH_FLOATS = 3 * 2 * 256   # the decode MAC's partial sums (csrc)
+SCRATCH_FLOATS = 2 * 256   # the decode MAC's partial sums, a sum (csrc)
 PANEL_FLOATS = 32768       # a larger DFT panel is not staged (csrc)
 P_SPLIT, Q_SPLIT = 0, 1    # cluster over output blocks / input blocks
 # Clusters of each size that one H100 SXM runs at once, one block an SM
@@ -105,12 +121,17 @@ def panel_staged(k: int) -> bool:
     return kpad(k) * ncols(k) <= PANEL_FLOATS
 
 
+def sums(lane: str) -> int:
+    """Sums a MAC thread keeps: 3 on a Gauss lane, 4 on a 4-product one."""
+    return 4 if lane in LANES4.values() else 3
+
+
 def smem_bytes(p: int, q: int, k: int, rows: int, cluster: int, mode: int,
-               share: int, qchunk: int) -> int:
+               share: int, qchunk: int, sums: int = 3) -> int:
     """Shared memory of one block (csrc/bc_fused.cu:layout): the panel
     (its transpose takes its place for a small iDFT), the staged input
     rows, the spectra, the Y accumulator, (Q_SPLIT) the summed Y and the
-    decode MAC's scratch."""
+    decode MAC's scratch (``sums`` floats a work item)."""
     nc, kp = ncols(k), kpad(k)
     ps = mode == P_SPLIT
     dft_rows = -(-rows * qchunk // cluster) if ps else rows * share
@@ -118,7 +139,7 @@ def smem_bytes(p: int, q: int, k: int, rows: int, cluster: int, mode: int,
     floats = ((kp * nc if panel_staged(k) else 0) + dft_rows * (kp + 4)
               + (rows * qchunk if ps else rows * share) * nc
               + idft_rows * (nc + 4)
-              + (0 if ps else rows * p * (nc + 4)) + SCRATCH_FLOATS)
+              + (0 if ps else rows * p * (nc + 4)) + sums * SCRATCH_FLOATS)
     return 4 * floats
 
 
@@ -137,8 +158,9 @@ def plan(B: int, p: int, q: int, k: int, lane: str = "bc_fused") -> Plan:
     blocks in the largest chunk that fits in shared memory, and a plan
     with chunks under 4 input blocks is taken only if no wave count gives
     one.  Any block size k >= 1 plans (module docstring)."""
-    if lane not in LANES.values():
+    if lane not in (*LANES.values(), *LANES4.values()):
         raise ValueError(f"bc_fused: unknown lane {lane!r}")
+    nsum = sums(lane)
     if k < 1:
         raise ValueError(f"bc_fused: block size {k}")
     if min(B, p, q) < 1:
@@ -158,7 +180,7 @@ def plan(B: int, p: int, q: int, k: int, lane: str = "bc_fused") -> Plan:
         if rows > MAX_ROWS:
             continue
         for qc in (range(q, 0, -1) if mode == P_SPLIT else (q,)):
-            smem = smem_bytes(p, q, k, rows, cluster, mode, share, qc)
+            smem = smem_bytes(p, q, k, rows, cluster, mode, share, qc, nsum)
             if smem <= MAX_SMEM:
                 pl = Plan(rows, cluster, mode, share, qc,
                           -(-B // rows) * cluster, smem)
@@ -184,7 +206,7 @@ def launch_args(B: int, p: int, q: int, k: int, lane: str = "bc_fused",
     vector (p), y (B p k).  E = 1 is a single product."""
     pl = plan(B, p, q, k, lane)
     kf = k // 2 + 1
-    row = (kf + 1) // 2 if lane == "bc_fused_i4" else kf
+    row = (kf + 1) // 2 if lane.endswith("_i4") else kf
     return (B, p, q, k, pl.rows, pl.cluster, pl.mode, pl.share, pl.qchunk,
             E, B * q * k, p * q * row, p, B * p * k)
 
@@ -238,6 +260,32 @@ def bc_fused_matmul_plain(xb: torch.Tensor, wr: torch.Tensor,
     return cc.irfft_planes(yr, yi, k)
 
 
+def bc_fused4_matmul_plain(xb: torch.Tensor, wr: torch.Tensor,
+                           wi: torch.Tensor, k: int,
+                           scales: Optional[Sequence[torch.Tensor]] = None
+                           ) -> torch.Tensor:
+    """Plain version of the 4-product lane: ``repro``'s
+    ``bc_matmul_spectral`` without the Gauss planes
+    (``_naive_complex_contract``) on blockified float32 input.
+    xb (B, q, k) -> (B, p, k)."""
+    cache = {"wr": wr, "wi": wi}
+    if scales is not None:
+        cache.update(zip(("wr_s", "wi_s"), scales))
+    xr, xi = cc.rfft_planes(xb, k)
+    yr, yi = cc._naive_complex_contract(xr, xi, cache, "bqf,pqf->bpf")
+    return cc.irfft_planes(yr, yi, k)
+
+
+def _on_cpu(plain, xb, planes, k, scales):
+    """The plain version on the CPU, expert by expert for a stack."""
+    if xb.dim() == 3:
+        return plain(xb, *planes, k, scales)
+    return torch.stack([plain(
+        xb[e], *(w[e] for w in planes), k,
+        None if scales is None else [s[e] for s in scales])
+        for e in range(xb.shape[0])])
+
+
 def bc_fused_matmul(xb: torch.Tensor, wr: torch.Tensor, ws1: torch.Tensor,
                     ws2: torch.Tensor, k: int,
                     scales: Optional[Sequence[torch.Tensor]] = None
@@ -247,22 +295,36 @@ def bc_fused_matmul(xb: torch.Tensor, wr: torch.Tensor, ws1: torch.Tensor,
     -> (B, p, k) float32.  An expert stack adds a leading E to every
     operand: xb (E, B, q, k), planes (E, p, q, ·), scales (E, p, 1) ->
     (E, B, p, k), expert e's rows against its own planes."""
-    stacked = xb.dim() == 4
     if xb.device.type == "cpu":
-        if not stacked:
-            return bc_fused_matmul_plain(xb, wr, ws1, ws2, k, scales)
-        return torch.stack([bc_fused_matmul_plain(
-            xb[e], wr[e], ws1[e], ws2[e], k,
-            None if scales is None else [s[e] for s in scales])
-            for e in range(xb.shape[0])])
-    lane = LANES.get(wr.dtype)
-    tensors = {"xb": xb, "wr": wr, "ws1": ws1, "ws2": ws2}
+        return _on_cpu(bc_fused_matmul_plain, xb, (wr, ws1, ws2), k, scales)
+    return _launch(LANES, xb, {"wr": wr, "ws1": ws1, "ws2": ws2}, k, scales)
+
+
+def bc_fused4_matmul(xb: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
+                     k: int, scales: Optional[Sequence[torch.Tensor]] = None
+                     ) -> torch.Tensor:
+    """The 4-product lane (``gauss_trick=False``): as ``bc_fused_matmul``
+    on the planes wr, wi and, quantized, ``scales`` = (s_wr, s_wi)."""
+    if xb.device.type == "cpu":
+        return _on_cpu(bc_fused4_matmul_plain, xb, (wr, wi), k, scales)
+    return _launch(LANES4, xb, {"wr": wr, "wi": wi}, k, scales)
+
+
+def _launch(lanes: Dict[torch.dtype, str], xb: torch.Tensor,
+            planes: Dict[str, torch.Tensor], k: int,
+            scales: Optional[Sequence[torch.Tensor]]) -> torch.Tensor:
+    """Check the operands of one product or stack on the card and launch
+    the lane of ``lanes`` that the planes' dtype names."""
+    stacked = xb.dim() == 4
+    wr = planes["wr"]
+    lane = lanes.get(wr.dtype)
+    tensors = {"xb": xb, **planes}
     dtypes = {"xb": (torch.float32,)}
-    dtypes.update({n: (wr.dtype,) for n in ("ws1", "ws2")})
+    dtypes.update({n: (wr.dtype,) for n in planes})
+    snames = [f"s_{n}" for n in planes]
     if scales is not None:
-        tensors.update(zip(("s_wr", "s_ws1", "s_ws2"), scales))
-        dtypes.update({n: (torch.float32,)
-                       for n in ("s_wr", "s_ws1", "s_ws2")})
+        tensors.update(zip(snames, scales))
+        dtypes.update({n: (torch.float32,) for n in snames})
     device = check_cuda("bc_fused", tensors, dtypes)
     if lane is None or (scales is None) != (wr.dtype == torch.float32):
         raise ValueError(f"bc_fused: planes of dtype {wr.dtype} "
@@ -283,19 +345,21 @@ def bc_fused_matmul(xb: torch.Tensor, wr: torch.Tensor, ws1: torch.Tensor,
     if kx != k or qw != q or kw != want_kw:
         raise ValueError(f"bc_fused: xb {tuple(xb.shape)} and {wr.dtype} "
                          f"planes {tuple(wr.shape)} do not fit block size {k}")
-    if ws1.shape != wr.shape or ws2.shape != wr.shape:
-        raise ValueError("bc_fused: wr/ws1/ws2 must share one shape")
-    if scales is not None and any(s.numel() != E * p for s in scales):
-        raise ValueError(f"bc_fused: scales must hold one value per output "
-                         f"block ({p}) and expert ({E})")
+    if any(w.shape != wr.shape for w in planes.values()):
+        raise ValueError(f"bc_fused: the planes {'/'.join(planes)} must "
+                         f"share one shape")
+    if scales is not None and (len(scales) != len(planes) or any(
+            s.numel() != E * p for s in scales)):
+        raise ValueError(f"bc_fused: one scale vector a plane, each one "
+                         f"value per output block ({p}) and expert ({E})")
     if k % 8 == 0 and xb.data_ptr() % 16:
         raise ValueError("bc_fused: xb must start 16-byte aligned (its rows "
                          "are staged with 16-byte asynchronous copies)")
     y = torch.empty((*lead, B, p, k), device=device, dtype=torch.float32)
-    planes = [ptr(wr), ptr(ws1), ptr(ws2)]
+    ptrs = [ptr(w) for w in planes.values()]
     if scales is not None:
-        planes += [ptr(s) for s in scales]
-    KERNEL.launch(lane, device, ptr(xb), *planes, ptr(dft_panel(k, device)),
+        ptrs += [ptr(s) for s in scales]
+    KERNEL.launch(lane, device, ptr(xb), *ptrs, ptr(dft_panel(k, device)),
                   ptr(dft_panel_t(k, device)), ptr(y),
                   *launch_args(B, p, q, k, lane, E),
                   path="experts" if stacked else "single",

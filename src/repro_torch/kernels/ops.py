@@ -10,6 +10,12 @@ of q/k/v or up/gate concatenated on the output-block axis) is one more
 (p, q, kf) cache to ``bc_linear`` and ``spectral_contract``: both read it
 as it stands, with no copy of its planes.
 
+Without the Gauss trick (``gauss_trick=False``: planes wr, wi without
+ws1, ws2, or a caller that asks for the 4-product MAC) every entry point
+below takes the fused kernel's 4-product lane (``bc_fused4_matmul``)
+instead, on the same terms: its plain version on the CPU, the kernel or
+an error on the card.
+
 Training (``core/circulant.py:BCMatmulFFT``, the paper's backward):
 ``bc_forward`` is the forward of a block-circulant projection from its
 generators (planes derived per call), ``bc_adjoint`` its input gradient
@@ -29,7 +35,7 @@ from typing import Dict
 import torch
 
 from ..core import circulant as cc
-from .bc_fused import bc_fused_matmul
+from .bc_fused import bc_fused4_matmul, bc_fused_matmul
 from .bc_grad_w import bc_grad_w
 from .flash_attention import flash_attention
 from .paged import paged_gather
@@ -42,27 +48,33 @@ __all__ = ["bc_adjoint", "bc_expert_linear", "bc_forward", "bc_grad_w",
            "spectral_matmul"]
 
 
+def _fused(xb: torch.Tensor, cache: Dict[str, torch.Tensor], k: int,
+           gauss: bool) -> torch.Tensor:
+    """xb (N, q, k) or a stack (E, C, q, k) float32 through the fused
+    kernel: its Gauss lanes where ``gauss`` and the cache has ws1, ws2,
+    else its 4-product lanes on wr, wi; a quantized cache (int8 or
+    packed-int4 planes with ``<name>_s`` scales) on its integer planes."""
+    names = (("wr", "ws1", "ws2") if gauss and "ws1" in cache
+             else ("wr", "wi"))
+    scales = (tuple(cache[f"{n}_s"] for n in names) if "wr_s" in cache
+              else None)
+    fn = bc_fused_matmul if len(names) == 3 else bc_fused4_matmul
+    return fn(xb, *(cache[n] for n in names), k, scales)
+
+
 def bc_linear(x: torch.Tensor, cache: Dict[str, torch.Tensor], k: int,
               n_out: int, gauss: bool = True) -> torch.Tensor:
     """Block-circulant linear against baked spectral planes:
-    (..., n_in) -> (..., n_out), through the fused kernel.  Casts to
-    float32 before blockifying and back to ``x.dtype`` after, as
-    ``repro``'s ``bc_matmul_spectral`` does.  A quantized cache (int8 or
-    packed-int4 planes with ``<name>_s`` scales) runs the kernel's
-    quantized lane on its integer planes."""
-    if "ws1" not in cache or not gauss:
-        if x.device.type != "cpu":
-            raise NotImplementedError("the fused kernel runs the Gauss "
-                                      "planes (gauss_trick=True) only")
-        return cc.bc_matmul_spectral(x, cache, k, n_out, gauss)
-    scales = None
-    if "wr_s" in cache:
-        scales = (cache["wr_s"], cache["ws1_s"], cache["ws2_s"])
+    (..., n_in) -> (..., n_out), through the fused kernel (its 4-product
+    lane without the Gauss planes or ``gauss``).  Casts to float32 before
+    blockifying and back to ``x.dtype`` after, as ``repro``'s
+    ``bc_matmul_spectral`` does.  A quantized cache (int8 or packed-int4
+    planes with ``<name>_s`` scales) runs the kernel's quantized lane on
+    its integer planes."""
     p, q, _ = cache["wr"].shape
     lead = x.shape[:-1]
     xb = cc._blockify(x, q, k).reshape(-1, q, k).float().contiguous()
-    y = bc_fused_matmul(xb, cache["wr"], cache["ws1"], cache["ws2"], k,
-                        scales)
+    y = _fused(xb, cache, k, gauss)
     return y.reshape(*lead, p * k)[..., :n_out].to(x.dtype)
 
 
@@ -71,25 +83,16 @@ def bc_expert_linear(x: torch.Tensor, cache: Dict[str, torch.Tensor], k: int,
     """An expert stack's projection: x (E, C, n_in) -> (E, C, n_out),
     expert ``e``'s rows against its planes ``cache[name][e]`` (planes
     (E, p, q, kf), scales (E, p, 1)), as ``repro`` vmaps
-    ``bc_matmul_spectral`` over the experts.  The Gauss planes go to the
-    fused kernel as one stack: on the card one launch of its float32, int8
-    or int4 lane for all E experts (each expert's rows at e * C, its planes
-    and scales at their strides: nothing is copied), on the CPU its plain
-    version expert by expert.  Casts as ``bc_linear`` does."""
-    E, C, _ = x.shape
-    if "ws1" not in cache or not gauss:
-        out = torch.empty((E, C, n_out), dtype=x.dtype, device=x.device)
-        for e in range(E):
-            out[e] = bc_linear(x[e], {n: t[e] for n, t in cache.items()}, k,
-                               n_out, gauss)
-        return out
-    scales = None
-    if "wr_s" in cache:
-        scales = (cache["wr_s"], cache["ws1_s"], cache["ws2_s"])
+    ``bc_matmul_spectral`` over the experts.  The planes go to the fused
+    kernel as one stack (Gauss or 4-product, as ``bc_linear`` chooses):
+    on the card one launch of its float32, int8 or int4 lane for all E
+    experts (each expert's rows at e * C, its planes and scales at their
+    strides: nothing is copied), on the CPU its plain version expert by
+    expert.  Casts as ``bc_linear`` does."""
     _, p, q, _ = cache["wr"].shape
+    E, C, _ = x.shape
     xb = cc._blockify(x, q, k).float().contiguous()       # (E, C, q, k)
-    y = bc_fused_matmul(xb, cache["wr"], cache["ws1"], cache["ws2"], k,
-                        scales)
+    y = _fused(xb, cache, k, gauss)
     return y.reshape(E, C, p * k)[..., :n_out].to(x.dtype)
 
 
@@ -137,19 +140,10 @@ def _contract(xb: torch.Tensor, cache: Dict[str, torch.Tensor], k: int,
               gauss: bool) -> torch.Tensor:
     """xb (N, q, k) against a float32 cache (p, q, kf) -> (N, p, k), or an
     expert stack xb (E, C, q, k) against (E, p, q, kf) -> (E, C, p, k):
-    the fused kernel on the Gauss planes (one launch for a stack), or on
-    the CPU its plain version (the 4-product form where ``gauss`` is off,
-    as ``repro``'s ``_cplx_contract``)."""
-    if gauss:
-        return bc_fused_matmul(xb.contiguous(), cache["wr"], cache["ws1"],
-                               cache["ws2"], k)
-    if xb.device.type != "cpu":
-        raise NotImplementedError("the fused kernel runs the Gauss planes "
-                                  "(gauss_trick=True) only")
-    xr, xi = cc.rfft_planes(xb, k)
-    yr, yi = cc._naive_complex_contract(xr, xi, cache,
-                                        "...bqf,...pqf->...bpf")
-    return cc.irfft_planes(yr, yi, k)
+    the fused kernel on the Gauss planes, or its 4-product lane where
+    ``gauss`` is off (``repro``'s ``_cplx_contract``); one launch for a
+    stack, the plain versions on the CPU."""
+    return _fused(xb.contiguous(), cache, k, gauss)
 
 
 def bc_forward(xb: torch.Tensor, w: torch.Tensor, gauss: bool = True

@@ -190,8 +190,14 @@ def route(router: torch.Tensor, xt: torch.Tensor, E: int, topk: int,
     each (token, choice) takes the next free position of its expert's
     capacity buffer in token order (a cumsum), and a choice past ``cap``
     is dropped."""
+    return route_logits(torch.einsum("gtd,de->gte", xt.float(),
+                                     router.float()), xt, E, topk, cap)
+
+
+def route_logits(logits: torch.Tensor, xt: torch.Tensor, E: int, topk: int,
+                 cap: int):
+    """``route`` from the float32 router logits (G, g, E) of xt."""
     G, g, _ = xt.shape
-    logits = torch.einsum("gtd,de->gte", xt.float(), router.float())
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = torch.topk(probs, topk, dim=-1)     # (G, g, topk)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
@@ -252,13 +258,7 @@ def moe(m: MoE, x: torch.Tensor, *, d_ff: int, moe_cfg, comp=None,
     ``checkpoint`` the recompute would fold it twice)."""
     B, S, d = x.shape
     E, topk = moe_cfg.num_experts, moe_cfg.top_k
-    T = B * S
-    g = math.gcd(min(moe_cfg.router_group_size, T), T)
-    G = T // g
-    cap = max(1, int(math.ceil(g * topk / E * moe_cfg.capacity_factor)))
-    cap = min(cap, g)
-    if mode == "serve" and S == 1:
-        cap = g                  # dropless decode: every token one expert
+    g, G, cap = groups(B * S, S, moe_cfg, mode)
     gauss = comp.gauss_trick if comp is not None else True
 
     xt = x.reshape(G, g, d)
@@ -278,3 +278,15 @@ def moe(m: MoE, x: torch.Tensor, *, d_ff: int, moe_cfg, comp=None,
     if mode == "train":
         return out, load_balance(gate_idx, logits, E)
     return out
+
+
+def groups(T: int, S: int, moe_cfg, mode: str):
+    """(g, G, cap) of ``moe``'s routing over T tokens of length-S rows:
+    G groups of g tokens, each expert taking ``cap`` of a group's."""
+    g = math.gcd(min(moe_cfg.router_group_size, T), T)
+    cap = max(1, int(math.ceil(g * moe_cfg.top_k / moe_cfg.num_experts
+                               * moe_cfg.capacity_factor)))
+    cap = min(cap, g)
+    if mode == "serve" and S == 1:
+        cap = g                  # dropless decode: every token one expert
+    return g, T // g, cap

@@ -276,11 +276,17 @@ def mlstm_block(cell: MLSTMCell, x: torch.Tensor, *, heads: int,
         h, state = mlstm_seq(to_heads(q), to_heads(k), to_heads(v),
                              i_pre.transpose(1, 2), f_pre.transpose(1, 2),
                              state=state, chunk=chunk)
-    # per-head rms over dh, then the output scale
+    h = (head_rms(h) * cell.onorm_scale).to(x.dtype)
+    return cell.out(h * gate, mode, kernel_fn), state
+
+
+def head_rms(h: torch.Tensor) -> torch.Tensor:
+    """The mLSTM's per-head rms over dh of h (B, H, S, dh), its heads
+    merged: (B, S, H dh) float32."""
+    B, H, S, dh = h.shape
     hf = h.transpose(1, 2).float()                              # (B,S,H,dh)
     hf = hf * torch.pow(torch.mean(hf * hf, -1, keepdim=True) + 1e-6, -0.5)
-    h = (hf.reshape(B, S, d_in) * cell.onorm_scale).to(x.dtype)
-    return cell.out(h * gate, mode, kernel_fn), state
+    return hf.reshape(B, S, H * dh)
 
 
 def init_mlstm_state(batch: int, heads: int, dh: int, *,
@@ -333,16 +339,23 @@ def slstm_block(cell: SLSTMCell, x: torch.Tensor, *, mode: str = "serve",
     """The sLSTM residual branch, x: (B, S, d) -> ((B, S, d), state): the
     input projection of every position at once, then one cell step per
     position."""
-    B, S, d = x.shape
     gx = cell.wx(x, mode, kernel_fn).float()                   # (B, S, 4d)
+    h, state = slstm_scan(gx, cell.wh, cell.b, state)
+    return cell.out(h.to(x.dtype), mode, kernel_fn), state
+
+
+def slstm_scan(gx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor,
+               state=None):
+    """The sLSTM recurrence over the input gates gx (B, S, 4d), from
+    ``state`` (zeros where None) -> (h (B, S, d) float32, state)."""
+    B, S, d4 = gx.shape
     if state is None:
-        state = init_slstm_state(B, d, device=x.device)
+        state = init_slstm_state(B, d4 // 4, device=gx.device)
     hs = []
     for t in range(S):
-        state = slstm_cell(gx[:, t] + state[2] @ cell.wh + cell.b, state)
+        state = slstm_cell(gx[:, t] + state[2] @ wh + b, state)
         hs.append(state[2])
-    h = torch.stack(hs, dim=1).to(x.dtype)
-    return cell.out(h, mode, kernel_fn), state
+    return torch.stack(hs, dim=1), state
 
 
 def init_slstm_state(batch: int, d_model: int, *,

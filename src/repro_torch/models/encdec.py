@@ -169,7 +169,10 @@ def decode(params: EncDec, tokens: torch.Tensor, cfg: ArchConfig, *,
     B, S = tokens.shape
     x = emb_lib.embed(params.embed.table, tokens).to(dtype)
     pos0 = 0 if cache_pos is None else int(cache_pos)
-    x = x + params.dec_pos.pos[pos0:pos0 + S].to(dtype)[None]
+    # positions past the table read its last row, as repro's gather does
+    idx = torch.clamp(pos0 + torch.arange(S, device=x.device),
+                      max=params.dec_pos.pos.shape[0] - 1)
+    x = x + params.dec_pos.pos[idx].to(dtype)[None]
 
     def block(x, ck, cv, bp, c_in):
         a, _ = attn_lib.attention_block(bp.self_attn, bp.ln1(x), cfg=cfg,

@@ -23,14 +23,23 @@ LM (``models/transformer.py``; ``aux["moe_aux"]`` the sum of its MoE
 blocks' load-balancing losses, 0 without any) or the encoder-decoder on
 ``batch["frames"]`` (``models/encdec.py:forward_train``; ``moe_aux`` 0,
 as in ``repro``).
+
+The dry run's inputs (``repro``'s ``train_batch_specs``,
+``prefill_batch_specs``, ``cache_specs``, ``input_specs``) are fake
+tensors (``torch._subclasses.fake_tensor``): the shapes and dtypes of
+``repro``'s ``ShapeDtypeStruct``s with no storage, made in the fake mode
+the caller passes (a new one by default).  ``abstract_params`` builds
+the model itself that way, at full size: llama4-maverick's 400B
+parameters cost nothing.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeSpec
 from . import encdec, transformer
 
 
@@ -106,3 +115,89 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None
                 ) -> torch.nn.Module:
     """Random serving weights for any ported arch (``Model.init``)."""
     return build_model(cfg).init(seed=seed, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Fake-tensor stand-ins for the dry run (no allocation)
+# ---------------------------------------------------------------------------
+def fake_mode():
+    """A fresh fake-tensor mode (tensors with shapes, dtypes and devices
+    and no storage)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    return FakeTensorMode()
+
+
+@contextlib.contextmanager
+def _in(mode):
+    """``mode`` entered unless it is already the innermost active one."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+    if _get_current_dispatch_mode() is mode:
+        yield
+    else:
+        with mode:
+            yield
+
+
+def _frontend(batch: Dict, cfg: ArchConfig, B: int) -> Dict:
+    if cfg.frontend == "audio_stub":
+        batch["frames"] = torch.empty((B, cfg.encoder_seq, cfg.d_model))
+    elif cfg.frontend == "vision_stub":
+        batch["patches"] = torch.empty((B, cfg.num_patches, cfg.d_model))
+    return batch
+
+
+def train_batch_specs(cfg: ArchConfig, shape: ShapeSpec, mode=None) -> Dict:
+    B, S = shape.global_batch, shape.seq_len
+    with _in(mode or fake_mode()):
+        return _frontend({"tokens": torch.empty((B, S), dtype=torch.int32),
+                          "labels": torch.empty((B, S), dtype=torch.int32)},
+                         cfg, B)
+
+
+def prefill_batch_specs(cfg: ArchConfig, shape: ShapeSpec,
+                        mode=None) -> Dict:
+    B, S = shape.global_batch, shape.seq_len
+    with _in(mode or fake_mode()):
+        return _frontend({"tokens": torch.empty((B, S), dtype=torch.int32)},
+                         cfg, B)
+
+
+def cache_specs(cfg: ArchConfig, batch: int, max_seq: int, dtype=None,
+                mode=None) -> Any:
+    """The cache ``Model.init_cache`` makes, as fake tensors on the CPU."""
+    with _in(mode or fake_mode()):
+        return build_model(cfg).init_cache(batch, max_seq, dtype,
+                                           device="cpu")
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec, mode=None) -> Dict:
+    """All inputs of the step a cell runs, as fake tensors:
+
+    train   -> {"batch": ...}
+    prefill -> {"batch": ..., "cache": ...}
+    decode  -> {"tokens": (B, 1), "cache": ..., "cache_pos": scalar}
+
+    ``cache_pos`` is a 0-dim int32 tensor, as ``repro``'s; the dry run
+    decodes at the cache's last position, a host int."""
+    mode = mode or fake_mode()
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        return {"batch": train_batch_specs(cfg, shape, mode)}
+    if shape.kind == "prefill":
+        return {"batch": prefill_batch_specs(cfg, shape, mode),
+                "cache": cache_specs(cfg, B, S, mode=mode)}
+    with _in(mode):
+        tokens = torch.empty((B, 1), dtype=torch.int32)
+        pos = torch.empty((), dtype=torch.int32)
+    return {"tokens": tokens, "cache": cache_specs(cfg, B, S, mode=mode),
+            "cache_pos": pos}
+
+
+def abstract_params(cfg: ArchConfig, mode=None) -> torch.nn.Module:
+    """The model's module at full size with fake parameters on the CPU
+    (zeros in shape only: no generator runs, nothing is allocated)."""
+    with _in(mode or fake_mode()):
+        dev = torch.device("cpu")
+        if cfg.is_encoder_decoder:
+            return encdec.EncDec(cfg, device=dev)
+        return transformer.Transformer(cfg, device=dev)

@@ -13,7 +13,9 @@ lists in the order of the leaves.
 
 The moment store is ``{"mv": [per leaf: {"m": [...], "v": [...]} or, int8,
 {"m": [int8], "m_s": scalar, "v": [uint8], "v_s": scalar}], "count":
-int32 scalar}``; every tensor lives on the parameters' device.
+int32 scalar}``; every tensor lives on the parameters' device, and a
+moment has its parameter's layout (a sharded parameter's moments are
+sharded alike).
 """
 from __future__ import annotations
 
@@ -91,10 +93,10 @@ def init(leaves: Sequence[Leaf], cfg: AdamWConfig) -> dict:
     for leaf in leaves:
         if cfg.quantize_moments:
             mv.append({
-                "m": [torch.zeros(t.shape, dtype=torch.int8, device=device)
+                "m": [torch.zeros_like(t, dtype=torch.int8)
                       for t in leaf.tensors],
                 "m_s": torch.zeros((), device=device),
-                "v": [torch.zeros(t.shape, dtype=torch.uint8, device=device)
+                "v": [torch.zeros_like(t, dtype=torch.uint8)
                       for t in leaf.tensors],
                 "v_s": torch.zeros((), device=device)})
         else:

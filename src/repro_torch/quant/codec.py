@@ -85,8 +85,12 @@ class QuantPolicy:
 # ---------------------------------------------------------------------------
 def absmax_scale(x: torch.Tensor, axes, qmax: float = INT8_QMAX
                  ) -> torch.Tensor:
-    """Symmetric absmax scale over ``axes`` (reduced away)."""
-    return x.float().abs().amax(dim=axes) / qmax
+    """Symmetric absmax scale over ``axes`` (reduced away).  The divisor
+    is a tensor beside the absmax: on the card a division by a host
+    scalar is a product with its reciprocal, one ulp off the true
+    quotient (``repro``'s and the CPU's) at some values."""
+    amax = x.float().abs().amax(dim=axes)
+    return amax / torch.full_like(amax, qmax)
 
 
 def quantize(x: torch.Tensor, scale: torch.Tensor,

@@ -21,24 +21,70 @@ the model's useful-work counts.
   layers on a leading axis; here the walk is over the ``nn.Module``'s
   named parameters, one module a layer, and the sums are the same.
 
-Left out: ``xla_cost_analysis``, ``CompiledCompat``, ``collective_bytes``
-and ``cell_report``.  They read XLA's compiled artifacts (cost analysis,
-optimized HLO, memory analysis) and belong to the dry run (ROADMAP A.16),
-which is not ported.
+* ``StepCost``, ``collective_bytes`` and ``cell_report``: the cost of one
+  traced step (``repro``'s ``:97-166`` and ``:275-341``; the dry run,
+  ``launch/dryrun.py``).  ``repro`` reads a compiled XLA executable: its
+  cost analysis (per-device FLOPs and bytes accessed), its memory
+  analysis and its optimized HLO's collectives.  The port has no
+  compiled executable; it records one step traced over ``DTensor``s
+  under ``FakeTensorMode`` (``dist/spmd.py``) with ``StepCost``, a
+  dispatch mode that sees each rank's LOCAL operations (it steps aside
+  for ``DTensor``s, whose local shards then reach it), so the counts are
+  per device, as XLA's are:
+
+  - FLOPs: torch's FLOP formulas (``torch.utils.flop_counter``) of every
+    product (mm, bmm, addmm, baddbmm, convolutions, SDPA), 2 m n k each;
+    elementwise operations are not counted.  A block-circulant
+    projection counts what its plain path does, whatever route it takes:
+    its DFT is a product with ``dft_mats`` (``core/circulant.py``, k <=
+    512), so it counts 2 k kf a row and plane where XLA counts an FFT;
+    this report holds those product FLOPs.
+  - Bytes accessed: every operation's tensor operands and results once
+    each (an in-place one its operands; views nothing), as XLA's "bytes
+    accessed" counts every operand and result touch: an upper bound on
+    HBM traffic.
+  - Collectives: the result bytes per device of every functional
+    collective (``_c10d_functional``) ``DTensor`` issues, under
+    ``repro``'s kinds (``all-gather``, ``all-reduce``, ``reduce-scatter``,
+    ``all-to-all``, ``collective-permute``, ``collective-broadcast``) and
+    ``total``.
+  - Memory: argument bytes are the local bytes of the step's inputs (a
+    sharded leaf's shard) that one of its operations reads (``jax.jit``
+    prunes an argument its program never reads: the generators beside
+    baked planes at serve, the planes a MAC does not take), output and
+    alias bytes the outputs' (the port
+    updates the cache, and in training the state, in place: those outputs
+    alias their inputs), temp bytes the peak of the storages the step
+    allocates, live at once, less the outputs it made.
+
+  The report's defaults are the port's ``h100`` spec.  Its collective
+  term divides by ``H100.link_bw``, one NVLink 4 direction: the 256 and
+  512 cards of the production meshes span nodes, so it is an NVLink-only
+  bound (inter-node links are slower).  ``repro``'s
+  ``slstm_scan_correction`` is kept but the report adds none: the port's
+  trace runs every step of the sLSTM scan, where XLA costs a while body
+  once.
+
+Left out: ``xla_cost_analysis`` and ``CompiledCompat`` (they normalise the
+return of XLA's ``cost_analysis()`` across jax versions; the port's record
+is its own).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 
 import torch
 from torch import nn
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..configs.base import ArchConfig, ShapeSpec
 from ..core.circulant import bc_flops
+from ..dist.spmd import count_times
 
 
 @dataclasses.dataclass(frozen=True)
@@ -330,3 +376,279 @@ class ServingCounts:
         ctx = np.asarray(list(contexts), np.int64)
         flops = sum(self.proj + self._mix("decode", c) for c in ctx)
         return (flops, passes * self.weight_bytes(rows) + self._kv(ctx))
+
+
+# ---------------------------------------------------------------------------
+# The cost of one traced step (the dry run)
+# ---------------------------------------------------------------------------
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute", "collective-broadcast")
+# functional collectives (torch.ops._c10d_functional) by repro's kinds
+_C10D_KINDS = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "broadcast": "collective-broadcast",
+    "permute_tensor": "collective-permute",
+}
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (list, tuple)):
+        for e in x:
+            yield from _tensors(e)
+    elif isinstance(x, dict):
+        for e in x.values():
+            yield from _tensors(e)
+
+
+def _nbytes(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.numel() * t.element_size()
+
+
+def _group_size(args, kwargs) -> int:
+    """The ranks of a functional collective's group (its group name is its
+    last string argument); a collective over one rank moves nothing."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    names = [a for a in (*args, *kwargs.values()) if isinstance(a, str)]
+    for name in reversed(names):
+        try:
+            return _resolve_process_group(name).size()
+        except (KeyError, ValueError, RuntimeError):
+            continue
+    return 2
+
+
+class StepCost(TorchDispatchMode):
+    """Per-device FLOPs, bytes accessed, collective bytes and the peak of
+    newly allocated storage of the operations run under it (module
+    docstring).  It steps aside for ``DTensor`` arguments, so it sees
+    each rank's local operations, and ignores what ``DTensor``'s sharding
+    propagator runs on global shapes to learn an output's; enter it
+    inside the fake mode."""
+
+    def __init__(self):
+        super().__init__()
+        from torch.utils.flop_counter import flop_registry
+        self._flops_of = flop_registry
+        self.flops = 0.0
+        self.bytes_accessed = 0.0
+        self.collectives: Dict[str, int] = {k: 0 for k in COLLECTIVES}
+        self._live: Dict[int, int] = {}
+        self.live = 0
+        self.peak = 0
+        self._args: Dict[int, int] = {}
+        self._read: set = set()
+
+    # the sharding propagator's methods that run an operation on GLOBAL
+    # fake tensors to learn its output's shape (names across torch
+    # versions); what runs inside them is no rank's work
+    _PROPAGATORS = ("propagate", "propagate_op_sharding",
+                    "propagate_op_sharding_non_cached",
+                    "_propagate_tensor_meta",
+                    "_propagate_tensor_meta_non_cached")
+
+    def __enter__(self):
+        from torch.distributed.tensor import DTensor
+        prop = DTensor._op_dispatcher.sharding_propagator
+        self._patched = []
+        self._inside = 0
+        for name in self._PROPAGATORS:
+            fn = getattr(prop, name, None)
+            if fn is None:
+                continue
+            had = name in vars(prop)
+            self._patched.append((prop, name, had, vars(prop).get(name)))
+
+            def wrapped(*a, _fn=fn, **kw):
+                self._inside += 1
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self._inside -= 1
+            setattr(prop, name, wrapped)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        for prop, name, had, old in reversed(self._patched):
+            if had:
+                setattr(prop, name, old)
+            else:
+                delattr(prop, name)
+        return super().__exit__(*exc)
+
+    def _free(self, key: int) -> None:
+        self.live -= self._live.pop(key, 0)
+
+    def _track(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self._live:
+            return
+        n = st.nbytes()
+        self._live[key] = n
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(st, self._free, key)
+
+    def watch(self, tensors) -> None:
+        """Note the storages of a step's arguments (a ``DTensor``'s local
+        shard), so that ``read_bytes`` can tell which of them it read."""
+        self._args = {}
+        for t in _tensors(tensors):
+            st = getattr(t, "_local_tensor", t).untyped_storage()
+            self._args[id(st)] = st.nbytes()
+        self._read = set()
+
+    def read_bytes(self) -> int:
+        """Bytes of the watched arguments that an operation of the step
+        read (XLA prunes the arguments a program never reads)."""
+        return sum(n for key, n in self._args.items() if key in self._read)
+
+    def live_bytes(self, tensors) -> int:
+        """Bytes of the storages under ``tensors`` that this step made."""
+        seen = {}
+        for t in _tensors(tensors):
+            t = getattr(t, "_local_tensor", t)
+            key = id(t.untyped_storage())
+            if key in self._live:
+                seen[key] = self._live[key]
+        return sum(seen.values())
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if self._inside:
+            return out
+        if self._args:
+            for t in _tensors((args, kwargs)):
+                key = id(t.untyped_storage())
+                if key in self._args:
+                    self._read.add(key)
+        times = count_times()
+        if func.namespace == "_c10d_functional":
+            kind = _C10D_KINDS.get(func.overloadpacket.__name__)
+            if kind is not None and _group_size(args, kwargs) > 1:
+                self.collectives[kind] += times * sum(_nbytes(t)
+                                                      for t in _tensors(out))
+            for t in _tensors(out):
+                self._track(t)
+            return out
+        pkt = func.overloadpacket
+        if pkt in self._flops_of:
+            self.flops += times * float(self._flops_of[pkt](
+                *args, **kwargs, out_val=out))
+        rets = func._schema.returns
+        alias = [r.alias_info for r in rets]
+        if any(a is not None and not a.is_write for a in alias):
+            return out                                  # a view
+        touched = (sum(_nbytes(t) for t in _tensors(args))
+                   + sum(_nbytes(t) for t in _tensors(kwargs)))
+        if not any(a is not None for a in alias):       # not in place
+            touched += sum(_nbytes(t) for t in _tensors(out))
+            for t in _tensors(out):
+                self._track(t)
+        self.bytes_accessed += times * touched
+        return out
+
+
+def collective_bytes(cost: "StepCost") -> Dict[str, int]:
+    """Per-collective-kind result bytes (per device) of a traced step, and
+    their ``total`` (``repro``'s keys)."""
+    out = {k: int(cost.collectives.get(k, 0)) for k in COLLECTIVES}
+    out["total"] = sum(out[k] for k in COLLECTIVES)
+    return out
+
+
+@dataclasses.dataclass
+class StepRecord:
+    """What ``cell_report`` reads of one traced step: the cost counts and
+    the memory (``repro``'s ``memory_analysis()`` names)."""
+    flops: float
+    bytes_accessed: float
+    collectives: Dict[str, int]
+    argument_bytes: int
+    output_bytes: int
+    temp_bytes: int
+    alias_bytes: int
+    code_bytes: int = 0
+
+
+def local_bytes(tree) -> int:
+    """Bytes one device holds of a tree of (D)Tensors: a ``DTensor``'s
+    local shard, a plain tensor whole."""
+    total = 0
+    for t in _tensors(tree):
+        total += _nbytes(getattr(t, "_local_tensor", t))
+    return total
+
+
+def cell_model_flops(params: nn.Module, cfg: ArchConfig,
+                     shape: ShapeSpec) -> float:
+    """The useful FLOPs of one cell's step (``repro``'s convention): the
+    forward FLOPs a token (projections and sequence mixers) times the
+    tokens, three times that for a train step (forward and backward)."""
+    fwd_per_tok = (model_flops_per_token(params, cfg) +
+                   seq_mixer_flops_per_token(cfg, shape))
+    if shape.kind == "train":
+        return 3.0 * fwd_per_tok * shape.global_batch * shape.seq_len
+    if shape.kind == "prefill":
+        return fwd_per_tok * shape.global_batch * shape.seq_len
+    return fwd_per_tok * shape.global_batch
+
+
+def cell_report(record: StepRecord, cfg: ArchConfig, shape: ShapeSpec,
+                mesh, spec: HardwareSpec = H100, params=None) -> Dict:
+    """All roofline quantities of one traced cell, under ``repro``'s keys
+    (``spec`` picks the denominators; the port's default is ``h100``).
+    ``params`` is the model's module (its shapes) for ``model_flops`` and
+    ``params``; built without allocation where not given."""
+    from ..dist.sharding import axis_sizes
+    sizes = axis_sizes(mesh)
+    chips = int(np.prod(list(sizes.values())))
+    flops = float(record.flops)
+    bytes_acc = float(record.bytes_accessed)
+    mem = {"argument_bytes": int(record.argument_bytes),
+           "output_bytes": int(record.output_bytes),
+           "temp_bytes": int(record.temp_bytes),
+           "alias_bytes": int(record.alias_bytes),
+           "code_bytes": int(record.code_bytes)}
+    bytes_per_device = (mem["argument_bytes"] + mem["output_bytes"] +
+                        mem["temp_bytes"] - mem["alias_bytes"])
+    coll = dict(record.collectives)
+    terms = {"compute_s": flops / spec.peak_flops,
+             "memory_s": bytes_acc / spec.hbm_bw,
+             "collective_s": coll["total"] / (spec.link_bw or H100.link_bw)}
+    dominant = max(terms, key=terms.get)
+    if params is None:
+        from ..models.registry import abstract_params
+        params = abstract_params(cfg)
+    model_flops = cell_model_flops(params, cfg, shape)
+    hlo_global = flops * chips
+    t_model = model_flops / chips / spec.peak_flops
+    bound = max(terms.values())
+    return {
+        "hardware": spec.name,
+        "chips": chips,
+        "slstm_correction_flops": 0.0,
+        "flops_per_device": flops,
+        "bytes_accessed_per_device": bytes_acc,
+        "bytes_per_device": bytes_per_device,
+        "memory": mem,
+        "collectives": coll,
+        **terms,
+        "dominant": dominant,
+        "model_flops": model_flops,
+        "params": count_params(params),
+        "model_hlo_ratio": model_flops / hlo_global if hlo_global else 0.0,
+        "roofline_frac_overlap": t_model / bound if bound else 0.0,
+        "roofline_frac_serial": (t_model / sum(terms.values())
+                                 if sum(terms.values()) else 0.0),
+    }

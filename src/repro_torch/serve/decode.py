@@ -129,6 +129,11 @@ def make_prefill_step(cfg: ArchConfig, *, kernel_fn=None) -> Callable:
     return prefill_step
 
 
+def greedy(logits: torch.Tensor) -> torch.Tensor:
+    """The greedy pick: the argmax over the last dim, int32."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
 def make_decode_step(cfg: ArchConfig, sample: bool = False,
                      temperature: float = 1.0, seed: int = 0) -> Callable:
     """``decode_step(params, tokens (B, 1), cache, cache_pos int)`` ->
@@ -147,7 +152,7 @@ def make_decode_step(cfg: ArchConfig, sample: bool = False,
             nxt = sample_tokens(last, temperature, seed, rows,
                                 torch.full_like(rows, int(cache_pos)))
         else:
-            nxt = torch.argmax(last, dim=-1).to(torch.int32)
+            nxt = greedy(last)
         return logits, nxt, cache
     return decode_step
 
@@ -272,7 +277,7 @@ def make_prefill_pack_step(cfg: ArchConfig, n_pages: int, page_size: int,
         logits, dense = model.prefill(params, batch, cache)
         last = logits[0, true_len - 1]
         ok = torch.isfinite(last).all()
-        nxt = torch.argmax(last, dim=-1).to(torch.int32)
+        nxt = greedy(last)
         if not capture_stats:
             pool = kvc.pack_prefill_cache(pool, dense, pages, page_size,
                                           true_len=true_len)
@@ -387,7 +392,7 @@ class PagedDecodeLoop:
             nxt = sample_tokens(last, self.temperature, self.seed, slots,
                                 torch.clamp(masked, min=0))
         else:
-            nxt = torch.argmax(last, dim=-1).to(torch.int32)
+            nxt = greedy(last)
         bad = ~done & ~finite
         halt = done | bad
         st.buf.index_copy_(1, st.j, torch.where(halt, st.fill, nxt)[:, None])

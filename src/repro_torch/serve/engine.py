@@ -185,7 +185,9 @@ class PrefillContract:
     a bin chunk's three (q, p) planes whole, so at tinyllama's widths it
     takes block sizes from about 32 up.  The choice is made once a shape,
     at the first call (or up front for the baked caches of ``params``),
-    and kept with the planner's reason."""
+    and kept with the planner's reason.  Planes without the Gauss
+    combinations (``gauss_trick=False``) always take the fused kernel's
+    4-product lane: ``spectral_matmul`` contracts the Gauss planes only."""
 
     def __init__(self, params=None):
         self.lanes: Dict[tuple, str] = {}
@@ -198,6 +200,12 @@ class PrefillContract:
     def takes(self, cache: Dict[str, torch.Tensor]) -> bool:
         shape = tuple(cache["wr"].shape)
         lane = self.lanes.get(shape)
+        if lane is None and "ws1" not in cache:
+            lane = "bc_fused"          # its 4-product lane (kernels/ops.py)
+            self.reasons[shape] = ("planes without ws1 / ws2 "
+                                   "(gauss_trick=False): spectral_matmul's "
+                                   "contraction is the Gauss MAC only")
+            self.lanes[shape] = lane
         if lane is None:
             p, q, kf = shape
             try:

@@ -16,7 +16,8 @@ plane, as in ``repro``.  With a ``QuantPolicy``
 whose ``quant_weights`` is set, the planes are then quantized to int8 (or
 packed int4) with per-block-row scales.  Unlike ``repro``'s pure tree
 transform, it bakes (and quantizes) the planes into the module IN PLACE and
-returns it; it is idempotent.
+returns it; it is idempotent.  ``strip_serving_params`` drops them again
+(in place) and ``serving_cache_bytes`` counts them.
 """
 from __future__ import annotations
 
@@ -98,3 +99,19 @@ def precompute_serving_params(params: nn.Module, cfg: ArchConfig,
     if want is not None:
         quantize_serving_params(params, want)
     return params
+
+
+def strip_serving_params(params: nn.Module) -> nn.Module:
+    """Drop every baked serving cache (the inverse of the precompute pass),
+    in place: the module keeps its generators and dense weights only.
+    Returns ``params``."""
+    cc.drop_planes(params)
+    return params
+
+
+def serving_cache_bytes(params: nn.Module) -> int:
+    """Bytes of the baked spectral planes and their scales (``repro``'s
+    reporting count)."""
+    return sum(t.numel() * t.element_size()
+               for _, _, _, cache in baked_caches(params)
+               for t in cache.values())

@@ -155,7 +155,7 @@ def init_state(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
     model.requires_grad_(True)
     dev = next(model.parameters()).device
     state = {"model": model,
-             "step": torch.zeros((), dtype=torch.int64, device=dev),
+             "step": torch.zeros((), dtype=torch.int32, device=dev),
              "skipped": torch.zeros((), dtype=torch.int32, device=dev)}
     if bayesian_mode:
         rho = bayesian.init_bayesian(dict(model.named_parameters()))
@@ -178,6 +178,14 @@ class _Loss(nn.Module):
 
     def forward(self, batch):
         return self.loss_fn(self.model, batch)
+
+
+def microbatches(batch: Dict, n: int):
+    """The batch's rows split ``n`` ways (``[batch]`` where n <= 1)."""
+    if n <= 1:
+        return [batch]
+    return [{k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
+             for k, v in batch.items()} for i in range(n)]
 
 
 class TrainStep:
@@ -220,13 +228,8 @@ class TrainStep:
         leaves = state_leaves(state, self.cfg)
         flat = [t for leaf in leaves for t in leaf.tensors]
         n = self.accum
-        if n <= 1:
-            micro = [batch]
-        else:
-            micro = [{k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
-                      for k, v in batch.items()} for i in range(n)]
         total, metrics = None, None
-        for mb in micro:
+        for mb in microbatches(batch, n):
             loss, m = self.loss(state, mb)
             gs = torch.autograd.grad(loss, flat)
             total = list(gs) if total is None else [

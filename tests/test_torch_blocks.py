@@ -348,7 +348,8 @@ LANE_CASES = [(4, (512, 512, 3), "bc_fused"), (4, (1408, 512, 3), "bc_fused"),
                               for k, s, _ in LANE_CASES])
 def test_prefill_contract_lane_by_shape(k, shape, lane):
     contract = teng.PrefillContract()
-    cache = {"wr": torch.empty(shape, device="meta")}
+    cache = {n: torch.empty(shape, device="meta")     # the Gauss planes
+             for n in ("wr", "ws1", "ws2")}
     assert contract.takes(cache) == (lane == "spectral_matmul")
     assert contract.report()[lane] == ["x".join(map(str, shape))]
     assert (shape in contract.reasons) == (lane == "bc_fused")

@@ -668,8 +668,8 @@ def test_bc_grad_w_kernel(cuda, N, p, q, k):
 @pytest.mark.parametrize("gauss", [True, False])
 def test_bc_matmul_fft_grads_on_card(cuda, gauss):
     """The Function's output and both grads on the card (bc_fused forward
-    and adjoint, bc_grad_w) against the plain versions on the CPU.  The
-    non-Gauss form has no kernel and raises on the card."""
+    and adjoint, on its 4-product lane without the Gauss trick, and
+    bc_grad_w) against the plain versions on the CPU."""
     from repro_torch.kernels import bc_grad_w as bgw
     k, n_in, n_out = 16, 72, 40
     w = torch.randn((3, 5, k), generator=cuda, device="cuda") / n_in ** .5
@@ -679,15 +679,14 @@ def test_bc_matmul_fft_grads_on_card(cuda, gauss):
     for dev in ("cuda", "cpu"):
         wd = w.detach().to(dev).requires_grad_()
         xd = x.detach().to(dev).requires_grad_()
-        if dev == "cuda" and not gauss:
-            with pytest.raises(NotImplementedError):
-                cc.bc_matmul_fft(xd, wd, n_out, gauss)
-            return
         fused, grads = bcf.KERNEL.launches, bgw.KERNEL.launches
+        lane = "bc_fused" if gauss else "bc_fused4"
+        on_lane = bcf.KERNEL.fn_launches[lane]
         y = cc.bc_matmul_fft(xd, wd, n_out, gauss)
         y.backward(g.to(dev))
         if dev == "cuda":   # forward and adjoint, then the weight grad
             assert bcf.KERNEL.launches == fused + 2
+            assert bcf.KERNEL.fn_launches[lane] == on_lane + 2
             assert bgw.KERNEL.launches == grads + 1
         out[dev] = [t.detach().cpu() for t in (y, xd.grad, wd.grad)]
     for got, ref in zip(out["cuda"], out["cpu"]):
@@ -1230,3 +1229,221 @@ def test_optimizer_codec_equals_cpu_on_card(cuda, codec):
     qg, sg = fn([x.cuda() for x in xs])
     assert torch.equal(sg.cpu(), sc)
     assert all(torch.equal(a.cpu(), b) for a, b in zip(qg, qc))
+
+
+def _apart(n, qmax, seed):
+    """``n`` float32 absmax values at which ``x / qmax`` and ``x * (1 /
+    qmax)`` round apart: where a scale made by the reciprocal's product
+    would miss the true quotient by an ulp."""
+    x = np.random.default_rng(seed).uniform(0.01, 4.0, 200 * n)
+    x = x.astype(np.float32)
+    q = np.float32(qmax)
+    x = x[x / q != x * (np.float32(1) / q)][:n]
+    assert len(x) == n
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_plane_codec_equals_cpu_on_card(cuda, bits):
+    """Per-block-row plane scales and codes (int8, packed int4) are the
+    CPU's bit for bit on the card, at row maxima where the reciprocal's
+    product would round the scale apart from the true quotient."""
+    qmax = codec.INT8_QMAX if bits == 8 else codec.INT4_QMAX
+    amax = _apart(24, qmax, bits)
+    g = torch.Generator().manual_seed(bits)
+    w = (torch.rand((24, 5, 9), generator=g) * 2 - 1) * 0.9
+    w = w * amax[:, None, None]
+    w[:, 2, 3] = -amax                       # each row's absmax, exactly
+    qc, sc = codec.quantize_plane(w, bits)
+    qg, sg = codec.quantize_plane(w.cuda(), bits)
+    assert torch.equal(sg.cpu(), sc)
+    assert torch.equal(qg.cpu(), qc)
+    assert torch.equal(sc[:, 0], amax / torch.full_like(amax, qmax))
+
+
+def test_page_codec_equals_cpu_on_card(cuda):
+    """The int8 pool's page scales and codes (``quantize_page_block`` at
+    prefill, ``page_scatter``'s grown scales and requantized residents at
+    decode) are the CPU's bit for bit on the card."""
+    P, page, H, D, B = 6, 4, 3, 8, 4
+    amax = _apart(P * H + B * H, codec.INT8_QMAX, 7)
+    g = torch.Generator().manual_seed(7)
+    vals = (torch.rand((P, page, H, D), generator=g) * 2 - 1) * 0.5
+    vals = vals * amax[:P * H].reshape(P, 1, H, 1)
+    vals[:, 1, :, 2] = amax[:P * H].reshape(P, H)
+    x = (torch.rand((B, H, D), generator=g) * 2 - 1) * 0.5
+    x = x * amax[P * H:].reshape(B, H, 1) * 3   # most pages' scales grow
+    x[:, :, 5] = amax[P * H:].reshape(B, H) * 3
+    pid = torch.tensor([1, 3, 4, 5])
+    off = torch.tensor([0, 2, 3, 1])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        q, s = codec.quantize_page_block(vals.to(dev))
+        codec.page_scatter(q, s, pid.to(dev), off.to(dev), x.to(dev))
+        out[dev] = (q.cpu(), s.cpu())
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+
+
+def _four_planes(w, bits):
+    """The two planes (wr, wi) of ``gauss_trick=False`` and their scales
+    (None for float32 planes), at 32, 8 or 4 bits."""
+    planes = cc.spectral_cache(w, gauss=False)
+    if bits == 32:
+        return (planes["wr"], planes["wi"]), None
+    qp = codec.quantize_plane_cache(planes, bits)
+    return (qp["wr"], qp["wi"]), [qp["wr_s"], qp["wi_s"]]
+
+
+FOUR_LANES = {32: "bc_fused4", 8: "bc_fused4_i8", 4: "bc_fused4_i4"}
+
+
+@pytest.mark.parametrize("bits", [32, 8, 4])
+@pytest.mark.parametrize("B,p,q,k", [(1, 44, 16, 128), (3, 5, 13, 16),
+                                     (8, 2, 16, 128), (8, 44, 16, 128),
+                                     (70, 16, 44, 128), (256, 86, 16, 16),
+                                     (5, 3, 7, 4), (9, 6, 5, 12)])
+def test_bc_fused4_lanes(cuda, bits, B, p, q, k):
+    """The 4-product lane (``gauss_trick=False``) on its three plane
+    lanes, against its plain version (the 4-product contraction): one
+    launch of the lane the planes' dtype names, at the plan's edges (one
+    row, q-split, p-split, chunked q, ragged tiles, k not a multiple of
+    8)."""
+    w = torch.randn((p, q, k), generator=cuda, device="cuda") / (q * k) ** .5
+    planes, scales = _four_planes(w, bits)
+    xb = torch.randn((B, q, k), generator=cuda, device="cuda")
+    before = dict(bcf.KERNEL.fn_launches)
+    got = bcf.bc_fused4_matmul(xb, *planes, k, scales)
+    after = bcf.KERNEL.fn_launches
+    assert {f: after[f] - before[f] for f in after} == {
+        f: int(f == FOUR_LANES[bits]) for f in after}
+    _close(got, bcf.bc_fused4_matmul_plain(xb, *planes, k, scales))
+
+
+@pytest.mark.parametrize("bits", [32, 8, 4])
+def test_bc_fused4_stack_and_adjoint(cuda, bits):
+    """The 4-product lane over an expert stack (one launch, each expert
+    bit-equal to its single call) through ``bc_expert_linear``, and the
+    training forward and adjoint (``bc_forward`` / ``bc_adjoint`` with
+    ``gauss=False``, float32 planes) against the CPU's plain path."""
+    E, C, p, q, k = 8, 6, 16, 4, 128
+    w = torch.randn((E, p, q, k), generator=cuda, device="cuda") / (q * k) ** .5
+    planes, scales = _four_planes(w, bits)
+    x = torch.randn((E, C, q * k), generator=cuda, device="cuda")
+    cache = {"wr": planes[0], "wi": planes[1]}
+    if scales is not None:
+        cache.update(wr_s=scales[0], wi_s=scales[1])
+    before = bcf.KERNEL.path_launches.get("experts", 0)
+    got = kops.bc_expert_linear(x, cache, k, p * k, gauss=False)
+    assert bcf.KERNEL.path_launches["experts"] == before + 1
+    xb = x.reshape(E, C, q, k)
+    for e in range(E):
+        one = bcf.bc_fused4_matmul(
+            xb[e], *(t[e] for t in planes), k,
+            None if scales is None else [s[e] for s in scales])
+        assert torch.equal(got[e], one.reshape(C, p * k)), e
+    _close(got.cpu(), kops.bc_expert_linear(
+        x.cpu(), {n: t.cpu() for n, t in cache.items()}, k, p * k,
+        gauss=False))
+    if bits != 32:
+        return
+    gy = torch.randn((E, C, p, k), generator=cuda, device="cuda")
+    for fn, arg in ((kops.bc_forward, xb), (kops.bc_adjoint, gy)):
+        before = dict(bcf.KERNEL.fn_launches)
+        got = fn(arg, w, gauss=False)
+        assert bcf.KERNEL.fn_launches["bc_fused4"] == before["bc_fused4"] + 1
+        _close(got.cpu(), fn(arg.cpu(), w.cpu(), gauss=False))
+
+
+def test_nogauss_engines_on_card(cuda):
+    """tinyllama's smoke config with ``gauss_trick=False`` through both
+    engines on the card: every projection takes the 4-product lane (none
+    the Gauss lanes, none refused), tokens equal to the CPU's (planes
+    baked once on the CPU, as ``test_engine_on_card_matches_cpu``)."""
+    cfg = get_smoke_config("tinyllama-1.1b")
+    cfg = cfg.replace(dtype="float32", compression=dataclasses.replace(
+        cfg.compression, gauss_trick=False))
+    base = precompute_serving_params(init_params(cfg, seed=0, device="cpu"),
+                                     cfg)
+    rng = np.random.RandomState(0)
+    reqs = [Request(prompt=rng.randint(1, 500, size=s).astype(np.int32),
+                    max_new_tokens=n, id=i)
+            for i, (s, n) in enumerate([(20, 9), (12, 14), (9, 6)])]
+    for engine, kw in ((Engine, {}),
+                       (ContinuousEngine, dict(max_slots=2, max_seq=32,
+                                               page_size=4,
+                                               decode_chunk=4))):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            before = dict(bcf.KERNEL.fn_launches)
+            eng = engine(cfg, copy.deepcopy(base).to(dev), device=dev, **kw)
+            out[dev] = [r["tokens"] for r in eng.generate(reqs)]
+            after = bcf.KERNEL.fn_launches
+            moved = {f: after[f] - before[f] for f in after
+                     if after[f] != before[f]}
+            assert set(moved) == ({"bc_fused4"} if dev == "cuda"
+                                  else set()), moved
+        assert out["cuda"] == out["cpu"], engine.__name__
+
+
+# tests/test_torch_kvf8.py's near-tie rule: tokens are held equal up to a
+# request's first step whose top-2 logit gap on the CPU is below this
+NEAR_TIE = 0.02
+
+
+def _cpu_gap(cfg, params, prompt, tokens, i):
+    """The CPU model's top-2 logit gap at generated token ``i`` (a
+    teacher-forced float32 prefill of the prompt and ``tokens[:i]``)."""
+    seq = np.concatenate([np.asarray(prompt, np.int64),
+                          np.asarray(tokens[:i], np.int64)])
+    model = build_model(cfg)
+    with torch.no_grad():
+        cache = model.init_cache(1, len(seq), dtype=torch.float32,
+                                 device="cpu")
+        logits, _ = model.prefill(params, {
+            "tokens": torch.as_tensor(seq[None])}, cache)
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def test_nogauss_engines_card_baked(cuda):
+    """As ``test_nogauss_engines_on_card``, with the planes baked on the
+    card from the CPU's drawn weights: wr and wi within float32 rounding
+    of the CPU's bake (1e-5 of their largest magnitude), every projection
+    on the 4-product lane, and each request's tokens equal to the CPU
+    batch engine's up to its first near-tie.  Prompts of one length and
+    no bucketing: the batch engine pads no row, so both engines compute
+    what the B = 1 prefill behind the near-tie gap computes (a padded row
+    is another computation: ``tools/nogauss_bake.py``)."""
+    cfg = get_smoke_config("tinyllama-1.1b")
+    cfg = cfg.replace(dtype="float32", compression=dataclasses.replace(
+        cfg.compression, gauss_trick=False))
+    drawn = init_params(cfg, seed=0, device="cpu")
+    ref = precompute_serving_params(copy.deepcopy(drawn), cfg)
+    card = precompute_serving_params(copy.deepcopy(drawn).to("cuda"), cfg)
+    got = {(m, p): c for m, _, p, c in codec.baked_caches(card)}
+    for path, _, prefix, want in codec.baked_caches(ref):
+        assert set(got[path, prefix]) == set(want) == {"wr", "wi"}
+        for name in ("wr", "wi"):
+            diff = (got[path, prefix][name].cpu() - want[name]).abs().max()
+            assert diff <= 1e-5 * want[name].abs().max(), (path, name)
+    rng = np.random.RandomState(0)
+    reqs = [Request(prompt=rng.randint(1, 500, size=12).astype(np.int32),
+                    max_new_tokens=n, id=i) for i, n in enumerate([9, 14, 6])]
+    want = [r["tokens"] for r in Engine(cfg, copy.deepcopy(ref),
+                                        device="cpu", bucket_prompts=False
+                                        ).generate(reqs)]
+    for engine, kw in ((Engine, dict(bucket_prompts=False)),
+                       (ContinuousEngine, dict(max_slots=2, max_seq=32,
+                                               page_size=4,
+                                               decode_chunk=4))):
+        before = dict(bcf.KERNEL.fn_launches)
+        out = [r["tokens"] for r in engine(cfg, copy.deepcopy(card),
+                                           device="cuda", **kw).generate(reqs)]
+        after = bcf.KERNEL.fn_launches
+        assert {f for f in after if after[f] != before[f]} == {"bc_fused4"}
+        for req, g, w in zip(reqs, out, want):
+            n = next((i for i in range(len(w))
+                      if _cpu_gap(cfg, ref, req.prompt, w, i) < NEAR_TIE),
+                     len(w))
+            assert g[:n] == w[:n], (engine.__name__, req.id, n)

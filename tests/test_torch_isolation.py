@@ -52,7 +52,9 @@ for name in ("repro_torch.quant", "repro_torch.quant.codec",
              "repro_torch.serve.faults", "repro_torch.fleet",
              "repro_torch.fleet.replica", "repro_torch.fleet.router",
              "repro_torch.core.conv", "repro_torch.core.compression",
-             "repro_torch.core.theory", "repro_torch.launch.serve"):
+             "repro_torch.core.theory", "repro_torch.launch.serve",
+             "repro_torch.launch.dryrun", "repro_torch.launch.hillclimb",
+             "repro_torch.dist.spmd"):
     assert name in names, name
 leaked = sorted(n for n in sys.modules if n == "repro" or n.startswith("repro."))
 assert not leaked, leaked
@@ -115,6 +117,14 @@ def test_wrappers_refuse_non_cpu_tensors():
         bc_fused.bc_fused_matmul(torch.zeros((4, 3, k), **meta),
                                  qplanes["wr"], qplanes["ws1"],
                                  qplanes["ws2"], k, scales)
+    # the 4-product lanes (gauss_trick=False), float32 and quantized
+    with pytest.raises(ValueError, match="expected CUDA"):
+        bc_fused.bc_fused4_matmul(torch.zeros((4, 3, k), **meta),
+                                  planes["wr"], planes["wi"], k)
+    with pytest.raises(ValueError, match="expected CUDA"):
+        bc_fused.bc_fused4_matmul(torch.zeros((4, 3, k), **meta),
+                                  qplanes["wr"], qplanes["wi"], k,
+                                  [qplanes["wr_s"], qplanes["wi_s"]])
     pool8 = torch.zeros((3, 4, 2, 16), dtype=torch.int8, **meta)
     sc = torch.zeros((3, 2), **meta)
     with pytest.raises(ValueError, match="expected CUDA"):
@@ -143,6 +153,9 @@ def test_kernel_counters_start_at_zero_and_cpu_path_does_not_count():
         qp = codec.quantize_plane_cache(planes, bits)
         bc_fused.bc_fused_matmul(x, qp["wr"], qp["ws1"], qp["ws2"], 16,
                                  [qp[n + "_s"] for n in ("wr", "ws1", "ws2")])
+        bc_fused.bc_fused4_matmul(x, qp["wr"], qp["wi"], 16,
+                                  [qp["wr_s"], qp["wi_s"]])
+    bc_fused.bc_fused4_matmul(x, planes["wr"], planes["wi"], 16)
     pool, sc = codec.quantize_page_block(torch.from_numpy(
         rng.randn(3, 4, 2, 16).astype(np.float32)))
     table = torch.tensor([[1, 2], [0, 0]], dtype=torch.int32)
@@ -155,8 +168,9 @@ def test_kernel_counters_start_at_zero_and_cpu_path_does_not_count():
     spectral_matmul.spectral_matmul(xs, xs, ws, ws, ws)
     # the plain versions ran: no count moved, on any lane
     assert [(kn.launches, kn.fn_launches) for kn in kernels] == before
-    assert set(bc_fused.KERNEL.fn_launches) == {"bc_fused", "bc_fused_i8",
-                                                "bc_fused_i4"}
+    assert set(bc_fused.KERNEL.fn_launches) == {
+        "bc_fused", "bc_fused_i8", "bc_fused_i4",
+        "bc_fused4", "bc_fused4_i8", "bc_fused4_i4"}
     assert set(paged_attention.KERNEL.fn_launches) == {
         "paged_attention", "paged_attention_i8"}
     assert set(spectral_matmul.KERNEL.fn_launches) == {"spectral_matmul"}
