@@ -199,19 +199,25 @@ itself.  Each phase prints one JSON line:
                 the fused kernel with the planner's reason; one float32
                 request against the CPU's plain path; 3 training steps of
                 4 x 512 tokens, the forward and adjoint on the lane
-  dryrun        ``repro_torch.launch.dryrun`` in seven subprocesses at
-                once, started before the train phases (the card hidden
-                from them; the host's cores trace while the card trains):
+  dryrun        ``repro_torch.launch.dryrun`` in nine subprocesses at
+                once, started after the last timed phase (the card hidden
+                from them), each trace taking the card's path (every
+                kernel launch a stand-in, ``kernels/standin.py``):
                 tinyllama-1.1b x every shape
                 on the (16, 16) and (2, 16, 16) meshes, llama4 x
                 decode_32k, recurrentgemma-2b and xlstm-125m x long_500k,
                 every cell ok but tinyllama's long_500k (skipped with
                 repro's reason): bytes a device against the card's memory,
-                FLOPs, collective bytes and the dominant term on the
-                ``h100`` spec, as predictions; then the one-rank record of
-                recurrentgemma-2b x long_500k against the same decode step
-                on the card: argument bytes equal, new bytes within
-                ``DRYRUN_PEAK_TOL`` of the rise of ``max_memory_allocated``
+                FLOPs, collective bytes, the dominant term on the ``h100``
+                spec and the launches a device makes, as predictions; then
+                three one-rank records against the same steps on the card
+                at full width and depth: recurrentgemma-2b x long_500k
+                (decode), tinyllama-1.1b x prefill_32k through the batch
+                engine's prefill and one tinyllama-1.1b x train_4k step,
+                their batches cut (``DRYRUN_ONE``): argument bytes equal,
+                new bytes within ``DRYRUN_PEAK_TOL`` of the rise of
+                ``max_memory_allocated``, launches per lane, path and
+                shape equal
 
 Every ``ContinuousEngine`` above decodes by replaying the CUDA graph of its
 step, captured when the engine is built (``serve/decode.py``); its launch
@@ -315,6 +321,8 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import paged as pg  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import spectral_matmul as sm  # noqa: E402
+from repro_torch.kernels import standin  # noqa: E402
+from repro_torch.launch import dryrun as dryrun_lib  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.layers import attention as attn_lib  # noqa: E402
 from repro_torch.layers import ffn  # noqa: E402
@@ -329,7 +337,7 @@ from repro_torch.optim import adamw, schedule  # noqa: E402
 from repro_torch.quant import codec  # noqa: E402
 # the peak rates of one H100 SXM (NVIDIA data sheet, 700 W) and the least
 # time for a kernel's work on them
-from repro_torch.roofline.analysis import H100, bound, rfft_flops  # noqa: E402,E501
+from repro_torch.roofline.analysis import H100, bound  # noqa: E402
 from repro_torch.serve import decode as dec  # noqa: E402
 from repro_torch.serve import faults  # noqa: E402
 from repro_torch.serve import kvcache as kvc  # noqa: E402
@@ -420,25 +428,34 @@ KVF8 = dict(B=4, S=64, new=16)
 # 512 tokens
 NOGAUSS = dict(n=4, lo=17, hi=64, new=8, max_seq=128)
 # dryrun: each job one process of repro_torch.launch.dryrun (arch, shape,
-# mesh), all at once on the host's cores while the train phases run on the
-# card; "one" is the 1-rank mesh whose record dryrun_card_check holds to
-# the card
-DRYRUN_JOBS = (("tinyllama-1.1b", "train_4k", "single"),
+# mesh, further arguments), all at once on the host's cores after the last
+# timed phase; "one" is the 1-rank mesh whose records the card checks hold
+# to the card: recurrentgemma-2b's long_500k decode (dryrun_card_check),
+# and tinyllama-1.1b's prefill_32k through the batch engine's prefill and
+# one train_4k step (dryrun_one_check), each with its batch cut to
+# DRYRUN_ONE's rows (the record states the cut; the train step takes one
+# batch, --roofline, as the card's step with accum=1)
+DRYRUN_ONE = {"prefill_32k": dict(batch=4, accum=4),
+              "train_4k": dict(batch=2, accum=0)}
+DRYRUN_JOBS = (("tinyllama-1.1b", "train_4k", "single", ()),
                ("tinyllama-1.1b", "prefill_32k,decode_32k,long_500k",
-                "single"),
-               ("tinyllama-1.1b", "train_4k", "multi"),
+                "single", ()),
+               ("tinyllama-1.1b", "train_4k", "multi", ()),
                ("tinyllama-1.1b", "prefill_32k,decode_32k,long_500k",
-                "multi"),
-               ("llama4-maverick-400b-a17b", "decode_32k", "single"),
-               ("recurrentgemma-2b,xlstm-125m", "long_500k", "single"),
-               ("recurrentgemma-2b", "long_500k", "one"))
+                "multi", ()),
+               ("llama4-maverick-400b-a17b", "decode_32k", "single", ()),
+               ("recurrentgemma-2b,xlstm-125m", "long_500k", "single", ()),
+               ("recurrentgemma-2b", "long_500k", "one", ()),
+               *((ARCH, shape, "one",
+                  ("--batch", str(kw["batch"]))
+                  + (("--roofline",) if kw["accum"] == 0 else ()))
+                 for shape, kw in DRYRUN_ONE.items()))
 DRYRUN_TIMEOUT = 300
-# the one-rank record's new bytes against the card's rise of
-# max_memory_allocated: the allocator rounds every block up to 512 bytes,
-# the flash kernel's split-KV partials are not in the trace, and the plain
-# versions' temporaries (the DFT products, attention's repeated K/V) are
-# not made by the kernels but are freed before the step's peak (the LM
-# head's bfloat16 copy of the float32 table is in both)
+# a one-rank record's new bytes against the card's rise of
+# max_memory_allocated over the same step: the allocator rounds every block
+# up to 512 bytes; the trace takes each kernel's card branch (its output
+# and scratch, the flash kernel's split-KV partials among them) and keeps
+# what the card runs as plain PyTorch
 DRYRUN_PEAK_TOL = dict(rel=0.05, abs=16 << 20)
 NOGAUSS_TRAIN = dict(batch=4, seq=512, steps=3)
 # serve_kvf8's limit on a batch row's step logits against the B=1 oracle
@@ -864,22 +881,13 @@ def new_projections(cfg):
             if blocks(*io) not in seen}
 
 
-def fused_work(B, p, q, k, row_bytes=None, scaled=False, E=1):
-    """(bytes, operations) of one ``bc_fused`` call of B rows over p x q
-    blocks (each of ``E`` experts of a stack): the input and the output
-    once, the three planes (``row_bytes`` a plane row, float32 by default)
-    and their scales; the input and output FFTs, the Gauss MAC (3 products
-    and 3 sums a row, pair and bin) with its operand and output sums, and
-    the scale folds.  The DFT panel is not counted: it is a function of k
-    alone, which a kernel could make from k twiddles in registers."""
-    kf = k // 2 + 1
-    row_bytes = 4 * kf if row_bytes is None else row_bytes
-    nbytes = E * (4 * (B * q * k + B * p * k) + 3 * p * q * row_bytes
-                  + (3 * 4 * p if scaled else 0))
-    flops = E * (rfft_flops(B * q, k) + 6 * B * p * q * kf + B * q * kf
-                 + 2 * B * p * kf + rfft_flops(B * p, k)
-                 + (3 * B * p * kf if scaled else 0))
-    return nbytes, flops
+def fused_work(B, p, q, k, lane="bc_fused", E=1):
+    """(bytes, operations) of one ``bc_fused`` launch of B rows over p x q
+    blocks (each of ``E`` experts of a stack) on ``lane``, as
+    ``kernels/bc_fused.py:work`` counts them (the dry run's stand-in
+    charges the same)."""
+    w = bc_fused.work(E, B, p, q, k, lane)
+    return w.nbytes, w.flops
 
 
 def check_bc_fused(cfg, gen, shapes=None, batches=(8, 256),
@@ -892,28 +900,26 @@ def check_bc_fused(cfg, gen, shapes=None, batches=(8, 256),
     ``timing`` (``time_ms``'s reps and inner) for long calls."""
     timing = timing or {}
     k = cfg.compression.block_attn
-    kf = k // 2 + 1
     lanes = {lane: [] for lane in lane_names}
     for name, (n_in, n_out) in (shapes or projections(cfg)).items():
         w = cc.init_block_circulant(n_in, n_out, k, generator=gen,
                                     device="cuda")
         planes = cc.spectral_cache(w)
         variants = {"bc_fused": ((planes["wr"], planes["ws1"],
-                                  planes["ws2"]), None, 4 * kf)}
+                                  planes["ws2"]), None)}
         for bits, lane in ((8, "bc_fused_i8"), (4, "bc_fused_i4")):
             if lane not in lanes:
                 continue
             qp = codec.quantize_plane_cache(planes, bits)
             variants[lane] = ((qp["wr"], qp["ws1"], qp["ws2"]),
-                              [qp[n + "_s"] for n in ("wr", "ws1", "ws2")],
-                              qp["wr"].shape[-1] * qp["wr"].element_size())
+                              [qp[n + "_s"] for n in ("wr", "ws1", "ws2")])
         p, q, _ = planes["wr"].shape
         w_t = cc.materialize_dense(w, n_out, n_in).T.contiguous()
         for B in batches:                    # decode slots, prefill rows
             xb = torch.randn((B, q, k), generator=gen, device="cuda")
             x2 = xb.reshape(B, q * k)[:, :n_in]
             library_ms = time_ms(lambda: x2 @ w_t, **timing)
-            for lane, (pl, scales, row_bytes) in variants.items():
+            for lane, (pl, scales) in variants.items():
                 got = bc_fused.bc_fused_matmul(xb, *pl, k, scales)
                 ref = bc_fused.bc_fused_matmul_plain(xb, *pl, k, scales)
                 torch.cuda.synchronize()
@@ -922,8 +928,7 @@ def check_bc_fused(cfg, gen, shapes=None, batches=(8, 256),
                 # order, over identical plane values: expected ~1e-6 of the
                 # output's scale, held at 1e-4
                 tol = 1e-4 * max(1.0, float(ref.abs().max()))
-                nbytes, flops = fused_work(B, p, q, k, row_bytes,
-                                           scales is not None)
+                nbytes, flops = fused_work(B, p, q, k, lane)
                 bound_ms, bound_by = bound(nbytes, flops, torch.float32)
                 lanes[lane].append({
                     "case": f"{name}_b{B}", "shape": [B, p, q, k],
@@ -941,22 +946,6 @@ def check_bc_fused(cfg, gen, shapes=None, batches=(8, 256),
                     "bytes": nbytes, "flops": flops,
                     "bound_ms": bound_ms, "bound_by": bound_by})
     return {lane: (cases, "up_gate_b8") for lane, cases in lanes.items()}
-
-
-def fused4_work(B, p, q, k, row_bytes=None, scaled=False, E=1):
-    """(bytes, operations) of one call of ``bc_fused``'s 4-product lane
-    (``gauss_trick=False``): as ``fused_work``, with two planes (and two
-    scale vectors) read, and its MAC's 4 products and 4 sums a row, pair
-    and bin, the two combines (Yr, Yi) a row, output block and bin, and
-    the four scale folds."""
-    kf = k // 2 + 1
-    row_bytes = 4 * kf if row_bytes is None else row_bytes
-    nbytes = E * (4 * (B * q * k + B * p * k) + 2 * p * q * row_bytes
-                  + (2 * 4 * p if scaled else 0))
-    flops = E * (rfft_flops(B * q, k) + 8 * B * p * q * kf
-                 + 2 * B * p * kf + rfft_flops(B * p, k)
-                 + (4 * B * p * kf if scaled else 0))
-    return nbytes, flops
 
 
 def plain4(xb, planes, k, scales):
@@ -999,8 +988,7 @@ def fused4_case(name, xb, planes, scales, k, library, library_name,
     # float32 sums in another order over identical plane values, as the
     # Gauss lanes': ~1e-6 of the output's scale, held at 1e-4
     tol = 1e-4 * max(1.0, float(ref.abs().max()))
-    row_bytes = planes[0].shape[-1] * planes[0].element_size()
-    nbytes, flops = fused4_work(B, p, q, k, row_bytes, scales is not None, E)
+    nbytes, flops = fused_work(B, p, q, k, lane, E)
     bound_ms, bound_by = bound(nbytes, flops, torch.float32)
     return lane, {
         "case": name, "shape": [E, B, p, q, k],
@@ -1153,10 +1141,8 @@ def check_flash(cfg, gen, prefix="", s_bf16=256, s_f32=48):
             tol = 2.0 ** -7 * max(1.0, float(ref.float().abs().max()))
         else:
             tol = 1e-4 * max(1.0, float(ref.abs().max()))
-        item = q.element_size()
-        nbytes = item * (2 * q.numel() + k.numel() + v.numel())
-        pairs = Hq * S * (S + 1) // 2          # causal (row, col) pairs
-        flops = 4 * D * pairs
+        w = fa.work(1, Hq, Hkv, S, S, D, dtype, causal=True)
+        nbytes, flops = w.nbytes, w.flops
         bound_ms, bound_by = bound(nbytes, flops, dtype)
         cases.append({
             "case": f"{prefix}prefill_{str(dtype).split('.')[-1]}_s{S}",
@@ -1235,13 +1221,9 @@ def check_paged(cfg, gen, float_only=False, prefix="", maxp=16,
                 # identical codes and scales on both sides: float32 sums in
                 # another order, held at 1e-4 of the output's scale
                 tol = 1e-4 * max(1.0, float(ref.abs().max()))
-            live = int((positions.clamp(min=-1) + 1).sum())
-            live_pages = int(((positions + page) // page).clamp(min=0).sum())
-            nbytes = (2 * q.numel() * q.element_size()
-                      + 2 * live * Hkv * D * pk.element_size()
-                      + (2 * live_pages * Hkv * 4 if scales else 0)
-                      + tab.numel() * 4 + B * 4)
-            flops = 4 * Hq * D * live + (2 * live * Hkv * D if scales else 0)
+            w = pa.work(B, Hq, Hkv, D, page, maxp, positions.tolist(),
+                        dtype, pk.dtype)
+            nbytes, flops = w.nbytes, w.flops
             bound_ms, bound_by = bound(nbytes, flops, torch.float32)
             pl = pa.plan(B, Hq, Hkv, D, page, maxp, pk.dtype)
             dt = str(dtype).split('.')[-1]
@@ -1286,8 +1268,7 @@ def check_gather(cfg, gen):
         ref = pg.paged_gather_plain(pool, table)
         torch.cuda.synchronize()
         err = max_err(got, ref)
-        nbytes = 2 * B * maxp * page * Hkv * D * pool.element_size() \
-            + table.numel() * 4
+        nbytes = pg.work(B, maxp, page * Hkv * D * pool.element_size()).nbytes
         bound_ms, bound_by = bound(nbytes, 0, torch.float32)
         cases.append({
             "case": f"gather_{str(dtype).split('.')[-1]}_b{B}",
@@ -1318,8 +1299,9 @@ def check_flash_decode(cfg, gen, prefix="", B=8, Skv=231):
     got = fa.flash_attention(q, k, v, causal=True, kv_offset=off)
     ref = fa.attention_ref(q, k, v, causal=True, kv_offset=off)
     torch.cuda.synchronize()
-    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-    flops = 4 * D * B * Hq * Skv
+    w = fa.work(B, Hq, Hkv, 1, Skv, D, torch.float32, causal=True,
+                kv_offset=off)
+    nbytes, flops = w.nbytes, w.flops
     bound_ms, bound_by = bound(nbytes, flops, torch.float32)
     case = {
         "case": f"{prefix}decode_float32_b{B}_skv{Skv}",
@@ -1436,9 +1418,11 @@ def check_attention(name, B, Hq, Hkv, Sq, Skv, D, dtype, gen, *,
         mask &= cols <= rows
     if window:
         mask &= cols > rows - window
-    pairs = int(mask.sum())
-    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-    flops = 4 * D * B * Hq * pairs
+    pairs = fa.pairs(Sq, Skv, causal=causal, window=window,
+                     kv_offset=kv_offset)
+    w = fa.work(B, Hq, Hkv, Sq, Skv, D, dtype, causal=causal, window=window,
+                kv_offset=kv_offset)
+    nbytes, flops = w.nbytes, w.flops
     bound_ms, bound_by = bound(nbytes, flops, dtype)
     if window or (causal and (kv_offset or Sq != Skv)):
         lib_kw = {"attn_mask": mask.to("cuda")}
@@ -1674,8 +1658,8 @@ def check_spectral(cfg, gen, shapes=None, N=ROWS, timing=None):
         xc, wc = torch.complex(xr, xi), torch.complex(wr, ws1 + wr)
         library_ms = time_ms(lambda: torch.matmul(xc, wc), **timing)
         del xc, wc
-        nbytes = 4 * F_ * (2 * N * Q + 3 * Q * P + 2 * N * P)
-        flops = 6 * F_ * N * Q * P
+        w = sm.work(F_, N, Q, P)
+        nbytes, flops = w.nbytes, w.flops
         bound_ms, bound_by = bound(nbytes, flops, torch.float32)
         major = (xr, xi, wr, ws1, ws2)
         for suffix, planes in (("", major), ("_hook", hook_views(*major))):
@@ -1762,16 +1746,9 @@ def train_kernel_shapes(cfg):
 
 def grad_w_work(E, C, p, q, k):
     """(bytes, operations) of ``bc_grad_w`` over E experts of C rows (E =
-    1: one projection): each input read once and the output written once;
-    the two input FFTs, the Gauss MAC (3 products and 3 sums a row, pair
-    and bin, as bc_fused counts it) with its operand sums, its two output
-    sums, then the inverse FFTs."""
-    kf = k // 2 + 1
-    nbytes = 4 * E * (C * p * k + C * q * k + p * q * k)
-    flops = E * (rfft_flops(C * p, k) + rfft_flops(C * q, k)
-                 + 6 * C * p * q * kf + C * p * kf + 2 * C * q * kf
-                 + 2 * p * q * kf + rfft_flops(p * q, k))
-    return nbytes, flops
+    1: one projection), as ``kernels/bc_grad_w.py:work`` counts them."""
+    w = bgw.work(C, p, q, k, E)
+    return w.nbytes, w.flops
 
 
 def check_bc_grad_w(cfg, gen, N=TRAIN_ROWS, shapes=None):
@@ -2441,9 +2418,7 @@ def check_bc_experts(cfg, gen, C=4, prefix="llama4"):
         if not (loop_equal and graph_equal):
             raise AssertionError(f"{lane} expert stack: per-expert loop "
                                  f"{loop_equal}, graph replay {graph_equal}")
-        row_bytes = pl[0].shape[-1] * pl[0].element_size()
-        nbytes, flops = fused_work(C, p, q, k, row_bytes,
-                                   scales is not None, E=E)
+        nbytes, flops = fused_work(C, p, q, k, lane, E=E)
         bound_ms, bound_by = bound(nbytes, flops, torch.float32)
         loop_t = kernel_times(loop)
         out[lane] = ([{
@@ -4430,12 +4405,13 @@ def start_dryruns():
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
     procs = []
-    for i, (arch, shape, mesh) in enumerate(DRYRUN_JOBS):
+    for i, (arch, shape, mesh, extra) in enumerate(DRYRUN_JOBS):
         out, log = tmp / f"dryrun_{i}.json", tmp / f"dryrun_{i}.log"
         with open(log, "w") as f:
             procs.append((subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                 arch, "--shape", shape, "--mesh", mesh, "--out", str(out)],
+                 arch, "--shape", shape, "--mesh", mesh, "--out", str(out),
+                 *extra],
                 cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT),
                 out, log))
     atexit.register(stop_dryruns, tmp, procs)
@@ -4469,80 +4445,110 @@ def finish_dryruns(started):
         stop_dryruns(tmp, procs)
 
 
-def served_input_bytes(params, cfg):
-    """Bytes of what a serving step reads of the weights as they lie on
-    the card: the planes its MAC takes of each baked cache (wr, ws1, ws2
-    under the Gauss trick) and every parameter no plane replaces."""
-    total, replaced = 0, set()
-    for _, m, prefix, cache in codec.baked_caches(params):
-        total += sum(t.numel() * t.element_size() for t in cc.read_planes(
-            cache, cfg.compression.gauss_trick).values())
-        gen = getattr(m, prefix[:-len("_cache")], None)
-        if isinstance(gen, torch.Tensor):
-            replaced.add(id(gen))
-    return total + sum(p.numel() * p.element_size()
-                       for p in params.parameters() if id(p) not in replaced)
+def measured_step(step, args):
+    """``step(*args)`` with every launch count set to 0 and the peak
+    memory reset just before: (rise of ``max_memory_allocated`` over the
+    allocated bytes before it, launch counts, seconds)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for lib in TRAIN_LIBRARIES:
+        lib.reset_counts()
+    t0 = time.perf_counter()
+    out = step(*args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rise = torch.cuda.max_memory_allocated() - base
+    del out
+    return rise, standin.launch_counts(), seconds
+
+
+def hold_record(rec, inputs, rise, launches, what):
+    """The three checks of a one-rank record against the card: argument
+    bytes equal to the step's inputs, new bytes (temp plus the outputs
+    that are not inputs) within ``DRYRUN_PEAK_TOL`` of the rise, and the
+    launches per lane, path and shape equal (where ``launches`` is
+    given).  Returns the comparison."""
+    mem = rec["memory"]
+    predicted = (mem["temp_bytes"] + mem["output_bytes"]
+                 - mem["alias_bytes"])
+    tol = DRYRUN_PEAK_TOL["rel"] * predicted + DRYRUN_PEAK_TOL["abs"]
+    if mem["argument_bytes"] != inputs:
+        raise AssertionError(f"dryrun {what}: argument bytes "
+                             f"{mem['argument_bytes']} predicted, {inputs} "
+                             f"on the card")
+    if not abs(rise - predicted) <= tol:
+        raise AssertionError(f"dryrun {what}: {predicted} new bytes "
+                             f"predicted, {rise} measured (tolerance {tol})")
+    if launches is not None and launches != rec["launches"]:
+        raise AssertionError(f"dryrun {what}: launches {rec['launches']} "
+                             f"traced, {launches} on the card")
+    return {"arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
+            "reduced": rec.get("reduced"),
+            "argument_bytes": mem["argument_bytes"],
+            "input_bytes_on_card": inputs, "predicted_new_bytes": predicted,
+            "measured_rise_bytes": rise, "diff_bytes": rise - predicted,
+            "tol_bytes": tol, "launches_equal": launches is not None,
+            "launches": rec["launches"]}
 
 
 def dryrun_card_check(rec):
     """The one-rank dry run of recurrentgemma-2b x long_500k (a decode step
     of one row at position 524,287) against the same step on the card at
     full width and depth, baked planes, through ``bc_fused`` and the flash
-    rows kernel: the record's argument bytes equal to the bytes of the
-    step's inputs (``served_input_bytes``, the cache, the tokens and the
-    4-byte position), and its new allocations (temp plus the outputs that
-    are not the cache) equal to the rise of ``max_memory_allocated`` over
-    the step within ``DRYRUN_PEAK_TOL``.  Each attention layer's ring is
-    filled in position order first, as the trace takes it (18 of 26
-    layers are RG-LRU blocks: their state is the cache)."""
+    rows kernel (``launch/dryrun.py:card_cell``), held to the record by
+    ``hold_record``: argument bytes, new bytes, and the launches per lane,
+    path and shape (one flash launch an attention layer).  Each attention
+    layer's ring is filled in position order first, as the trace takes it
+    (18 of 26 layers are RG-LRU blocks: their state is the cache)."""
     cfg = get_config(RGEMMA)
     S = 524288
-    params = precompute_serving_params(init_params(cfg, seed=SEED,
-                                                   device=DEVICE), cfg)
-    cache = build_model(cfg).init_cache(1, S, device=DEVICE)
+    step, (params, tokens, cache), real = dryrun_lib.card_cell(
+        RGEMMA, "long_500k", device=DEVICE, seed=SEED)
     for c in cache:
         if isinstance(c, dict):
             n = c["pos"].shape[0]
             slots = torch.arange(n, dtype=torch.int64)
             c["pos"].copy_((S - 2) - ((S - 2 - slots) % n))
-    tokens = torch.zeros((1, 1), dtype=torch.int32, device=DEVICE)
-    step = dec.make_decode_step(cfg)
-    real = (served_input_bytes(params, cfg) + tfm.cache_bytes(cache)
-            + tokens.numel() * tokens.element_size() + 4)
-    launches = {}
     for i in range(2):                     # warm-up, then the measured one
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        for lib in LIBRARIES:
-            lib.reset_counts()
-        out = step(params, tokens, cache, S - 1)
-        torch.cuda.synchronize()
-        rise = torch.cuda.max_memory_allocated() - base
-        launches = lane_counts()
-        del out
-    mem = rec["memory"]
-    predicted = (mem["temp_bytes"] + mem["output_bytes"]
-                 - mem["alias_bytes"])
-    tol = DRYRUN_PEAK_TOL["rel"] * predicted + DRYRUN_PEAK_TOL["abs"]
-    if mem["argument_bytes"] != real:
-        raise AssertionError(f"dryrun: argument bytes {mem['argument_bytes']}"
-                             f" predicted, {real} on the card")
-    if not abs(rise - predicted) <= tol:
-        raise AssertionError(f"dryrun: {predicted} new bytes predicted, "
-                             f"{rise} measured (tolerance {tol})")
+        rise, launches, _ = measured_step(step, (params, tokens, cache))
     kinds = layer_kinds(cfg)
     n_attn = sum(k in tfm.ATTN_KINDS for k in kinds)
-    if not (launches.get("bc_fused") and launches.get("flash_attention")
-            == n_attn):
+    lanes = {k: v["lanes"] for k, v in launches.items()}
+    if not (lanes.get("bc_fused") and lanes["flash_attention"]
+            == {"flash_attention": n_attn}):
         raise AssertionError(f"dryrun: the card's step launched {launches}")
-    del params, cache
+    out = hold_record(rec, real, rise, launches, "recurrentgemma-2b "
+                      "long_500k")
+    del params, cache, step
     torch.cuda.empty_cache()
-    return {"arch": RGEMMA, "shape": "long_500k", "mesh": rec["mesh"],
-            "argument_bytes": mem["argument_bytes"],
-            "input_bytes_on_card": real, "predicted_new_bytes": predicted,
-            "measured_rise_bytes": rise, "diff_bytes": rise - predicted,
-            "tol_bytes": tol, "launches": launches}
+    return out
+
+
+def dryrun_one_check(rec):
+    """A one-rank tinyllama-1.1b record (``DRYRUN_ONE``'s prefill_32k
+    through the batch engine's prefill with its ``PrefillContract``, or
+    one train_4k step: ``bc_fused`` forward and adjoint, ``bc_grad_w``, the
+    plain ``masked_attention``) against the same step on the card at full
+    width and depth, the record's batch (``launch/dryrun.py:card_cell``):
+    a warm-up, then the measured step; argument bytes, new bytes and the
+    launches per lane, path and shape held to the record
+    (``hold_record``)."""
+    kw = DRYRUN_ONE[rec["shape"]]
+    step, args, inputs = dryrun_lib.card_cell(
+        ARCH, rec["shape"], accum=kw["accum"], global_batch=kw["batch"],
+        device=DEVICE, seed=SEED)
+    times = []
+    for i in range(2):                     # warm-up, then the measured one
+        rise, launches, seconds = measured_step(step, args)
+        times.append(seconds)
+    out = hold_record(rec, inputs, rise, launches,
+                      f"{ARCH} {rec['shape']}")
+    out["step_s"] = times
+    del step, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_dryrun(started):
@@ -4559,7 +4565,7 @@ def phase_dryrun(started):
     t0 = time.perf_counter()
     card_bytes = torch.cuda.get_device_properties(0).total_memory
     jobs, trace_s = finish_dryruns(started)
-    records, one = [], None
+    records, ones = [], {}
     for rc, recs, log in jobs:
         if rc != 0 or not recs:
             raise AssertionError(f"dryrun: exit {rc}, {len(recs)} records; "
@@ -4572,7 +4578,7 @@ def phase_dryrun(started):
                                      f"on {r['mesh']}: {r['status']} "
                                      f"{r.get('error') or r.get('why')}")
             if r["mesh"] == "1x1":
-                one = r
+                ones[r["arch"], r["shape"]] = r
                 continue
             records.append({
                 "arch": r["arch"], "shape": r["shape"], "mesh": r["mesh"],
@@ -4588,12 +4594,25 @@ def phase_dryrun(started):
                     "collectives": r["collectives"],
                     "compute_s": r["compute_s"], "memory_s": r["memory_s"],
                     "collective_s": r["collective_s"],
-                    "dominant": r["dominant"], "trace_s": r["wall_s"]})})
-    check = dryrun_card_check(one)
+                    "dominant": r["dominant"], "launches": r["launches"],
+                    "prefill_lanes": r.get("prefill_lanes"),
+                    "trace_s": r["wall_s"]})})
+    checks, failed = [], []
+    for check, key in ([(dryrun_card_check, (RGEMMA, "long_500k"))]
+                       + [(dryrun_one_check, (ARCH, shape))
+                          for shape in DRYRUN_ONE]):
+        try:
+            checks.append(check(ones[key]))
+        except AssertionError as e:     # every check runs; then it fails
+            failed.append(str(e))
+            checks.append({"arch": key[0], "shape": key[1],
+                           "failed": str(e)})
     emit({"phase": "dryrun", "card_memory_bytes": card_bytes,
-          "hardware": "h100", "records": records, "card_check": check,
+          "hardware": "h100", "records": records, "card_checks": checks,
           "jobs": len(jobs), "traces_wall_s": trace_s,
           "wall_s": time.perf_counter() - t0})
+    if failed:
+        raise AssertionError("; ".join(failed))
 
 
 def check_flash_e4m3(gen, name, B, Hq, Hkv, Sq, Skv, D, **kw):
@@ -4611,11 +4630,9 @@ def check_flash_e4m3(gen, name, B, Hq, Hkv, Sq, Skv, D, **kw):
     ref = fa.attention_ref(q, k.float(), v.float(), **kw)
     torch.cuda.synchronize()
     causal, off = kw.get("causal", True), kw.get("kv_offset", 0)
-    rows = torch.arange(Sq)[:, None] + off
-    pairs = int((torch.arange(Skv)[None, :] <= rows).sum()) if causal \
-        else Sq * Skv
-    nbytes = 4 * 2 * q.numel() + k.numel() + v.numel()
-    flops = 4 * D * B * Hq * pairs
+    w = fa.work(B, Hq, Hkv, Sq, Skv, D, torch.float32, torch.float8_e4m3fn,
+                causal=causal, kv_offset=off)
+    nbytes, flops = w.nbytes, w.flops
     bound_ms, bound_by = bound(nbytes, flops, torch.float32)
     pl = fa.plan(B, Hq, Hkv, Sq, Skv, D, torch.float32, torch.float8_e4m3fn)
     return {"case": name, "shape": [B, Hq, Hkv, Sq, Skv, D],

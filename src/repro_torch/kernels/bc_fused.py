@@ -55,7 +55,8 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..core import circulant as cc
-from .build import Kernel, check_cuda, ptr
+from ..roofline.analysis import rfft_flops
+from .build import Kernel, Work, address, cached, check_cuda, on_cpu, ptr
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # B, p, q, k, rows, cluster, mode, share, qc; E and the expert strides
@@ -220,14 +221,56 @@ def shape_key(E: int, B: int, p: int, q: int, k: int, lane: str) -> str:
     return f"{lane}/{E}x{B}x{p}x{q}x{k}"
 
 
+def plane_row_bytes(k: int, lane: str) -> int:
+    """Bytes of one plane row (kf bins) on ``lane``: float32, int8, or
+    packed int4 (two bins a byte, kf padded to even)."""
+    kf = k // 2 + 1
+    if lane.endswith("_i4"):
+        return (kf + 1) // 2
+    return kf if lane.endswith("_i8") else 4 * kf
+
+
+def work(E: int, B: int, p: int, q: int, k: int,
+         lane: str = "bc_fused") -> Work:
+    """What one launch over E experts of B rows (p x q blocks of k) does
+    on ``lane``: bytes are the input and the output once, the planes (3 on
+    a Gauss lane, 2 on a 4-product one) and, quantized, their scales; the
+    DFT panel is not counted (a function of k alone, which a kernel could
+    make from k twiddles in registers).  Operations: the input and output
+    real FFTs (``rfft_flops``: 2.5 k log2 k each), the MAC (Gauss: 3
+    products and 3 sums a row, pair and bin, one operand sum a row, input
+    block and bin, two output sums a row, output block and bin;
+    4-product: 4 products and 4 sums, two combines) and, quantized, a
+    scale fold a plane, row, output block and bin.  No scratch: the
+    wrapper allocates the output alone."""
+    kf = k // 2 + 1
+    n = sums(lane)                       # planes read: 3 (Gauss), 2
+    planes = 3 if n == 3 else 2
+    scaled = not (lane in (LANES[torch.float32], LANES4[torch.float32]))
+    nbytes = E * (4 * (B * q * k + B * p * k)
+                  + planes * p * q * plane_row_bytes(k, lane)
+                  + (planes * 4 * p if scaled else 0))
+    mac = (6 * B * p * q * kf + B * q * kf + 2 * B * p * kf if n == 3
+           else 8 * B * p * q * kf + 2 * B * p * kf)
+    flops = E * (rfft_flops(B * q, k) + mac + rfft_flops(B * p, k)
+                 + (n * B * p * kf if scaled else 0))
+    return Work(flops, nbytes, 0)
+
+
+def launch_work(fn: str, ints: Sequence) -> Work:
+    """``work`` of a launch from its integer arguments (``launch_args``:
+    B, p, q, k, the plan, then E): the stand-in's count
+    (``kernels/standin.py``)."""
+    B, p, q, k = ints[:4]
+    return work(ints[9], B, p, q, k, fn)
+
+
 def dft_panel_t(k: int, device) -> torch.Tensor:
     """The transpose of ``dft_panel`` (ncols(k), kpad(k)), built once: the
     iDFT's matrix where it runs on the CUDA cores, or where the panel is
     read from device memory."""
-    key = (-k, str(device))
-    if key not in _PANELS:
-        _PANELS[key] = dft_panel(k, device).t().contiguous()
-    return _PANELS[key]
+    return cached(_PANELS, (-k, str(device)),
+                  lambda: dft_panel(k, device).t().contiguous())
 
 
 def dft_panel(k: int, device) -> torch.Tensor:
@@ -235,14 +278,13 @@ def dft_panel(k: int, device) -> torch.Tensor:
     Cr and Ci interleaved per bin (columns 2f and 2f + 1), then zeros, and
     zero rows past k.  It is the one matrix both of the kernel's DFTs read
     (the irfft matrices are its transpose scaled per bin by 1/k or 2/k)."""
-    key = (k, str(device))
-    if key not in _PANELS:
+    def make():
         cr, ci, _, _ = cc.dft_mats(k, device)
         pair = torch.stack([cr, ci], dim=-1).reshape(k, -1)
         panel = torch.zeros((kpad(k), ncols(k)), device=device)
         panel[:k, :pair.shape[1]] = pair
-        _PANELS[key] = panel.contiguous()
-    return _PANELS[key]
+        return panel.contiguous()
+    return cached(_PANELS, (k, str(device)), make)
 
 
 def bc_fused_matmul_plain(xb: torch.Tensor, wr: torch.Tensor,
@@ -295,7 +337,7 @@ def bc_fused_matmul(xb: torch.Tensor, wr: torch.Tensor, ws1: torch.Tensor,
     -> (B, p, k) float32.  An expert stack adds a leading E to every
     operand: xb (E, B, q, k), planes (E, p, q, ·), scales (E, p, 1) ->
     (E, B, p, k), expert e's rows against its own planes."""
-    if xb.device.type == "cpu":
+    if on_cpu(xb):
         return _on_cpu(bc_fused_matmul_plain, xb, (wr, ws1, ws2), k, scales)
     return _launch(LANES, xb, {"wr": wr, "ws1": ws1, "ws2": ws2}, k, scales)
 
@@ -305,7 +347,7 @@ def bc_fused4_matmul(xb: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
                      ) -> torch.Tensor:
     """The 4-product lane (``gauss_trick=False``): as ``bc_fused_matmul``
     on the planes wr, wi and, quantized, ``scales`` = (s_wr, s_wi)."""
-    if xb.device.type == "cpu":
+    if on_cpu(xb):
         return _on_cpu(bc_fused4_matmul_plain, xb, (wr, wi), k, scales)
     return _launch(LANES4, xb, {"wr": wr, "wi": wi}, k, scales)
 
@@ -352,7 +394,7 @@ def _launch(lanes: Dict[torch.dtype, str], xb: torch.Tensor,
             s.numel() != E * p for s in scales)):
         raise ValueError(f"bc_fused: one scale vector a plane, each one "
                          f"value per output block ({p}) and expert ({E})")
-    if k % 8 == 0 and xb.data_ptr() % 16:
+    if k % 8 == 0 and address(xb) % 16:
         raise ValueError("bc_fused: xb must start 16-byte aligned (its rows "
                          "are staged with 16-byte asynchronous copies)")
     y = torch.empty((*lead, B, p, k), device=device, dtype=torch.float32)

@@ -38,13 +38,13 @@ contraction and iDFT.
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ..core import circulant as cc
-from .build import Kernel, check_cuda, ptr
+from ..roofline.analysis import rfft_flops
+from .build import Kernel, Work, address, cached, check_cuda, on_cpu, ptr
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 # gy, xb, folded panel, panel, spec, part, gw; N, p, q, k; chunk,
@@ -231,6 +231,37 @@ def shape_key(N: int, p: int, q: int, k: int, E: int = 1) -> str:
     return f"bc_grad_w/{lead}{N}x{p}x{q}x{k}"
 
 
+def work(N: int, p: int, q: int, k: int, E: int = 1,
+         chunk: Optional[int] = None) -> Work:
+    """What one call over E experts of N rows does: bytes are each input
+    read once and the output written once; operations the two input
+    real FFTs (``rfft_flops``: 2.5 k log2 k each), the Gauss MAC (3
+    products and 3 sums a row, pair and bin, as ``bc_fused`` counts it)
+    with its operand sums, its two output sums, and the inverse FFTs; the
+    scratch is what the wrapper allocates beside ``gw``: a group of
+    experts' spectra and partial sums (``plan``, ``stack_group``)."""
+    kf = k // 2 + 1
+    pl = plan(N, p, q, k, chunk)
+    nbytes = 4 * E * (N * p * k + N * q * k + p * q * k)
+    flops = E * (rfft_flops(N * p, k) + rfft_flops(N * q, k)
+                 + 6 * N * p * q * kf + N * p * kf + 2 * N * q * kf
+                 + 2 * p * q * kf + rfft_flops(p * q, k))
+    group = stack_group(E, pl)
+    return Work(flops, nbytes,
+                4 * group * (pl.spec_floats + pl.part_floats))
+
+
+def launch_work(fn: str, ints: Sequence) -> Work:
+    """``work`` of a launch from its integer arguments (N, p, q, k, the
+    plan's chunk ..., E, group): the stand-in's count
+    (``kernels/standin.py``)."""
+    N, p, q, k, chunk = ints[:5]
+    return work(N, p, q, k, ints[11], chunk)
+
+
+_PANELS: Dict[Tuple[str, int, str], torch.Tensor] = {}
+
+
 def packed_panel_t(k: int, device) -> torch.Tensor:
     """The packed real DFT P (2 slots(k), k) float32 on ``device``, built
     once, rows in slot order: Cr's bin 0 and bin k/2 columns (an odd k:
@@ -238,11 +269,11 @@ def packed_panel_t(k: int, device) -> torch.Tensor:
     kf - 1 below k/2.  The inverse of packed spectra u (..., 2 slots(k))
     is ``(u * w) @ P`` with w = 1/k on columns 0 and 1, 2/k on the
     others."""
-    return _packed_panel_t(k, str(device))
+    return cached(_PANELS, ("packed", k, str(device)),
+                  lambda: _packed_panel_t(k, device))
 
 
-@functools.lru_cache(maxsize=None)
-def _packed_panel_t(k: int, device: str) -> torch.Tensor:
+def _packed_panel_t(k: int, device) -> torch.Tensor:
     cr, ci, _, _ = cc.dft_mats(k, "cpu")
     rows = [cr[:, 0], cr[:, k // 2] if k % 2 == 0 else torch.zeros(k)]
     for f in range(1, slots(k)):
@@ -259,11 +290,11 @@ def dft_panel(k: int, device) -> torch.Tensor:
     odd;  2: Ci[t, f] over d_t, t = 2, 4, .. h - 2;  3: Ci[t, f] over d_t,
     t odd, for f < h/2 (rows 2 and 3 from f = 1), and row 0 of sub-panel
     3 is Ci[t, h/2] (bin h/2's sine part)."""
-    return _dft_panel(k, str(device))
+    return cached(_PANELS, ("folded", k, str(device)),
+                  lambda: _dft_panel(k, device))
 
 
-@functools.lru_cache(maxsize=None)
-def _dft_panel(k: int, device: str) -> torch.Tensor:
+def _dft_panel(k: int, device) -> torch.Tensor:
     cr, ci, _, _ = cc.dft_mats(k, "cpu")
     h, hh = k // 2, k // 4
     f_ = torch.zeros((4, fold_rows(k), fold_len(k)), dtype=torch.float32)
@@ -296,7 +327,7 @@ def bc_grad_w(gy: torch.Tensor, xb: torch.Tensor, k: int,
     expert stack gy (E, C, p, k), xb (E, C, q, k) -> gw (E, p, q, k) in
     one call; ``chunk`` as ``plan`` takes it."""
     stacked = gy.dim() == 4
-    if gy.device.type == "cpu":
+    if on_cpu(gy):
         if stacked:
             return torch.stack([bc_grad_w_plain(gy[e], xb[e], k)
                                 for e in range(gy.shape[0])])
@@ -310,7 +341,7 @@ def bc_grad_w(gy: torch.Tensor, xb: torch.Tensor, k: int,
         raise ValueError(f"bc_grad_w: gy {tuple(gy.shape)} and xb "
                          f"{tuple(xb.shape)} are not ([E,] N, p, {k}) and "
                          f"([E,] N, q, {k})")
-    if folded(k) and (gy.data_ptr() | xb.data_ptr()) % 16:
+    if folded(k) and (address(gy) | address(xb)) % 16:
         raise ValueError("bc_grad_w: gy and xb must start 16-byte aligned")
     E = gy.shape[0] if stacked else 1
     N, p, _ = gy.shape[-3:]

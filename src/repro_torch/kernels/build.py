@@ -11,6 +11,11 @@ raises with ``nvcc``'s stderr if any of them fails.
 Nothing here runs when the module is imported: the first launch of a kernel
 (or an explicit ``build()``) compiles it.
 
+The wrappers reach the card through the seams below (``on_cpu``,
+``on_card``, ``address``, ``ptr``, ``check_cuda`` and ``Kernel.launch``):
+``kernels/standin.py`` swaps them for the length of a traced step, so that
+a wrapper's card branch runs on fake tensors with only its launch replaced.
+
 Launch counts stay exact when launches are captured into a CUDA graph
 (``serve/decode.py`` replays the continuous engine's decode step):
 inside ``setup(record)`` a launch counts into ``Kernel.setup_launches``
@@ -28,7 +33,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -96,6 +101,16 @@ def build(names: Iterable[str] = KERNEL_NAMES) -> Dict[str, float]:
     if failures:
         raise RuntimeError("\n".join(failures))
     return out
+
+
+class Work(NamedTuple):
+    """What one launch does, as each kernel module's ``work`` counts it (a
+    pure function of the launch's shape and lane): its operations, the
+    bytes it must move (each input read once, each output written once),
+    and the scratch its wrapper allocates beside the output."""
+    flops: float
+    nbytes: int
+    scratch: int = 0
 
 
 class LaunchRecord:
@@ -205,6 +220,23 @@ class Kernel:
             _SETUP[-1].add(self, fn, path, shape)
 
 
+def on_cpu(t: torch.Tensor) -> bool:
+    """Whether a wrapper runs its plain version for ``t``: a CPU tensor
+    (any other goes to the kernel, which raises off the card).  ``is_cpu``
+    reads the flag without building a ``torch.device``."""
+    return t.is_cpu
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies on the card (``check_cuda``'s test)."""
+    return t.is_cuda
+
+
+# a tensor's address: the kernels' pointers and the wrappers' alignment
+# checks read it
+address = torch.Tensor.data_ptr
+
+
 def check_cuda(name: str, tensors: Dict[str, torch.Tensor],
                dtypes: Dict[str, Sequence[torch.dtype]],
                contiguous: bool = True) -> torch.device:
@@ -214,7 +246,7 @@ def check_cuda(name: str, tensors: Dict[str, torch.Tensor],
     itself (``contiguous=False``)."""
     device = None
     for key, t in tensors.items():
-        if t.device.type != "cuda":
+        if not on_card(t):
             raise ValueError(f"{name}: {key} is on {t.device}, expected CUDA")
         if device is None:
             device = t.device
@@ -230,4 +262,19 @@ def check_cuda(name: str, tensors: Dict[str, torch.Tensor],
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+    return ctypes.c_void_p(address(t))
+
+
+def cached(store: Dict, key, make):
+    """``store[key]``, made by ``make()`` the first time: a kernel's
+    constant operand (a DFT panel), built once a device.  Under a
+    fake-tensor mode (a traced step) it is kept on the mode instead, as
+    ``core/circulant.py:dft_mats`` keeps its matrices: a fake tensor
+    belongs to the mode that made it."""
+    fake = torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE)
+    if fake is not None:
+        store = fake.__dict__.setdefault("_kernel_constants", {}).setdefault(
+            id(store), {})
+    if key not in store:
+        store[key] = make()
+    return store[key]

@@ -28,11 +28,12 @@ tensor-core prefill has no e4m3 instance.  The plain version is
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 
-from .build import Kernel, check_cuda, ptr
+from .build import Kernel, Work, address, check_cuda, on_cpu, ptr
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = Kernel("flash_attention", {
@@ -136,6 +137,47 @@ def shape_key(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int, dtype,
             f"{'causal' if causal else 'full'}/w{window}/off{kv_offset}")
 
 
+def pairs(Sq: int, Skv: int, *, causal: bool = True, window: int = 0,
+          kv_offset: int = 0) -> int:
+    """(query row, key) pairs the mask keeps: key c is seen by row r (at
+    absolute position r + kv_offset) iff c <= r + kv_offset where
+    ``causal`` and c > r + kv_offset - window where ``window``."""
+    r = np.arange(Sq, dtype=np.int64) + kv_offset
+    hi = np.minimum(r, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(r - window + 1, 0) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def work(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int,
+         dtype: torch.dtype, kv_dtype: torch.dtype = None, *,
+         causal: bool = True, window: int = 0, kv_offset: int = 0) -> Work:
+    """What one launch does: 4 D operations a kept (query row, key) pair
+    and head (QK^T and PV, a multiply and an add each); bytes are q read
+    and o written at q's width and K/V read once at their stored width
+    (their heads not repeated); the scratch is the split-KV partials
+    (``(m, l)`` and the accumulator of each split, row and head, float32)
+    where ``plan`` splits the keys."""
+    kv_dtype = kv_dtype or dtype
+    qi, ki = dtype.itemsize, kv_dtype.itemsize
+    pl = plan(B, Hq, Hkv, Sq, Skv, D, dtype, kv_dtype)
+    flops = 4 * D * B * Hq * pairs(Sq, Skv, causal=causal, window=window,
+                                   kv_offset=kv_offset)
+    nbytes = qi * 2 * B * Hq * Sq * D + ki * 2 * B * Hkv * Skv * D
+    scratch = 4 * pl.splits * B * Hq * Sq * (D + 2) if pl.splits > 1 else 0
+    return Work(float(flops), nbytes, scratch)
+
+
+def launch_work(fn: str, ints: Sequence) -> Work:
+    """``work`` of a launch from its scalar arguments (B, Hq, Hkv, Sq, Skv,
+    D, scale, causal, window, softcap, kv_offset, the dtype codes, the
+    plan): the stand-in's count (``kernels/standin.py``)."""
+    B, Hq, Hkv, Sq, Skv, D, _, causal, window, _, off, dt, kvt = ints[:13]
+    dtypes = {c: t for t, c in DTYPE_CODES.items()}
+    kv_dtypes = {c: t for t, c in KV_CODES.items()}
+    return work(B, Hq, Hkv, Sq, Skv, D, dtypes[dt], kv_dtypes[kvt],
+                causal=bool(causal), window=window, kv_offset=off)
+
+
 def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
                   scale=None, kv_offset=0):
     """Plain version: full-materialization softmax attention.
@@ -168,7 +210,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     scale=None, kv_offset=0):
     """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q.dtype.
     k and v share q's dtype, or are float8_e4m3fn under a float32 q."""
-    if q.device.type == "cpu":
+    if on_cpu(q):
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap, scale=scale,
                              kv_offset=kv_offset)
@@ -187,7 +229,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
                          f"k/v {tuple(k.shape)}/{tuple(v.shape)}")
     pl = plan(B, Hq, Hkv, Sq, Skv, D, q.dtype, k.dtype)  # raises: untiled D
-    if e4m3 and (D % 4 or (k.data_ptr() | v.data_ptr()) % 4):
+    if e4m3 and (D % 4 or (address(k) | address(v)) % 4):
         raise ValueError("flash_attention: an e4m3 K/V is read 4 values a "
                          "load: D a multiple of 4, k and v 4-byte aligned")
     scale = scale if scale is not None else D ** -0.5
@@ -197,7 +239,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
         part = torch.empty(pl.splits * B * Hq * Sq * (D + 2), device=device,
                            dtype=torch.float32)
     KERNEL.launch("flash_attention", device, ptr(q), ptr(k), ptr(v), ptr(o),
-                  ctypes.c_void_p(None if part is None else part.data_ptr()),
+                  ctypes.c_void_p(None if part is None else address(part)),
                   B, Hq, Hkv, Sq, Skv, D, float(scale), int(bool(causal)),
                   int(window), float(softcap), int(kv_offset),
                   DTYPE_CODES[q.dtype], KV_CODES[k.dtype], pl.rows,

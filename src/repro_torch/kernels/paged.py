@@ -13,15 +13,30 @@ never forms this view.
 from __future__ import annotations
 
 import ctypes
+from typing import Sequence
 
 import torch
 
-from .build import Kernel, check_cuda, ptr
+from .build import Kernel, Work, check_cuda, on_cpu, ptr
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("paged_gather", {
     "paged_gather": [_VP] * 3 + [_I] * 3 + [ctypes.c_longlong]})
 POOL_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+
+
+def work(B: int, maxp: int, row_bytes: int) -> Work:
+    """What one launch does: each of the B x maxp pages of the table
+    (``row_bytes`` a page: page x H x D elements) read once and written
+    once, and the table read; no operations, no scratch."""
+    return Work(0.0, 2 * B * maxp * row_bytes + B * maxp * 4, 0)
+
+
+def launch_work(fn: str, ints: Sequence) -> Work:
+    """``work`` of a launch from its integer arguments (B, maxp, P, the
+    page's bytes): the stand-in's count (``kernels/standin.py``)."""
+    B, maxp, _, row_bytes = ints[:4]
+    return work(B, maxp, row_bytes)
 
 
 def paged_gather_plain(pool: torch.Tensor, table: torch.Tensor
@@ -35,7 +50,7 @@ def paged_gather_plain(pool: torch.Tensor, table: torch.Tensor
 def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Slot ``b``'s pages concatenated in table order: position ``i`` of
     slot ``b`` is page ``table[b, i // page]``, offset ``i % page``."""
-    if pool.device.type == "cpu":
+    if on_cpu(pool):
         return paged_gather_plain(pool, table)
     device = check_cuda("paged_gather", {"pool": pool, "table": table},
                         {"pool": POOL_DTYPES, "table": (torch.int32,)})

@@ -21,11 +21,11 @@ captured in a CUDA graph.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
-from .build import Kernel, check_cuda, ptr
+from .build import Kernel, Work, address, check_cuda, on_cpu, ptr
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = Kernel("paged_attention", {
@@ -71,6 +71,44 @@ def plan(B: int, Hq: int, Hkv: int, D: int, page: int, maxp: int,
     stage = 4 * pps * (3 if kv_dtype == torch.int8 else 1)
     smem = 4 * (G * D + 2 * KEY_TILE * (2 * D + 4)) + stage
     return PagedPlan(splits, pps, warps, B * Hkv * splits, smem)
+
+
+def work(B: int, Hq: int, Hkv: int, D: int, page: int, maxp: int,
+         positions: Sequence[int], dtype: torch.dtype,
+         pool_dtype: torch.dtype) -> Work:
+    """What one launch does at ``positions`` (slot b reads positions[b] +
+    1 keys; -1 is idle): 4 D operations a head and key read (QK^T and PV),
+    and on an int8 pool 2 D more a KV head and key (a scale multiply of
+    K and of V); bytes are q read and the output written at q's width,
+    the keys read at the pool's width, an int8 pool's scales once a page
+    read, the table and the positions; the scratch is the split ranges'
+    partials (float32 ``(m, l)`` and accumulator a split, slot and head)
+    where ``plan`` splits the table."""
+    live = sum(p_ + 1 for p_ in positions if p_ >= 0)
+    live_pages = sum((p_ + page) // page for p_ in positions if p_ >= 0)
+    quant = pool_dtype == torch.int8
+    pl = plan(B, Hq, Hkv, D, page, maxp, pool_dtype)
+    nbytes = (2 * B * Hq * D * dtype.itemsize
+              + 2 * live * Hkv * D * pool_dtype.itemsize
+              + (2 * live_pages * Hkv * 4 if quant else 0)
+              + B * maxp * 4 + B * 4)
+    flops = 4 * Hq * D * live + (2 * live * Hkv * D if quant else 0)
+    scratch = 4 * pl.splits * B * Hq * (D + 2) if pl.splits > 1 else 0
+    return Work(float(flops), nbytes, scratch)
+
+
+def launch_work(fn: str, ints: Sequence) -> Work:
+    """``work`` of a launch from its scalar arguments (B, Hq, Hkv, D,
+    page, maxp, P, scale, softcap, the dtype codes, the plan): the
+    stand-in's count (``kernels/standin.py``).  A trace has no positions,
+    so every slot counts as reading its whole table (position maxp x page
+    - 1): the most the launch can read."""
+    B, Hq, Hkv, D, page, maxp = ints[:6]
+    dtypes = {c: t for t, c in DTYPE_CODES.items()}
+    pool = (torch.int8 if fn == "paged_attention_i8"
+            else dtypes[ints[10]])
+    return work(B, Hq, Hkv, D, page, maxp, [maxp * page - 1] * B,
+                dtypes[ints[9]], pool)
 
 
 def paged_attention_stream(q, pool_k, pool_v, table, positions, *,
@@ -130,7 +168,7 @@ def paged_attention(q, pool_k, pool_v, table, positions, *, scale=None,
                     softcap: float = 0.0, k_scale=None,
                     v_scale=None) -> torch.Tensor:
     """Same contract as ``paged_attention_stream``."""
-    if q.device.type == "cpu":
+    if on_cpu(q):
         return paged_attention_stream(q, pool_k, pool_v, table, positions,
                                       scale=scale, softcap=softcap,
                                       k_scale=k_scale, v_scale=v_scale)
@@ -171,7 +209,7 @@ def paged_attention(q, pool_k, pool_v, table, positions, *, scale=None,
     if pl.splits > 1:
         part = torch.empty(pl.splits * B * Hq * (D + 2), device=device,
                            dtype=torch.float32)
-    part_ptr = ctypes.c_void_p(None if part is None else part.data_ptr())
+    part_ptr = ctypes.c_void_p(None if part is None else address(part))
     dims = (B, Hq, Hkv, D, page, maxp, P, float(scale), float(softcap),
             DTYPE_CODES[q.dtype])
     split = (pl.pages_per_split, pl.splits, pl.warps)

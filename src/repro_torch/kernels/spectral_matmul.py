@@ -24,11 +24,11 @@ the layout.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
-from .build import Kernel, check_cuda, ptr
+from .build import Kernel, Work, check_cuda, on_cpu, ptr
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 # F, N, Q, P, layout, then the plan: chunks, fc, rows, stages, jn, splits
@@ -193,6 +193,21 @@ def shape_key(F: int, N: int, Q: int, P: int, layout: int) -> str:
     return f"{F}x{N}x{Q}x{P}/{LAYOUT_NAMES[layout]}"
 
 
+def work(F: int, N: int, Q: int, P: int) -> Work:
+    """What one launch does, in either layout: 6 operations a bin, row,
+    input and output (three real products, a multiply and an add each);
+    bytes are the two input planes, the three weight planes and the two
+    output planes once each, float32; no scratch."""
+    return Work(6.0 * F * N * Q * P,
+                4 * F * (2 * N * Q + 3 * Q * P + 2 * N * P), 0)
+
+
+def launch_work(fn: str, ints: Sequence) -> Work:
+    """``work`` of a launch from its integer arguments (F, N, Q, P, the
+    layout, the plan): the stand-in's count (``kernels/standin.py``)."""
+    return work(*ints[:4])
+
+
 def _outputs(layout: int, F: int, B: int, P: int, device):
     """(yr, yi), each (F, B, P) in X's layout."""
     if layout == BIN_MAJOR:
@@ -220,7 +235,7 @@ def spectral_matmul(xr, xi, wr, ws1, ws2) -> Tuple[torch.Tensor, torch.Tensor]:
     layout = layout_of(xr, xi, wr, ws1, ws2)
     F, B, Q = xr.shape
     P = wr.shape[-1]
-    if xr.device.type == "cpu":
+    if on_cpu(xr):
         yr, yi = _outputs(layout, F, B, P, xr.device)
         for out, val in zip((yr, yi), spectral_matmul_plain(xr, xi, wr, ws1,
                                                             ws2)):

@@ -11,35 +11,61 @@ in this process, the (16, 16) or (2, 16, 16) mesh of
 and cache leaf a ``DTensor`` with ``dist/sharding.py``'s placements over
 a fake tensor on the CPU (``models/registry.py:input_specs``,
 ``abstract_params``), and the cell's step run once under
-``roofline/analysis.py:StepCost``.  CPU-typed fake tensors take the
-kernels' plain versions, so no ctypes kernel is reached and nothing is
-computed.  The layers run on ``DTensor``s through the seams that
-``dist/spmd.py:installed`` swaps in for the length of the trace (the
-layers' own code has one path).
+``roofline/analysis.py:StepCost``.  The layers run on ``DTensor``s
+through the seams that ``dist/spmd.py:installed`` swaps in for the length
+of the trace (the layers' own code has one path).
+
+The trace takes the card's path, not the plain versions: inside
+``kernels/standin.py:standin`` every kernel wrapper runs its card branch
+on the fake tensors (its checks, its plan, its output and scratch
+allocated) with its launch replaced by a stand-in that counts the launch
+per lane, plan path and shape, as the card's counters do, and charges the
+kernel's own FLOPs and bytes (each kernel module's ``work``: a DFT at 2.5
+k log2 k, attention at 4 D a kept pair, K/V at their stored width).  So
+a prefill's attention holds O(S) (the flash kernel's output and split
+partials), not the plain version's S x S scores, and no ctypes kernel is
+reached and nothing is computed.  What the card runs as plain PyTorch
+stays plain in the trace: training attention (``masked_attention``, with
+its S x S scores), the batch prefill's DFTs around ``spectral_matmul``,
+the planes a training step derives per call.  A shape the card's kernel
+refuses (a head dim the bf16 flash lane does not tile) fails the cell
+with the kernel's error, as the card would.
 
 The cells are ``repro``'s: a train cell steps ``AdamWConfig(
 quantize_moments=True)`` with ``accum=4`` microbatches (``--roofline``:
-``accum=0``, one batch, as ``repro``'s exact-cost lowering); a prefill
-cell runs the batch engine's prefill step and a decode cell its decode
-step against the baked serving planes (``precompute_serving_params``),
-the decode at the cache's last position (``cache_pos = seq_len - 1``: the
-port's dense read stops at a host position where ``repro`` reads the
-whole cache under a traced scalar).  The records carry ``repro``'s keys
-(``roofline/analysis.py:cell_report``) on the ``h100`` spec; a cell that
-raises is recorded as ``fail`` with its error and the run exits 1.
+``accum=0``, one batch, as ``repro``'s exact-cost lowering), through
+``BCMatmulFFT`` (``bc_fused`` forward and adjoint, ``bc_grad_w``); a
+prefill cell runs the batch engine's prefill step with its
+``serve/engine.py:PrefillContract`` (the spectral MAC of each projection
+through ``spectral_matmul`` where that kernel plans it, else through
+``bc_fused``), and a decode cell its decode step, against the baked
+serving planes (``precompute_serving_params``), the decode at the
+cache's last position (``cache_pos = seq_len - 1``: the port's dense read
+stops at a host position where ``repro`` reads the whole cache under a
+traced scalar).  The records carry ``repro``'s keys
+(``roofline/analysis.py:cell_report``) on the ``h100`` spec, the
+launches a device makes (``launches``: kernel -> lanes, paths, shapes),
+a prefill's ``prefill_lanes`` (the contract's choice by plane shape) and,
+where ``--batch`` cuts the shape's batch, ``reduced``; a cell that raises
+is recorded as ``fail`` with its error and the run exits 1.
 
 What ``repro``'s ``--roofline`` also changes (unrolled scans, single-chunk
-attention and mLSTM) is not ported: the port's trace already runs every
-layer, every attention chunk and every scan step once each.
+attention and mLSTM) changes nothing in the port's trace: it already runs
+every layer, every attention chunk and every scan step once each; only
+``accum=0`` takes effect.
 
 Usage (a fresh process: it starts its own process group):
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
       --shape all --mesh both --out results/dryrun.json
+  # a one-rank cell a card can hold, to check against it:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun \\
+      --arch tinyllama-1.1b --shape prefill_32k --mesh one --batch 1
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import os
@@ -54,14 +80,18 @@ import torch.distributed as dist
 
 from ..configs.base import ALL_SHAPES, SHAPES_BY_NAME, cell_is_applicable
 from ..configs.registry import ARCH_IDS, get_config
+from ..core.circulant import read_planes
 from ..dist import ctx as dist_ctx
 from ..dist import sharding as sh
 from ..dist import spmd
+from ..kernels.standin import launch_counts, standin
 from ..models import registry as mreg
 from ..optim import adamw
+from ..quant.codec import baked_caches
 from ..roofline import analysis as roofline
 from ..serve import decode as serve_decode
 from ..serve import params as serve_params
+from ..serve.engine import PrefillContract
 from ..train import train_step as ts
 from . import mesh as mesh_lib
 
@@ -150,14 +180,17 @@ def _with_roofline_knobs(cfg, shape):
 def lower_cell(arch_id: str, shape_name: str, mesh,
                strategy: str = "megatron", compress: bool = True,
                donate: bool = True, seq_shard=None, accum: int = 4,
-               cfg_override=None):
+               cfg_override=None, global_batch: Optional[int] = None):
     """Trace one cell's step.  Returns (record, meta): a
-    ``roofline.StepRecord`` and ``{"cfg", "shape", "params"}``, or (None,
-    {"skipped": why}) for a cell that does not apply.  ``donate`` is
-    ``repro``'s: the state (train) or the cache (serve) is updated in
-    place, its outputs alias its inputs."""
+    ``roofline.StepRecord`` and ``{"cfg", "shape", "params"}`` (a prefill
+    adds ``prefill_lanes``), or (None, {"skipped": why}) for a cell that
+    does not apply.  ``donate`` is ``repro``'s: the state (train) or the
+    cache (serve) is updated in place, its outputs alias its inputs.
+    ``global_batch`` replaces the shape's (a cut)."""
     cfg = cfg_override or get_config(arch_id, compress=compress)
     shape = SHAPES_BY_NAME[shape_name]
+    if global_batch is not None:
+        shape = dataclasses.replace(shape, global_batch=int(global_batch))
     ok, why = cell_is_applicable(cfg, shape)
     if not ok:
         return None, {"skipped": why}
@@ -188,7 +221,9 @@ def lower_cell(arch_id: str, shape_name: str, mesh,
             if shape.kind == "prefill":
                 batch = _place_tree(specs["batch"], sh.batch_specs(
                     specs["batch"], mesh, B, seq_shard), mesh)
-                step = serve_decode.make_prefill_step(cfg)
+                contract = PrefillContract()   # decides per local shape
+                step = serve_decode.make_prefill_step(cfg,
+                                                      kernel_fn=contract)
                 args = (params, batch, cache)
             else:
                 tokens = _placed(specs["tokens"], sh.batch_spec(
@@ -197,10 +232,12 @@ def lower_cell(arch_id: str, shape_name: str, mesh,
                 args = (params, tokens, cache, specs["cache_pos"])
                 step = lambda p, t, c, _pos: dec(p, t, c, S - 1)  # noqa
         with dist_ctx.activation_policy(mesh, seq_shard=seq_shard), \
-                spmd.installed(model, cfg), roofline.StepCost() as cost:
+                spmd.installed(model, cfg), roofline.StepCost() as cost, \
+                standin(cost):
             cost.watch(_flat(args))
             out = step(*args)
             out_new = cost.live_bytes(out)
+            launches = launch_counts()
         # a decode step's position is a host int here, an argument in
         # repro's program
         arg_bytes = cost.read_bytes() + (
@@ -212,8 +249,73 @@ def lower_cell(arch_id: str, shape_name: str, mesh,
         flops=cost.flops, bytes_accessed=cost.bytes_accessed,
         collectives=roofline.collective_bytes(cost),
         argument_bytes=arg_bytes, output_bytes=out_bytes,
-        temp_bytes=max(cost.peak - out_new, 0), alias_bytes=alias)
-    return record, {"cfg": cfg, "shape": shape, "params": shapes_params}
+        temp_bytes=max(cost.peak - out_new, 0), alias_bytes=alias,
+        launches=launches)
+    meta = {"cfg": cfg, "shape": shape, "params": shapes_params}
+    if shape.kind == "prefill":
+        meta["prefill_lanes"] = contract.report()
+    return record, meta
+
+
+def card_cell(arch_id: str, shape_name: str, *, accum: int = 4,
+              cfg_override=None, global_batch: Optional[int] = None,
+              device="cuda", seed: int = 0):
+    """The step ``lower_cell`` traces, with real inputs on ``device`` (one
+    rank, nothing sharded): random weights from ``seed`` (baked planes at
+    serve), the train state of ``state_specs_for``'s optimizer, a zero
+    cache, random tokens.  Returns (step, args, inputs): ``step(*args)``
+    runs it; ``inputs`` is the bytes of what the step reads of ``args``
+    (a serving step reads the planes its MAC takes, not the generators
+    beside them), which a one-rank record's ``argument_bytes`` predicts.
+    A check of a record against the card runs it (``chip_smoke.py``)."""
+    cfg = cfg_override or get_config(arch_id)
+    shape = SHAPES_BY_NAME[shape_name]
+    if global_batch is not None:
+        shape = dataclasses.replace(shape, global_batch=int(global_batch))
+    if accum == 0:
+        accum = 1
+    S = shape.seq_len
+    gen = torch.Generator().manual_seed(seed)
+
+    def real(tree):
+        if isinstance(tree, dict):
+            return {k: real(v) for k, v in tree.items()}
+        if tree.dtype.is_floating_point:
+            return torch.zeros(tree.shape, dtype=tree.dtype, device=device)
+        return torch.randint(0, cfg.vocab_size, tuple(tree.shape),
+                             generator=gen, dtype=tree.dtype).to(device)
+    specs = mreg.input_specs(cfg, shape)
+    model = mreg.init_params(cfg, seed=seed, device=device)
+    if shape.kind == "train":
+        opt_cfg = adamw.AdamWConfig(quantize_moments=True)
+        state = ts.init_state(cfg, opt_cfg, model=model)
+        args = (state, real(specs["batch"]))
+        return (ts.make_train_step(cfg, opt_cfg, accum=accum), args,
+                roofline.local_bytes(_flat(args)))
+    params = serve_params.precompute_serving_params(model, cfg)
+    cache = mreg.build_model(cfg).init_cache(shape.global_batch, S,
+                                             device=device)
+    read, replaced = 0, set()
+    for _, m, prefix, baked in baked_caches(params):
+        read += roofline.local_bytes(list(read_planes(
+            baked, cfg.compression.gauss_trick).values()))
+        gen_leaf = getattr(m, prefix[:-len("_cache")], None)
+        if isinstance(gen_leaf, torch.Tensor):
+            replaced.add(id(gen_leaf))
+    read += sum(roofline.local_bytes(p) for p in params.parameters()
+                if id(p) not in replaced)
+    read += roofline.local_bytes(_flat(cache))
+    if shape.kind == "prefill":
+        batch = real(specs["batch"])
+        step = serve_decode.make_prefill_step(cfg,
+                                              kernel_fn=PrefillContract())
+        return (step, (params, batch, cache),
+                read + roofline.local_bytes(_flat(batch)))
+    tokens = real(specs["tokens"])
+    dec = serve_decode.make_decode_step(cfg)
+    return (lambda p, t, c: dec(p, t, c, S - 1), (params, tokens, cache),
+            read + roofline.local_bytes(tokens)
+            + roofline.local_bytes(specs["cache_pos"]))
 
 
 def _flat(tree):
@@ -229,20 +331,26 @@ def _flat(tree):
 
 
 def run_cell(arch_id, shape_name, mesh, mesh_name, strategy, compress=True,
-             accum=4):
+             accum=4, batch=None):
     t0 = time.time()
     rec = {"arch": arch_id, "shape": shape_name, "mesh": mesh_name,
            "strategy": strategy, "compress": compress,
            "lowering": "roofline" if accum == 0 else "production"}
+    full = SHAPES_BY_NAME[shape_name].global_batch
+    if batch is not None and batch != full:
+        rec["reduced"] = {"global_batch": {"from": full, "to": int(batch)}}
     try:
         record, meta = lower_cell(arch_id, shape_name, mesh, strategy,
-                                  compress, accum=accum)
+                                  compress, accum=accum,
+                                  global_batch=batch)
         if record is None:
             rec["status"] = "skipped"
             rec["why"] = meta["skipped"]
             return rec
         rec.update(roofline.cell_report(record, meta["cfg"], meta["shape"],
                                         mesh, params=meta["params"]))
+        if "prefill_lanes" in meta:
+            rec["prefill_lanes"] = meta["prefill_lanes"]
         rec["status"] = "ok"
     except Exception as e:  # noqa: BLE001 — report, continue the sweep
         rec["status"] = "fail"
@@ -271,7 +379,11 @@ def main(argv: Optional[list] = None):
                     help="dense baseline (paper's uncompressed reference)")
     ap.add_argument("--roofline", action="store_true",
                     help="one batch, no microbatches (accum=0, as repro's "
-                         "exact-cost lowering)")
+                         "exact-cost lowering); its other knobs change "
+                         "nothing in the port's trace")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="cut every shape's global batch to this (stated "
+                         "in each record's 'reduced')")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
 
@@ -297,7 +409,8 @@ def main(argv: Optional[list] = None):
             for s in shapes:
                 rec = run_cell(a, s, mesh, mname, args.strategy,
                                compress=not args.no_compress,
-                               accum=0 if args.roofline else 4)
+                               accum=0 if args.roofline else 4,
+                               batch=args.batch)
                 status = rec["status"]
                 extra = (rec.get("why") or rec.get("error", "")
                          if status != "ok" else

@@ -8,7 +8,10 @@ Each runs ``repro``'s exact-cost setting (``accum=0``: one batch, no
 microbatches) on the single-pod (16, 16) mesh of a fake 256-rank process
 group started in this process.  What ``repro``'s exact-cost lowering also
 changes (unrolled scans, single-chunk attention) the port's trace needs
-not: it runs every layer and every step once each.
+not: it runs every layer and every step once each.  The records are the
+dry run's, which trace the step the card runs (each kernel launch a
+stand-in charging the kernel's own FLOPs and bytes); a variant the card's
+kernels refuse fails with their error.
 
   PYTHONPATH=src python -m repro_torch.launch.hillclimb \\
       --arch tinyllama-1.1b --shape decode_32k --variant nogauss,fuse

@@ -43,7 +43,9 @@ place, so the recompute cannot apply an update twice: no cache is taken
 (the recurrent cells start from zeros and return their state unused) and
 ``MoE.logit_gap`` is not updated.
 
-Not ported yet: learned positions in a decoder-only model.
+Learned positions (``max_position``: ``repro``'s ``params["pos"]``) are
+added to the embedding in every mode, a decoder-only model's too
+(``_positions``).
 """
 from __future__ import annotations
 

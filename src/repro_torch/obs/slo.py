@@ -40,9 +40,9 @@ re-evaluates the rules over the file's snapshot sequence; exit 0 when
 no alert at/above the failure severity fired, 1 when one did, 2 on
 malformed input.
 
-Left out: nothing of the watchdog.  Its consumer ``fleet/replica.py`` is
-not ported yet, so the ``slo.alerts`` counters are read only by
-``stats()`` readers and the emitter.
+Left out: nothing of the watchdog.  Its ``slo.alerts`` counters are read
+by ``stats()`` readers, the emitter and ``fleet/replica.py`` (a replica
+folds their sum into its health).
 """
 from __future__ import annotations
 

@@ -34,15 +34,22 @@ the model's useful-work counts.
 
   - FLOPs: torch's FLOP formulas (``torch.utils.flop_counter``) of every
     product (mm, bmm, addmm, baddbmm, convolutions, SDPA), 2 m n k each;
-    elementwise operations are not counted.  A block-circulant
-    projection counts what its plain path does, whatever route it takes:
-    its DFT is a product with ``dft_mats`` (``core/circulant.py``, k <=
-    512), so it counts 2 k kf a row and plane where XLA counts an FFT;
-    this report holds those product FLOPs.
+    elementwise operations are not counted.  What runs as plain PyTorch
+    on the card counts so too: the batch prefill's DFTs around
+    ``spectral_matmul`` are products with ``dft_mats``
+    (``core/circulant.py``, k <= 512), 2 k kf a row and plane, and so is
+    the planes' DFT a training step derives per call.
   - Bytes accessed: every operation's tensor operands and results once
-    each (an in-place one its operands; views nothing), as XLA's "bytes
-    accessed" counts every operand and result touch: an upper bound on
-    HBM traffic.
+    each (an in-place one its operands; views, allocations and metadata
+    queries such as ``prim.device`` nothing), as XLA's "bytes accessed"
+    counts every operand and result touch: an upper bound on HBM
+    traffic.
+  - A kernel launch (the dry run traces under ``kernels/standin.py``,
+    where each wrapper runs its card branch and its launch is a stand-in)
+    adds that kernel's own FLOPs and compulsory bytes
+    (``StepCost.launched``: each kernel module's ``work``, a DFT at 2.5 k
+    log2 k); the wrapper's allocations are tracked for memory and count
+    no bytes, so nothing is counted twice.
   - Collectives: the result bytes per device of every functional
     collective (``_c10d_functional``) ``DTensor`` issues, under
     ``repro``'s kinds (``all-gather``, ``all-reduce``, ``reduce-scatter``,
@@ -55,7 +62,8 @@ the model's useful-work counts.
     alias bytes the outputs' (the port
     updates the cache, and in training the state, in place: those outputs
     alias their inputs), temp bytes the peak of the storages the step
-    allocates, live at once, less the outputs it made.
+    allocates, live at once, less the outputs it made (a returned slice
+    counts its own bytes: the rest of its storage stays temp).
 
   The report's defaults are the port's ``h100`` spec.  Its collective
   term divides by ``H100.link_bw``, one NVLink 4 direction: the 256 and
@@ -481,6 +489,21 @@ class StepCost(TorchDispatchMode):
                 delattr(prop, name)
         return super().__exit__(*exc)
 
+    def launched(self, flops: float, nbytes: float) -> None:
+        """Charge one kernel launch's own operations and bytes (the
+        stand-in's, ``kernels/standin.py``), times ``count_times()``."""
+        times = count_times()
+        self.flops += times * float(flops)
+        self.bytes_accessed += times * float(nbytes)
+
+    def reads(self, t: torch.Tensor) -> None:
+        """Note that a kernel launch reads ``t`` (the stand-in passes each
+        pointer it is given): a watched argument so read counts in
+        ``read_bytes``, as an operation's operand does."""
+        key = id(t.untyped_storage())
+        if key in self._args:
+            self._read.add(key)
+
     def _free(self, key: int) -> None:
         self.live -= self._live.pop(key, 0)
 
@@ -510,14 +533,17 @@ class StepCost(TorchDispatchMode):
         return sum(n for key, n in self._args.items() if key in self._read)
 
     def live_bytes(self, tensors) -> int:
-        """Bytes of the storages under ``tensors`` that this step made."""
+        """Bytes of ``tensors`` in the storages this step made: each
+        storage's, up to the bytes of the tensors that view it (a step
+        that returns a slice of a larger result, the prefill's last-position
+        logits, holds the rest of that storage alive as temp)."""
         seen = {}
         for t in _tensors(tensors):
             t = getattr(t, "_local_tensor", t)
             key = id(t.untyped_storage())
             if key in self._live:
-                seen[key] = self._live[key]
-        return sum(seen.values())
+                seen[key] = seen.get(key, 0) + _nbytes(t)
+        return sum(min(n, self._live[key]) for key, n in seen.items())
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -549,6 +575,13 @@ class StepCost(TorchDispatchMode):
         alias = [r.alias_info for r in rets]
         if any(a is not None and not a.is_write for a in alias):
             return out                                  # a view
+        if pkt in _ALLOCATIONS:                         # touches nothing
+            for t in _tensors(out):
+                self._track(t)
+            return out
+        if not any(a is not None for a in alias) and \
+                next(_tensors(out), None) is None:
+            return out              # a metadata query (prim.device)
         touched = (sum(_nbytes(t) for t in _tensors(args))
                    + sum(_nbytes(t) for t in _tensors(kwargs)))
         if not any(a is not None for a in alias):       # not in place
@@ -557,6 +590,12 @@ class StepCost(TorchDispatchMode):
                 self._track(t)
         self.bytes_accessed += times * touched
         return out
+
+
+# operations that allocate storage and write none of it
+_ALLOCATIONS = {torch.ops.aten.empty, torch.ops.aten.empty_like,
+                torch.ops.aten.empty_strided, torch.ops.aten.new_empty,
+                torch.ops.aten.new_empty_strided}
 
 
 def collective_bytes(cost: "StepCost") -> Dict[str, int]:
@@ -569,8 +608,9 @@ def collective_bytes(cost: "StepCost") -> Dict[str, int]:
 
 @dataclasses.dataclass
 class StepRecord:
-    """What ``cell_report`` reads of one traced step: the cost counts and
-    the memory (``repro``'s ``memory_analysis()`` names)."""
+    """What ``cell_report`` reads of one traced step: the cost counts,
+    the memory (``repro``'s ``memory_analysis()`` names) and the kernel
+    launches a device makes (``kernels/standin.py:launch_counts``)."""
     flops: float
     bytes_accessed: float
     collectives: Dict[str, int]
@@ -579,6 +619,7 @@ class StepRecord:
     temp_bytes: int
     alias_bytes: int
     code_bytes: int = 0
+    launches: Dict = dataclasses.field(default_factory=dict)
 
 
 def local_bytes(tree) -> int:
@@ -647,6 +688,7 @@ def cell_report(record: StepRecord, cfg: ArchConfig, shape: ShapeSpec,
         "dominant": dominant,
         "model_flops": model_flops,
         "params": count_params(params),
+        "launches": dict(record.launches),
         "model_hlo_ratio": model_flops / hlo_global if hlo_global else 0.0,
         "roofline_frac_overlap": t_model / bound if bound else 0.0,
         "roofline_frac_serial": (t_model / sum(terms.values())

@@ -3,8 +3,8 @@
 
   PYTHONPATH=src python -m repro_torch.roofline.report results/dryrun_single.json
 
-Left out: nothing; the dry run that writes the records (``repro``'s
-``launch/dryrun.py``) is not ported yet.
+Left out: nothing.  The records come from the port's dry run
+(``launch/dryrun.py``, ``--out``).
 """
 from __future__ import annotations
 

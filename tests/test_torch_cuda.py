@@ -1447,3 +1447,68 @@ def test_nogauss_engines_card_baked(cuda):
                       if _cpu_gap(cfg, ref, req.prompt, w, i) < NEAR_TIE),
                      len(w))
             assert g[:n] == w[:n], (engine.__name__, req.id, n)
+
+
+# the dry run's smoke cells (tinyllama's smoke config in float32: its head
+# dim, 32, has no bf16 flash kernel) and their batches
+DRYRUN_SMOKE_CELLS = (("decode_32k", 2), ("prefill_32k", 2), ("train_4k", 4))
+_DRYRUN_PROBE = r"""
+import sys, json
+sys.path[:0] = [{src!r}]
+from repro_torch.configs.registry import get_smoke_config
+from repro_torch.launch import dryrun, mesh as mesh_lib
+dryrun.start_fake_group(1)
+mesh = mesh_lib.make_mesh((1, 1), ("data", "model"), device="cpu")
+cfg = get_smoke_config("tinyllama-1.1b").replace(dtype="float32")
+out = {{}}
+for shape, batch in {cells!r}:
+    rec, _ = dryrun.lower_cell("tinyllama-1.1b", shape, mesh,
+                               cfg_override=cfg, global_batch=batch)
+    out[shape] = rec.launches
+print("RESULT", json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def traced_smoke_launches():
+    """The smoke cells' records traced on a one-rank mesh in a subprocess
+    with the card hidden (the trace starts its own fake process group)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    src = Path(__file__).resolve().parent.parent / "src"
+    p = subprocess.run(
+        [sys.executable, "-c", _DRYRUN_PROBE.format(
+            src=str(src), cells=DRYRUN_SMOKE_CELLS)],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    line = [ln for ln in p.stdout.splitlines() if ln.startswith("RESULT ")]
+    assert line, p.stdout[-2000:] + p.stderr[-4000:]
+    import json
+    return json.loads(line[-1][len("RESULT "):])
+
+
+@pytest.mark.parametrize("shape,batch", DRYRUN_SMOKE_CELLS)
+def test_dryrun_launches_equal_card(cuda, traced_smoke_launches, shape,
+                                    batch):
+    """A smoke cell's traced launches (the dry run's stand-ins: lanes,
+    plan paths, shapes) equal the card's counters over the same step
+    (``launch/dryrun.py:card_cell``), launch for launch: the evidence that
+    the trace runs the card's dispatch."""
+    from repro_torch.kernels import bc_grad_w as bgw
+    from repro_torch.kernels.standin import launch_counts
+    from repro_torch.launch import dryrun
+    cfg = get_smoke_config("tinyllama-1.1b").replace(dtype="float32")
+    step, args, _ = dryrun.card_cell("tinyllama-1.1b", shape,
+                                     cfg_override=cfg, global_batch=batch,
+                                     device="cuda")
+    kernels = (bcf.KERNEL, bgw.KERNEL, fa.KERNEL, pa.KERNEL, pg.KERNEL,
+               sm.KERNEL)
+    for k in kernels:
+        k.reset_counts()
+    step(*args)
+    torch.cuda.synchronize()
+    assert launch_counts() == traced_smoke_launches[shape]
