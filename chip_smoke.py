@@ -14,6 +14,14 @@ itself.  Each phase prints one JSON line:
                 paths: error and tolerance, kernel / plain / library times
                 (median of CUDA-event timings; the kernel also replayed
                 from a CUDA graph, its device time), the roofline bound
+  serve_smoke   the serve launcher's default: each of the ten archs' smoke
+                configs (bf16, head dim 32, weights from the seed) through
+                the batch ``Engine`` and, for the five paged archs,
+                ``ContinuousEngine``, 4 requests of 4 tokens, the card's
+                bf16 logits against the same engine on the CPU; the bf16
+                flash lane and the paged kernel at D = 32 counted; then
+                ``python -m repro_torch.launch.serve --arch tinyllama-1.1b``
+                (exit 0)
   serve         full-width tinyllama-1.1b (random weights from a seed)
                 through ``ContinuousEngine``: 16 requests, exact kernel
                 launch counts per lane, per prefill and per decode step
@@ -310,7 +318,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.configs.registry import (ARCH_IDS, get_config,  # noqa: E402
+                                          get_smoke_config)
 from repro_torch.core import circulant as cc  # noqa: E402
 from repro_torch.core import conv  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
@@ -328,7 +337,7 @@ from repro_torch.layers import attention as attn_lib  # noqa: E402
 from repro_torch.layers import ffn  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.registry import build_model, init_params  # noqa: E402
-from repro_torch.models.transformer import layer_kinds  # noqa: E402
+from repro_torch.models.transformer import layer_kinds, window_for  # noqa: E402
 from repro_torch.obs import Obs  # noqa: E402
 from repro_torch.obs.chrometrace import validate_trace, write_trace  # noqa: E402
 from repro_torch.obs.emit import last_snapshot, validate_jsonl  # noqa: E402
@@ -406,6 +415,29 @@ TRAIN_ARCHS = {
     RGEMMA: dict(phase="train_recurrentgemma", batch=2, seq=2560, steps=3),
     XLSTM: dict(phase="train_xlstm", batch=8, seq=1024, steps=3),
     WHISPER: dict(phase="train_whisper", batch=8, seq=448, steps=3)}
+
+
+# serve_smoke: the serve launcher's default (``python -m
+# repro_torch.launch.serve --arch A``: the smoke config, bf16, block 16,
+# head dim 32, weights from the seed) for each of the ten archs, through
+# the batch Engine and, where the arch is continuous-servable, the
+# ContinuousEngine, at the launcher's engine sizes; ``requests`` requests
+# of ``new`` tokens, prompts drawn as the launcher draws them
+SMOKE = dict(requests=4, new=4, max_batch=4, page=16, chunk=8)
+# the card's bf16 logits against the CPU engine's on the same weights, a
+# share of max(1, |CPU logits|): both compute in bf16 with float32 sums
+# and round at other places (the card's flash kernel rounds P to bf16 for
+# P V; the plain version keeps it in float32)
+SMOKE_LOGIT_TOL = 2.0 ** -4
+# the new lanes at public models' widths (no config of the port reaches
+# them: every full-size attention head is 64, 96, 128 or 256): phi-2's 32
+# heads of 80; a head of 192 (16 / 8 heads) on both float32 kernels;
+# paged decode at 256 (8 slots, 8 / 1 heads, 64-page tables of 16) and
+# Falcon-7B's 71 query heads over one KV head of 64
+NEW_LANES = dict(s=2048, b32=4, h32=32, phi2=(32, 32, 80),
+                 d192=(16, 8, 192), skv=4096, paged_b=8, paged_maxp=64,
+                 d256=(8, 1, 256), g71=(71, 1, 64))
+NEW_LANE_POSITIONS = (1000, 17, 63, -1, 530, 5, 1023, 795)
 
 
 BLOCK_SIZES = (256, 4)
@@ -1164,17 +1196,20 @@ def check_flash(cfg, gen, prefix="", s_bf16=256, s_f32=48):
 SERVE_POSITIONS = (200, 17, 63, -1, 130, 5, 239, 95)
 
 
-def check_paged(cfg, gen, float_only=False, prefix="", maxp=16,
-                positions=SERVE_POSITIONS):
+def check_paged(cfg, gen, prefix="", maxp=16, positions=SERVE_POSITIONS,
+                heads=None, pick=(0, 1, 2, 3), plain_timing=None):
     """The float lanes (bf16 and f32 queries on an f32 pool) and the int8
     lane (the same pool quantized per (page, head); f32 and bf16 queries)
     over one slot a position and tables of ``maxp`` pages of 16 (by
     default the serve phase's): at ``positions`` (the main cases), with
     the middle slot idle where no slot is (``_idle``), and with every slot
-    at the table's last column (``_full``).  ``float_only``: the
-    bf16-query, f32-pool case alone (``prefix`` names its arch)."""
-    a = cfg.attention
-    Hq, Hkv, D = a.num_heads, a.num_kv_heads, a.head_dim
+    at the table's last column (``_full``).  ``pick``: the variants (by
+    index: bf16 / f32 query on the float pool, f32 / bf16 on the int8
+    pool; ``prefix`` names the arch or shape); ``heads``: (Hq, Hkv, D) in
+    place of ``cfg``'s; ``plain_timing``: ``time_ms``'s counts for the
+    plain version."""
+    Hq, Hkv, D = heads or (cfg.attention.num_heads,
+                           cfg.attention.num_kv_heads, cfg.attention.head_dim)
     page, B = PAGE, len(positions)
     mixed = torch.tensor(positions, dtype=torch.int32, device="cuda")
     full = torch.full((B,), maxp * page - 1, dtype=torch.int32,
@@ -1201,7 +1236,7 @@ def check_paged(cfg, gen, float_only=False, prefix="", maxp=16,
                  {"k_scale": ks, "v_scale": vs}),
                 ("paged_attention_i8", torch.bfloat16, k8, v8,
                  {"k_scale": ks, "v_scale": vs}))
-    for lane, dtype, pk, pv, scales in variants[:1 if float_only else 4]:
+    for lane, dtype, pk, pv, scales in [variants[i] for i in pick]:
         q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(dtype)
         for suffix, positions, tab in runs:
             got = pa.paged_attention(q, pk, pv, tab, positions, **scales)
@@ -1238,7 +1273,8 @@ def check_paged(cfg, gen, float_only=False, prefix="", maxp=16,
                 **kernel_times(lambda: pa.paged_attention(
                     q, pk, pv, tab, positions, **scales)),
                 "plain_ms": time_ms(lambda: pa.paged_attention_stream(
-                    q, pk, pv, tab, positions, **scales)),
+                    q, pk, pv, tab, positions, **scales),
+                    **(plain_timing or {})),
                 "library_ms": None, "library": None,
                 "bytes": nbytes, "flops": flops,
                 "bound_ms": bound_ms, "bound_by": bound_by})
@@ -1519,6 +1555,34 @@ def check_head_dim_256(gen):
     from torch._inductor.async_compile import shutdown_compile_workers
     shutdown_compile_workers()              # flex_library's compile pool
     return {"flash_attention": (cases, None)}
+
+
+def check_new_flash(gen):
+    """The flash lanes the padded tiles opened: bf16 at D = 32 at the
+    shape serve_smoke's tinyllama batch prefill gives it and at B = 4 x
+    S = 2,048 with 32 / 32 heads; bf16 at phi-2's 32 heads of 80 (the 96
+    tile); float32 at D = 192 on the tensor-core prefill (S = 2,048, the
+    256 tile) and the rows kernel (one row over 4,096 keys)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    n = NEW_LANES
+    ta = get_smoke_config(ARCH).attention
+    B, S = len(_SMOKE_REQS), _SMOKE_S
+    return {"flash_attention": ([
+        check_attention(f"smoke_prefill_bfloat16_b{B}_s{S}_d32", B,
+                        ta.num_heads, ta.num_kv_heads, S, S, ta.head_dim,
+                        bf16, gen, causal=True),
+        check_attention(f"prefill_bfloat16_b{n['b32']}_s{n['s']}_d32",
+                        n["b32"], n["h32"], n["h32"], n["s"], n["s"], 32,
+                        bf16, gen, causal=True),
+        check_attention(f"phi2_prefill_bfloat16_s{n['s']}_d80", 1,
+                        *n["phi2"][:2], n["s"], n["s"], n["phi2"][2], bf16,
+                        gen, causal=True),
+        check_attention(f"prefill_float32_s{n['s']}_d192", 1,
+                        *n["d192"][:2], n["s"], n["s"], n["d192"][2], f32,
+                        gen, causal=True),
+        check_attention(f"decode_float32_skv{n['skv']}_d192", 1,
+                        *n["d192"][:2], 1, n["skv"], n["d192"][2], f32, gen,
+                        causal=True, kv_offset=n["skv"] - 1)], None)}
 
 
 def check_batch_archs_attention(gen):
@@ -2480,7 +2544,7 @@ def phase_kernels(cfg):
         checks += [
             lambda qc=qc: check_bc_fused(qc, gen, new_projections(qc),
                                          lane_names=("bc_fused",)),
-            lambda qc=qc, f=family: check_paged(qc, gen, float_only=True,
+            lambda qc=qc, f=family: check_paged(qc, gen, pick=(0,),
                                                 prefix=f"{f}_"),
             # head dim 128: the other tensor-core tiling of the bf16 lane
             lambda qc=qc, f=family: check_flash(qc, gen, prefix=f"{f}_"),
@@ -2533,6 +2597,22 @@ def phase_kernels(cfg):
             cfg, gen, [(n, *io, bk) for n, io in gemma.items()
                        if n.startswith(family + "_")],
             N=4 * BATCH_ARCH[arch]["hi"], timing=LONG))
+    # the lanes the padded tiles and group tiles opened: flash at
+    # serve_smoke's D = 32 and at public widths no config reaches; paged
+    # decode at D = 256 (the wide tile) and G = 71 (group tiles of 16) on
+    # both pool lanes, and at serve_smoke's last decode step (D = 32)
+    ta = get_smoke_config(ARCH).attention
+    checks += [lambda: check_new_flash(gen)] + [
+        lambda name=name: check_paged(
+            None, gen, prefix=f"{name}_", maxp=NEW_LANES["paged_maxp"],
+            positions=NEW_LANE_POSITIONS, heads=NEW_LANES[name],
+            pick=(0, 2), plain_timing=LONG) for name in ("d256", "g71")] + [
+        lambda: check_paged(
+            None, gen, prefix="smoke_", maxp=-(-_SMOKE_SEQ // SMOKE["page"]),
+            positions=tuple(len(r.prompt) + r.max_new_tokens - 2
+                            for r in _SMOKE_REQS),
+            heads=(ta.num_heads, ta.num_kv_heads, ta.head_dim), pick=(0,),
+            plain_timing=LONG)]
     checks += [
         # training (phase train): bc_grad_w at each projection's shape,
         # bc_fused at the forward and adjoint shapes, N = 8 x 1,024 rows
@@ -2697,6 +2777,257 @@ def decode_graphs(st):
                              f"expected 1")
     return {"decode_graphs": st["decode_graphs"],
             "decode_capture_s": st["decode_capture_s"]}
+
+
+# ---------------------------------------------------------------------------
+# serve_smoke: the serve launcher's default on the card, all ten archs
+# ---------------------------------------------------------------------------
+def smoke_requests(cfg):
+    """The serve launcher's requests at its defaults but ``SMOKE``'s count
+    and budget (prompts of a vision stub's patches plus the largest window
+    plus 16-31 tokens, drawn from the seed as it draws them), and its
+    engines' max_seq."""
+    extra = cfg.num_patches if cfg.frontend == "vision_stub" else 0
+    if not cfg.is_encoder_decoder:
+        extra += max(window_for(k, cfg) for k in layer_kinds(cfg))
+    rng = np.random.RandomState(SEED)
+    reqs = [Request(prompt=rng.randint(0, cfg.vocab_size, size=extra
+                                       + rng.randint(16, 32)).astype(
+        np.int32), max_new_tokens=SMOKE["new"], id=i)
+        for i in range(SMOKE["requests"])]
+    return reqs, extra + 64 + SMOKE["new"]
+
+
+def smoke_engine_run(cfg, params, engine, device, reqs, max_seq):
+    """``reqs`` through one engine at the launcher's sizes on ``device``:
+    (results, stats, the logits each greedy pick read, in order).  The
+    batch engine's rows are its prefill's last positions and every step of
+    its decode loop (``dec.greedy``, swapped for the run); the continuous
+    engine's its B = 1 prefills' (its decode step is one captured CUDA
+    graph on the card, eager on the CPU, so only the prefills are read on
+    both)."""
+    rows, real = [], dec.greedy
+
+    def tap(logits):
+        rows.append(logits.detach().float().cpu())
+        return real(logits)
+
+    if engine == "batch":
+        eng = Engine(cfg, params, max_batch=SMOKE["max_batch"],
+                     max_seq=max_seq, device=device)
+        prefill = eng._prefill
+
+        def tapped_prefill(p, batch, cache):
+            logits, cache = prefill(p, batch, cache)
+            rows.append(logits[:, -1].detach().float().cpu())
+            return logits, cache
+
+        eng._prefill = tapped_prefill
+        dec.greedy = tap
+        try:
+            results = eng.generate(reqs)
+        finally:
+            dec.greedy = real
+    else:
+        eng = ContinuousEngine(cfg, params, max_slots=SMOKE["max_batch"],
+                               max_seq=max_seq, page_size=SMOKE["page"],
+                               decode_chunk=SMOKE["chunk"], device=device)
+        make = eng._prefill_fn
+
+        def prefill_fn(n_pages):
+            fn = make(n_pages)
+
+            def tapped(*args):
+                dec.greedy = tap
+                try:
+                    return fn(*args)
+                finally:
+                    dec.greedy = real
+            return tapped
+
+        eng._prefill_fn = prefill_fn
+        results = eng.generate(reqs)
+    for r, req in zip(results, reqs):
+        if (r["status"] != "FINISHED_BUDGET"
+                or r["decode_len"] != req.max_new_tokens):
+            raise AssertionError(f"{cfg.name} {engine} on {device}: request "
+                                 f"{req.id} {r['status']}, "
+                                 f"{r['decode_len']} tokens")
+    return results, eng.stats(), rows
+
+
+def smoke_compare(card, cpu, independent):
+    """The card's logit rows against the CPU's, each within
+    ``SMOKE_LOGIT_TOL`` of max(1, |CPU row|): all of them where each row
+    reads only the prompts (``independent``: the continuous engine's
+    prefills), else in order up to and including the first row whose
+    greedy tokens differ (a later step reads other tokens on the two
+    devices).  Returns the comparison."""
+    if len(card) != len(cpu):
+        raise AssertionError(f"{len(card)} logit rows on the card, "
+                             f"{len(cpu)} on the CPU")
+    errs, diverged = [], None
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"row {i}: {tuple(a.shape)} on the card, "
+                                 f"{tuple(b.shape)} on the CPU, or not "
+                                 f"finite")
+        scale = max(1.0, float(b.abs().max()))
+        errs.append(max_err(a, b) / scale)
+        if not errs[-1] <= SMOKE_LOGIT_TOL:
+            raise AssertionError(f"logit row {i}: {errs[-1]} of the scale "
+                                 f"> {SMOKE_LOGIT_TOL}")
+        if not independent and not torch.equal(a.argmax(-1), b.argmax(-1)):
+            diverged = i
+            break
+    return {"rows": len(cpu), "rows_compared": len(errs),
+            "tokens_diverged_at_row": diverged,
+            "max_rel_err": max(errs), "tol": SMOKE_LOGIT_TOL}
+
+
+def phase_serve_smoke():
+    """The serve launcher's default on the card: each arch's smoke config
+    (bf16, head dim 32) from the seed through the batch engine and, for
+    the five continuous-servable archs, the continuous engine; each run
+    against the same engine on the CPU on the same weights, by logits
+    (``smoke_compare``).  Every count is set to 0 before the first card
+    run and read after the last (the CPU runs launch nothing): the bf16
+    flash kernel at D = 32 and the paged kernel (the smoke configs' D =
+    32) must have launched.  Then the launcher itself, as README gives
+    it, without ``--device cpu``: exit 0."""
+    t0 = time.perf_counter()
+    reset_counts()
+    out = {"phase": "serve_smoke"}
+    for arch in ARCH_IDS:
+        cfg = get_smoke_config(arch)
+        if cfg.attention.head_dim != 32 or cfg.dtype != "bfloat16":
+            raise AssertionError(f"{arch}: the smoke config is not bf16 at "
+                                 f"head dim 32")
+        reqs, max_seq = smoke_requests(cfg)
+        weights = init_params(cfg, seed=SEED, device="cpu")
+        engines = ["batch"] + ([] if kvc.servable_reasons(cfg)
+                               else ["continuous"])
+        for engine in engines:
+            before = lane_counts()
+            res, st, card = smoke_engine_run(
+                cfg, copy.deepcopy(weights).to(DEVICE), engine, DEVICE,
+                reqs, max_seq)
+            torch.cuda.synchronize()
+            after = lane_counts()
+            _, _, cpu = smoke_engine_run(cfg, copy.deepcopy(weights),
+                                         engine, "cpu", reqs, max_seq)
+            out[f"{arch}/{engine}"] = {
+                "prompt_lens": [len(r.prompt) for r in reqs],
+                "tokens": sum(r["decode_len"] for r in res),
+                "prefills": st["prefills"],
+                "decode_steps": st["decode_steps"],
+                "launches": {f: after[f] - before.get(f, 0) for f in after
+                             if after[f] != before.get(f, 0)},
+                **smoke_compare(card, cpu, engine == "continuous")}
+    torch.cuda.synchronize()
+    run = {"launches": lane_counts(), "paths": path_counts(),
+           "shapes": shape_counts()}
+    flash = run["shapes"].get("flash_attention", {})
+    bf16_d = {int(k.split("/")[0].split("x")[5]) for k in flash
+              if "/bfloat16/" in k}
+    if not run["paths"].get("flash_attention", {}).get("bf16") or \
+            bf16_d != {32}:
+        raise AssertionError(f"the bf16 flash lane at D = 32 did not carry "
+                             f"the prefills: {run['paths']}, {bf16_d}")
+    if not run["launches"].get("paged_attention") or \
+            run["launches"].get("paged_attention_i8"):
+        raise AssertionError(f"the paged decode took "
+                             f"{run['launches']}, not the float pool lane")
+    out["wall_s"] = time.perf_counter() - t0
+    out.update(run)
+    t1 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    cli = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH]
+    p = subprocess.run(cli, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=300)
+    if p.returncode != 0:
+        raise AssertionError(f"{' '.join(cli[1:])}: exit {p.returncode}\n"
+                             f"{p.stdout[-2000:]}{p.stderr[-4000:]}")
+    out["cli"] = {"argv": cli[1:], "returncode": p.returncode,
+                  "wall_s": time.perf_counter() - t1,
+                  "stdout_tail": p.stdout.splitlines()[-4:]}
+    emit(out)
+    return run
+
+
+_SMOKE_REQS, _SMOKE_SEQ = smoke_requests(get_smoke_config(ARCH))
+_SMOKE_S = max(len(r.prompt) for r in _SMOKE_REQS)
+# the new lanes' cases (check_new_flash, check_paged) on the kernels line:
+# (library, the TPU kernel, kernel-check group, case, the run whose
+# launches it reports, how): "shape" counts the case's own launch shape in
+# that run, "lane" the exported function's launches there (the paged
+# decode at the smoke configs' D = 32, the only head dim that run
+# serves); "off_path" marks a shape no config reaches, reported with the
+# function's launches on that run and its own (none) beside them
+SMOKE_LANES = {
+    "flash_attention@d32": (
+        fa.KERNEL, "src/repro/kernels/flash_attention.py:75",
+        "flash_attention",
+        f"smoke_prefill_bfloat16_b{SMOKE['requests']}_s{_SMOKE_S}_d32",
+        "serve_smoke", "shape"),
+    "paged_attention@d32": (
+        pa.KERNEL, "src/repro/kernels/paged_attention.py:181",
+        "paged_attention", f"smoke_decode_bfloat16_b{SMOKE['max_batch']}",
+        "serve_smoke", "lane"),
+    "flash_attention@d32_s2048": (
+        fa.KERNEL, "src/repro/kernels/flash_attention.py:75",
+        "flash_attention", f"prefill_bfloat16_b{NEW_LANES['b32']}_s"
+        f"{NEW_LANES['s']}_d32", "serve_smoke", "off_path"),
+    "flash_attention@d80": (
+        fa.KERNEL, "src/repro/kernels/flash_attention.py:75",
+        "flash_attention", f"phi2_prefill_bfloat16_s{NEW_LANES['s']}_d80",
+        "serve_smoke", "off_path"),
+    "flash_attention@d192_prefill_f32": (
+        fa.KERNEL, "src/repro/kernels/flash_attention.py:75",
+        "flash_attention", f"prefill_float32_s{NEW_LANES['s']}_d192",
+        "serve_smoke", "off_path"),
+    "flash_attention@d192_decode_f32": (
+        fa.KERNEL, "src/repro/kernels/flash_attention.py:75",
+        "flash_attention", f"decode_float32_skv{NEW_LANES['skv']}_d192",
+        "serve_smoke", "off_path"),
+    **{f"paged_attention{i8}@{name}": (
+        pa.KERNEL, "src/repro/kernels/paged_attention.py:181",
+        f"paged_attention{i8}",
+        f"{name}_decode_{'int8_float32' if i8 else 'bfloat16'}_b"
+        f"{NEW_LANES['paged_b']}", run, "off_path")
+       for name in ("d256", "g71")
+       for i8, run in (("", "serve_smoke"), ("_i8", "serve_quant_int8"))}}
+
+
+def smoke_lane_summary(kernels, runs):
+    """The kernels line's entries for ``SMOKE_LANES``."""
+    out = []
+    for name, (lib, replaces, group, main_case, run, how) in \
+            SMOKE_LANES.items():
+        c = next(c for c in kernels[group][0] if c["case"] == main_case)
+        fn = name.split("@")[0]
+        lane = runs[run]["launches"].get(fn, 0)
+        shape = c.get("launch_shape")
+        at = (runs[run].get("shapes", {}).get(lib.name, {}).get(shape, 0)
+              if shape else None)
+        launches = at if how == "shape" else lane
+        if not launches:
+            raise AssertionError(f"{name}: no launch in the {run} run")
+        out.append({
+            "name": name, "route": "cuda",
+            "source": str(lib.source.relative_to(ROOT)),
+            "replaces": replaces, "launches": launches, "launches_in": run,
+            "lane_launches": lane, "launch_shape": shape,
+            "shape_launches": at, "on_main_path": how != "off_path",
+            "case": main_case, "max_abs_err": c["max_abs_err"],
+            "tol": c["tol"], "ms": c["kernel_ms"], "kernel_ms": c["kernel_ms"],
+            "device_ms": c["device_ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_us": c["bound_ms"] * 1e3,
+            "bound_by": c["bound_by"], "bound_share": c["bound_share"],
+            "library_ms": c["library_ms"]})
+    return out
 
 
 def phase_serve(cfg):
@@ -5018,7 +5349,7 @@ def main() -> int:
                     for n in build.KERNEL_NAMES}})
     cfg = get_config(ARCH)
     kernels = phase_kernels(cfg)
-    runs = {"serve": phase_serve(cfg)}
+    runs = {"serve_smoke": phase_serve_smoke(), "serve": phase_serve(cfg)}
     phase_parity(cfg)
     for bits in (8, 4):
         runs[f"serve_quant_int{bits}"] = phase_serve_quant(cfg, bits)
@@ -5094,6 +5425,7 @@ def main() -> int:
             "device_ms": c["device_ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_us": c["bound_ms"] * 1e3, "bound_by": c["bound_by"],
             "bound_share": c["bound_share"], "library_ms": c["library_ms"]})
+    summary += smoke_lane_summary(kernels, runs)
     print(card, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,13 +3,14 @@
 // and (paged_attention.cu's) online-softmax update of one query row
 // against one tile of 32 keys.
 //
-// Layout of a tile in shared memory (float32):
-//   ks[c * (D + 4) + d]  key c, dim d (row stride D + 4: lane c reads
+// Layout of a tile in shared memory (float32), W its width (D, or a
+// compile-time width with zeros past D):
+//   ks[c * (W + 4) + d]  key c, dim d (row stride W + 4: lane c reads
 //                        its row as float4 without bank conflicts)
-//   vs[c * D + d]        value c, dim d (lane d reads row c)
+//   vs[c * W + d]        value c, dim d (lane d reads row c)
 // Each warp owns its query rows.  Lane c scores key c of the tile; the
 // softmax statistics are reduced across the warp; lane d accumulates
-// output dims d, d + 32, d + 64, d + 96 (D <= kMaxD).
+// output dims d, d + 32, ... (4 of them up to kMaxD, 8 up to 256).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -52,17 +53,18 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // One query row (already scaled, float32, in shared memory) against one
-// tile, the head dim fixed at compile time (DT = 64 or 128; 0 = D at run
-// time): K rows of stride D + 4 read as float4, the dot in four partial
-// sums, so it is not one chain of D dependent FMAs.  `valid` is this
-// lane's mask bit for its key.  All 32 lanes of the warp must call it
-// together.  A tile in which no key is valid leaves (m, l, acc) exactly as
-// they were.
-template <int DT>
+// tile, the tile's width fixed at compile time (DT = 64, 128 or 256; 0 = D
+// at run time): K rows of stride DT + 4 read as float4, the dot in four
+// partial sums, so it is not one chain of D dependent FMAs.  A tile wider
+// than the head dim holds zeros past it.  Lane d accumulates the N dims d,
+// d + 32, ...  `valid` is this lane's mask bit for its key.  All 32 lanes
+// of the warp must call it together.  A tile in which no key is valid
+// leaves (m, l, acc) exactly as they were.
+template <int DT, int N>
 __device__ __forceinline__ void row_tile_f32(
     const float* __restrict__ qrow, const float* __restrict__ ks,
     const float* __restrict__ vs, int D, bool valid, float softcap,
-    float& m, float& l, float (&acc)[kDPerLane]) {
+    float& m, float& l, float (&acc)[N]) {
   const int Dn = DT ? DT : D;
   const int lane = threadIdx.x & 31;
   const float* krow = ks + lane * (Dn + 4);
@@ -90,13 +92,13 @@ __device__ __forceinline__ void row_tile_f32(
   l = l * alpha + warp_sum(p);
   m = m_new;
 #pragma unroll
-  for (int e = 0; e < kDPerLane; ++e) acc[e] *= alpha;
+  for (int e = 0; e < N; ++e) acc[e] *= alpha;
 #pragma unroll 8
   for (int c = 0; c < kTile; ++c) {
     const float pc = __shfl_sync(0xffffffffu, p, c);
     const float* vrow = vs + c * Dn;
 #pragma unroll
-    for (int e = 0; e < kDPerLane; ++e) {
+    for (int e = 0; e < N; ++e) {
       const int d = lane + 32 * e;
       if (d < Dn) acc[e] = fmaf(pc, vrow[d], acc[e]);
     }
@@ -105,8 +107,7 @@ __device__ __forceinline__ void row_tile_f32(
 
 // Write one finished row: acc / max(l, 1e-30).  A row that never saw a
 // valid key has acc == 0 and comes out exactly 0.  Lane d holds dims d,
-// d + 32, ... (N of them: kDPerLane, or D / 32 for flash_attention.cu's
-// head dim 256).
+// d + 32, ... (N of them: kDPerLane up to kMaxD, 8 up to 256).
 template <typename T, int N>
 __device__ __forceinline__ void row_store(T* __restrict__ out, int D, float l,
                                           const float (&acc)[N]) {

@@ -31,19 +31,29 @@
 //   as the A operand of P V (FlashAttention-2), and the row sum l is
 //   taken from the float32 P.  Tiles wholly masked for a warp are
 //   skipped; tiles outside the block's causal / window extent are never
-//   loaded.  Head dims 64, 96, 128 and 256 are compile-time instances:
-//   D / 16 k-steps of Q K^T and D / 8 output tiles of P V, a row of shared
-//   memory padded to D + 8 values (144, 208, 272 and 528 bytes: the 8 rows
-//   an ldmatrix reads land on 8 distinct groups of 4 banks), and
-//   2 x 5 x 64 x (D + 8) bytes of shared memory (Q plus two K/V buffers;
-//   168,960 at D = 256, one block an SM).  At D <= 128 a warp keeps its Q
-//   fragments in registers for the whole key loop.  At D = 256 they would
-//   be 64 registers beside the 128 of the output accumulators and the 32
-//   of the score tile, over the 255 a thread may hold: so Q stays in
-//   shared memory and each k-step of Q K^T loads its fragment there with
-//   one ldmatrix (16 a tile, against the 64 that load K).
+//   loaded.  Tiles of 32, 64, 96, 128 and 256 are compile-time instances
+//   (DP): DP / 16 k-steps of Q K^T and DP / 8 output tiles of P V, a row
+//   of shared memory padded to DP + 8 values (80, 144, 208, 272 and 528
+//   bytes: the 8 rows an ldmatrix reads land on 8 distinct groups of 4
+//   banks), and 2 x 5 x 64 x (DP + 8) bytes of shared memory (Q plus two
+//   K/V buffers; 168,960 at 256, one block an SM).  Any head dim D <= 256
+//   runs in the smallest tile that holds it (the smoke configs' 32 in its
+//   own; phi-2's 80 in 96): the row stride in device memory is D, the
+//   staging writes zeros in columns D .. DP - 1 of Q, K and V (zero
+//   columns add nothing to Q K^T; P V's extra columns are never stored),
+//   and only D columns are stored.  Where D is a multiple of 8 and every
+//   base is 16-byte aligned the staging copies 16-byte pieces with
+//   cp.async and the store writes two values at once; else both go value
+//   by value.  At DP <= 128 a warp keeps its Q fragments in registers for
+//   the whole key loop.  At 256 they would be 64 registers beside the 128
+//   of the output accumulators and the 32 of the score tile, over the 255
+//   a thread may hold: so Q stays in shared memory and each k-step of
+//   Q K^T loads its fragment there with one ldmatrix (16 a tile, against
+//   the 64 that load K).
 // - float32 prefill (flash_f32_mma_kernel, G * Sq >= 16 packed rows, D =
-//   64, 96, 128 or 256): the bf16 lane's FlashAttention-2 layout with the
+//   64, 96, 128, and any D above 128 in the 256 tile, padded as the bf16
+//   lane pads, value by value where D is not a multiple of 4 or a base is
+//   not 16-byte aligned): the bf16 lane's FlashAttention-2 layout with the
 //   GQA packing of the rows kernel (packed row = position * G + head, so a
 //   K/V tile serves the G heads of its KV head): 64 packed rows a block,
 //   16 a warp, 32-key tiles double-buffered with cp.async (16-byte
@@ -57,16 +67,17 @@
 //   thread holds the 128 accumulators, the 16 scores and one k-step's
 //   fragments; shared memory 4 x (64 x 260 + 2 x 32 x 524) = 200,704 bytes.
 // - float32 rows kernel (flash_f32_kernel: the one-row decode, and head
-//   dims without a tensor-core instance), on the CUDA cores.  GQA packing
-//   up to 64 packed rows a block (fewer where that leaves SMs idle), keys
-//   in 32-key stages double-buffered with cp.async (16-byte copies at
-//   compile-time D = 64, 96, 128; 4-byte at a run-time D).  Where a block
+//   dims up to 128 without a tensor-core instance), on the CUDA cores.
+//   GQA packing up to 64 packed rows a block (fewer where that leaves SMs
+//   idle), keys in 32-key stages double-buffered with cp.async (16-byte
+//   copies at compile-time D = 64, 96, 128, 256; 4-byte at a run-time D:
+//   any other D, or a float32 cache not 16-byte aligned).  Where a block
 //   holds fewer rows than its 8 warps (G * Sq < 8: phi-3-vision's G = 1
 //   decode) the warps of a row split every stage's keys among themselves
 //   (kw = 8 / rows groups, nk = 32 / kw keys each, kw lanes a key's dot)
 //   and merge their (m, l, acc) in warp order at the end, so no warp
 //   idles.  Lane d accumulates dims d, d + 32, ...: 4 of them up to D =
-//   128, 8 at D = 256 (kNPL).  When the grid would still be small
+//   128, 8 above (NPL; a run-time D above 128 takes the 8-dim instance).  When the grid would still be small
 //   (decode: B * Hkv = 32 blocks at tinyllama) the key range is split
 //   over blocks (flash-decoding): each split writes its partial (m, l,
 //   acc) to scratch the wrapper allocates, and flash_combine merges the
@@ -90,6 +101,7 @@
 #include <cuda_fp8.h>
 #include <math_constants.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 namespace {
@@ -171,15 +183,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
+// The tile is DP wide (a compile-time instance); the head dim D <= DP is
+// the run-time row stride.  Columns D .. DP - 1 are staged as zeros.  With
+// vec (D a multiple of 8, every base 16-byte aligned) a row is staged in
+// 16-byte cp.async pieces and stored two values a store; else value by
+// value.
+template <int DP>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o, int Hq,
-                  int Hkv, int Sq, int Skv, float scale, int causal,
-                  int window, float softcap, int kv_offset) {
-  constexpr int LD = D + 8;                  // padded row: no bank conflicts
-  constexpr int CH = D / 8;                  // 16-byte chunks a row
-  constexpr bool kQRegs = D <= 128;          // Q fragments kept in registers
+                  int Hkv, int Sq, int Skv, int D, int vec, float scale,
+                  int causal, int window, float softcap, int kv_offset) {
+  constexpr int LD = DP + 8;                 // padded row: no bank conflicts
+  constexpr int CH = DP / 8;                 // 16-byte chunks a row
+  constexpr bool kQRegs = DP <= 128;         // Q fragments kept in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);        // (kBQ, LD)
   bf16* kvs = qs + kBQ * LD;                 // [buffer][K, V](kBK, LD)
@@ -201,30 +218,49 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       window ? max(0, r0 + kv_offset - window + 1) / kBK * kBK : 0;
   const int ntile = kv_hi > kv_lo ? (kv_hi - kv_lo + kBK - 1) / kBK : 0;
 
-  for (int idx = threadIdx.x; idx < kBQ * CH; idx += kMmaThreads) {
-    const int r = idx / CH, c = (idx % CH) * 8, row = r0 + r;
-    cp_async16(qs + r * LD + c, qb + (size_t)(row < Sq ? row : 0) * D + c,
-               row < Sq);
+  const bf16 zero = __float2bfloat16(0.f);
+  if (vec) {
+    for (int idx = threadIdx.x; idx < kBQ * CH; idx += kMmaThreads) {
+      const int r = idx / CH, c = (idx % CH) * 8, row = r0 + r;
+      const bool ok = row < Sq && c < D;
+      cp_async16(qs + r * LD + c, qb + (ok ? (size_t)row * D + c : 0), ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < kBQ * DP; idx += kMmaThreads) {
+      const int r = idx / DP, c = idx % DP, row = r0 + r;
+      qs[r * LD + c] = row < Sq && c < D ? qb[(size_t)row * D + c] : zero;
+    }
   }
   const auto load_kv = [&](int buf, int t0) {
     bf16* ks = kvs + buf * 2 * kBK * LD;
     bf16* vs = ks + kBK * LD;
-    for (int idx = threadIdx.x; idx < kBK * CH; idx += kMmaThreads) {
-      const int r = idx / CH, c = (idx % CH) * 8, col = t0 + r;
-      const size_t off = (size_t)(col < Skv ? col : 0) * D + c;
-      cp_async16(ks + r * LD + c, kb + off, col < Skv);
-      cp_async16(vs + r * LD + c, vb + off, col < Skv);
+    if (vec) {
+      for (int idx = threadIdx.x; idx < kBK * CH; idx += kMmaThreads) {
+        const int r = idx / CH, c = (idx % CH) * 8, col = t0 + r;
+        const bool ok = col < Skv && c < D;
+        const size_t off = ok ? (size_t)col * D + c : 0;
+        cp_async16(ks + r * LD + c, kb + off, ok);
+        cp_async16(vs + r * LD + c, vb + off, ok);
+      }
+      return;
+    }
+    for (int idx = threadIdx.x; idx < kBK * DP; idx += kMmaThreads) {
+      const int r = idx / DP, c = idx % DP, col = t0 + r;
+      const bool ok = col < Skv && c < D;
+      const size_t off = (size_t)col * D + c;
+      ks[r * LD + c] = ok ? kb[off] : zero;
+      vs[r * LD + c] = ok ? vb[off] : zero;
     }
   };
   if (ntile > 0) load_kv(0, kv_lo);
   asm volatile("cp.async.commit_group;");
 
-  float oacc[D / 8][4], m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  float oacc[DP / 8][4], m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
+  for (int i = 0; i < DP / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) oacc[i][e] = 0.f;
-  uint32_t qf[kQRegs ? D / 16 : 1][4];
+  uint32_t qf[kQRegs ? DP / 16 : 1][4];
   const bf16* qw = qs + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
   const int wr0 = r0 + warp * 16;
   const int rows[2] = {wr0 + g, wr0 + g + 8};
@@ -242,7 +278,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if constexpr (kQRegs) {
       if (it == 0) {
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qf[kk], qw + kk * 16);
+        for (int kk = 0; kk < DP / 16; ++kk) ldsm_x4(qf[kk], qw + kk * 16);
       }
     }
     const int wlast = min(wr0 + 15, Sq - 1);
@@ -257,7 +293,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DP / 16; ++kk) {
         uint32_t qa[4];
         if constexpr (kQRegs) {
 #pragma unroll
@@ -308,7 +344,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
+      for (int i = 0; i < DP / 8; ++i) {
         oacc[i][0] *= alpha[0];
         oacc[i][1] *= alpha[0];
         oacc[i][2] *= alpha[1];
@@ -321,7 +357,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                 pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                                 pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
+        for (int dp = 0; dp < DP / 16; ++dp) {
           uint32_t bf[4];
           ldsm_x4_t(bf, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
                                  LD + dp * 16 + (lane >> 4) * 8);
@@ -344,11 +380,17 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // a row that never saw a valid key has oacc == 0: exactly 0 out
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)rows[r] * D + i * 8 +
-                                         2 * t) =
-          __floats2bfloat162_rn(oacc[i][2 * r] * inv,
-                                oacc[i][2 * r + 1] * inv);
+    for (int i = 0; i < DP / 8; ++i) {
+      const int d = i * 8 + 2 * t;            // the pad's columns: not stored
+      bf16* out = ob + (size_t)rows[r] * D + d;
+      const float lo = oacc[i][2 * r] * inv, hi = oacc[i][2 * r + 1] * inv;
+      if (vec && d < D) {
+        *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(lo, hi);
+      } else {
+        if (d < D) out[0] = __float2bfloat16(lo);
+        if (d + 1 < D) out[1] = __float2bfloat16(hi);
+      }
+    }
   }
 }
 
@@ -379,13 +421,14 @@ __device__ __forceinline__ int key_of(int n) { return (n >> 1) + (n & 1) * 4; }
 // hi*hi + lo*hi + hi*lo (3xTF32, mma_tf32.cuh); Q, K and V stay float32
 // in shared memory, padded rows (D + 4 for Q and K, D + 8 for V) so every
 // fragment load hits 32 distinct banks.
-template <int D>
+template <int DP>
 __global__ void __launch_bounds__(kFThreads)
 flash_f32_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int Hq, int Hkv, int Sq, int Skv, float scale,
-                     int causal, int window, float softcap, int kv_offset) {
-  constexpr int LQ = D + 4, LK = D + 4, LV = D + 8, CH = D / 4;
+                     int Hq, int Hkv, int Sq, int Skv, int D, int vec,
+                     float scale, int causal, int window, float softcap,
+                     int kv_offset) {
+  constexpr int LQ = DP + 4, LK = DP + 4, LV = DP + 8, CH = DP / 4;
   constexpr int TILE = kFK * (LK + LV);
   extern __shared__ __align__(16) float fsm[];
   float* qs = fsm;                           // (kFR, LQ)
@@ -409,26 +452,48 @@ flash_f32_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
       window ? max(0, pr0 / G + kv_offset - window + 1) / kFK * kFK : 0;
   const int ntile = kv_hi > kv_lo ? (kv_hi - kv_lo + kFK - 1) / kFK : 0;
 
-  for (int idx = threadIdx.x; idx < kFR * CH; idx += kFThreads) {
-    const int r = idx / CH, c = (idx % CH) * 4, pr = pr0 + r;
-    cp_async16(qs + r * LQ + c, q + (pr < NR ? q_off(pr) : 0) + c, pr < NR);
+  // vec: 16-byte pieces (CH a row); else one value a 4-byte copy.
+  // Columns D .. DP - 1 are zeros.
+  if (vec) {
+    for (int idx = threadIdx.x; idx < kFR * CH; idx += kFThreads) {
+      const int r = idx / CH, c = (idx % CH) * 4, pr = pr0 + r;
+      const bool ok = pr < NR && c < D;
+      cp_async16(qs + r * LQ + c, q + (ok ? q_off(pr) + c : 0), ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < kFR * DP; idx += kFThreads) {
+      const int r = idx / DP, c = idx % DP, pr = pr0 + r;
+      const bool ok = pr < NR && c < D;
+      cp_async4(qs + r * LQ + c, q + (ok ? q_off(pr) + c : 0), ok);
+    }
   }
   const auto load_kv = [&](int buf, int t0) {
     float* ks = kvs + buf * TILE;
     float* vs = ks + kFK * LK;
-    for (int idx = threadIdx.x; idx < kFK * CH; idx += kFThreads) {
-      const int r = idx / CH, c = (idx % CH) * 4, col = t0 + r;
-      const size_t off = (size_t)(col < kv_hi ? col : 0) * D + c;
-      cp_async16(ks + r * LK + c, kb + off, col < kv_hi);
-      cp_async16(vs + r * LV + c, vb + off, col < kv_hi);
+    if (vec) {
+      for (int idx = threadIdx.x; idx < kFK * CH; idx += kFThreads) {
+        const int r = idx / CH, c = (idx % CH) * 4, col = t0 + r;
+        const bool ok = col < kv_hi && c < D;
+        const size_t off = ok ? (size_t)col * D + c : 0;
+        cp_async16(ks + r * LK + c, kb + off, ok);
+        cp_async16(vs + r * LV + c, vb + off, ok);
+      }
+      return;
+    }
+    for (int idx = threadIdx.x; idx < kFK * DP; idx += kFThreads) {
+      const int r = idx / DP, c = idx % DP, col = t0 + r;
+      const bool ok = col < kv_hi && c < D;
+      const size_t off = ok ? (size_t)col * D + c : 0;
+      cp_async4(ks + r * LK + c, kb + off, ok);
+      cp_async4(vs + r * LV + c, vb + off, ok);
     }
   };
   if (ntile > 0) load_kv(0, kv_lo);
   asm volatile("cp.async.commit_group;");
 
-  float oacc[D / 8][4], m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  float oacc[DP / 8][4], m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
+  for (int i = 0; i < DP / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) oacc[i][e] = 0.f;
   const int wr0 = pr0 + warp * 16;
@@ -460,7 +525,7 @@ flash_f32_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk) {
+      for (int kk = 0; kk < DP / 8; ++kk) {
         const float* qa = qw + g * LQ + kk * 8 + t;
         uint32_t ah[4], al[4];
         split_tf32_alu(qa[0], ah[0], al[0]);
@@ -512,7 +577,7 @@ flash_f32_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
+      for (int i = 0; i < DP / 8; ++i) {
         oacc[i][0] *= alpha[0];
         oacc[i][1] *= alpha[0];
         oacc[i][2] *= alpha[1];
@@ -528,7 +593,7 @@ flash_f32_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
         split_tf32_alu(s[kc][3], ph[3], pl[3]);
         const float* vr = vs + (kc * 8 + t) * LV + g;
 #pragma unroll
-        for (int nt = 0; nt < D / 8; ++nt) {
+        for (int nt = 0; nt < DP / 8; ++nt) {
           uint32_t b0h, b0l, b1h, b1l;
           split_tf32_alu(vr[nt * 8], b0h, b0l);
           split_tf32_alu(vr[4 * LV + nt * 8], b1h, b1l);
@@ -553,9 +618,16 @@ flash_f32_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     float* orow = o + q_off(rows[r]);
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<float2*>(orow + i * 8 + 2 * t) =
-          make_float2(oacc[i][2 * r] * inv, oacc[i][2 * r + 1] * inv);
+    for (int i = 0; i < DP / 8; ++i) {
+      const int d = i * 8 + 2 * t;            // the pad's columns: not stored
+      const float lo = oacc[i][2 * r] * inv, hi = oacc[i][2 * r + 1] * inv;
+      if (vec && d < D) {
+        *reinterpret_cast<float2*>(orow + d) = make_float2(lo, hi);
+      } else {
+        if (d < D) orow[d] = lo;
+        if (d + 1 < D) orow[d + 1] = hi;
+      }
+    }
   }
 }
 
@@ -563,12 +635,12 @@ flash_f32_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 constexpr int kF32Warps = 8;
 constexpr int kF32MaxRows = 64;              // packed rows a block, at most
 constexpr int kF32RowsPerWarp = kF32MaxRows / kF32Warps;
-constexpr int kWideD = 256;                  // the one head dim above kMaxD
+constexpr int kWideD = 256;                  // the widest head dim
 
-// Output dims a lane accumulates: 4 up to attn::kMaxD (run-time D too),
-// 8 at kWideD.
-template <int DT>
-constexpr int kNPL = DT > attn::kMaxD ? DT / 32 : attn::kDPerLane;
+// Output dims a lane accumulates: 4 up to attn::kMaxD, 8 up to kWideD.
+__host__ __device__ constexpr int npl(int D) {
+  return D > attn::kMaxD ? kWideD / 32 : attn::kDPerLane;
+}
 
 // Grid (row tiles, B * Hkv, splits), `rows` (a power of two) packed rows
 // a block, the split's keys in 32-key stages double-buffered with
@@ -580,7 +652,7 @@ constexpr int kNPL = DT > attn::kMaxD ? DT / 32 : attn::kDPerLane;
 // and the kw partial (m, l, acc) of a row merge in warp order at the end.
 // With one split the rows are written to o; with more, (m, l) and acc go
 // to part for flash_combine.
-template <int DT, typename KV>
+template <int DT, int NPL, typename KV>
 __global__ void __launch_bounds__(kF32Warps * 32)
 flash_f32_kernel(const float* __restrict__ q, const KV* __restrict__ k,
                  const KV* __restrict__ v, float* __restrict__ o,
@@ -654,7 +726,6 @@ flash_f32_kernel(const float* __restrict__ q, const KV* __restrict__ k,
   if (ntile > 0) load(0, lo);
   asm volatile("cp.async.commit_group;");
 
-  constexpr int NPL = kNPL<DT>;
   float m[kF32RowsPerWarp], l[kF32RowsPerWarp], acc[kF32RowsPerWarp][NPL];
 #pragma unroll
   for (int rr = 0; rr < kF32RowsPerWarp; ++rr) {
@@ -824,23 +895,38 @@ cudaError_t opt_in(const void* fn, size_t smem) {
                               (int)smem);
 }
 
-template <int D>
+// 16-byte aligned (every base pointer of a launch)
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  uintptr_t bits = 0;
+  for (const void* p : ptrs) bits |= reinterpret_cast<uintptr_t>(p);
+  return bits % 16 == 0;
+}
+
+// The smallest compile-time tile that holds D (0 where none does).
+int tile_for(int D, std::initializer_list<int> tiles) {
+  for (int t : tiles)
+    if (D <= t) return t;
+  return 0;
+}
+
+template <int DP>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        int B, int Hq, int Hkv, int Sq, int Skv, float scale,
-                        int causal, int window, float softcap, int kv_offset,
-                        cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * 5 * kBQ * (D + 8);   // Q + 2 x (K, V)
-  cudaError_t e = opt_in((const void*)flash_bf16_kernel<D>, smem);
+                        int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                        float scale, int causal, int window, float softcap,
+                        int kv_offset, cudaStream_t stream) {
+  const size_t smem = sizeof(bf16) * 5 * kBQ * (DP + 8);  // Q + 2 x (K, V)
+  cudaError_t e = opt_in((const void*)flash_bf16_kernel<DP>, smem);
   if (e != cudaSuccess) return e;
+  const int vec = D % 8 == 0 && aligned16({q, k, v, o});
   dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  flash_bf16_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
+  flash_bf16_kernel<DP><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), Hq, Hkv, Sq, Skv,
-      scale, causal, window, softcap, kv_offset);
+      D, vec, scale, causal, window, softcap, kv_offset);
   return cudaGetLastError();
 }
 
-template <int DT, typename KV>
+template <int DT, int NPL, typename KV>
 cudaError_t launch_f32_rows(const float* q, const KV* k, const KV* v,
                             float* o, float* part, int B, int Hq, int Hkv,
                             int Sq, int Skv, int D, float scale, int causal,
@@ -851,34 +937,35 @@ cudaError_t launch_f32_rows(const float* q, const KV* k, const KV* v,
   const size_t smem =
       sizeof(float) * ((size_t)rows * D +
                        (size_t)2 * attn::kTile * (2 * D + 4 * kw));
-  cudaError_t e = opt_in((const void*)flash_f32_kernel<DT, KV>, smem);
+  cudaError_t e = opt_in((const void*)flash_f32_kernel<DT, NPL, KV>, smem);
   if (e != cudaSuccess) return e;
   const int NR = (Hq / Hkv) * Sq;
   dim3 grid((NR + rows - 1) / rows, B * Hkv, splits);
-  flash_f32_kernel<DT, KV><<<grid, kF32Warps * 32, smem, stream>>>(
+  flash_f32_kernel<DT, NPL, KV><<<grid, kF32Warps * 32, smem, stream>>>(
       q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D, scale, causal, window,
       softcap, kv_offset, rows, splits, chunk);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
   const int n = B * Hkv * NR;
-  flash_combine<kNPL<DT>><<<(n + 7) / 8, 256, 0, stream>>>(
+  flash_combine<NPL><<<(n + 7) / 8, 256, 0, stream>>>(
       part, o, B, Hq, Hkv, Sq, D, splits);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DP>
 cudaError_t launch_f32_mma(const float* q, const float* k, const float* v,
                            float* o, int B, int Hq, int Hkv, int Sq, int Skv,
-                           float scale, int causal, int window, float softcap,
-                           int kv_offset, cudaStream_t stream) {
+                           int D, float scale, int causal, int window,
+                           float softcap, int kv_offset, cudaStream_t stream) {
   const size_t smem =
-      sizeof(float) * ((size_t)kFR * (D + 4) + (size_t)2 * kFK * (2 * D + 12));
-  cudaError_t e = opt_in((const void*)flash_f32_mma_kernel<D>, smem);
+      sizeof(float) * ((size_t)kFR * (DP + 4) + (size_t)2 * kFK * (2 * DP + 12));
+  cudaError_t e = opt_in((const void*)flash_f32_mma_kernel<DP>, smem);
   if (e != cudaSuccess) return e;
+  const int vec = D % 4 == 0 && aligned16({q, k, v, o});
   const int NR = (Hq / Hkv) * Sq;
   dim3 grid((NR + kFR - 1) / kFR, B * Hkv);
-  flash_f32_mma_kernel<D><<<grid, kFThreads, smem, stream>>>(
-      q, k, v, o, Hq, Hkv, Sq, Skv, scale, causal, window, softcap,
+  flash_f32_mma_kernel<DP><<<grid, kFThreads, smem, stream>>>(
+      q, k, v, o, Hq, Hkv, Sq, Skv, D, vec, scale, causal, window, softcap,
       kv_offset);
   return cudaGetLastError();
 }
@@ -894,21 +981,17 @@ cudaError_t launch_f32(const float* q, const KV* k, const KV* v,
       return cudaErrorInvalidValue;
     } else {
       if (rows != kFR || splits != 1) return cudaErrorInvalidValue;
-      if (D == 64)
-        return launch_f32_mma<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
-                                  causal, window, softcap, kv_offset, stream);
-      if (D == 96)
-        return launch_f32_mma<96>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
-                                  causal, window, softcap, kv_offset, stream);
-      if (D == 128)
-        return launch_f32_mma<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
-                                   causal, window, softcap, kv_offset,
-                                   stream);
-      if (D == kWideD)
-        return launch_f32_mma<kWideD>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
-                                      scale, causal, window, softcap,
-                                      kv_offset, stream);
-      return cudaErrorInvalidValue;
+#define REPRO_F32_MMA(DP)                                                    \
+  return launch_f32_mma<DP>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, scale,       \
+                            causal, window, softcap, kv_offset, stream)
+      switch (tile_for(D, {64, 96, 128, kWideD})) {
+        case 64: REPRO_F32_MMA(64);
+        case 96: REPRO_F32_MMA(96);
+        case 128: REPRO_F32_MMA(128);
+        case kWideD: REPRO_F32_MMA(kWideD);
+        default: return cudaErrorInvalidValue;
+      }
+#undef REPRO_F32_MMA
     }
   }
   const int NR = (Hq / Hkv) * Sq;
@@ -919,39 +1002,35 @@ cudaError_t launch_f32(const float* q, const KV* k, const KV* v,
                       (size_t)splits * chunk < (size_t)Skv || NR > rows)))
     return cudaErrorInvalidValue;
   if (splits == 1) chunk = Skv > 0 ? Skv : 1;
-  if (D == 64)
-    return launch_f32_rows<64, KV>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D,
-                               scale, causal, window, softcap, kv_offset,
-                               rows, splits, chunk, stream);
-  if (D == 96)
-    return launch_f32_rows<96, KV>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D,
-                               scale, causal, window, softcap, kv_offset,
-                               rows, splits, chunk, stream);
-  if (D == 128)
-    return launch_f32_rows<128, KV>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D,
-                                scale, causal, window, softcap, kv_offset,
-                                rows, splits, chunk, stream);
-  if (D == kWideD)
-    return launch_f32_rows<kWideD, KV>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D,
-                                   scale, causal, window, softcap,
-                                   kv_offset, rows, splits, chunk, stream);
-  if (D > attn::kMaxD) return cudaErrorInvalidValue;
-  return launch_f32_rows<0, KV>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, D, scale,
-                            causal, window, softcap, kv_offset, rows, splits,
-                            chunk, stream);
+  // the compile-time head dims stage 16-byte pieces (a float32 cache: 16-
+  // byte aligned); any other D, or a float32 cache not so aligned, the
+  // run-time-D instance
+  const bool pieces = sizeof(KV) == 1 || aligned16({k, v});
+#define REPRO_F32_ROWS(DT, NPL)                                              \
+  return launch_f32_rows<DT, NPL, KV>(q, k, v, o, part, B, Hq, Hkv, Sq, Skv, \
+                                      D, scale, causal, window, softcap,     \
+                                      kv_offset, rows, splits, chunk, stream)
+  if (pieces && D == 64) REPRO_F32_ROWS(64, npl(64));
+  if (pieces && D == 96) REPRO_F32_ROWS(96, npl(96));
+  if (pieces && D == 128) REPRO_F32_ROWS(128, npl(128));
+  if (pieces && D == kWideD) REPRO_F32_ROWS(kWideD, npl(kWideD));
+  if (D <= attn::kMaxD) REPRO_F32_ROWS(0, npl(attn::kMaxD));
+  REPRO_F32_ROWS(0, npl(kWideD));
+#undef REPRO_F32_ROWS
 }
 
 }  // namespace
 
 // q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D); o: (B, Hq, Sq, D), contiguous;
 // q and o of `dtype` (0 = float32, 1 = bfloat16), k and v of `kv_dtype`
-// (the same code, or 2 = float8 e4m3 under a float32 q, 4-byte aligned).  bfloat16 takes D = 64,
-// 96, 128 or 256 (the tensor-core tiles) and one split; it ignores `rows`.
-// float32 with mma = 1 is the tensor-core prefill: D = 64, 96, 128 or 256,
-// rows = 64, one split.  float32 with mma = 0 is the rows kernel: D <= 128
-// or D = 256, `rows` (a power of two <= 64) packed rows a block and
-// `splits` key ranges of `chunk` keys (a multiple of 32); with splits > 1
-// (only where G * Sq <= rows) part is float32 scratch of
+// (the same code, or 2 = float8 e4m3 under a float32 q, D a multiple of 4
+// and 4-byte aligned).  Any 1 <= D <= 256.  bfloat16 runs in the smallest
+// tile of 32, 64, 96, 128, 256 that holds D, one split; it ignores `rows`.
+// float32 with mma = 1 is the tensor-core prefill, in the smallest tile of
+// 64, 96, 128, 256 that holds D, rows = 64, one split.  float32 with mma =
+// 0 is the rows kernel: `rows` (a power of two <= 64) packed rows a block
+// and `splits` key ranges of `chunk` keys (a multiple of 32); with splits >
+// 1 (only where G * Sq <= rows) part is float32 scratch of
 // splits * B * Hkv * G * Sq * (D + 2).  Returns a cudaError_t.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, void* part, int B, int Hq, int Hkv,
@@ -961,7 +1040,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int rows, int splits, int chunk, int mma,
                                void* stream) {
   if (B <= 0 || Sq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 ||
-      (D > attn::kMaxD && D != kWideD) || Skv < 0 ||
+      D > kWideD || Skv < 0 ||
       !(kv_dtype == dtype || (dtype == 0 && kv_dtype == 2)) ||
       (kv_dtype == 2 && (D % 4 != 0 ||
                          (reinterpret_cast<uintptr_t>(k) |
@@ -981,17 +1060,16 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
         static_cast<float*>(part), B, Hq, Hkv, Sq, Skv, D, scale, causal,
         window, softcap, kv_offset, rows, splits, chunk, mma, s);
   if (dtype != 1 || splits != 1 || mma) return (int)cudaErrorInvalidValue;
-  if (D == 64)
-    return (int)launch_bf16<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
-                                causal, window, softcap, kv_offset, s);
-  if (D == 96)
-    return (int)launch_bf16<96>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
-                                causal, window, softcap, kv_offset, s);
-  if (D == 128)
-    return (int)launch_bf16<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
-                                 causal, window, softcap, kv_offset, s);
-  if (D == kWideD)
-    return (int)launch_bf16<kWideD>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
-                                    causal, window, softcap, kv_offset, s);
-  return (int)cudaErrorInvalidValue;
+#define REPRO_BF16(DP)                                                       \
+  return (int)launch_bf16<DP>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, scale,     \
+                              causal, window, softcap, kv_offset, s)
+  switch (tile_for(D, {32, 64, 96, 128, kWideD})) {
+    case 32: REPRO_BF16(32);
+    case 64: REPRO_BF16(64);
+    case 96: REPRO_BF16(96);
+    case 128: REPRO_BF16(128);
+    case kWideD: REPRO_BF16(kWideD);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_BF16
 }

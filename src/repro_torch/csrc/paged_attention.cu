@@ -17,9 +17,9 @@
 // Design (the plan, kernels/paged_attention.py:plan, is a pure function of
 // the shapes and never reads positions, so a call can be captured in a
 // CUDA graph):
-// - Grid (Hkv, B, splits).  Each block serves the G = Hq / Hkv query rows
-//   of one (slot, KV head) over one split: a range of `pps` whole pages of
-//   the slot's table.  Splits are chosen so that B * Hkv * splits comes
+// - Grid (Hkv x group tiles, B, splits).  Each block serves up to 16 of
+//   the G = Hq / Hkv query rows of one (slot, KV head) over one split: a
+//   range of `pps` whole pages of the slot's table.  Splits are chosen so that B * Hkv * splits comes
 //   near one wave of the card's 132 SMs.  With one split the block writes
 //   its rows; with more, each live split writes (m, l, acc) to float32
 //   scratch and paged_combine, launched from the same exported call,
@@ -45,8 +45,17 @@
 //   the pool is not 16-byte aligned) a scalar path reads value by value.
 // - Head dims 64 and 128 are compile-time (float4 dots over K rows of
 //   stride D + 4, attn_common.cuh:row_tile_f32); other D <= 128 take the
-//   run-time-D instance.  One warp per query row where G <= 8 (4 or 8
-//   warps); at G = 16, two rows a warp.
+//   run-time-D instance; 128 < D <= 256 the wide tile: K / V tiles 256
+//   wide (K rows of stride 260), the columns past D zeroed once a block
+//   and never written again, float4 dots over all 256 (the zeros add
+//   nothing), 8 output dims a lane (4 below), only D stored; it runs on 8
+//   warps.
+// - Query groups: a block serves up to 16 query heads of its KV head; a
+//   group G > 16 takes ceil(G / 16) blocks on grid x (Falcon-7B's 71 heads
+//   over one KV head: 16, 16, 16, 16, 7), each reading the slot's pages
+//   again (simple and right; sharing a page read across the tiles is
+//   later work).  One warp per query row up to 8 rows (4 or 8 warps), two
+//   rows a warp up to 16.
 #include "attn_common.cuh"
 
 namespace {
@@ -56,8 +65,15 @@ using attn::kTile;
 
 constexpr int kMinThreads = 128;             // 4 warps
 constexpr int kMaxThreads = 256;             // 8 warps
-constexpr int kMaxRowsPerWarp = 4;           // G <= warps * kMaxRowsPerWarp
+constexpr int kGroupTile = 16;               // query heads a block, at most
+constexpr int kMaxRowsPerWarp = 2;           // kGroupTile rows over 8 warps
+constexpr int kWideD = 256;                  // the wide tile (kMaxD < D)
 constexpr int kCombineWarps = 8;
+
+// Output dims a lane accumulates: 4 up to kMaxD, 8 in the wide tile.
+__host__ __device__ constexpr int npl(int DT) {
+  return DT > attn::kMaxD ? kWideD / 32 : attn::kDPerLane;
+}
 
 // 16 bytes of TKV values -> float32 (times the page scale for int8) at dst
 // (16-byte aligned shared memory).
@@ -109,23 +125,30 @@ paged_kernel(const TQ* __restrict__ q,          // (B, Hq, D)
              float softcap) {
   using namespace attn;
   constexpr bool kQuant = sizeof(TKV) == 1;
+  constexpr bool kWide = DT > kMaxD;         // D <= DT in a zero-padded tile
+  constexpr int NPL = npl(DT);
   constexpr int EPC = 16 / sizeof(TKV);      // values in 16 bytes
   // 16-byte pieces a thread prefetches for K (and again for V), at 4 warps
-  constexpr int kCh =
-      (kTile * (DT ? DT : kMaxD) / EPC + kMinThreads - 1) / kMinThreads;
-  const bool vec = DT ? true : vec_in != 0;  // DT != 0: always vectors
-  const int Dn = DT ? DT : D;
+  // (the wide tile: at 8)
+  constexpr int kThr = kWide ? kMaxThreads : kMinThreads;
+  constexpr int kCh = (kTile * (DT ? DT : kMaxD) / EPC + kThr - 1) / kThr;
+  // DT = 64, 128: always vectors
+  const bool vec = (DT != 0 && !kWide) || vec_in != 0;
+  const int Dn = DT ? DT : D;                // the tile's width; D the pool's
   const int KS = Dn + 4;                     // K row stride
   const int G = Hq / Hkv;
+  const int gtiles = (G + kGroupTile - 1) / kGroupTile;
+  const int hk = blockIdx.x / gtiles, b = blockIdx.y, split = blockIdx.z;
+  const int g0 = (blockIdx.x % gtiles) * kGroupTile;   // the block's heads
+  const int GT = min(kGroupTile, G - g0);              // g0 .. g0 + GT - 1
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                          // (G, Dn), scaled
-  float* tiles = qs + G * Dn;                // [2][K (kTile, KS), V (kTile, Dn)]
+  float* qs = smem;                          // (GT, Dn), scaled
+  float* tiles = qs + GT * Dn;               // [2][K (kTile, KS), V (kTile, Dn)]
   const int tile_f = kTile * (KS + Dn);
   int* spid = reinterpret_cast<int*>(tiles + 2 * tile_f);   // (pps)
   float* sks = reinterpret_cast<float*>(spid + pps);        // (pps), int8
   float* svs = sks + pps;
 
-  const int hk = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x, nthr = blockDim.x, warps = nthr >> 5;
   const int warp = tid >> 5, lane = tid & 31;
   const int p0 = split * pps;                 // first page of the split
@@ -141,17 +164,28 @@ paged_kernel(const TQ* __restrict__ q,          // (B, Hq, D)
   const int c1 = min(ncols, c0 + np * page);
   const bool live = c0 < ncols;
   if (!live && splits > 1) return;            // the combine skips it too
-  const TQ* qb = q + ((size_t)b * Hq + (size_t)hk * G) * Dn;
-  for (int idx = tid; idx < G * Dn; idx += nthr)
-    qs[idx] = to_f32(qb[idx]) * scale;
+  const TQ* qb = q + ((size_t)b * Hq + (size_t)hk * G + g0) * D;
+  for (int idx = tid; idx < GT * Dn; idx += nthr) {
+    const int g = idx / Dn, d = idx % Dn;
+    qs[idx] = d < D ? to_f32(qb[(size_t)g * D + d]) * scale : 0.f;
+  }
+  if (kWide) {            // the tiles' columns D .. DT - 1: zeros, never
+    const int pad = Dn - D;                   // written again
+    for (int idx = tid; idx < 2 * kTile * pad; idx += nthr) {
+      const int c = idx / pad, d = D + idx % pad;
+      float* buf = tiles + (c / kTile) * tile_f;
+      buf[(c % kTile) * KS + d] = 0.f;
+      buf[kTile * KS + (c % kTile) * Dn + d] = 0.f;
+    }
+  }
   __syncthreads();                            // page ids visible
 
-  const int cpr = Dn / EPC;                   // pieces a key row
+  const int cpr = D / EPC;                    // pieces a key row
   const int nch = kTile * cpr;
   const auto key_base = [&](int col) {        // element offset of (col, hk)
     const int pg = col / page;
     return (((size_t)spid[pg - p0] * page + (col - pg * page)) * Hkv + hk) *
-           Dn;
+           D;
   };
   uint4 rk[kCh], rv[kCh];
   const auto load = [&](int t0) {             // tile at t0 -> registers
@@ -193,8 +227,8 @@ paged_kernel(const TQ* __restrict__ q,          // (B, Hq, D)
       }
       return;
     }
-    for (int idx = tid; idx < kTile * Dn; idx += nthr) {   // scalar path
-      const int c = idx / Dn, d = idx % Dn, col = t0 + c;
+    for (int idx = tid; idx < kTile * D; idx += nthr) {    // scalar path
+      const int c = idx / D, d = idx % D, col = t0 + c;
       float kk = 0.f, vv = 0.f;
       if (col < c1) {
         const size_t base = key_base(col);
@@ -222,13 +256,13 @@ paged_kernel(const TQ* __restrict__ q,          // (B, Hq, D)
   if (vec && ntiles > 1) load(c0 + kTile);
   __syncthreads();
 
-  float m[kMaxRowsPerWarp], l[kMaxRowsPerWarp], acc[kMaxRowsPerWarp][kDPerLane];
+  float m[kMaxRowsPerWarp], l[kMaxRowsPerWarp], acc[kMaxRowsPerWarp][NPL];
 #pragma unroll
   for (int rr = 0; rr < kMaxRowsPerWarp; ++rr) {
     m[rr] = kNeg;
     l[rr] = 0.f;
 #pragma unroll
-    for (int e = 0; e < kDPerLane; ++e) acc[rr][e] = 0.f;
+    for (int e = 0; e < NPL; ++e) acc[rr][e] = 0.f;
   }
   for (int t = 0; t < ntiles; ++t) {
     const float* buf = tiles + (t & 1) * tile_f;
@@ -237,9 +271,9 @@ paged_kernel(const TQ* __restrict__ q,          // (B, Hq, D)
 #pragma unroll
     for (int rr = 0; rr < kMaxRowsPerWarp; ++rr) {
       const int g = warp + warps * rr;
-      if (g >= G) continue;                    // warp-uniform
-      row_tile_f32<DT>(qs + g * Dn, buf, buf + kTile * KS, Dn, valid,
-                       softcap, m[rr], l[rr], acc[rr]);
+      if (g >= GT) continue;                   // warp-uniform
+      row_tile_f32<DT, NPL>(qs + g * Dn, buf, buf + kTile * KS, Dn, valid,
+                            softcap, m[rr], l[rr], acc[rr]);
     }
     if (t + 1 < ntiles) {                      // the other buffer is free
       store(tiles + ((t + 1) & 1) * tile_f, t0 + kTile);
@@ -252,10 +286,10 @@ paged_kernel(const TQ* __restrict__ q,          // (B, Hq, D)
 #pragma unroll
   for (int rr = 0; rr < kMaxRowsPerWarp; ++rr) {
     const int g = warp + warps * rr;
-    if (g >= G) continue;
-    const size_t row = (size_t)b * Hq + (size_t)hk * G + g;
+    if (g >= GT) continue;
+    const size_t row = (size_t)b * Hq + (size_t)hk * G + g0 + g;
     if (splits == 1) {
-      row_store(o + row * Dn, Dn, l[rr], acc[rr]);
+      row_store(o + row * D, D, l[rr], acc[rr]);
       continue;
     }
     const size_t slot = (size_t)split * B * Hq + row;
@@ -263,16 +297,17 @@ paged_kernel(const TQ* __restrict__ q,          // (B, Hq, D)
       part[2 * slot] = m[rr];
       part[2 * slot + 1] = l[rr];
     }
-    float* pa = part + ml_n + slot * Dn;
+    float* pa = part + ml_n + slot * D;
 #pragma unroll
-    for (int e = 0; e < kDPerLane; ++e)
-      if (lane + 32 * e < Dn) pa[lane + 32 * e] = acc[rr][e];
+    for (int e = 0; e < NPL; ++e)
+      if (lane + 32 * e < D) pa[lane + 32 * e] = acc[rr][e];
   }
 }
 
 // One warp per (slot, query head): merge the slot's live splits in split
-// order.  A slot with none (idle) writes exactly 0.
-template <typename TQ>
+// order.  A slot with none (idle) writes exactly 0.  NPL dims a lane, as
+// the kernel that wrote them.
+template <typename TQ, int NPL>
 __global__ void __launch_bounds__(kCombineWarps * 32)
 paged_combine(const float* __restrict__ part, const int* __restrict__ positions,
               TQ* __restrict__ o, int B, int Hq, int D, int page, int maxp,
@@ -288,21 +323,25 @@ paged_combine(const float* __restrict__ part, const int* __restrict__ positions,
   const size_t stride = (size_t)B * Hq;
   float mx = kNeg;
   for (int s = 0; s < nlive; ++s) mx = fmaxf(mx, part[2 * (s * stride + w)]);
-  float l = 0.f, acc[kDPerLane] = {0.f, 0.f, 0.f, 0.f};
+  float l = 0.f, acc[NPL];
+#pragma unroll
+  for (int e = 0; e < NPL; ++e) acc[e] = 0.f;
   for (int s = 0; s < nlive; ++s) {
     const size_t slot = s * stride + w;
     const float c = expf(part[2 * slot] - mx);
     l += part[2 * slot + 1] * c;
     const float* pa = part + 2 * splits * stride + slot * D;
 #pragma unroll
-    for (int e = 0; e < kDPerLane; ++e)
+    for (int e = 0; e < NPL; ++e)
       if (lane + 32 * e < D) acc[e] += pa[lane + 32 * e] * c;
   }
   row_store(o + (size_t)w * D, D, l, acc);
 }
 
-size_t smem_bytes(int G, int D, int pps, bool quant) {
-  return sizeof(float) * ((size_t)G * D + (size_t)2 * kTile * (2 * D + 4)) +
+// G query heads of the KV head in tiles of kGroupTile; a tile W wide
+size_t smem_bytes(int G, int W, int pps, bool quant) {
+  const size_t rows = G < kGroupTile ? G : kGroupTile;
+  return sizeof(float) * (rows * W + (size_t)2 * kTile * (2 * W + 4)) +
          (size_t)pps * 4 * (quant ? 3 : 1);
 }
 
@@ -314,14 +353,15 @@ cudaError_t launch_dt(const void* q, const void* pk, const void* pv,
                       int maxp, int num_pages, int pps, int splits, int warps,
                       bool vec, float scale, float softcap,
                       cudaStream_t stream) {
-  const size_t smem = smem_bytes(Hq / Hkv, D, pps, sizeof(TKV) == 1);
+  const size_t smem = smem_bytes(Hq / Hkv, DT ? DT : D, pps, sizeof(TKV) == 1);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         paged_kernel<TQ, TKV, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return e;
   }
-  dim3 grid(Hkv, B, splits);
+  const int G = Hq / Hkv;
+  dim3 grid(Hkv * ((G + kGroupTile - 1) / kGroupTile), B, splits);
   paged_kernel<TQ, TKV, DT><<<grid, warps * 32, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(pk),
       static_cast<const TKV*>(pv), table, positions, k_scale, v_scale,
@@ -330,7 +370,7 @@ cudaError_t launch_dt(const void* q, const void* pk, const void* pv,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
   const int rows = B * Hq;
-  paged_combine<TQ><<<(rows + kCombineWarps - 1) / kCombineWarps,
+  paged_combine<TQ, npl(DT)><<<(rows + kCombineWarps - 1) / kCombineWarps,
                       kCombineWarps * 32, 0, stream>>>(
       part, positions, static_cast<TQ*>(o), B, Hq, D, page, maxp, pps,
       splits);
@@ -338,8 +378,9 @@ cudaError_t launch_dt(const void* q, const void* pk, const void* pv,
 }
 
 // Head dims 64 and 128 compile-time (16-byte loads); any other D <= 128 at
-// run time, with 16-byte loads where each key row is a whole number of
-// 16-byte pieces and the pool is 16-byte aligned, else value by value.
+// run time; 128 < D <= 256 in the wide tile, zeros past D.  The last two
+// read 16-byte pieces where each key row is a whole number of them and the
+// pool is 16-byte aligned, else value by value.
 template <typename TQ, typename TKV>
 cudaError_t launch(const void* q, const void* pk, const void* pv,
                    const int* table, const int* positions,
@@ -358,32 +399,37 @@ cudaError_t launch(const void* q, const void* pk, const void* pv,
                                 softcap, stream)
   if (vec && D == 64) REPRO_PAGED_DT(64);
   if (vec && D == 128) REPRO_PAGED_DT(128);
+  if (D > attn::kMaxD) REPRO_PAGED_DT(kWideD);
   REPRO_PAGED_DT(0);
 #undef REPRO_PAGED_DT
 }
 
 }  // namespace
 
-// The plan's bounds: pps pages a split, `splits` splits covering the
-// table's maxp pages (none empty), 4 to 8 warps, G rows at most
-// kMaxRowsPerWarp a warp, scratch wherever there is more than one split.
+// The plan's bounds: D <= 256, pps pages a split, `splits` splits covering
+// the table's maxp pages (none empty), 4 to 8 warps (8 above kMaxD), a
+// block's group tile at most kMaxRowsPerWarp rows a warp, scratch wherever
+// there is more than one split.
 static bool bad_shape(int B, int Hq, int Hkv, int D, int page, int maxp,
                       int num_pages, int pps, int splits, int warps,
                       const void* part) {
-  return B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > attn::kMaxD ||
-         page <= 0 || maxp <= 0 || num_pages <= 0 || pps <= 0 ||
-         splits <= 0 || (size_t)splits * pps < (size_t)maxp ||
+  if (B <= 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0) return true;
+  const int G = Hq / Hkv, rows = G < kGroupTile ? G : kGroupTile;
+  return D <= 0 || D > kWideD || page <= 0 || maxp <= 0 ||
+         num_pages <= 0 || pps <= 0 || splits <= 0 ||
+         (size_t)splits * pps < (size_t)maxp ||
          (size_t)(splits - 1) * pps >= (size_t)maxp ||
          warps * 32 < kMinThreads || warps * 32 > kMaxThreads ||
-         Hq / Hkv > warps * kMaxRowsPerWarp ||
-         (splits > 1 && part == nullptr);
+         (D > attn::kMaxD && warps * 32 != kMaxThreads) ||
+         rows > warps * kMaxRowsPerWarp || (splits > 1 && part == nullptr);
 }
 
 // q, o: (B, Hq, D) in q_dtype; pool_k, pool_v: (P, page, Hkv, D) in
 // kv_dtype (0 = float32, 1 = bfloat16); table: (B, maxp) int32;
-// positions: (B,) int32.  All contiguous.  The plan: `splits` ranges of
-// `pps` pages, `warps` warps a block; with splits > 1, part is float32
-// scratch of splits * B * Hq * (D + 2).  Returns a cudaError_t.
+// positions: (B,) int32.  All contiguous.  Any D <= 256 and any group.
+// The plan: `splits` ranges of `pps` pages, `warps` warps a block (8 where
+// D > 128); with splits > 1, part is float32 scratch of
+// splits * B * Hq * (D + 2).  Returns a cudaError_t.
 extern "C" int paged_attention(const void* q, const void* pool_k,
                                const void* pool_v, const void* table,
                                const void* positions, void* o, void* part,

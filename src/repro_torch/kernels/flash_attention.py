@@ -7,15 +7,17 @@ on CUDA tensors it launches ``csrc/flash_attention.cu`` (or raises), on CPU
 tensors it runs ``attention_ref``.  Layout (B, H, S, D), as in ``repro``.
 
 Three kernels, one ``path`` each in the plan: ``bf16`` on the tensor cores
-(head dims 64, 96, 128 and 256); ``f32_mma``, the float32 prefill (16
-packed rows or more) on the tensor cores in 3xTF32 at the same head dims;
-``f32_rows``, float32 on the CUDA cores (the one-row decode, other head
-dims up to 128), with the G query heads of a KV head packed into one
-block, the warps of a block splitting the keys where it holds fewer rows
-than warps, and, where the grid is small, the keys split over blocks and
-merged in the same call.  ``plan`` picks the kernel and the splits from the shapes alone.
-Above 128 only D = 256 has kernels (compile-time instances of all three);
-another head dim above 128 raises.
+(any head dim up to 256, in the smallest tile of 32, 64, 96, 128 and 256
+that holds it); ``f32_mma``, the float32 prefill (16 packed rows or more)
+on the tensor cores in 3xTF32 at D = 64, 96, 128 and any D above 128 (in
+the 256 tile); ``f32_rows``, float32 on the CUDA cores (the one-row
+decode, the other head dims up to 128), with the G query heads of a KV
+head packed into one block, the warps of a block splitting the keys where
+it holds fewer rows than warps, and, where the grid is small, the keys
+split over blocks and merged in the same call.  ``plan`` picks the kernel,
+the tile and the splits from the shapes alone.  A tile wider than the
+head dim holds zeros past it, and only D columns are stored.  A head dim
+above 256 raises (ROADMAP B.18).
 
 K and V share q's dtype, or, under a float32 q, are ``float8_e4m3fn`` (a
 dense cache of ``kv_cache_dtype="float8_e4m3fn"``): the rows kernel then
@@ -44,12 +46,13 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # K/V dtypes: q's own, or e4m3 under a float32 q (the float32 kernels)
 KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 E4M3 = torch.float8_e4m3fn
-RUN_TIME_MAX_HEAD_DIM = 128  # csrc attn::kMaxD: the rows kernel's run-time D
-BF16_HEAD_DIMS = (64, 96, 128, 256)   # the bf16 lane's tensor-core tilings
+RUN_TIME_MAX_HEAD_DIM = 128  # csrc attn::kMaxD: 4 dims a lane up to it
+MAX_HEAD_DIM = 256           # csrc kWideD: every kernel takes D up to it
+BF16_TILES = (32, 64, 96, 128, 256)   # the bf16 lane's tensor-core tiles
 SMS = 132                    # streaming multiprocessors of an H100
 BF16_ROWS, F32_ROWS, KEY_TILE = 64, 64, 32   # csrc kBQ, kF32MaxRows, kTile
 F32_WARPS = 8                                # csrc kF32Warps
-F32_MMA_HEAD_DIMS = (64, 96, 128, 256)       # the f32 tensor-core instances
+F32_MMA_HEAD_DIMS = (64, 96, 128, 256)       # the f32 tensor-core tiles
 F32_MMA_ROWS, F32_MMA_KEYS = 64, 32          # csrc kFR, kFK
 F32_MMA_MIN_ROWS = 16                        # one m16 tile of packed rows
 
@@ -60,7 +63,8 @@ class FlashPlan(NamedTuple):
     ``blocks`` and each block's ``smem_bytes``; the kernel (``path``:
     ``bf16``, ``f32_mma`` or ``f32_rows``) and, for ``f32_rows``, the
     ``key_groups`` of warps that split a row's keys (8 // rows below 8
-    rows, else 1)."""
+    rows, else 1); ``tile``, the head dim the kernel's shared memory holds
+    (the tensor-core kernels' padded tile; D itself on ``f32_rows``)."""
     dtype: torch.dtype
     rows: int
     splits: int
@@ -69,6 +73,12 @@ class FlashPlan(NamedTuple):
     smem_bytes: int
     path: str
     key_groups: int
+    tile: int
+
+
+def tile_for(D: int, tiles: Sequence[int]) -> int:
+    """The smallest tile that holds head dim D."""
+    return next(t for t in tiles if t >= D)
 
 
 def plan(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int,
@@ -85,29 +95,29 @@ def plan(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int,
     one position: a tile of 16) and the grid still would not fill the SMs,
     the keys are split into ranges of a multiple of 32 keys, enough ranges
     to reach about SMS blocks: each block keeps all its warps busy (the key
-    groups), so one block an SM fills the card.  A head dim above 128 but
-    256 raises.  An e4m3 ``kv_dtype`` takes the rows kernel at any rows."""
+    groups), so one block an SM fills the card.  The bf16 lane runs
+    D in the smallest of ``BF16_TILES`` that holds it; the tensor-core
+    prefill D = 64, 96, 128 in their own tiles and any D above 128 in the
+    256 tile; the rows kernel any other D up to 256.  A head dim above 256
+    raises.  An e4m3 ``kv_dtype`` takes the rows kernel at any rows."""
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {D}: the kernels take "
+                         f"1 to {MAX_HEAD_DIM}; a wider head is not ported "
+                         f"(ROADMAP B.18)")
     if dtype == torch.bfloat16:
-        if D not in BF16_HEAD_DIMS:
-            raise ValueError(f"flash_attention: the bf16 lane tiles head "
-                             f"dims {BF16_HEAD_DIMS} on the tensor cores, "
-                             f"not {D}")
+        dp = tile_for(D, BF16_TILES)
         return FlashPlan(dtype, BF16_ROWS, 1, max(Skv, 1),
                          -(-Sq // BF16_ROWS) * Hq * B,
-                         2 * 5 * BF16_ROWS * (D + 8), "bf16", 1)
-    if D > RUN_TIME_MAX_HEAD_DIM and D not in F32_MMA_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D}: above "
-                         f"{RUN_TIME_MAX_HEAD_DIM} only D = 256 has kernels; "
-                         f"other head dims above {RUN_TIME_MAX_HEAD_DIM} are "
-                         f"not ported")
+                         2 * 5 * BF16_ROWS * (dp + 8), "bf16", 1, dp)
     packed = (Hq // Hkv) * Sq
-    if (D in F32_MMA_HEAD_DIMS and packed >= F32_MMA_MIN_ROWS
-            and kv_dtype != E4M3):
+    if ((D in F32_MMA_HEAD_DIMS or D > RUN_TIME_MAX_HEAD_DIM)
+            and packed >= F32_MMA_MIN_ROWS and kv_dtype != E4M3):
+        dp = tile_for(D, F32_MMA_HEAD_DIMS)
         return FlashPlan(dtype, F32_MMA_ROWS, 1, max(Skv, 1),
                          -(-packed // F32_MMA_ROWS) * B * Hkv,
-                         4 * (F32_MMA_ROWS * (D + 4)
-                              + 2 * F32_MMA_KEYS * (2 * D + 12)),
-                         "f32_mma", 1)
+                         4 * (F32_MMA_ROWS * (dp + 4)
+                              + 2 * F32_MMA_KEYS * (2 * dp + 12)),
+                         "f32_mma", 1, dp)
     rows = F32_ROWS
     while rows > 1 and rows // 2 >= packed:
         rows //= 2                          # no wider than the rows there are
@@ -123,7 +133,7 @@ def plan(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int,
         splits = -(-Skv // chunk)
     return FlashPlan(dtype, rows, splits, chunk, base * splits,
                      4 * (rows * D + 2 * KEY_TILE * (2 * D + 4 * groups)),
-                     "f32_rows", groups)
+                     "f32_rows", groups, D)
 
 
 def shape_key(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int, dtype,
@@ -228,7 +238,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     if v.shape != k.shape or Bk != B or Dk != D or Hq % Hkv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
                          f"k/v {tuple(k.shape)}/{tuple(v.shape)}")
-    pl = plan(B, Hq, Hkv, Sq, Skv, D, q.dtype, k.dtype)  # raises: untiled D
+    pl = plan(B, Hq, Hkv, Sq, Skv, D, q.dtype, k.dtype)  # raises: D > 256
     if e4m3 and (D % 4 or (address(k) | address(v)) % 4):
         raise ValueError("flash_attention: an e4m3 K/V is read 4 values a "
                          "load: D a multiple of 4, k and v 4-byte aligned")

@@ -16,7 +16,11 @@ dequantizes each code as it fills its shared-memory tile.
 The kernel splits each slot's table into ranges of whole pages over
 blocks and merges the ranges in the same call; ``plan`` picks the split
 from the shapes alone (never from ``positions``), so a call can be
-captured in a CUDA graph.
+captured in a CUDA graph.  A block serves up to 16 query heads of one KV
+head (a group of G heads takes ceil(G / 16) blocks, each reading the
+slot's pages); a head dim up to 128 is its own tile width, one in (128,
+256] runs in a tile of 256 with zeros past D.  A head dim above 256
+raises (ROADMAP B.18).
 """
 from __future__ import annotations
 
@@ -35,8 +39,9 @@ KERNEL = Kernel("paged_attention", {
 _NEG = -1e30
 BLOCK_PAGES = 4           # pages per step of the plain streamed loop
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
-MAX_GROUP = 16            # query heads per KV head the CUDA block serves
+MAX_HEAD_DIM = 256
+WIDE_D = 128              # csrc attn::kMaxD: a wider head takes the 256 tile
+MAX_GROUP = 16            # query heads of a KV head one CUDA block serves
 SMS = 132                 # streaming multiprocessors of an H100
 KEY_TILE = 32             # csrc attn::kTile
 MAX_SPLIT_PAGES = 512     # page ids (and scales) a block stages
@@ -44,33 +49,49 @@ MAX_SPLIT_PAGES = 512     # page ids (and scales) a block stages
 
 class PagedPlan(NamedTuple):
     """``splits`` ranges of ``pages_per_split`` whole pages of the table
-    (the last may be shorter), ``warps`` warps a block; the grid's
-    ``blocks`` (Hkv, B, splits) and each block's ``smem_bytes``."""
+    (the last may be shorter), ``warps`` warps a block, ``group_tiles``
+    blocks a KV head (tiles of up to ``MAX_GROUP`` query heads); the
+    grid's ``blocks`` (Hkv x group_tiles, B, splits) and each block's
+    ``smem_bytes``."""
     splits: int
     pages_per_split: int
     warps: int
     blocks: int
     smem_bytes: int
+    group_tiles: int
 
 
 def plan(B: int, Hq: int, Hkv: int, D: int, page: int, maxp: int,
          kv_dtype: torch.dtype) -> PagedPlan:
     """The launch plan, a pure function of the shapes.  One block per
-    (KV head, slot, split).  While B * Hkv blocks leave SMs idle, the
-    table's maxp pages are split into SMS // (B * Hkv) ranges or fewer
-    (never more blocks than one wave of SMs, never an empty range): at 8
-    slots and 16 pages, 4 ranges of 4 pages at 4 KV heads, 8 of 2 at 2,
-    2 of 8 at 8.  One range where B * Hkv already fills the card, unless
-    the table has more than ``MAX_SPLIT_PAGES`` pages.  4 warps, or 8
-    where G > 4, so each of up to 8 query rows has its own warp."""
+    (KV head, group tile, slot, split); the G = Hq / Hkv query heads of a
+    KV head in ceil(G / 16) tiles of up to 16 (G = 71: 16, 16, 16, 16,
+    7).  While B * Hkv * tiles blocks leave SMs idle, the table's maxp
+    pages are split into SMS // (B * Hkv * tiles) ranges or fewer (never
+    more blocks than one wave of SMs, never an empty range): at 8 slots
+    and 16 pages, 4 ranges of 4 pages at 4 KV heads, 8 of 2 at 2, 2 of 8
+    at 8.  One range where the blocks already fill the card, unless the
+    table has more than ``MAX_SPLIT_PAGES`` pages.  4 warps, or 8 where a
+    tile holds more than 4 heads or D > 128, so each of up to 8 query rows
+    has its own warp.  Shared memory holds the tile's rows and two K/V
+    tiles of 32 keys, D wide (256 where D > 128).  A head dim above 256
+    raises."""
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"paged_attention: head dim {D}: the kernel takes "
+                         f"1 to {MAX_HEAD_DIM}; a wider head is not ported "
+                         f"(ROADMAP B.18)")
     G = Hq // Hkv
-    want = max(1, min(maxp, SMS // (B * Hkv)))
+    tiles = -(-G // MAX_GROUP)
+    rows = min(G, MAX_GROUP)
+    want = max(1, min(maxp, SMS // (B * Hkv * tiles)))
     pps = min(-(-maxp // want), MAX_SPLIT_PAGES)
     splits = -(-maxp // pps)
-    warps = 4 if G <= 4 else 8
+    warps = 4 if rows <= 4 and D <= WIDE_D else 8
+    width = D if D <= WIDE_D else MAX_HEAD_DIM
     stage = 4 * pps * (3 if kv_dtype == torch.int8 else 1)
-    smem = 4 * (G * D + 2 * KEY_TILE * (2 * D + 4)) + stage
-    return PagedPlan(splits, pps, warps, B * Hkv * splits, smem)
+    smem = 4 * (rows * width + 2 * KEY_TILE * (2 * width + 4)) + stage
+    return PagedPlan(splits, pps, warps, B * Hkv * tiles * splits, smem,
+                     tiles)
 
 
 def work(B: int, Hq: int, Hkv: int, D: int, page: int, maxp: int,
@@ -197,12 +218,8 @@ def paged_attention(q, pool_k, pool_v, table, positions, *, scale=None,
         raise ValueError(f"paged_attention: q {tuple(q.shape)}, pool "
                          f"{tuple(pool_k.shape)}, table {tuple(table.shape)}, "
                          f"positions {tuple(positions.shape)} do not fit")
-    if D > MAX_HEAD_DIM or Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"paged_attention: head dim {D} (max "
-                         f"{MAX_HEAD_DIM}) or group {Hq // Hkv} (max "
-                         f"{MAX_GROUP}) too large")
     maxp = table.shape[1]
-    pl = plan(B, Hq, Hkv, D, page, maxp, pool_k.dtype)
+    pl = plan(B, Hq, Hkv, D, page, maxp, pool_k.dtype)   # raises: D > 256
     scale = scale if scale is not None else D ** -0.5
     out = torch.empty_like(q)
     part = None                       # the splits' (m, l) and acc

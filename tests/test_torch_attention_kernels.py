@@ -33,6 +33,14 @@ FLASH_CASES = {  # B, Hq, Hkv, Sq, Skv, D, options
     "ragged_sq": (1, 2, 1, 37, 37, 16, dict()),
     "not_causal": (1, 2, 2, 12, 20, 16, dict(causal=False)),
     "masked_rows": (1, 2, 2, 8, 8, 16, dict(kv_offset=-4)),
+    # head dims the card runs in a padded tile (80 in the bf16 lane's 96,
+    # 192 in the 256 tile of the float32 prefill and the bf16 lane)
+    "d80_causal_gqa": (1, 8, 2, 24, 24, 80, dict()),
+    "d80_window_softcap": (1, 4, 2, 40, 40, 80,
+                           dict(window=12, softcap=5.0)),
+    "d192_causal_gqa": (1, 8, 2, 24, 24, 192, dict()),
+    "d192_window_softcap": (1, 4, 2, 40, 40, 192,
+                            dict(window=12, softcap=5.0)),
 }
 
 
@@ -73,11 +81,11 @@ def test_flash_bf16_plain_matches_ref():
                                atol=2.0 ** -7 * np.abs(ref).max())
 
 
-def _paged_inputs(G, seed=0):
+def _paged_inputs(G, seed=0, Hkv=2, D=16):
     """4 slots over a pool of 4-position pages: a partial last page, an
     idle slot, a page-aligned end, and a slot using every table entry."""
     rng = np.random.RandomState(seed)
-    Hkv, D, page, maxp, B = 2, 16, 4, 5, 4
+    page, maxp, B = 4, 5, 4
     P = B * maxp + 1
     pool_k, pool_v = _rand(rng, P, page, Hkv, D), _rand(rng, P, page, Hkv, D)
     table = (rng.permutation(P - 1)[:B * maxp] + 1).reshape(B, maxp)
@@ -121,3 +129,46 @@ def test_paged_plain_int8_lane_matches_stream():
                               k_scale=torch.from_numpy(ks),
                               v_scale=torch.from_numpy(vs))
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=ATOL)
+
+
+# the shapes the card serves in its wide tile and in group tiles of 16:
+# D = 256 at G = 8, and Falcon-7B's attention (71 query heads over one KV
+# head of 64: tiles of 16, 16, 16, 16, 7)
+WIDE_PAGED = {"d256_g8": dict(G=8, Hkv=1, D=256),
+              "d64_g71": dict(G=71, Hkv=1, D=64)}
+
+
+def _int8_pool(rng, pk, pv):
+    """int8 codes and (P, Hkv) float32 scales in place of a float pool."""
+    P, _, Hkv, _ = pk.shape
+    k8 = rng.randint(-127, 128, size=pk.shape).astype(np.int8)
+    v8 = rng.randint(-127, 128, size=pv.shape).astype(np.int8)
+    ks = (rng.rand(P, Hkv) / 127).astype(np.float32)
+    vs = (rng.rand(P, Hkv) / 127).astype(np.float32)
+    return k8, v8, ks, vs
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("name", sorted(WIDE_PAGED))
+def test_paged_wide_and_grouped_match_pallas_and_stream(name, int8):
+    """The plain version at D = 256 and at G = 71, on the float and the
+    int8 pool lanes, against ``repro``'s Pallas kernel in interpret mode
+    and its ``paged_attention_stream``."""
+    q, pk, pv, table, positions = _paged_inputs(seed=5, **WIDE_PAGED[name])
+    scales = {}
+    if int8:
+        pk, pv, ks, vs = _int8_pool(np.random.RandomState(6), pk, pv)
+        scales = {"k_scale": ks, "v_scale": vs}
+    jargs = tuple(map(jnp.asarray, (q, pk, pv, table, positions)))
+    jscales = {n: jnp.asarray(a) for n, a in scales.items()}
+    pallas = np.asarray(jpa.paged_attention_kernel(
+        *jargs, softcap=3.0, interpret=True, **jscales))
+    stream = np.asarray(jpa.paged_attention_stream(*jargs, softcap=3.0,
+                                                   **jscales))
+    got = tpa.paged_attention(
+        *map(torch.from_numpy, (q, pk, pv, table, positions)), softcap=3.0,
+        **{n: torch.from_numpy(a) for n, a in scales.items()})
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), stream, rtol=0, atol=ATOL)
+    assert (got[1] == 0).all()              # idle slot: exactly zero

@@ -181,6 +181,47 @@ def test_flash_kernel_head_dim_128(cuda, dtype, S):
                dtype == torch.bfloat16)
 
 
+# every kernel at head dims without a tile of their own: the bf16 lane in
+# the smallest of 32, 64, 96, 128, 256 that holds D, the float32 prefill
+# above 128 in the 256 tile, the rows kernel at D itself (8 dims a lane
+# above 128)
+ANY_HEAD_DIMS = [1, 8, 20, 32, 40, 64, 80, 100, 130, 192, 200, 255]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", ANY_HEAD_DIMS)
+def test_flash_kernel_any_head_dim(cuda, D, dtype, aligned):
+    """A causal GQA prefill at ragged length (70 rows, 16 packed rows or
+    more: the float32 tensor cores above 128) and a one-row decode with a
+    window and softcap (the rows kernel in float32), against
+    ``attention_ref``; ``aligned=False`` reads every operand from one
+    value past a 16-byte boundary, so the kernels stage value by value."""
+    def rand(*shape):
+        n = int(np.prod(shape))
+        base = torch.randn(n + 1, generator=cuda, device="cuda").to(dtype)
+        return (base[:n] if aligned else base[1:]).view(shape)
+
+    for (B, Hq, Hkv, Sq, Skv), opts in (
+            ((2, 8, 2, 70, 70), dict()),
+            ((3, 8, 2, 1, 300), dict(kv_offset=299, window=90,
+                                     softcap=4.0))):
+        q, k, v = (rand(B, Hq, Sq, D), rand(B, Hkv, Skv, D),
+                   rand(B, Hkv, Skv, D))
+        pl = fa.plan(B, Hq, Hkv, Sq, Skv, D, dtype)
+        before = fa.KERNEL.path_launches.get(pl.path, 0)
+        got = fa.flash_attention(q, k, v, **opts)
+        assert fa.KERNEL.path_launches[pl.path] == before + 1
+        _close(got, fa.attention_ref(q, k, v, **opts),
+               dtype == torch.bfloat16)
+
+
+def test_flash_kernel_head_dim_257_raises(cuda):
+    q = torch.randn((1, 2, 4, 257), generator=cuda, device="cuda")
+    with pytest.raises(ValueError, match="ROADMAP B.18"):
+        fa.flash_attention(q, q, q)
+
+
 # (F, N, Q, P): odd F, ragged N, Q != P, P = 2, and the q = 86 / 76 shapes;
 # each in repro's contiguous layout and as the hook's views (bin-minor)
 @pytest.mark.parametrize("layout", ["bin_major", "bin_minor"])
@@ -246,7 +287,13 @@ def _graph_call(fn):
 PAGED_SHAPES = [(2, 1, 64, 4, 6, 4), (2, 8, 64, 4, 6, 4),
                 (2, 8, 128, 4, 6, 4), (2, 16, 64, 4, 6, 4),
                 (4, 4, 96, 16, 5, 4), (2, 3, 18, 4, 6, 4),
-                (2, 8, 64, 16, 3, 70)]
+                (2, 8, 64, 16, 3, 70),
+                # the wide tile (D = 256, 200 with 16-byte loads, 130 value
+                # by value) and group tiles of 16 (71: four and a ragged 7;
+                # 20 at D = 200; 17 at a scalar D)
+                (1, 8, 256, 16, 5, 4), (1, 71, 64, 4, 6, 4),
+                (2, 20, 200, 4, 6, 4), (1, 3, 130, 4, 6, 4),
+                (1, 17, 18, 4, 6, 4)]
 
 
 @pytest.mark.parametrize("q_dtype,kv_dtype", [
@@ -1126,7 +1173,7 @@ def test_bc_matmul_fft_block_sizes_on_card(cuda, k):
         _close(a, b)
 
 
-@pytest.mark.parametrize("D", [64, 96, 128, 256])
+@pytest.mark.parametrize("D", [64, 96, 128, 256, 132, 192])
 @pytest.mark.parametrize("shape,opts", [
     ((4, 32, 4, 1, 231), dict(kv_offset=230)),        # decode, split-KV
     ((2, 8, 8, 1, 40), dict(causal=False)),           # ring read, G = 1
@@ -1449,9 +1496,12 @@ def test_nogauss_engines_card_baked(cuda):
             assert g[:n] == w[:n], (engine.__name__, req.id, n)
 
 
-# the dry run's smoke cells (tinyllama's smoke config in float32: its head
-# dim, 32, has no bf16 flash kernel) and their batches
-DRYRUN_SMOKE_CELLS = (("decode_32k", 2), ("prefill_32k", 2), ("train_4k", 4))
+# the dry run's smoke cells (tinyllama's smoke config in float32, and its
+# decode in the config's own bf16) and their batches
+DRYRUN_SMOKE_CELLS = (("decode_32k", 2, "float32"), ("prefill_32k", 2,
+                                                     "float32"),
+                      ("train_4k", 4, "float32"),
+                      ("decode_32k", 2, "bfloat16"))
 _DRYRUN_PROBE = r"""
 import sys, json
 sys.path[:0] = [{src!r}]
@@ -1459,12 +1509,12 @@ from repro_torch.configs.registry import get_smoke_config
 from repro_torch.launch import dryrun, mesh as mesh_lib
 dryrun.start_fake_group(1)
 mesh = mesh_lib.make_mesh((1, 1), ("data", "model"), device="cpu")
-cfg = get_smoke_config("tinyllama-1.1b").replace(dtype="float32")
 out = {{}}
-for shape, batch in {cells!r}:
+for shape, batch, dtype in {cells!r}:
+    cfg = get_smoke_config("tinyllama-1.1b").replace(dtype=dtype)
     rec, _ = dryrun.lower_cell("tinyllama-1.1b", shape, mesh,
                                cfg_override=cfg, global_batch=batch)
-    out[shape] = rec.launches
+    out[shape + "/" + dtype] = rec.launches
 print("RESULT", json.dumps(out))
 """
 
@@ -1491,9 +1541,9 @@ def traced_smoke_launches():
     return json.loads(line[-1][len("RESULT "):])
 
 
-@pytest.mark.parametrize("shape,batch", DRYRUN_SMOKE_CELLS)
+@pytest.mark.parametrize("shape,batch,dtype", DRYRUN_SMOKE_CELLS)
 def test_dryrun_launches_equal_card(cuda, traced_smoke_launches, shape,
-                                    batch):
+                                    batch, dtype):
     """A smoke cell's traced launches (the dry run's stand-ins: lanes,
     plan paths, shapes) equal the card's counters over the same step
     (``launch/dryrun.py:card_cell``), launch for launch: the evidence that
@@ -1501,7 +1551,7 @@ def test_dryrun_launches_equal_card(cuda, traced_smoke_launches, shape,
     from repro_torch.kernels import bc_grad_w as bgw
     from repro_torch.kernels.standin import launch_counts
     from repro_torch.launch import dryrun
-    cfg = get_smoke_config("tinyllama-1.1b").replace(dtype="float32")
+    cfg = get_smoke_config("tinyllama-1.1b").replace(dtype=dtype)
     step, args, _ = dryrun.card_cell("tinyllama-1.1b", shape,
                                      cfg_override=cfg, global_batch=batch,
                                      device="cuda")
@@ -1511,4 +1561,4 @@ def test_dryrun_launches_equal_card(cuda, traced_smoke_launches, shape,
         k.reset_counts()
     step(*args)
     torch.cuda.synchronize()
-    assert launch_counts() == traced_smoke_launches[shape]
+    assert launch_counts() == traced_smoke_launches[shape + "/" + dtype]

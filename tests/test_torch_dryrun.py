@@ -174,22 +174,13 @@ tdry.start_fake_group(8)
 tm = tmesh.make_mesh((2, 4), ("data", "model"), device="cpu")
 jm = jmesh.make_mesh((2, 4), ("data", "model"))
 from repro.roofline.analysis import collective_bytes
-# the smoke configs' head dim, 32, has no bf16 flash kernel on the card, so
-# the cells whose attention reaches it (the trace takes the card's path)
-# read a float32 cache (a bf16 query widened to it: the float32 rows
-# kernel) or run in float32
-F32_CACHE = dict(kv_cache_dtype="float32")
-F32 = dict(dtype="float32")
 out = {{}}
-for name, arch, shape, fuse, knobs in (
-        ("mixtral-8x7b", "mixtral-8x7b", "train_4k", False, {{}}),
-        ("tinyllama-1.1b", "tinyllama-1.1b", "decode_32k", False, F32_CACHE),
-        ("tinyllama-1.1b/fuse", "tinyllama-1.1b", "decode_32k", True,
-         F32_CACHE),
-        ("tinyllama-1.1b/prefill", "tinyllama-1.1b", "prefill_32k", False,
-         F32)):
-    jc, tc = (get(arch).replace(remat="none", **knobs)
-              for get in (jget, tget))
+for name, arch, shape, fuse in (
+        ("mixtral-8x7b", "mixtral-8x7b", "train_4k", False),
+        ("tinyllama-1.1b", "tinyllama-1.1b", "decode_32k", False),
+        ("tinyllama-1.1b/fuse", "tinyllama-1.1b", "decode_32k", True),
+        ("tinyllama-1.1b/prefill", "tinyllama-1.1b", "prefill_32k", False)):
+    jc, tc = (get(arch).replace(remat="none") for get in (jget, tget))
     if fuse:
         jc, tc = (c.replace(compression=dataclasses.replace(
             c.compression, fuse_projections=True)) for c in (jc, tc))
@@ -291,7 +282,7 @@ def test_decode_collectives_near_xla(small_mesh_cells, cell):
 
 
 def test_prefill_temp_beside_xla(small_mesh_cells, capsys):
-    """A finding, not a bound: tinyllama's smoke prefill cell (float32) on
+    """A finding, not a bound: tinyllama's smoke prefill cell (bf16) on
     the (2, 4) mesh, the port's temp bytes a device (the trace of the
     card's path: the flash kernel's O(S) output) beside XLA's
     ``memory_analysis()`` of ``repro``'s (its chunked attention), printed
@@ -574,13 +565,10 @@ rec, _ = dryrun.lower_cell("tinyllama-1.1b", "prefill_32k", mesh,
                            cfg_override=cfg, global_batch=2)
 out["prefill_half"] = {{"temp": rec.temp_bytes}}
 dryrun.SHAPES_BY_NAME["prefill_32k"] = full
-try:
-    dryrun.lower_cell("tinyllama-1.1b", "decode_32k", mesh,
-                      cfg_override=get_smoke_config("tinyllama-1.1b"),
-                      global_batch=2)
-    out["bf16_decode"] = "ok"
-except ValueError as e:
-    out["bf16_decode"] = str(e)
+rec, _ = dryrun.lower_cell("tinyllama-1.1b", "decode_32k", mesh,
+                           cfg_override=get_smoke_config("tinyllama-1.1b"),
+                           global_batch=2)
+out["bf16_decode"] = {{"launches": rec.launches}}
 print("RESULT", json.dumps(out))
 """
 
@@ -686,8 +674,21 @@ def test_prefill_temp_grows_with_s_not_s_squared(one_rank_cells):
 
 
 def test_bf16_smoke_decode_fails_as_the_card_would(one_rank_cells):
-    """The smoke configs' head dim, 32, has no bf16 flash kernel (the bf16
-    lane tiles 64, 96, 128 and 256; ROADMAP's next slice): the trace takes
-    the card's path, so the bf16 smoke decode fails with the kernel's
-    refusal, as a launch on the card does."""
-    assert "bf16 lane tiles head dims" in one_rank_cells["bf16_decode"]
+    """The smoke config in its own dtype (bf16 activations and cache, head
+    dim 32) traces its decode on the card's path: each layer one flash
+    launch on the bf16 tensor-core kernel at D = 32 (its 32 tile), the
+    projections as in the float32 cell."""
+    cfg = get_smoke_config("tinyllama-1.1b")
+    assert cfg.dtype == "bfloat16" and cfg.attention.head_dim == 32
+    L, a, S = cfg.num_layers, cfg.attention, 32768
+    assert tfa.plan(2, a.num_heads, a.num_kv_heads, 1, S, a.head_dim,
+                    torch.bfloat16).tile == 32
+    got = one_rank_cells["bf16_decode"]["launches"]
+    assert got["flash_attention"] == {
+        "lanes": {"flash_attention": L}, "paths": {"bf16": L},
+        "shapes": {tfa.shape_key(2, a.num_heads, a.num_kv_heads, 1, S,
+                                 a.head_dim, torch.bfloat16, causal=True,
+                                 kv_offset=S - 1): L}}
+    f32 = one_rank_cells["decode"]["launches"]
+    assert got.keys() == f32.keys()
+    assert got["bc_fused"]["lanes"] == f32["bc_fused"]["lanes"]

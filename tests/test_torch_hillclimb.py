@@ -45,15 +45,11 @@ from repro_torch.launch import dryrun, hillclimb, mesh as mesh_lib
 dryrun.start_fake_group(8)
 mesh = mesh_lib.make_mesh((2, 4), ("data", "model"), device="cpu")
 cfg = get_smoke_config("tinyllama-1.1b")
-# the smoke head dim, 32, has no bf16 flash kernel on the card and the trace
-# takes the card's path: the decode cell reads a float32 cache (the bf16
-# query widened to it, the float32 rows kernel); kvf8 sets its own
-knobs = {{"decode_32k": dict(kv_cache_dtype="float32"), "train_4k": {{}}}}
 out = {{}}
 for shape in ("decode_32k", "train_4k"):
     for v in hillclimb.VARIANTS:
         rec = hillclimb.run_variant("tinyllama-1.1b", shape, v, mesh=mesh,
-                                    cfg=cfg.replace(**knobs[shape]))
+                                    cfg=cfg)
         out[shape + "/" + v] = [rec["status"], rec.get("error", ""),
                                 hillclimb.line(v, rec),
                                 rec.get("hardware"), rec.get("strategy"),

@@ -431,32 +431,70 @@ def test_flash_plan_head_dim_256(shape, want):
         assert pl.splits > 1 and pl.blocks >= 128
 
 
-def test_flash_plan_refuses_float32_head_dim_192():
-    """Above 128 only D = 256 has kernels: the float32 lanes refuse 192
-    (the bf16 lane's refusal is ``test_flash_plan_bf16_head_dims``)."""
-    with pytest.raises(ValueError, match="head dim 192"):
-        fa.plan(1, 8, 2, 16, 16, 192, torch.float32)
+@pytest.mark.parametrize("Sq,want", [
+    (16, ("f32_mma", 64, 256, 200704)),
+    (2048, ("f32_mma", 64, 256, 200704)),
+    (1, ("f32_rows", 4, 192, 4 * (4 * 192 + 2 * 32 * (2 * 192 + 4 * 2))))])
+def test_flash_plan_refuses_float32_head_dim_192(Sq, want):
+    """D = 192 under float32: from 16 packed rows the tensor-core prefill
+    in the 256 tile (4 x (64 x 260 + 2 x 32 x 524) bytes, as at D = 256),
+    one block per 64 packed rows; the one-row decode on the rows kernel
+    at D itself (4 packed rows of G = 4, 2 key groups)."""
+    B, Hq, Hkv, Skv = 2, 16, 4, 4096
+    pl = fa.plan(B, Hq, Hkv, Sq, Skv, 192, torch.float32)
+    assert (pl.path, pl.rows, pl.tile, pl.smem_bytes) == want
+    if pl.path == "f32_mma":
+        assert pl.blocks == -(-4 * Sq // 64) * B * Hkv and pl.splits == 1
+    assert pl.smem_bytes <= bcf.MAX_SMEM
+    # the e4m3 lane reads a cache: the rows kernel at any rows
+    e4 = fa.plan(B, Hq, Hkv, Sq, Skv, 192, torch.float32, fa.E4M3)
+    assert (e4.path, e4.tile) == ("f32_rows", 192)
 
 
-def test_flash_plan_refuses_untiled_bf16_head_dim():
-    with pytest.raises(ValueError, match="tensor cores"):
-        fa.plan(1, 8, 2, 16, 16, 80, torch.bfloat16)
+@pytest.mark.parametrize("D,tile", [(80, 96), (1, 32), (32, 32), (33, 64),
+                                    (100, 128), (129, 256), (200, 256)])
+def test_flash_plan_refuses_untiled_bf16_head_dim(D, tile):
+    """The bf16 lane runs any D in the smallest tensor-core tile of 32,
+    64, 96, 128 and 256 that holds it: shared memory follows the tile,
+    the grid the shapes."""
+    pl = fa.plan(1, 8, 2, 16, 16, D, torch.bfloat16)
+    assert (pl.path, pl.tile, pl.rows, pl.splits, pl.blocks) == \
+        ("bf16", tile, 64, 1, 8)
+    assert pl.smem_bytes == 2 * 5 * 64 * (tile + 8)
 
 
 @pytest.mark.parametrize("D,smem", [(64, 46080), (96, 66560), (128, 87040),
-                                    (192, None), (256, 168960)])
+                                    (192, 168960), (256, 168960),
+                                    (32, 25600)])
 def test_flash_plan_bf16_head_dims(D, smem):
-    """The bf16 lane tiles D = 64, 96, 128 and 256 with Q and two K/V
-    buffers of 64 rows padded to D + 8 values (2 x 5 x 64 x (D + 8) bytes;
-    at 256 within the 232,448 a block may use, one block an SM); 192 is
-    not ported and raises."""
-    if smem is None:
-        with pytest.raises(ValueError, match="tensor cores"):
-            fa.plan(1, 32, 32, 768, 768, D, torch.bfloat16)
-        return
+    """The bf16 lane tiles with Q and two K/V buffers of 64 rows padded
+    to the tile + 8 values (2 x 5 x 64 x (tile + 8) bytes; at 256 within
+    the 232,448 a block may use, one block an SM); 192 runs in the 256
+    tile, the smoke configs' 32 in its own."""
     pl = fa.plan(1, 32, 32, 768, 768, D, torch.bfloat16)
-    assert pl.smem_bytes == smem == 2 * 5 * fa.BF16_ROWS * (D + 8)
+    assert pl.smem_bytes == smem == 2 * 5 * fa.BF16_ROWS * (pl.tile + 8)
     assert (pl.rows, pl.splits, pl.blocks) == (64, 1, 12 * 32)
+
+
+@pytest.mark.parametrize("dtype,kv_dtype", [
+    (torch.bfloat16, None), (torch.float32, None),
+    (torch.float32, torch.float8_e4m3fn)])
+@pytest.mark.parametrize("Sq", [1, 64])
+def test_flash_plan_every_head_dim(dtype, kv_dtype, Sq):
+    """A plan for every D from 1 to 256 (a multiple of 4 under e4m3 K/V)
+    on every lane; the work and the launch's shape keep the real D."""
+    for D in range(4 if kv_dtype else 1, 257, 4 if kv_dtype else 1):
+        pl = fa.plan(2, 8, 2, Sq, 300, D, dtype, kv_dtype)
+        assert pl.tile >= D and pl.smem_bytes <= bcf.MAX_SMEM
+        w = fa.work(2, 8, 2, Sq, 300, D, dtype, kv_dtype)
+        assert w.flops == 4 * D * 2 * 8 * fa.pairs(Sq, 300, kv_offset=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_plan_refuses_head_dim_257(dtype):
+    """Above 256 every lane raises, naming the ROADMAP item."""
+    with pytest.raises(ValueError, match=r"head dim 257.*ROADMAP B\.18"):
+        fa.plan(1, 8, 2, 16, 16, 257, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -619,6 +657,43 @@ def test_paged_plan(arch, B, maxp, page):
         want = {"tinyllama-1.1b": (4, 4), "qwen2.5-3b": (8, 2),
                 "qwen3-4b": (2, 8)}[arch]
         assert (pl.splits, pl.pages_per_split) == want
+
+
+# (B, Hq, Hkv, D, maxp, kv dtype) -> (group tiles, warps, splits, pages a
+# split, blocks, shared memory)
+WIDE_PAGED_PLANS = [
+    ((8, 8, 1, 256, 64, torch.float32),
+     (1, 8, 16, 4, 128, 4 * (8 * 256 + 2 * 32 * 516) + 4 * 4)),
+    ((8, 8, 1, 256, 64, torch.int8),
+     (1, 8, 16, 4, 128, 4 * (8 * 256 + 2 * 32 * 516) + 3 * 4 * 4)),
+    ((8, 71, 1, 64, 64, torch.float32),
+     (5, 8, 3, 22, 120, 4 * (16 * 64 + 2 * 32 * 132) + 4 * 22)),
+    ((8, 71, 1, 64, 64, torch.int8),
+     (5, 8, 3, 22, 120, 4 * (16 * 64 + 2 * 32 * 132) + 3 * 4 * 22)),
+    ((1, 2, 1, 200, 3, torch.bfloat16),
+     (1, 8, 3, 1, 3, 4 * (2 * 256 + 2 * 32 * 516) + 4 * 1))]
+
+
+@pytest.mark.parametrize("shape,want", WIDE_PAGED_PLANS,
+                         ids=[f"d{s[3]}-g{s[1] // s[2]}-"
+                              f"{str(s[5]).split('.')[-1]}"
+                              for s, _ in WIDE_PAGED_PLANS])
+def test_paged_plan_wide_and_grouped(shape, want):
+    """D > 128 in the 256 tile on 8 warps; G = 71 in ceil(71 / 16) = 5
+    group tiles of 16 rows at most, each a block of its own, counted in
+    the grid and in the split rule (132 // (8 x 5) = 3 ranges of 22
+    pages)."""
+    B, Hq, Hkv, D, maxp, kv = shape
+    pl = pa.plan(B, Hq, Hkv, D, 16, maxp, kv)
+    assert (pl.group_tiles, pl.warps, pl.splits, pl.pages_per_split,
+            pl.blocks, pl.smem_bytes) == want
+    assert pl.blocks == B * Hkv * pl.group_tiles * pl.splits <= pa.SMS
+    assert pl.smem_bytes <= bcf.MAX_SMEM
+
+
+def test_paged_plan_refuses_head_dim_257():
+    with pytest.raises(ValueError, match=r"head dim 257.*ROADMAP B\.18"):
+        pa.plan(8, 8, 1, 257, 16, 64, torch.float32)
 
 
 def _split_paged(q, pool_k, pool_v, table, positions, pps, softcap=0.0,
